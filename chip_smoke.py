@@ -1,0 +1,466 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Drives the port's SP-MoE serving path (decode="sd" x offload="spmoe") on
+mixtral-8x7b at full width (d_model 4096, 32/8 heads x 128, expert d_ff
+14336, 8 experts top-2, vocab 32000, sliding window 4096) with its dense
+mistral-7b draft, both cut to 4 layers, random weights from fixed seeds.
+
+Phases (each raises on failure):
+  1. device line; build the CUDA kernels from ``src/repro_torch/csrc``
+  2. each kernel against its plain PyTorch version at full-width shapes,
+     bf16 and f32, with a batch-invariance check
+  3. serving with a tight cache (12 slots): misses, prefetches, evictions
+  4. serving with an ample cache (32 slots): the fast path, <=2 host syncs
+     per fast block; then a timed breakdown of one fast verify block
+  5. lossless check: every emitted token against the resident-expert model
+     run teacher-forced over the stream (argmax, or within a stated margin)
+
+Prints JSON lines (kernels, requests, breakdown, memory), then the card's
+name and power limit, then ``{"ok": true, "device": {...}}`` as the last
+line.  Exits non-zero, printing no result, without a CUDA device or without
+the rest of the repository.  Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+import json
+import resource
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+S_POOL, K_TOP = 12, 2                 # phase-2 pool and routing width
+BLOCK_T = 5                           # verify block: draft_len 4 + 1
+HBM_BYTES_S = 3.35e12                 # H100 SXM memory rate
+BF16_FLOPS = 989e12                   # H100 SXM dense bf16 tensor rate
+# f32: kernel and plain version differ only in summation order over 4096 /
+# 14336 terms (~sqrt(n) * 6e-8 relative): 1e-4 of the output's scale.
+# bf16: the kernel rounds once from f32, the plain version rounds the two
+# GEMM outputs, silu and the product each to bf16 (2^-8 relative apiece).
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# lossless check: the engine (5-token verify blocks, f32 expert combine) and
+# the resident reference (one teacher-forced forward, bf16 combine) round
+# the bf16 residual stream at different places; a token that is not the
+# reference's argmax must be within this many logits of it.
+MARGIN = 0.25
+
+
+def log(msg: str):
+    print(msg, file=sys.stderr, flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 10) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def kernel_phase(dev, d: int, f: int):
+    import torch
+    from repro_torch.kernels import cache_moe as K
+    from repro_torch.kernels import ref as R
+    gen = torch.Generator(dev).manual_seed(0)
+    rows, main = [], {}
+    for dt_name, dt in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        def w(shape, fan):
+            return (torch.randn(shape, generator=gen, device=dev)
+                    * fan ** -0.5).to(dt)
+        wg, wu = w((S_POOL, d, f), d), w((S_POOL, d, f), d)
+        wd = w((S_POOL, f, d), f)
+        outs = {}
+        for T in (1, BLOCK_T, 64):
+            x = torch.randn((T, d), generator=gen, device=dev).to(dt)
+            si = torch.randint(-1, S_POOL, (T, K_TOP), generator=gen,
+                               device=dev).to(torch.int32)
+            si[0, 0] = -1                             # a miss
+            if T > 1:
+                si[1, 1] = si[1, 0] = max(int(si[1, 0]), 0)   # a repeat
+            wt = torch.rand((T, K_TOP), generator=gen, device=dev).to(dt)
+            g = K.slot_groups(si, S_POOL)
+            h = K.gate_up(x, g, wg, wu)
+            h_ref = R.slot_gate_up_ref(x, g.row_tok, wg, wu, g.grp_slot,
+                                       g.grp_start, g.grp_count)
+            y = K.down(h, g, wd)
+            y_ref = R.slot_down_ref(h, wd, g.grp_slot, g.grp_start,
+                                    g.grp_count)
+            full = K.cache_moe(x, si, wt, wu, wd, wg)
+            full_ref = R.cache_moe_ref(x, si, wt, wu, wd, wg)
+            torch.cuda.synchronize()
+            for name, got, want in (("cache_moe_gate_up", h, h_ref),
+                                    ("cache_moe_down", y, y_ref),
+                                    ("cache_moe", full, full_ref)):
+                err = (got.float() - want.float()).abs().max().item()
+                scale = want.float().abs().max().item()
+                ok = torch.isfinite(got).all().item() and \
+                    err <= TOL[dt_name] * max(scale, 1e-6)
+                rows.append({"kernel": name, "dtype": dt_name, "T": T,
+                             "max_abs_err": err,
+                             "max_rel_err": err / max(scale, 1e-30),
+                             "tol_rel": TOL[dt_name], "ok": bool(ok)})
+                if not ok:
+                    raise AssertionError(f"{name} {dt_name} T={T}: max abs "
+                                         f"err {err} vs scale {scale}")
+            outs[T] = (x, si, wt, full)
+            if dt_name == "bfloat16" and T == BLOCK_T:
+                main.update(x=x, si=si, wt=wt, g=g, h=h, wg=wg, wu=wu, wd=wd,
+                            err={"cache_moe_gate_up": rows[-3]["max_abs_err"],
+                                 "cache_moe_down": rows[-2]["max_abs_err"]})
+        # batch invariance: each row of the T=5 call equals the T=1 call
+        x, si, wt, full = outs[BLOCK_T]
+        for t in range(BLOCK_T):
+            one = K.cache_moe(x[t:t + 1], si[t:t + 1], wt[t:t + 1], wu, wd,
+                              wg)
+            if not torch.equal(one, full[t:t + 1]):
+                raise AssertionError(f"{dt_name}: row {t} of the T={BLOCK_T}"
+                                     f" call differs from its T=1 call")
+        rows.append({"check": "batch_invariance", "dtype": dt_name,
+                     "T": BLOCK_T, "ok": True})
+        if dt_name == "bfloat16":
+            main["timing"] = time_kernels(main, d, f)
+        del wg, wu, wd, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, main
+
+
+def time_kernels(m, d: int, f: int):
+    """Kernel, plain and library times at the verify-block shape (bf16,
+    T=5, k=2, pool of 12), with the bound from this input's touched slots."""
+    import torch
+    from repro_torch.kernels import cache_moe as K
+    from repro_torch.kernels import ref as R
+    g, x, h = m["g"], m["x"], m["h"]
+    wg, wu, wd = m["wg"], m["wu"], m["wd"]
+    counts = g.grp_count.tolist()
+    touched = [s for s, c in zip(g.grp_slot.tolist(), counts) if c]
+    rows_n = sum(counts)
+    # library yardstick: torch.bmm over the same compacted shapes (rows
+    # padded to the largest group; weights gathered beforehand, untimed)
+    C = max(counts)
+    idx = torch.tensor(touched, device=x.device)
+    xg = torch.zeros((len(touched), C, d), dtype=x.dtype, device=x.device)
+    hg = torch.zeros((len(touched), C, f), dtype=x.dtype, device=x.device)
+    wg_c, wu_c, wd_c = wg[idx], wu[idx], wd[idx]
+    b = 2                                   # bf16 bytes
+    out = {}
+    gate_bytes = len(touched) * 2 * d * f * b + x.numel() * b + \
+        g.row_tok.numel() * f * b
+    down_bytes = len(touched) * f * d * b + g.row_tok.numel() * (f + d) * b
+    for name, kern, plain, lib, nbytes, flops in (
+            ("cache_moe_gate_up",
+             lambda: K.gate_up(x, g, wg, wu),
+             lambda: R.slot_gate_up_ref(x, g.row_tok, wg, wu, g.grp_slot,
+                                        g.grp_start, g.grp_count),
+             lambda: (torch.bmm(xg, wg_c), torch.bmm(xg, wu_c)),
+             gate_bytes, 2 * 2 * rows_n * d * f),
+            ("cache_moe_down",
+             lambda: K.down(h, g, wd),
+             lambda: R.slot_down_ref(h, wd, g.grp_slot, g.grp_start,
+                                     g.grp_count),
+             lambda: torch.bmm(hg, wd_c),
+             down_bytes, 2 * rows_n * f * d)):
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        out[name] = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+                     "library_ms": cuda_ms(lib),
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "touched_slots": len(touched), "rows": rows_n}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 3-5: serving
+# ---------------------------------------------------------------------------
+
+def serve_phase(name, target, draft, cfg, dcfg, slots, prompts, new_tokens,
+                spy: bool):
+    import torch
+    from repro_torch.core.engine import Engine, EngineConfig, Request
+    config = EngineConfig(model=cfg, draft=dcfg, decode="sd",
+                          offload="spmoe", cache_slots=slots, draft_len=4,
+                          max_seq=256)
+    t0 = time.perf_counter()
+    eng = Engine(config, target, draft)
+    rt = eng.runtime
+    setup_s = time.perf_counter() - t0
+    fast_syncs = []
+    if spy:
+        orig = rt.session_turn
+
+        def turn(st):
+            s0, f0 = rt.host_syncs, rt.fast_blocks
+            out = orig(st)
+            if rt.fast_blocks > f0:
+                fast_syncs.append(rt.host_syncs - s0)
+            return out
+        rt.session_turn = turn
+    results = []
+    for i, p in enumerate(prompts):
+        res = eng.submit(Request(prompt=p, max_new_tokens=new_tokens,
+                                 request_id=f"{name}-{i}"))
+        torch.cuda.synchronize()
+        if len(res.tokens) != new_tokens or res.finish_reason != "length":
+            raise AssertionError(f"{name}: request {i} ended "
+                                 f"{res.finish_reason} after "
+                                 f"{len(res.tokens)} tokens")
+        results.append(res)
+    if not rt.cache.check_invariants():
+        raise AssertionError(f"{name}: cache invariants violated")
+    info = {"setup_s": setup_s, "pinned_staging_bytes":
+            rt.store.pinned_bytes, "fast_syncs": fast_syncs,
+            "counters": rt.counters()}
+    return eng, results, info
+
+
+def check_tight(results):
+    tot = {k: sum(r.metrics[k] for r in results)
+           for k in ("on_demand_loads", "prefetched", "evictions")}
+    for k, v in tot.items():
+        if v <= 0:
+            raise AssertionError(f"tight cache: {k} = {v}, expected > 0")
+    return tot
+
+
+def check_ample(results, info):
+    fast = sum(r.metrics["fast_blocks"] for r in results)
+    blocks = sum(r.metrics["verify_blocks"] for r in results)
+    falls = sum(r.metrics["fast_fallbacks"] for r in results)
+    if fast <= 0:
+        raise AssertionError("ample cache: the fast path never engaged")
+    if falls > max(2, blocks // 10):
+        raise AssertionError(f"ample cache: {falls} fast fallbacks in "
+                             f"{blocks} blocks")
+    if not info["fast_syncs"] or max(info["fast_syncs"]) > 2:
+        raise AssertionError(f"ample cache: host syncs per fast block "
+                             f"{info['fast_syncs']}")
+    return {"fast_blocks": fast, "verify_blocks": blocks,
+            "fast_fallbacks": falls,
+            "max_syncs_per_fast_block": max(info["fast_syncs"])}
+
+
+def breakdown(eng, draft, dev):
+    """Where one full-width fast verify block spends its time (warm ample
+    cache, block of 5 tokens): the whole block, its expert FFN share, and
+    the drafting stage that precedes it."""
+    import torch
+    from repro_torch.kernels import ops
+    rt = eng.runtime
+    tgt = rt.target
+    cfg = rt.cfg
+    tcache = tgt.init_cache(1, 256)
+    block = torch.randint(0, cfg.vocab_size, (1, BLOCK_T),
+                          generator=torch.Generator().manual_seed(7)
+                          ).to(dev)
+    hist = torch.zeros((rt.store.num_layers, cfg.num_experts), device=dev)
+    block_ms = cuda_ms(lambda: rt._verify_fast(block, 100, tcache, hist))
+    # the same block's expert FFN calls alone, with the routing it produced
+    calls = []
+    with rt.cache.reading() as (bufs, table):
+        x = tgt.embed(block)
+        for l in range(rt.store.num_layers):
+            x, h2 = tgt.attn_half(l, x, tcache["layers"][l], 100)
+            w, ids, _ = rt._gate(l, h2)
+            calls.append((h2.reshape(BLOCK_T, -1), table[l][ids], w))
+            x = x + rt._moe_apply(bufs, *calls[-1]).reshape(1, BLOCK_T, -1)
+        moe_ms = cuda_ms(lambda: [rt._moe_apply(bufs, *c) for c in calls])
+    dcache = draft.init_cache(1, 256)
+    tok = block[:, :1]
+    draft_ms = cuda_ms(lambda: [draft.decode_step(dcache, tok, 100 + i,
+                                                  collect_taps=True)
+                                for i in range(BLOCK_T - 1)])
+    return {"fast_verify_block_ms": block_ms,
+            "expert_ffn_ms": moe_ms,
+            "rest_of_block_ms": block_ms - moe_ms,
+            "drafting_stage_ms": draft_ms,
+            "layers": rt.store.num_layers, "block_tokens": BLOCK_T}
+
+
+def lossless_phase(target, prompts_by_req, dev):
+    """Teacher-force the resident-expert model over each emitted stream."""
+    import torch
+    exact = explained = 0
+    worst = 0.0
+    for prompt, tokens in prompts_by_req:
+        seq = torch.cat([prompt[0].to(dev),
+                         torch.tensor(tokens[:-1], device=dev)])[None]
+        logits, _ = target.forward(seq)
+        lg = logits[0, prompt.shape[1] - 1:].float()
+        tok = torch.tensor(tokens, device=dev)
+        gap = lg.max(dim=-1).values - lg.gather(1, tok[:, None])[:, 0]
+        top = lg.argmax(dim=-1) == tok
+        for is_top, g in zip(top.tolist(), gap.tolist()):
+            if is_top:
+                exact += 1
+            elif g <= MARGIN:
+                explained += 1
+                worst = max(worst, g)
+            else:
+                raise AssertionError(f"emitted token {g:.4f} logits below "
+                                     f"the reference's argmax (margin "
+                                     f"{MARGIN})")
+        if not torch.isfinite(lg).all():
+            raise AssertionError("non-finite reference logits")
+    return {"exact": exact, "margin_explained": explained,
+            "worst_gap": worst, "margin": MARGIN}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device")
+        return 2
+    from repro_torch.configs.registry import get_config, get_draft_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import cache_moe as K
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = smi_line()
+    log(f"[1] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    ptxas = _build.build_all()
+    build_s = time.perf_counter() - t0
+    log(f"[1] kernels built in {build_s:.1f} s")
+    for name, text in ptxas.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    {name}: {line.strip()}")
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=4)
+    dcfg = dataclasses.replace(get_draft_config("mixtral-8x7b"),
+                               num_layers=4)
+    rows, main_k = kernel_phase(dev, cfg.d_model, cfg.moe_d_ff)
+    log(f"[2] kernels match their plain versions ({len(rows)} checks)")
+
+    t0 = time.perf_counter()
+    target = build_model(cfg, dev, seed=0, expert_device="cpu")
+    draft = build_model(dcfg, dev, seed=1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"[3] models built in {init_s:.1f} s")
+    prompts = [torch.randint(0, cfg.vocab_size, (1, 64),
+                             generator=torch.Generator().manual_seed(2 + i))
+               for i in range(4)]
+
+    # the main path: counts from 0 just before, read just after
+    K.gate_up.launches = K.down.launches = ops.cache_moe.launches = 0
+    eng, tight, tight_info = serve_phase("tight", target, draft, cfg, dcfg,
+                                         12, prompts[:2], 32, spy=False)
+    tight_tot = check_tight(tight)
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[3] tight cache ok: {tight_tot}")
+    eng, ample, ample_info = serve_phase("ample", target, draft, cfg, dcfg,
+                                         32, prompts[2:], 32, spy=True)
+    launches = {"cache_moe_gate_up": K.gate_up.launches,
+                "cache_moe_down": K.down.launches}
+    ample_tot = check_ample(ample, ample_info)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was never launched on the main "
+                                 f"path")
+    log(f"[4] ample cache ok: {ample_tot}; launches {launches}")
+    brk = breakdown(eng, draft, dev)
+    log(f"[4] breakdown {brk}")
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 5: the same target with its experts resident on the card
+    for blk in target.layers:
+        for n in ("wg", "wu", "wd"):
+            w = getattr(blk.moe, n)
+            setattr(blk.moe, n, torch.nn.Parameter(w.to(dev),
+                                                   requires_grad=False))
+    loss = lossless_phase(target, [(prompts[i], r.tokens) for i, r in
+                                   enumerate(tight + ample)], dev)
+    log(f"[5] lossless: {loss}")
+
+    timing = main_k["timing"]
+    kernels = []
+    for name, line in (("cache_moe_gate_up", 28), ("cache_moe_down", 47)):
+        t = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/cache_moe.cu",
+            "replaces": f"src/repro/kernels/moe_gemm.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": main_k["err"][name],
+            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernel_checks": rows,
+                      "timing_shape": {"T": BLOCK_T, "k": K_TOP,
+                                       "pool": S_POOL, "dtype": "bfloat16",
+                                       **{n: {k: v for k, v in t.items()
+                                              if k in ("touched_slots",
+                                                       "rows")}
+                                          for n, t in timing.items()}}}))
+    print(json.dumps({"requests": [
+        {"id": r.request_id, "tokens": len(r.tokens),
+         "tpot_wall_s": r.metrics.tpot_wall,
+         "hit_rate": r.metrics.hit_rate,
+         "acceptance_rate": r.metrics.acceptance_rate,
+         **{k: r.metrics[k] for k in ("verify_blocks", "fast_blocks",
+                                      "fast_fallbacks", "host_syncs",
+                                      "on_demand_loads", "prefetched",
+                                      "evictions")}}
+        for r in tight + ample],
+        "tight": tight_tot, "ample": ample_tot, "lossless": loss}))
+    print(json.dumps({"breakdown": brk}))
+    print(json.dumps({"memory": {
+        "device_max_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "pinned_staging_bytes": {"tight": tight_info["pinned_staging_bytes"],
+                                 "ample": ample_info["pinned_staging_bytes"]},
+        "host_max_rss_bytes":
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024},
+        "seconds": {"build": build_s, "model_init": init_s,
+                    "engine_setup_tight": tight_info["setup_s"],
+                    "engine_setup_ample": ample_info["setup_s"],
+                    "total": time.perf_counter() - t_start}}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,581 @@
+"""SP-MoE offload-mode serving engine.  The port of ``repro/core/runtime.py``
+(the solo path; batched cross-session rounds wait for a later slice).
+
+It combines every paper component end to end:
+
+  * speculative decoding (batch 1, greedy accept) — core/sd.py semantics;
+  * target expert weights offloaded to a HostExpertStore; a fixed-slot
+    ExpertCache with LRU lives on the device;
+  * drafting-stage cross-model prediction: draft gate-input taps × target
+    gating networks -> prefetch tasks for layers 0..cutoff (Algorithm 1);
+  * pipelined prefetching: supervised worker + batched I/O (Algorithm 2);
+  * cached-first expert computation (§4.3): the hit experts' FFN is
+    dispatched while the misses stream in.
+
+Verification paths (both run the slot-indexed kernel ``ops.cache_moe``):
+
+* **fast path** — every layer is dispatched without a host round trip:
+  routing, slot translation (a gather from ``table_dev [L, E]``), the hit
+  mask, the cached-expert FFN and the history accounting stay on the
+  device, which also reduces an ``all_hit`` flag.  Reading that one flag is
+  the block's only sync; with the accept/reject readback that is ≤2 host
+  syncs per verify block.  If an expert was missing the block's logits are
+  discarded and the slow path re-runs it: the KV caches are written in
+  place, but the re-run writes the same slots for the same positions before
+  any query reads them.
+* **slow path (miss resolution)** — layer by layer: routing ids are read
+  back once per layer, missing experts are loaded in cache-capacity-bounded
+  waves while the cached-first compute runs, and each wave's share is added
+  by the same kernel with that wave's slots unmasked.  A block with zero
+  misses re-arms the fast path.
+
+Expert weights are never read from the target model on the hot path: both
+paths read them only from the ExpertCache slot pool.
+
+Host-sync accounting: every blocking device->host readback on the decode
+path goes through ``_readback`` (tests spy on it) and is counted in
+``host_syncs``.  The drafting stage's token and prediction readbacks, and
+the per-session metrics readback at retirement, are not counted, as in the
+reference.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import sd as S
+from repro_torch.core.cache import ExpertCache, ExpertKey, host_to_device
+from repro_torch.core.chaos import ChaosInjector, ExpertLoadError
+from repro_torch.core.cutoff import solve_cutoff
+from repro_torch.core.engine import (RUNTIME_COUNTER_KEYS, DecodePolicy,
+                                     EngineConfig)
+from repro_torch.core.offload import HostExpertStore
+from repro_torch.core.predictor import ExpertPredictor
+from repro_torch.core.prefetcher import Prefetcher
+from repro_torch.kernels import ops
+from repro_torch.models.moe import gate_topk
+
+POLICIES = ("spmoe", "adapmoe", "moe-infinity", "on-demand")
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """Everything one in-flight request mutates while decoding: KV and
+    draft caches, position, the draft-length controller, request-level
+    MoE-Infinity history, fast-path arming and the device-side fast-hit
+    accumulator.  The engine keeps the shared runtime (cache, prefetcher)
+    and cumulative counters."""
+    max_new: int
+    tcache: Any
+    dcache: Any = None
+    cur: Optional[torch.Tensor] = None
+    pos: int = 0
+    n: int = 0                        # current draft length (0 = greedy)
+    acc_ewma: float = 0.5
+    emitted_total: int = 0
+    pending: Optional[List[int]] = None   # prefill chunk awaiting delivery
+    history_dev: Any = None           # MoE-Infinity request-level history
+    fast_ok: bool = False
+    fast_penalty: int = 0
+    fast_active_dev: Any = None       # device-side fast-path hit accumulator
+    fast_blocks: int = 0
+    inflight: List[Any] = dataclasses.field(default_factory=list)
+    finished: bool = False
+    committed: bool = False
+    # owner-attributed I/O ledger: this session's synchronous inserts and
+    # (folded in at retirement) its prefetch tasks' stats
+    io: Dict[str, int] = dataclasses.field(default_factory=lambda: {
+        "prefetched": 0, "evictions": 0, "prefetch_evicted_unused": 0})
+
+
+class OffloadEngine:
+    def __init__(self, config: EngineConfig, target, draft=None):
+        """``target`` / ``draft`` are the port's models; their device is
+        the engine's.  The target's routed experts are copied to the host
+        store here and never read from the model again."""
+        cfg = config.model
+        if config.offload not in POLICIES:
+            raise ValueError(f"unknown offload policy {config.offload!r}")
+        if not cfg.is_moe:
+            raise ValueError("offload engine targets MoE models")
+        if config.needs_draft and draft is None:
+            raise ValueError(f"decode={config.decode!r} needs a draft model")
+        self.config = config
+        self.cfg = cfg
+        self.policy = config.offload
+        self.decode = config.decode
+        self.draft_len = config.initial_draft_len
+        self.max_seq = config.max_seq
+        self.target = target
+        self.device = target.device
+        self.draft = draft if config.needs_draft else None
+        self.chaos = ChaosInjector(config.chaos) \
+            if config.chaos is not None and config.chaos.enabled else None
+        self.store = HostExpertStore(cfg, target, chaos=self.chaos,
+                                     pin=self.device.type == "cuda")
+        self.cache = ExpertCache(
+            config.cache_slots, self.store.buffer_shapes(), target.dtype,
+            table_shape=(self.store.num_layers, cfg.num_experts),
+            chaos=self.chaos, device=self.device)
+        mode = config.prefetch_mode if self.policy in ("spmoe", "moe-infinity") \
+            else ("vanilla" if self.policy == "adapmoe" else "off")
+        self.prefetcher = Prefetcher(
+            self.store, self.cache, mode, config.batched_io,
+            retries=config.prefetch_retries,
+            backoff_s=config.retry_backoff_s,
+            task_timeout_s=config.task_timeout_s,
+            verify=config.resolved_verify_payloads,
+            heartbeat_timeout_s=config.heartbeat_timeout_s,
+            max_worker_restarts=config.max_worker_restarts,
+            fail_threshold=config.fail_threshold,
+            chaos=self.chaos)
+        self.k = config.k_prefetch if config.k_prefetch is not None \
+            else cfg.num_experts_per_tok
+        self.predictor = ExpertPredictor(cfg, target, self.k)
+        if config.cutoff is not None:
+            self.cutoff = config.cutoff
+        elif config.profile is not None:
+            self.cutoff = solve_cutoff(config.profile, self.k,
+                                       self.store.num_layers,
+                                       max(self.draft_len, 1)).cutoff_layer
+        else:
+            self.cutoff = self.store.num_layers - 1
+        self._hist_shape = (self.store.num_layers, cfg.num_experts)
+        # stats (engine-global: cumulative across every session)
+        self.layer_hits = 0
+        self.layer_lookups = 0
+        self.on_demand_loads = 0
+        self.host_syncs = 0
+        self.verify_blocks = 0
+        self.fast_blocks = 0
+        self.fast_fallbacks = 0
+        self.iterations = 0
+        self.drafted = 0
+        self.accepted = 0
+        # graceful-degradation ladder: while the prefetch plane is unhealthy
+        # the policy steps down to on-demand loading (see _check_health)
+        self._degraded = False
+        self.degraded_rounds = 0
+        self.io_errors = 0
+        # last observed arming of the shared cache: seeds new sessions
+        self._fast_hint = False
+        self._st: Optional[DecodeState] = None   # state bound to this turn
+
+    # ------------------------------------------------------------------ sync
+    def _readback(self, x: torch.Tensor) -> np.ndarray:
+        """The only counted device->host sync point on the decode path."""
+        self.host_syncs += 1
+        return x.cpu().numpy()
+
+    # ------------------------------------------------------------- pieces
+    def _moe_apply(self, bufs, x: torch.Tensor, slot_ids: torch.Tensor,
+                   weights: torch.Tensor) -> torch.Tensor:
+        """x: [T,d]; slot_ids/weights: [T,k] -> [T,d] over the slot pool;
+        slot_ids < 0 contribute 0."""
+        return ops.cache_moe(x, slot_ids, weights, bufs["wu"], bufs["wd"],
+                             bufs.get("wg"))
+
+    def _gate(self, l: int, h2: torch.Tensor):
+        w, ids, probs, _ = gate_topk(self.target.layers[l].moe.gate,
+                                     h2.reshape(-1, self.cfg.d_model),
+                                     self.cfg.num_experts_per_tok)
+        return w, ids, probs
+
+    def _verify_fast(self, tokens: torch.Tensor, pos: int, tcache,
+                     history: torch.Tensor):
+        """The whole verify block, speculating that every routed expert is
+        cache-resident.  Returns (logits, all_hit, new_history, n_active);
+        nothing here syncs with the host."""
+        cfg, tgt = self.cfg, self.target
+        T = tokens.shape[1]
+        E = cfg.num_experts
+        ok = torch.ones((), dtype=torch.bool, device=self.device)
+        nact = torch.zeros((), dtype=torch.float32, device=self.device)
+        acts = []
+        with self.cache.reading() as (bufs, table):
+            x = tgt.embed(tokens)
+            for l in range(self.store.num_layers):
+                x, h2 = tgt.attn_half(l, x, tcache["layers"][l], pos)
+                w, ids, _ = self._gate(l, h2)
+                slot_ids = table[l][ids]                   # [T,k]; -1 = miss
+                hit = slot_ids >= 0
+                ok = ok & torch.all(hit)
+                y = self._moe_apply(bufs, h2.reshape(T, cfg.d_model),
+                                    slot_ids,
+                                    torch.where(hit, w, torch.zeros_like(w)))
+                x = x + y.reshape(1, T, cfg.d_model)
+                flat = ids.reshape(-1)
+                activated = torch.zeros(E, dtype=torch.int32,
+                                        device=self.device).index_add_(
+                    0, flat, torch.ones_like(flat, dtype=torch.int32)) > 0
+                nact = nact + activated.sum().float()
+                acts.append(activated)
+            logits = tgt.logits(x)
+        new_history = history + torch.stack(acts).to(history.dtype)
+        return logits, ok, new_history, nact
+
+    # ------------------------------------------------------------- verification
+    def _ensure_loaded(self, layer: int, ids: np.ndarray
+                       ) -> Tuple[Dict[ExpertKey, int], List[ExpertKey]]:
+        keys = [(layer, int(e)) for e in dict.fromkeys(ids.ravel().tolist())]
+        hits, misses = self.cache.lookup(keys)
+        self.layer_lookups += len(keys)
+        self.layer_hits += len(hits)
+        return hits, misses
+
+    # -------------------------------------------------------------- resilience
+    def _check_health(self):
+        """One degradation-ladder step per turn: probe-and-repair the
+        prefetch plane and step down to on-demand loading while it is
+        unhealthy (recomputed every turn, never latched)."""
+        if self.prefetcher.mode == "off":
+            self._degraded = False
+        else:
+            self._degraded = not self.prefetcher.revive()
+
+    def health(self) -> str:
+        """``"healthy"``, ``"degraded"`` or ``"failed"`` (worker gone for
+        good)."""
+        if not self._degraded:
+            return "healthy"
+        pf = self.prefetcher
+        if pf.mode == "worker" and not pf.worker_alive() \
+                and pf.worker_restarts >= pf.max_worker_restarts:
+            return "failed"
+        return "degraded"
+
+    def _load_wave(self, wave: List[ExpertKey], st: DecodeState) -> List[int]:
+        """Decode-critical on-demand load of one miss wave under a bounded
+        retry budget; the final attempt runs with injected faults
+        suppressed.  A real fault that survives every retry raises
+        :class:`ExpertLoadError` (``finish_reason="io_error"``)."""
+        attempts = self.config.io_retries + 1
+        verify = self.prefetcher.verify
+        last: Optional[BaseException] = None
+        for a in range(attempts):
+            calm = self.chaos.calm() if self.chaos is not None \
+                and a == attempts - 1 else contextlib.nullcontext()
+            try:
+                with calm:
+                    arrays = self.store.fetch_verified(wave) if verify \
+                        else self.store.fetch(wave)
+                    return self.cache.insert(wave, arrays, mark_used=True,
+                                             stats=st.io)
+            except OSError as e:           # ChaosError/PayloadCorruption too
+                last = e
+                if a < attempts - 1:
+                    time.sleep(self.config.retry_backoff_s * (2 ** a))
+        self.io_errors += 1
+        raise ExpertLoadError(
+            f"on-demand load of {len(wave)} experts failed after "
+            f"{attempts} attempts: {last}") from last
+
+    def _verify_block(self, tokens: torch.Tensor, pos: int, tcache):
+        """Target forward over one verify block with cache-aware expert
+        compute.  tokens: [1, N+1].  Session state is read from ``self._st``
+        so the signature stays the sync-spy hook tests wrap."""
+        st = self._st
+        self.verify_blocks += 1
+        if st.fast_ok and self.policy != "adapmoe":
+            logits, ok, nhist, nact = self._verify_fast(
+                tokens, pos, tcache, st.history_dev)
+            if bool(self._readback(ok)):          # sync 1 of ≤2 per block
+                st.history_dev = nhist
+                st.fast_active_dev = st.fast_active_dev + nact
+                st.fast_blocks += 1
+                self.fast_blocks += 1
+                return logits, tcache
+            st.fast_ok = False                    # mispredicted availability
+            st.fast_penalty = 2
+            self._fast_hint = False
+            self.fast_fallbacks += 1
+        return self._verify_block_slow(tokens, pos, tcache)
+
+    def _verify_block_slow(self, tokens: torch.Tensor, pos: int, tcache):
+        """Miss resolution: per-layer loop, one routing readback per layer,
+        on-demand wave loading; re-arms the session's fast path when the
+        whole block resolved from cache."""
+        st = self._st
+        cfg, tgt, dev = self.cfg, self.target, self.device
+        x = tgt.embed(tokens)
+        T = tokens.shape[1]
+        total_misses = 0
+        for l in range(self.store.num_layers):
+            x, h2 = tgt.attn_half(l, x, tcache["layers"][l], pos)
+            w, ids, _ = self._gate(l, h2)
+            ids_np = self._readback(ids)          # miss-resolution sync
+            act = np.zeros((cfg.num_experts,), np.float32)
+            act[np.unique(ids_np)] = 1.0
+            st.history_dev[l] += host_to_device(act, dev)
+            # AdapMoE baseline: predict the next layer from this layer's gate
+            # input with the target's own gates, synchronous prefetch
+            if self.policy == "adapmoe" and l + 1 < self.store.num_layers:
+                nxt = self.predictor.predict_layer(l + 1, h2[:, -1:])
+                _, miss = self.cache.lookup(nxt, touch=False)
+                if miss:
+                    self._prefetch(st, miss)         # vanilla mode: blocking
+            hits, misses = self._ensure_loaded(l, ids_np)
+            total_misses += len(misses)
+            # cached-first compute: hit experts' slots unmasked, others -1
+            slot_lut = np.full((cfg.num_experts,), -1, np.int32)
+            for (_, e), s in hits.items():
+                slot_lut[e] = s
+            xf = h2.reshape(T, cfg.d_model)
+            with self.cache.reading() as (bufs, _):
+                y = self._moe_apply(bufs, xf,
+                                    host_to_device(slot_lut[ids_np], dev), w)
+            if misses:
+                # on-demand batched loads in cache-capacity-bounded waves;
+                # each wave's share is computed before the next streams in
+                self.on_demand_loads += len(misses)
+                wave_size = max(1, self.cache.num_slots)
+                for w0 in range(0, len(misses), wave_size):
+                    wave = misses[w0:w0 + wave_size]
+                    slots = self._load_wave(wave, st)
+                    wave_lut = np.full((cfg.num_experts,), -1, np.int32)
+                    for key, s in zip(wave, slots):
+                        wave_lut[key[1]] = s
+                    with self.cache.reading() as (bufs, _):
+                        y = y + self._moe_apply(
+                            bufs, xf, host_to_device(wave_lut[ids_np], dev),
+                            w)
+            x = x + y.reshape(1, T, cfg.d_model)
+        if self.policy != "adapmoe":
+            if total_misses == 0:
+                if st.fast_penalty > 0:
+                    st.fast_penalty -= 1
+                st.fast_ok = st.fast_penalty == 0
+            else:
+                st.fast_ok = False
+            self._fast_hint = st.fast_ok   # seed arming of future sessions
+        return tgt.logits(x), tcache
+
+    # ------------------------------------------------------------ session API
+    def start_session(self, prompt: torch.Tensor, max_new_tokens: int
+                      ) -> DecodeState:
+        """Admit one request: allocate its decode state and run the prefill
+        verify block through the cache-aware path (its expert loads warm
+        the shared cache)."""
+        if prompt.shape[0] != 1:
+            raise ValueError("requests are batch-1")
+        st = DecodeState(
+            max_new=max_new_tokens,
+            tcache=self.target.init_cache(1, self.max_seq),
+            n=self.draft_len,                     # 0 for greedy decode
+            history_dev=torch.zeros(self._hist_shape, dtype=torch.float32,
+                                    device=self.device),
+            fast_active_dev=torch.zeros((), dtype=torch.float32,
+                                        device=self.device),
+            fast_ok=self._fast_hint and self.policy != "adapmoe")
+        if max_new_tokens <= 0:
+            st.finished = True
+            return st
+        self._st = st
+        if st.n > 0:
+            _, st.dcache = self.draft.prefill(prompt, self.max_seq)
+        logits, st.tcache = self._verify_block(prompt, 0, st.tcache)
+        st.cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        st.pos = prompt.shape[1]
+        st.emitted_total = 1
+        st.pending = [int(st.cur[0, 0])]
+        return st
+
+    # sentinel: _turn_early found nothing to deliver — the turn must draft
+    # and verify (None is a real return value, "session done")
+    _NEEDS_VERIFY = object()
+
+    def _turn_early(self, st: DecodeState):
+        if st.finished:
+            return None
+        if st.pending is not None:             # deliver the prefill token
+            chunk, st.pending = st.pending, None
+            st.finished = st.emitted_total >= st.max_new
+            return chunk
+        if st.emitted_total >= st.max_new:
+            st.finished = True
+            return None
+        return self._NEEDS_VERIFY
+
+    def _turn_draft(self, st: DecodeState
+                    ) -> Tuple[List[int], torch.Tensor]:
+        """Prefetch signal + drafting stage of one turn: MoE-Infinity
+        history prefetch, the draft loop with SP-MoE speculative
+        prefetching, and the assembled verify block [1, N+1]."""
+        if self.policy == "moe-infinity":
+            hist = self._readback(st.history_dev)
+            for l in range(self.store.num_layers):
+                top = np.argsort(-hist[l], kind="stable")[: self.k]
+                keys = [(l, int(e)) for e in top]
+                # while the fast path is armed it never touches the LRU,
+                # so predicted-hot experts carry the recency signal
+                _, miss = self.cache.lookup(keys, touch=st.fast_ok)
+                if miss:
+                    self._prefetch(st, miss)
+        drafts: List[int] = []
+        toks: List[torch.Tensor] = []
+        tok = st.cur
+        for i in range(st.n):
+            lg, st.dcache, taps = self.draft.decode_step(
+                st.dcache, tok, st.pos + i, collect_taps=True)
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+            toks.append(tok)
+            drafts.append(int(tok[0, 0]))
+            if self.policy == "spmoe" and self.cutoff >= 0:
+                tap_stack = self._draft_taps_for_moe(taps)
+                for l in range(min(self.cutoff + 1, self.store.num_layers)):
+                    keys = self.predictor.predict_layer(l, tap_stack[l])
+                    _, miss = self.cache.lookup(keys, touch=st.fast_ok)
+                    if miss:
+                        self._prefetch(st, miss)
+        block = torch.cat([st.cur] + toks, dim=1)
+        return drafts, block
+
+    def _turn_commit(self, st: DecodeState, drafts: List[int],
+                     greedy: np.ndarray) -> List[int]:
+        """Accept/commit stage: greedy is the verified block's argmax row
+        ([N+1] host ints)."""
+        cfg = self.config
+        N = len(drafts)
+        d = np.asarray(drafts, np.int64)
+        match = d == greedy[:N]
+        n_acc = int(np.cumprod(match.astype(np.int64)).sum())
+        emitted = [int(t) for t in d[:n_acc]] + [int(greedy[n_acc])]
+        st.cur = torch.full((1, 1), int(greedy[n_acc]), dtype=torch.int64,
+                            device=self.device)
+        st.pos += n_acc + 1
+        self.iterations += 1
+        self.drafted += N
+        self.accepted += n_acc
+        if self.decode == DecodePolicy.SD_ADAPTIVE.value:
+            st.n, st.acc_ewma = S.adaptive_next_len(
+                N, n_acc, st.acc_ewma, cfg.min_draft_len,
+                cfg.max_draft_len, cfg.draft_ewma)
+        chunk = emitted[:st.max_new - st.emitted_total]
+        st.emitted_total += len(chunk)
+        st.finished = st.emitted_total >= st.max_new
+        return chunk
+
+    def session_turn(self, st: DecodeState) -> Optional[List[int]]:
+        """Advance one session by ONE committed chunk; returns the chunk or
+        None once the session has nothing left to emit."""
+        early = self._turn_early(st)
+        if early is not self._NEEDS_VERIFY:
+            return early
+        self._check_health()
+        if self._degraded:
+            self.degraded_rounds += 1
+        self._st = st
+        drafts, block = self._turn_draft(st)
+        try:
+            tlogits, st.tcache = self._verify_block(block, st.pos, st.tcache)
+        except ExpertLoadError:
+            st.finished = True
+            raise
+        greedy = self._readback(torch.argmax(tlogits, dim=-1))[0]  # accept
+        return self._turn_commit(st, drafts, greedy)
+
+    def _prefetch(self, st: DecodeState, keys):
+        """Submit a prefetch on behalf of ``st`` (nothing while the ladder
+        is degraded: the slow path's on-demand waves carry the load)."""
+        if self._degraded:
+            return
+        task = self.prefetcher.submit(keys)
+        if task is not None:
+            st.inflight.append(task)
+
+    def finish_session(self, st: DecodeState):
+        """Retire a session (idempotent): fold its device-side fast-hit
+        accumulator into the lookup/hit counters (one metrics-plane
+        readback, not counted) and wait out its own prefetch tasks."""
+        if st.committed:
+            return
+        st.committed = True
+        st.finished = True
+        if st.fast_blocks:
+            fast_active = int(st.fast_active_dev.item())
+            self.layer_lookups += fast_active
+            self.layer_hits += fast_active
+        for task in st.inflight:
+            if self.prefetcher.wait_task(
+                    task, timeout=self.config.drain_timeout_s):
+                for k, v in task.stats.items():
+                    st.io[k] = st.io.get(k, 0) + v
+        st.inflight.clear()
+        self.cache.wait()
+
+    # ---------------------------------------------------------------- generate
+    def generate_stream(self, prompt: torch.Tensor, max_new_tokens: int
+                        ) -> Iterator[List[int]]:
+        """Single-session streaming wrapper: one chunk per committed verify
+        block; the session is retired on every exit path."""
+        if max_new_tokens <= 0:
+            return
+        st = self.start_session(prompt, max_new_tokens)
+        try:
+            while True:
+                chunk = self.session_turn(st)
+                if chunk is None:
+                    return
+                yield chunk
+        finally:
+            self.finish_session(st)
+
+    def generate(self, prompt: torch.Tensor, max_new_tokens: int
+                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One-shot wrapper returning (tokens, stats of this call)."""
+        before = self.counters()
+        t0 = time.perf_counter()
+        out: List[int] = []
+        for chunk in self.generate_stream(prompt, max_new_tokens):
+            out.extend(chunk)
+        dt = time.perf_counter() - t0
+        after = self.counters()
+        d = {k: after[k] - before[k] for k in RUNTIME_COUNTER_KEYS}
+        stats = dict(d, wall_s=dt, tpot_wall=dt / max(len(out), 1),
+                     acceptance_rate=d["accepted"] / max(d["drafted"], 1),
+                     hit_rate=d["hits"] / max(d["lookups"], 1),
+                     cutoff_layer=self.cutoff)
+        return torch.tensor(out, dtype=torch.int64), stats
+
+    def counters(self) -> Dict[str, int]:
+        """Raw cumulative counters — host-only, never waits on the device."""
+        return {
+            "lookups": self.layer_lookups,
+            "hits": self.layer_hits,
+            "on_demand_loads": self.on_demand_loads,
+            "prefetched": self.prefetcher.loaded_count,
+            "evictions": self.cache.evictions,
+            "prefetch_evicted_unused": self.cache.prefetch_evicted,
+            "host_syncs": self.host_syncs,
+            "verify_blocks": self.verify_blocks,
+            "fast_blocks": self.fast_blocks,
+            "fast_fallbacks": self.fast_fallbacks,
+            "iterations": self.iterations,
+            "drafted": self.drafted,
+            "accepted": self.accepted,
+            "prefetch_errors": self.prefetcher.error_count,
+            "prefetch_retries": self.prefetcher.retry_count,
+            "checksum_failures": self.store.checksum_failures,
+            "worker_restarts": self.prefetcher.worker_restarts,
+            "degraded_rounds": self.degraded_rounds,
+            "io_errors": self.io_errors,
+        }
+
+    def _draft_taps_for_moe(self, taps: Dict[str, torch.Tensor]
+                            ) -> torch.Tensor:
+        """Draft layer l's tap predicts target MoE layer l (Table 1 pairs
+        share num_layers)."""
+        stack = taps["layers"]
+        n = self.store.num_layers
+        off = self.cfg.first_dense_layers
+        if stack.shape[0] >= n + off:
+            return stack[off:off + n]
+        return stack[:n]
+
+    def close(self):
+        self.prefetcher.stop()

@@ -1,0 +1,98 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, ``build/lib<name>-<hash>.so`` at the root of
+the checkout.  The hash covers the source and the flags, so an edited source
+builds anew and an unchanged one is loaded as it is.  There is no fallback:
+a missing ``nvcc`` or a failed build raises.
+
+Nothing here runs at import time.  ``build_all`` starts one ``nvcc`` per
+source at once (the smoke test's build step); ``load_library`` builds what is
+missing and returns the loaded library.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> Optional[subprocess.Popen]:
+    """Start nvcc for one source unless its library is already built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    proc.repro_out = (tmp, out)          # type: ignore[attr-defined]
+    return proc
+
+
+def _finish(name: str, proc: subprocess.Popen) -> str:
+    log, _ = proc.communicate()
+    tmp, out = proc.repro_out            # type: ignore[attr-defined]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+    out.with_suffix(".ptxas.txt").write_text(log)
+    return log
+
+
+def sources() -> List[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every source in ``csrc/`` in parallel; returns nvcc's output
+    (``-Xptxas -v``: registers, shared memory, spills) per source, empty
+    for a library that was already built."""
+    with _lock:
+        procs = {n: _start(n) for n in sources()}
+        return {n: (_finish(n, p) if p is not None else "")
+                for n, p in procs.items()}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded ``lib<name>.so``, built first if it is missing."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            proc = _start(name)
+            if proc is not None:
+                _finish(name, proc)
+            lib = ctypes.CDLL(str(_target(name)))
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,26 @@
+"""Kernel entry points of the port: a CUDA tensor goes to the hand-written
+kernel, a CPU tensor to the kernel's plain version.  Nothing else."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import cache_moe as K
+from repro_torch.kernels import ref as R
+
+
+def cache_moe(x: torch.Tensor, slot_ids: torch.Tensor, weights: torch.Tensor,
+              wu: torch.Tensor, wd: torch.Tensor,
+              wg: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Slot-indexed grouped expert FFN over ExpertCache slot buffers
+    (SP-MoE verification hot path).  slot_ids < 0 contribute zero.
+    ``cache_moe.launches`` counts the calls that launched the kernels."""
+    if x.device.type == "cuda":
+        y = K.cache_moe(x, slot_ids, weights, wu, wd, wg)
+        cache_moe.launches += 1
+        return y
+    return R.cache_moe_ref(x, slot_ids, weights, wu, wd, wg)
+
+
+cache_moe.launches = 0

@@ -1,0 +1,209 @@
+"""Core layers: RMSNorm, RoPE, GQA attention (+ KV cache with sliding-window
+ring), FFN variants.  The port of ``repro/models/layers.py`` (MLA waits).
+
+Functions take their weights as attributes of a module (``p.wq``) in the
+reference's layouts (``wq [d, H, hd]``, ``wo [H, hd, d]``, ``wg [d, f]``) and
+compute in the input's dtype; reductions (softmax, norms) run in f32, as the
+reference does.  Attention is plain tensor ops, as the reference's ``mha`` is
+plain jnp.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
+               device: torch.device, scale: float = 1.0) -> torch.Tensor:
+    """N(0, (scale / sqrt(fan_in))²) drawn in f32 on ``device``, then cast
+    (fan_in = shape[0], as the reference's ``_dense_init``)."""
+    fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
+    std = scale / math.sqrt(fan_in)
+    t = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (t * std).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    """f32 normalisation, cast back to x's dtype BEFORE the weight multiply
+    (reference ``layers.py:36``)."""
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dt) * weight
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    """Inverse frequencies, shape [head_dim // 2] (f32)."""
+    ar = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (ar / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: broadcastable to [..., S] (int)."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)                         # [D/2]
+    ang = positions.to(torch.float32)[..., None] * inv           # [..., S, D/2]
+    cos = torch.cos(ang)[..., None, :]                           # [..., S, 1, D/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# masked multi-head attention
+# ---------------------------------------------------------------------------
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        mask: Optional[torch.Tensor], softcap: Optional[float] = None
+        ) -> torch.Tensor:
+    """q: [B,Sq,H,D]  k: [B,Skv,Hkv,D]  v: [B,Skv,Hkv,Dv]  -> [B,Sq,H,Dv].
+
+    GQA via head-group reshape; mask broadcastable to [B, 1|Hkv, 1|rep, Sq,
+    Skv] (True = attend), masked scores set to -1e30.  Softmax in f32."""
+    B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
+    rep = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, rep, D)
+    scores = torch.einsum("bqkrd,bskd->bkrqs", qg, k).float()
+    scores = scores / math.sqrt(D)
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
+    if mask is not None:
+        scores = torch.where(mask, scores,
+                             torch.full((), -1e30, dtype=torch.float32,
+                                        device=scores.device))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkrqs,bskd->bqkrd", probs, v)
+    return out.reshape(B, Sq, H, v.shape[-1])
+
+
+def causal_mask(sq: int, skv: int, window: Optional[int] = None,
+                device: Optional[torch.device] = None) -> torch.Tensor:
+    """[1,1,1,Sq,Skv] causal (optionally sliding-window) mask; query i sits
+    at absolute position skv - sq + i."""
+    qpos = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=device)[None, :]
+    m = kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    return m[None, None, None]
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
+                      positions: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Full-sequence attention (train / prefill), x: [B,S,D].  The reference's
+    ``attn_impl="xla"`` branch; the Pallas flash-attention branch is not
+    ported yet."""
+    if cfg.attn_impl != "xla":
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r}: flash attention is not ported yet")
+    B, S, _ = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    mask = causal_mask(S, S, cfg.sliding_window, x.device)
+    out = mha(q, k, v, mask, cfg.attn_logit_softcap)
+    return torch.einsum("bshk,hkd->bsd", out, p.wo)
+
+
+# Rolling SWA caches get margin slots beyond the window so a speculative
+# verification block (up to this many tokens) never clobbers slots that are
+# still inside the window for the block's earlier queries.
+SWA_RING_MARGIN = 16
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                  dtype: torch.dtype, device: torch.device
+                  ) -> Dict[str, torch.Tensor]:
+    """KV cache ``{"k", "v": [B, S, Hkv, hd], "pos_map": [S] int32}``; a
+    rolling buffer when sliding window is on.  ``pos_map[s]`` is the absolute
+    position held by slot ``s`` (-1 = empty); masks are derived from it."""
+    seq = (min(max_seq, cfg.sliding_window + SWA_RING_MARGIN)
+           if cfg.sliding_window else max_seq)
+    shp = (batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shp, dtype=dtype, device=device),
+            "v": torch.zeros(shp, dtype=dtype, device=device),
+            "pos_map": torch.full((seq,), -1, dtype=torch.int32,
+                                  device=device)}
+
+
+def attention_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                     pos: int, cfg: ModelConfig
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decode a block of Sq >= 1 tokens at absolute positions pos..pos+Sq-1
+    (Sq > 1 = speculative-verification block).  x: [B,Sq,D]; pos: int.
+
+    RoPE is applied at write time with the token's absolute position; for
+    sliding-window configs the cache is a ring (slot = pos % W) and validity
+    comes from the stored per-slot positions.  Unlike the reference, the
+    cache is updated IN PLACE (and returned): a block's writes land on the
+    slots of its own positions, so re-running a block (a fast-path fallback)
+    or a later block overwrites them before any query can attend them."""
+    B, Sq, _ = x.shape
+    S = cache["k"].shape[1]
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    qpos = pos + torch.arange(Sq, dtype=torch.int32, device=x.device)
+    pp = qpos[None, :].expand(B, Sq)
+    q = apply_rope(q, pp, cfg.rope_theta)
+    k = apply_rope(k, pp, cfg.rope_theta)
+    slots = torch.remainder(qpos, S).long() if cfg.sliding_window \
+        else qpos.long()
+    ck, cv, pos_map = cache["k"], cache["v"], cache["pos_map"]
+    ck[:, slots] = k
+    cv[:, slots] = v
+    pos_map[slots] = qpos
+    # mask [1,1,1,Sq,S]: slot valid for query i iff it holds a position
+    # <= qpos[i] (and within the window for SWA)
+    valid = (pos_map[None, :] <= qpos[:, None]) & (pos_map[None, :] >= 0)
+    if cfg.sliding_window:
+        valid &= pos_map[None, :] > qpos[:, None] - cfg.sliding_window
+    out = mha(q, ck, cv, valid[None, None, None], cfg.attn_logit_softcap)
+    out = torch.einsum("bshk,hkd->bsd", out, p.wo)
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# FFN variants
+# ---------------------------------------------------------------------------
+
+def ffn_forward(p, x: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "swiglu":
+        h = F.silu(torch.einsum("bsd,df->bsf", x, p.wg))
+        h = h * torch.einsum("bsd,df->bsf", x, p.wu)
+    elif activation == "relu2":
+        h = torch.square(F.relu(torch.einsum("bsd,df->bsf", x, p.wu)))
+    elif activation == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(torch.einsum("bsd,df->bsf", x, p.wu), approximate="tanh")
+    else:
+        raise ValueError(activation)
+    return torch.einsum("bsf,fd->bsd", h, p.wd)

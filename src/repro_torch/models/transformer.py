@@ -1,0 +1,255 @@
+"""Decoder-only LM for the dense and moe families (the port of
+``repro/models/transformer.py``; ssm / hybrid / MLA wait).
+
+The model is an ``nn.Module`` that owns its weights.  Parameter names follow
+the reference's param-tree paths with the stacked layer axis unstacked:
+``wte``, ``head``, ``ln_f``, ``layers.<l>.ln1``, ``layers.<l>.attn.wq``,
+``layers.<l>.moe.gate``, ``layers.<l>.moe.wg``, ``layers.<l>.ffn.wg`` ...
+(``models/convert.py`` loads a reference param tree into them).
+
+Three modes share one block function:
+
+* ``forward``      full sequence, no cache -> (logits, aux)
+* ``prefill``      full sequence, fills the KV caches
+* ``decode_step``  a block of Sq >= 1 tokens against the caches; optionally
+                   returns each layer's gate input (the SP-MoE predictor's
+                   taps)
+
+KV caches are ``{"layers": [per-layer {"k", "v", "pos_map"}]}`` and are
+updated in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+
+Cache = Dict[str, Any]
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device, gen):
+        super().__init__()
+        d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+            cfg.head_dim
+        self.wq = _param(L.dense_init(gen, (d, H, hd), dtype, device))
+        self.wk = _param(L.dense_init(gen, (d, Hkv, hd), dtype, device))
+        self.wv = _param(L.dense_init(gen, (d, Hkv, hd), dtype, device))
+        self.wo = _param(L.dense_init(gen, (H, hd, d), dtype, device))
+
+
+class FFN(nn.Module):
+    def __init__(self, d: int, f: int, activation: str, dtype, device, gen):
+        super().__init__()
+        if activation == "swiglu":
+            self.wg = _param(L.dense_init(gen, (d, f), dtype, device))
+        self.wu = _param(L.dense_init(gen, (d, f), dtype, device))
+        self.wd = _param(L.dense_init(gen, (f, d), dtype, device))
+
+
+class MoE(nn.Module):
+    """Gate ``[d, E]`` (f32, on the compute device) and the routed experts
+    ``wg/wu [E, d, f]``, ``wd [E, f, d]``.  The experts are drawn on the
+    compute device one at a time, with the fan-in of one expert (the
+    reference draws the stacked ``[E, ...]`` tensor, whose first axis it
+    takes as the fan-in), and then moved to ``expert_device`` (the host, for
+    a model whose experts the offload runtime serves from its cache)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, gen, expert_device):
+        super().__init__()
+        d, E, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+        if cfg.num_shared_experts:
+            raise NotImplementedError("shared experts are not ported yet")
+        self.gate = _param(L.dense_init(gen, (d, E), torch.float32, device))
+        names = ("wg", "wu", "wd") if cfg.ffn_activation == "swiglu" \
+            else ("wu", "wd")
+        for n in names:
+            shape = (E, f, d) if n == "wd" else (E, d, f)
+            w = torch.stack([L.dense_init(gen, shape[1:], dtype, device)
+                             for _ in range(E)]).to(expert_device)
+            setattr(self, n, _param(w))
+
+
+class Block(nn.Module):
+    def __init__(self, kind: str, cfg: ModelConfig, dtype, device, gen,
+                 expert_device):
+        super().__init__()
+        self.kind = kind
+        self.ln1 = _param(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        self.ln2 = _param(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        self.attn = Attention(cfg, dtype, device, gen)
+        if kind == "moe":
+            self.moe = MoE(cfg, dtype, device, gen, expert_device)
+        else:
+            self.ffn = FFN(cfg.d_model, cfg.d_ff, cfg.ffn_activation, dtype,
+                           device, gen)
+
+
+class DecoderLM(nn.Module):
+    """Families: dense, moe (mixtral-style: every layer MoE).
+
+    ``device`` defaults to the card and raises without one (pass
+    ``device="cpu"`` to run on the CPU).  Weights are drawn from
+    ``generator`` (default: a generator on ``device`` seeded with ``seed``);
+    ``expert_device`` (default ``device``) is where the routed experts
+    live."""
+
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None, *,
+                 seed: int = 0, generator: Optional[torch.Generator] = None,
+                 expert_device: DeviceLike = None):
+        super().__init__()
+        if cfg.family not in ("dense", "moe") or cfg.use_mla \
+                or cfg.first_dense_layers:
+            raise NotImplementedError(
+                f"{cfg.name}: only dense and mixtral-style moe models are "
+                f"ported yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(cfg.dtype)
+        expert_device = self.device if expert_device is None \
+            else torch.device(expert_device)
+        gen = generator if generator is not None else \
+            torch.Generator(self.device).manual_seed(seed)
+        dt, dev = self.dtype, self.device
+        self.wte = _param(L.dense_init(gen, (cfg.vocab_size, cfg.d_model),
+                                       dt, dev, scale=cfg.d_model ** 0.5))
+        self.ln_f = _param(torch.ones(cfg.d_model, dtype=dt, device=dev))
+        if not cfg.tie_embeddings:
+            self.head = _param(L.dense_init(gen, (cfg.d_model,
+                                                  cfg.vocab_size), dt, dev))
+        kind = "moe" if cfg.is_moe else "dense"
+        self.layers = nn.ModuleList(
+            Block(kind, cfg, dt, dev, gen, expert_device)
+            for _ in range(cfg.num_layers))
+
+    # -- pieces the offload runtime drives one at a time ---------------------
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.wte[tokens]
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm + head.  x: [B, S, d] -> [B, S, V]."""
+        xf = L.rms_norm(x, self.ln_f, self.cfg.norm_eps)
+        if self.cfg.tie_embeddings:
+            return torch.einsum("bsd,vd->bsv", xf, self.wte)
+        return torch.einsum("bsd,dv->bsv", xf, self.head)
+
+    def attn_half(self, l: int, x: torch.Tensor, cache_l: Dict, pos: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Decode-mode attention half of layer ``l``: -> (x + attn, h2 =
+        the FFN / gate input).  Writes the layer's KV cache in place."""
+        blk = self.layers[l]
+        h = L.rms_norm(x, blk.ln1, self.cfg.norm_eps)
+        a, _ = L.attention_decode(blk.attn, h, cache_l, pos, self.cfg)
+        x = x + a
+        return x, L.rms_norm(x, blk.ln2, self.cfg.norm_eps)
+
+    def drop_experts(self):
+        """Free the routed expert tensors (an offload runtime serves them
+        from its own host store); the parameter names stay."""
+        for blk in self.layers:
+            if blk.kind == "moe":
+                for n in ("wg", "wu", "wd"):
+                    if hasattr(blk.moe, n):
+                        setattr(blk.moe, n, _param(torch.empty(0)))
+
+    # -- caches ---------------------------------------------------------------
+    def init_cache(self, batch: int, max_seq: int) -> Cache:
+        return {"layers": [L.init_kv_cache(self.cfg, batch, max_seq,
+                                           self.dtype, self.device)
+                           for _ in range(self.cfg.num_layers)]}
+
+    # -- block ------------------------------------------------------------------
+    def _block(self, blk: Block, x: torch.Tensor, mode: str,
+               cache_l: Optional[Dict], pos: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """-> (x_out, aux_loss, gate_input_tap)."""
+        cfg = self.cfg
+        h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
+        if mode == "decode":
+            a, _ = L.attention_decode(blk.attn, h, cache_l, pos, cfg)
+        else:
+            a = L.attention_forward(blk.attn, h, cfg)
+            if mode == "prefill":
+                _attn_prefill_cache(blk.attn, h, cfg, cache_l)
+        x = x + a
+        h2 = L.rms_norm(x, blk.ln2, cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if blk.kind == "moe":
+            y, aux = MOE.moe_global(blk.moe, h2, cfg)
+        else:
+            y = L.ffn_forward(blk.ffn, h2, cfg.ffn_activation)
+        return x + y, aux, h2
+
+    def _run(self, x: torch.Tensor, mode: str, cache: Optional[Cache],
+             pos: int, collect_taps: bool = False):
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        taps: List[torch.Tensor] = []
+        for l, blk in enumerate(self.layers):
+            cl = cache["layers"][l] if cache is not None else None
+            x, aux, tap = self._block(blk, x, mode, cl, pos)
+            aux_total = aux_total + aux
+            if collect_taps:
+                taps.append(tap)
+        return x, aux_total, ({"layers": torch.stack(taps)} if collect_taps
+                              else {})
+
+    # -- public API -----------------------------------------------------------
+    def forward(self, tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward.  tokens: [B,S] -> (logits [B,S,V], aux).
+        MoE layers route drop-free (the reference's train mode uses
+        capacity routing for long sequences; that path waits)."""
+        x, aux, _ = self._run(self.embed(tokens), "train", None, 0)
+        return self.logits(x), aux
+
+    def prefill(self, tokens: torch.Tensor, max_seq: int
+                ) -> Tuple[torch.Tensor, Cache]:
+        """Fill caches with a prompt; return (last-position logits [B,V],
+        cache)."""
+        cache = self.init_cache(tokens.shape[0], max_seq)
+        x, _, _ = self._run(self.embed(tokens), "prefill", cache, 0)
+        return self.logits(x[:, -1:])[:, 0], cache
+
+    def decode_step(self, cache: Cache, tokens: torch.Tensor, pos: int,
+                    collect_taps: bool = False):
+        """tokens: [B,Sq] at positions pos..pos+Sq-1 (Sq>1 = speculative
+        verification block) -> (logits [B,Sq,V], cache, taps).  taps is
+        ``{"layers": [L, B, Sq, d]}`` when collected, else {}."""
+        x, _, taps = self._run(self.embed(tokens), "decode", cache, pos,
+                               collect_taps)
+        return self.logits(x), cache, taps
+
+
+def _attn_prefill_cache(p, h: torch.Tensor, cfg: ModelConfig, cache: Dict):
+    """Recompute k/v for the prompt and write them into the cache (in
+    place), ring-rolled so slot (pos % W) matches decode-side indexing."""
+    B, S, _ = h.shape
+    positions = torch.arange(S, device=h.device)[None, :]
+    k = L.apply_rope(torch.einsum("bsd,dhk->bshk", h, p.wk), positions,
+                     cfg.rope_theta)
+    v = torch.einsum("bsd,dhk->bshk", h, p.wv)
+    W = cache["k"].shape[1]             # ring size (window + margin for SWA)
+    n = cache["pos_map"].shape[0]
+    if cfg.sliding_window and S > W:    # rolling buffer keeps the last W
+        shift = S % W
+        k = torch.roll(k[:, -W:], shift, dims=1)
+        v = torch.roll(v[:, -W:], shift, dims=1)
+        ar = torch.arange(W, device=h.device)
+        pos_map = (S - W) + torch.remainder(ar - S, W)
+        S = W
+    else:
+        ar = torch.arange(n, device=h.device)
+        pos_map = torch.where(ar < S, ar, torch.full_like(ar, -1))
+    cache["k"][:, :S] = k
+    cache["v"][:, :S] = v
+    cache["pos_map"].copy_(pos_map.to(torch.int32))

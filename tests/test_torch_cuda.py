@@ -1,0 +1,92 @@
+"""PyTorch port on a card: the hand-written CUDA kernel against its plain
+version, and the offload engine serving through it.  Every test is marked
+``cuda`` and skips without a card (the kernel has no CPU mode).  This file
+imports nothing of JAX, so it also runs where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+from repro_torch.configs.registry import get_config
+from repro_torch.core.engine import (Engine, EngineConfig, Request,
+                                     derive_draft_config)
+from repro_torch.core.sd import greedy_generate
+from repro_torch.kernels import cache_moe as K
+from repro_torch.kernels import ref as R
+from repro_torch.models.registry import build_model
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_kernel_matches_plain_and_is_batch_invariant(cuda, dtype, tol):
+    """The kernel against its plain version (tolerance relative to the
+    output's scale: f32 differs only in summation order, bf16 in where it
+    rounds), and each row of a 5-token call bit-identical to the same row
+    alone."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    S, d, f = 12, 512, 1024
+    wg, wu = [(torch.randn((S, d, f), generator=gen, device=cuda)
+               * d ** -0.5).to(dtype) for _ in range(2)]
+    wd = (torch.randn((S, f, d), generator=gen, device=cuda)
+          * f ** -0.5).to(dtype)
+    x = torch.randn((5, d), generator=gen, device=cuda).to(dtype)
+    si = torch.randint(-1, S, (5, 2), generator=gen, device=cuda
+                       ).to(torch.int32)
+    w = torch.rand((5, 2), generator=gen, device=cuda).to(dtype)
+    before = K.gate_up.launches
+    got = K.cache_moe(x, si, w, wu, wd, wg)
+    assert K.gate_up.launches == before + 1
+    want = R.cache_moe_ref(x, si, w, wu, wd, wg)
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+    for t in range(5):
+        one = K.cache_moe(x[t:t + 1], si[t:t + 1], w[t:t + 1], wu, wd, wg)
+        assert torch.equal(one, got[t:t + 1])
+
+
+def test_kernel_refuses_what_it_does_not_take(cuda):
+    g = K.slot_groups(torch.zeros((2, 2), dtype=torch.int32, device=cuda), 4)
+    x = torch.zeros((2, 64), dtype=torch.float16, device=cuda)
+    w = torch.zeros((4, 64, 64), dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError):
+        K.gate_up(x, g, w, w)
+    with pytest.raises(NotImplementedError):
+        K.cache_moe(x.float(), torch.zeros((2, 2), dtype=torch.int32,
+                                           device=cuda),
+                    torch.ones((2, 2), device=cuda), w.float(), w.float(),
+                    None)
+
+
+@pytest.mark.parametrize("slots", [6, 32])
+def test_engine_on_the_card_matches_its_greedy(cuda, slots):
+    """sd x spmoe through the CUDA kernel (tight and ample cache) emits the
+    port's greedy tokens; reduced mixtral in f32 with a window longer than
+    the prompt."""
+    cfg = get_config("mixtral-8x7b").reduced(dtype="float32")
+    dcfg = derive_draft_config(cfg)
+    target = build_model(cfg, cuda, seed=0)
+    draft = build_model(dcfg, cuda, seed=1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 6),
+                           generator=torch.Generator().manual_seed(2))
+    ref = greedy_generate(target, prompt.to(cuda), 16, 64).tolist()
+    before = K.gate_up.launches
+    with Engine(EngineConfig(model=cfg, draft=dcfg, decode="sd",
+                             offload="spmoe", cache_slots=slots,
+                             draft_len=3, max_seq=64),
+                target, draft) as eng:
+        res = eng.submit(Request(prompt=prompt, max_new_tokens=16))
+        assert eng.runtime.cache.check_invariants()
+    assert res.tokens == ref
+    assert K.gate_up.launches > before
