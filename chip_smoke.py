@@ -3,20 +3,33 @@
 
     python3 chip_smoke.py
 
-Drives the port's SP-MoE serving path (decode="sd" x offload="spmoe") on
-mixtral-8x7b at full width (d_model 4096, 32/8 heads x 128, expert d_ff
-14336, 8 experts top-2, vocab 32000, sliding window 4096) with its dense
-mistral-7b draft, both cut to 4 layers, random weights from fixed seeds.
+Drives the port's SP-MoE serving paths (decode="sd" x offload="spmoe",
+``attn_impl="kernel"``) on mixtral-8x7b at full width (d_model 4096, 32/8
+heads x 128, expert d_ff 14336, 8 experts top-2, vocab 32000, sliding window
+4096) with its dense mistral-7b draft, both cut to 4 layers, random weights
+from fixed seeds.  Every admitted request prefills its draft through the
+flash-attention kernel and verifies through the expert-FFN kernels.
 
 Phases (each raises on failure):
   1. device line; build the CUDA kernels from ``src/repro_torch/csrc``
   2. each kernel against its plain PyTorch version at full-width shapes,
-     bf16 and f32, with a batch-invariance check
-  3. serving with a tight cache (12 slots): misses, prefetches, evictions
-  4. serving with an ample cache (32 slots): the fast path, <=2 host syncs
-     per fast block; then a timed breakdown of one fast verify block
-  5. lossless check: every emitted token against the resident-expert model
-     run teacher-forced over the stream (argmax, or within a stated margin)
+     bf16 and f32 (expert FFN at T 1 / 5 / 64 / 512 with a batch-invariance
+     check; flash attention at S 64 / 512 / 2048 causal, 1024 with a 256
+     window and 8192 with the 4096 window)
+  3. solo serving with a tight cache (12 slots): misses, prefetches,
+     evictions
+  4. solo serving with an ample cache (32 slots): the fast path, <=2 host
+     syncs per fast block; then a timed breakdown of one fast verify block
+  5. concurrent serving (``Engine.serve_all``, 4 requests of 512-token
+     prompts, 2 at a time, ample cache): fused rounds, <=2 host syncs per
+     round, and one all-hit round's logits equal to each session's solo fast
+     block on the same cache snapshot, bit for bit
+  6. lossless check: every emitted token of phases 3-5 against the
+     resident-expert model run teacher-forced over the stream (argmax, or
+     within a stated margin)
+
+Each serving path (3-4, and 5) runs with the kernels' launch counts set to 0
+just before it and read just after; each kernel must have launched there.
 
 Prints JSON lines (kernels, requests, breakdown, memory), then the card's
 name and power limit, then ``{"ok": true, "device": {...}}`` as the last
@@ -46,11 +59,20 @@ BF16_FLOPS = 989e12                   # H100 SXM dense bf16 tensor rate
 # bf16: the kernel rounds once from f32, the plain version rounds the two
 # GEMM outputs, silu and the product each to bf16 (2^-8 relative apiece).
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# flash attention at the mixtral widths, held per query row to that row's
+# own max |out| (a row that sees many keys has a small output).  f32: kernel
+# and plain version sum the same products in another order (and p is not
+# rounded): 1e-4.  bf16: both round p to bf16 relative to the running max of
+# their own tiles (64 vs 128 keys), and each rounds the output once, which
+# may differ by one bf16 step (up to 2^-7 of an element): 1e-2.
+FA_HEADS, FA_KV_HEADS, FA_DIM = 32, 8, 128
+FA_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # lossless check: the engine (5-token verify blocks, f32 expert combine) and
 # the resident reference (one teacher-forced forward, bf16 combine) round
 # the bf16 residual stream at different places; a token that is not the
 # reference's argmax must be within this many logits of it.
 MARGIN = 0.25
+CONC_PROMPT, CONC_NEW, CONC_REQS = 512, 32, 4     # phase 5
 
 
 def log(msg: str):
@@ -96,9 +118,12 @@ def kernel_phase(dev, d: int, f: int):
         wg, wu = w((S_POOL, d, f), d), w((S_POOL, d, f), d)
         wd = w((S_POOL, f, d), f)
         outs = {}
-        for T in (1, BLOCK_T, 64):
+        for T in (1, BLOCK_T, 64, CONC_PROMPT):
             x = torch.randn((T, d), generator=gen, device=dev).to(dt)
-            si = torch.randint(-1, S_POOL, (T, K_TOP), generator=gen,
+            # T = CONC_PROMPT is the target's prefill block on the concurrent
+            # path: its 8 experts all resident, about 128 rows per slot
+            lo_s, hi_s = (0, 8) if T == CONC_PROMPT else (-1, S_POOL)
+            si = torch.randint(lo_s, hi_s, (T, K_TOP), generator=gen,
                                device=dev).to(torch.int32)
             si[0, 0] = -1                             # a miss
             if T > 1:
@@ -133,16 +158,18 @@ def kernel_phase(dev, d: int, f: int):
                 main.update(x=x, si=si, wt=wt, g=g, h=h, wg=wg, wu=wu, wd=wd,
                             err={"cache_moe_gate_up": rows[-3]["max_abs_err"],
                                  "cache_moe_down": rows[-2]["max_abs_err"]})
-        # batch invariance: each row of the T=5 call equals the T=1 call
-        x, si, wt, full = outs[BLOCK_T]
-        for t in range(BLOCK_T):
-            one = K.cache_moe(x[t:t + 1], si[t:t + 1], wt[t:t + 1], wu, wd,
-                              wg)
-            if not torch.equal(one, full[t:t + 1]):
-                raise AssertionError(f"{dt_name}: row {t} of the T={BLOCK_T}"
-                                     f" call differs from its T=1 call")
-        rows.append({"check": "batch_invariance", "dtype": dt_name,
-                     "T": BLOCK_T, "ok": True})
+        # batch invariance: each row of the T=5 and T=512 calls equals its
+        # own T=1 call, bit for bit
+        for T in (BLOCK_T, CONC_PROMPT):
+            x, si, wt, full = outs[T]
+            for t in range(T):
+                one = K.cache_moe(x[t:t + 1], si[t:t + 1], wt[t:t + 1], wu,
+                                  wd, wg)
+                if not torch.equal(one, full[t:t + 1]):
+                    raise AssertionError(f"{dt_name}: row {t} of the T={T} "
+                                         f"call differs from its T=1 call")
+            rows.append({"check": "batch_invariance", "dtype": dt_name,
+                         "T": T, "ok": True})
         if dt_name == "bfloat16":
             main["timing"] = time_kernels(main, d, f)
         del wg, wu, wd, outs
@@ -197,9 +224,96 @@ def time_kernels(m, d: int, f: int):
     return out
 
 
+def flash_bound(S: int, window, nbytes_el: int):
+    """Least time for one causal flash call at B 1, H 32, Hkv 8, D 128: the
+    unmasked (q, k) pairs x 4·D flops at the bf16 tensor rate, against q, k,
+    v and out moved once at the memory rate."""
+    W = S if window is None else min(window, S)
+    pairs = sum(min(i + 1, W) for i in range(S)) * FA_HEADS
+    t_ops = pairs * 4 * FA_DIM / BF16_FLOPS * 1e3
+    nbytes = S * FA_DIM * (2 * FA_HEADS + 2 * FA_KV_HEADS) * nbytes_el
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def flash_phase(dev):
+    """The flash kernel against its plain version at the widths of the
+    draft's prefill, bf16 and f32; timed (bf16) at S 512 and 2048."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref as R
+    gen = torch.Generator(dev).manual_seed(1)
+    rows, timing = [], {}
+    for S, window, dtypes in ((64, None, ("bfloat16", "float32")),
+                              (512, None, ("bfloat16", "float32")),
+                              (1024, 256, ("bfloat16", "float32")),
+                              (2048, None, ("bfloat16", "float32")),
+                              (8192, 4096, ("bfloat16",))):
+        for dt_name in dtypes:
+            dt = getattr(torch, dt_name)
+            q, k, v = [torch.randn((1, S, h, FA_DIM), generator=gen,
+                                   device=dev).to(dt)
+                       for h in (FA_HEADS, FA_KV_HEADS, FA_KV_HEADS)]
+            got = FA.flash_attention(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            want = R.flash_attention_ref(q, k, v, causal=True, window=window)
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            row_rel = (diff.amax(dim=-1) / want.float().abs().amax(dim=-1)
+                       .clamp_min(1e-30)).max().item()
+            ok = torch.isfinite(got).all().item() and \
+                row_rel <= FA_TOL[dt_name]
+            rows.append({"kernel": "flash_attention", "dtype": dt_name,
+                         "S": S, "window": window, "max_abs_err": err,
+                         "max_row_rel_err": row_rel,
+                         "tol_row_rel": FA_TOL[dt_name], "ok": bool(ok)})
+            if not ok:
+                raise AssertionError(f"flash_attention {dt_name} S={S} "
+                                     f"window={window}: a row's max abs err "
+                                     f"is {row_rel} of its max |out|")
+            del diff
+            if dt_name == "bfloat16" and S in (512, 2048):
+                bound, by = flash_bound(S, window, 2)
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                timing[S] = {
+                    "ms": cuda_ms(lambda: FA.flash_attention(q, k, v)),
+                    "plain_ms": cuda_ms(
+                        lambda: R.flash_attention_ref(q, k, v), iters=2),
+                    "library_ms": cuda_ms(
+                        lambda: torch.nn.functional
+                        .scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True, enable_gqa=True)),
+                    "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return rows, timing
+
+
 # ---------------------------------------------------------------------------
-# phases 3-5: serving
+# phases 3-6: serving
 # ---------------------------------------------------------------------------
+
+def reset_launches():
+    from repro_torch.kernels import cache_moe as K
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    K.gate_up.launches = K.down.launches = ops.cache_moe.launches = 0
+    FA.flash_attention.launches = 0
+
+
+def read_launches(path: str):
+    """The launch counts of a serving path; each kernel must have run."""
+    from repro_torch.kernels import cache_moe as K
+    from repro_torch.kernels import flash_attention as FA
+    got = {"cache_moe_gate_up": K.gate_up.launches,
+           "cache_moe_down": K.down.launches,
+           "flash_attention": FA.flash_attention.launches}
+    for name, n in got.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was never launched on the "
+                                 f"{path} path")
+    return got
 
 def serve_phase(name, target, draft, cfg, dcfg, slots, prompts, new_tokens,
                 spy: bool):
@@ -272,7 +386,6 @@ def breakdown(eng, draft, dev):
     cache, block of 5 tokens): the whole block, its expert FFN share, and
     the drafting stage that precedes it."""
     import torch
-    from repro_torch.kernels import ops
     rt = eng.runtime
     tgt = rt.target
     cfg = rt.cfg
@@ -283,15 +396,29 @@ def breakdown(eng, draft, dev):
     hist = torch.zeros((rt.store.num_layers, cfg.num_experts), device=dev)
     block_ms = cuda_ms(lambda: rt._verify_fast(block, 100, tcache, hist))
     # the same block's expert FFN calls alone, with the routing it produced
-    calls = []
+    calls, touched = [], []
     with rt.cache.reading() as (bufs, table):
         x = tgt.embed(block)
         for l in range(rt.store.num_layers):
             x, h2 = tgt.attn_half(l, x, tcache["layers"][l], 100)
             w, ids, _ = rt._gate(l, h2)
             calls.append((h2.reshape(BLOCK_T, -1), table[l][ids], w))
+            touched.append(len(set(ids.reshape(-1).tolist())))
             x = x + rt._moe_apply(bufs, *calls[-1]).reshape(1, BLOCK_T, -1)
-        moe_ms = cuda_ms(lambda: [rt._moe_apply(bufs, *c) for c in calls])
+
+        def moe():
+            for c in calls:
+                rt._moe_apply(bufs, *c)
+        moe_ms = cuda_ms(moe)
+        # the host's side of the same calls: the time to issue them, the
+        # device left to run behind (a share near 1 means the device waited
+        # on the host)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            moe()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 10
+        torch.cuda.synchronize()
     dcache = draft.init_cache(1, 256)
     tok = block[:, :1]
     draft_ms = cuda_ms(lambda: [draft.decode_step(dcache, tok, 100 + i,
@@ -299,9 +426,115 @@ def breakdown(eng, draft, dev):
                                 for i in range(BLOCK_T - 1)])
     return {"fast_verify_block_ms": block_ms,
             "expert_ffn_ms": moe_ms,
+            "expert_ffn_host_issue_ms": host_ms,
+            "expert_ffn_host_share": host_ms / moe_ms,
+            "experts_touched_per_layer": touched,
             "rest_of_block_ms": block_ms - moe_ms,
             "drafting_stage_ms": draft_ms,
             "layers": rt.store.num_layers, "block_tokens": BLOCK_T}
+
+
+def concurrent_phase(target, draft, cfg, dcfg, prompts):
+    """Phase 5: ``serve_all`` of the 512-token requests, two at a time, on
+    an ample cache, with every fused round's host syncs recorded; then one
+    all-hit round held to the solo fast blocks on the same snapshot."""
+    import torch
+    from repro_torch.core.engine import Engine, EngineConfig, Request
+    config = EngineConfig(model=cfg, draft=dcfg, decode="sd",
+                          offload="spmoe", cache_slots=32, draft_len=4,
+                          max_seq=CONC_PROMPT + CONC_NEW + 32)
+    eng = Engine(config, target, draft)
+    rt = eng.runtime
+    rounds = []
+    orig = rt._round_fused
+
+    def spy(fused, *a):
+        s0, f0, b0 = rt.host_syncs, rt.fast_fallbacks, rt.fast_blocks
+        orig(fused, *a)
+        rounds.append({"sessions": len(fused), "syncs": rt.host_syncs - s0,
+                       "fast": rt.fast_blocks - b0,
+                       "fallbacks": rt.fast_fallbacks - f0})
+
+    rt._round_fused = spy
+    reqs = [Request(prompt=p, max_new_tokens=CONC_NEW,
+                    request_id=f"concurrent-{i}")
+            for i, p in enumerate(prompts)]
+    reset_launches()
+    r0, l0 = rt.verify_rounds, rt.round_launches
+    t0 = time.perf_counter()
+    results = eng.serve_all(reqs, concurrency=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches("concurrent serving")
+    rt._round_fused = orig
+    for i, res in enumerate(results):
+        if len(res.tokens) != CONC_NEW or res.finish_reason != "length":
+            raise AssertionError(f"concurrent: request {i} ended "
+                                 f"{res.finish_reason} after "
+                                 f"{len(res.tokens)} tokens")
+    if not rounds:
+        raise AssertionError("concurrent: no fused round ran")
+    for r in rounds:
+        if r["fallbacks"] or r["syncs"] > 2:
+            raise AssertionError(f"concurrent: a fused round on the ample "
+                                 f"cache fell back or synced more than "
+                                 f"twice: {r}")
+    if not rt.cache.check_invariants():
+        raise AssertionError("concurrent: cache invariants violated")
+    counters = {"verify_rounds": rt.verify_rounds - r0,
+                "round_launches": rt.round_launches - l0,
+                "fused_rounds": len(rounds),
+                "fused_sessions": sum(r["sessions"] for r in rounds),
+                "max_syncs_per_fused_round": max(r["syncs"]
+                                                 for r in rounds),
+                "wall_s": wall,
+                "tokens_per_s": CONC_REQS * CONC_NEW / wall}
+    # one all-hit round: fused logits == each session's solo fast block
+    sts = [rt.start_session(p.to(rt.device), 8) for p in prompts[:2]]
+    gen = torch.Generator().manual_seed(9)
+    blocks = [torch.cat([st.cur, torch.randint(
+        0, cfg.vocab_size, (1, BLOCK_T - 1), generator=gen).to(rt.device)],
+        dim=1) for st in sts]
+
+    def caches():
+        return [{"layers": [{n: t.clone() for n, t in c.items()}
+                            for c in st.tcache["layers"]]} for st in sts]
+
+    solo = [rt._verify_fast(b, st.pos, tc, st.history_dev)
+            for b, st, tc in zip(blocks, sts, caches())]
+    logits, ok, _, _ = rt._verify_fast_batched(
+        blocks, [st.pos for st in sts], caches(),
+        [st.history_dev for st in sts])
+    torch.cuda.synchronize()
+    for st in sts:
+        rt.finish_session(st)
+    if not bool(ok.all()) or not all(bool(o) for _, o, _, _ in solo):
+        raise AssertionError("concurrent: the snapshot round was not all-hit")
+    for j, (lg, _, _, _) in enumerate(solo):
+        if not torch.equal(logits[j], lg):
+            diff = (logits[j].float() - lg.float()).abs().max().item()
+            raise AssertionError(f"concurrent: session {j}'s fused logits "
+                                 f"differ from its solo fast block (max "
+                                 f"{diff})")
+    counters["fused_equals_solo_bitwise"] = True
+    eng.close()
+    return results, counters, launches
+
+
+def teacher_force(target, seq):
+    """Logits of one causal forward over seq [1, S].  Under
+    ``attn_impl="kernel"`` a length past 128 must be a multiple of 128 (the
+    reference's flash precondition), so the sequence is padded at its end:
+    causal attention and per-token routing keep the padding out of every
+    earlier position."""
+    import torch
+    S = seq.shape[1]
+    pad = (-S) % 128 if S > 128 else 0
+    if pad:
+        seq = torch.cat([seq, torch.zeros((1, pad), dtype=seq.dtype,
+                                          device=seq.device)], dim=1)
+    logits, _ = target.forward(seq)
+    return logits[:, :S]
 
 
 def lossless_phase(target, prompts_by_req, dev):
@@ -312,7 +545,7 @@ def lossless_phase(target, prompts_by_req, dev):
     for prompt, tokens in prompts_by_req:
         seq = torch.cat([prompt[0].to(dev),
                          torch.tensor(tokens[:-1], device=dev)])[None]
-        logits, _ = target.forward(seq)
+        logits = teacher_force(target, seq)
         lg = logits[0, prompt.shape[1] - 1:].float()
         tok = torch.tensor(tokens, device=dev)
         gap = lg.max(dim=-1).values - lg.gather(1, tok[:, None])[:, 0]
@@ -340,8 +573,6 @@ def main() -> int:
         return 2
     from repro_torch.configs.registry import get_config, get_draft_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels import cache_moe as K
-    from repro_torch.kernels import ops
     from repro_torch.models.registry import build_model
 
     t_start = time.perf_counter()
@@ -359,11 +590,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"    {name}: {line.strip()}")
 
-    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=4)
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=4,
+                              attn_impl="kernel")
     dcfg = dataclasses.replace(get_draft_config("mixtral-8x7b"),
-                               num_layers=4)
+                               num_layers=4, attn_impl="kernel")
     rows, main_k = kernel_phase(dev, cfg.d_model, cfg.moe_d_ff)
-    log(f"[2] kernels match their plain versions ({len(rows)} checks)")
+    fa_rows, fa_timing = flash_phase(dev)
+    rows += fa_rows
+    log(f"[2] kernels match their plain versions ({len(rows)} checks); "
+        f"flash {fa_timing}")
 
     t0 = time.perf_counter()
     target = build_model(cfg, dev, seed=0, expert_device="cpu")
@@ -375,8 +610,8 @@ def main() -> int:
                              generator=torch.Generator().manual_seed(2 + i))
                for i in range(4)]
 
-    # the main path: counts from 0 just before, read just after
-    K.gate_up.launches = K.down.launches = ops.cache_moe.launches = 0
+    # the solo serving path: counts from 0 just before, read just after
+    reset_launches()
     eng, tight, tight_info = serve_phase("tight", target, draft, cfg, dcfg,
                                          12, prompts[:2], 32, spy=False)
     tight_tot = check_tight(tight)
@@ -387,14 +622,9 @@ def main() -> int:
     log(f"[3] tight cache ok: {tight_tot}")
     eng, ample, ample_info = serve_phase("ample", target, draft, cfg, dcfg,
                                          32, prompts[2:], 32, spy=True)
-    launches = {"cache_moe_gate_up": K.gate_up.launches,
-                "cache_moe_down": K.down.launches}
+    solo_launches = read_launches("solo serving")
     ample_tot = check_ample(ample, ample_info)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was never launched on the main "
-                                 f"path")
-    log(f"[4] ample cache ok: {ample_tot}; launches {launches}")
+    log(f"[4] ample cache ok: {ample_tot}; launches {solo_launches}")
     brk = breakdown(eng, draft, dev)
     log(f"[4] breakdown {brk}")
     eng.close()
@@ -402,15 +632,26 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 5: the same target with its experts resident on the card
+    conc_prompts = [torch.randint(0, cfg.vocab_size, (1, CONC_PROMPT),
+                                  generator=torch.Generator().manual_seed(
+                                      20 + i))
+                    for i in range(CONC_REQS)]
+    conc, conc_info, launches = concurrent_phase(target, draft, cfg, dcfg,
+                                                 conc_prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[5] concurrent serving ok: {conc_info}; launches {launches}")
+
+    # phase 6: the same target with its experts resident on the card
     for blk in target.layers:
         for n in ("wg", "wu", "wd"):
             w = getattr(blk.moe, n)
             setattr(blk.moe, n, torch.nn.Parameter(w.to(dev),
                                                    requires_grad=False))
-    loss = lossless_phase(target, [(prompts[i], r.tokens) for i, r in
-                                   enumerate(tight + ample)], dev)
-    log(f"[5] lossless: {loss}")
+    loss = lossless_phase(target, [(p, r.tokens) for p, r in
+                                   zip(prompts + conc_prompts,
+                                       tight + ample + conc)], dev)
+    log(f"[6] lossless: {loss}")
 
     timing = main_k["timing"]
     kernels = []
@@ -421,11 +662,26 @@ def main() -> int:
             "source": "src/repro_torch/csrc/cache_moe.cu",
             "replaces": f"src/repro/kernels/moe_gemm.py:{line}",
             "launches": launches[name],
+            "launches_solo_path": solo_launches[name],
             "max_abs_err": main_k["err"][name],
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    t = fa_timing[CONC_PROMPT]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:27",
+        "launches": launches["flash_attention"],
+        "launches_solo_path": solo_launches["flash_attention"],
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"flash_timing": {
+        "shape": {"B": 1, "H": FA_HEADS, "Hkv": FA_KV_HEADS, "D": FA_DIM,
+                  "dtype": "bfloat16", "causal": True},
+        **{f"S{S}": t for S, t in fa_timing.items()}}}))
     print(json.dumps({"kernel_checks": rows,
                       "timing_shape": {"T": BLOCK_T, "k": K_TOP,
                                        "pool": S_POOL, "dtype": "bfloat16",
@@ -442,8 +698,9 @@ def main() -> int:
                                       "fast_fallbacks", "host_syncs",
                                       "on_demand_loads", "prefetched",
                                       "evictions")}}
-        for r in tight + ample],
-        "tight": tight_tot, "ample": ample_tot, "lossless": loss}))
+        for r in tight + ample + conc],
+        "tight": tight_tot, "ample": ample_tot, "concurrent": conc_info,
+        "lossless": loss}))
     print(json.dumps({"breakdown": brk}))
     print(json.dumps({"memory": {
         "device_max_allocated_bytes": torch.cuda.max_memory_allocated(),

@@ -75,8 +75,8 @@ class ModelConfig:
 
     # --- numerics / distribution defaults (overridable per run) ---
     dtype: str = "bfloat16"
-    attn_impl: str = "xla"            # xla: plain attention (the only one
-                                      # the port serves yet)
+    attn_impl: str = "xla"            # xla: plain attention | kernel: the
+                                      # flash-attention kernel for prefill
     remat: bool = True
     remat_policy: str = "full"        # full | selective (save matmul outputs)
     scan_layers: bool = True

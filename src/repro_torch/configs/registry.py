@@ -1,14 +1,17 @@
-"""``--arch`` id -> ModelConfig registry, trimmed to what the port serves:
-mixtral-8x7b and its dense draft (paper Table 1)."""
+"""``--arch`` id -> ModelConfig registry, trimmed to what the port runs:
+mixtral-8x7b and its dense draft (paper Table 1), and llama3.2-3b (a dense
+model with tied embeddings; its reduced form checks the flash-attention
+path against the reference)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
 
-from repro_torch.configs import mixtral_8x7b
+from repro_torch.configs import llama3_2_3b, mixtral_8x7b
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
     "mixtral-8x7b": mixtral_8x7b.CONFIG,
+    "llama3.2-3b": llama3_2_3b.CONFIG,
 }
 
 # SP-MoE draft-model pairings (paper Table 1).

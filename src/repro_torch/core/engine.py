@@ -1,7 +1,7 @@
 """Request-level serving facade (the public SP-MoE API).  The port of
-``repro/core/engine.py``: the solo serving surface (``submit``, ``stream``,
-``metrics``); ``serve`` with several concurrent sessions waits for a later
-slice.
+``repro/core/engine.py``: ``submit``, ``stream``, ``serve`` / ``serve_all``
+(several concurrent sessions, one fused verify round per scheduling round)
+and ``metrics``.
 
 Two-axis policy model
 ---------------------
@@ -353,6 +353,24 @@ class Session:
             return None
         return self._commit_chunk(chunk)
 
+    def deliver(self, chunk, delta: Dict[str, int],
+                wall: float) -> Optional[List[int]]:
+        """Commit a chunk produced by a batched round
+        (``OffloadEngine.session_turns``): fold the round's counter delta
+        for this session and its decode wall time into the ledger, then run
+        the same stop-token / finish logic as :meth:`turn`.  A chunk that is
+        an :class:`ExpertLoadError` retires the session with
+        ``finish_reason="io_error"``; its batchmates are untouched."""
+        if self.done:
+            return None
+        for k in self.ledger:
+            self.ledger[k] += delta.get(k, 0)
+        self.wall += wall
+        if isinstance(chunk, ExpertLoadError):
+            self._finalize("io_error")
+            return None
+        return self._commit_chunk(chunk)
+
     def _commit_chunk(self, chunk: Optional[List[int]]
                       ) -> Optional[List[int]]:
         if chunk is None:
@@ -432,6 +450,7 @@ class Engine:
                 self.target.drop_experts()
         self._cum = Metrics(cutoff_layer=self.cutoff_layer)
         self.last_result: Optional[GenerationResult] = None
+        self.last_batch: List[GenerationResult] = []
         self._closed = False
 
     @property
@@ -461,6 +480,70 @@ class Engine:
                     break
         finally:
             session.abort()            # no-op unless abandoned mid-stream
+
+    def serve(self, requests: Sequence[Request], *, concurrency: int = 2
+              ) -> Iterator[Tuple[str, int]]:
+        """Round-robin scheduler: up to ``concurrency`` sessions at a time
+        each commit one verify block per round on the one warm expert cache;
+        further requests are admitted as sessions finish.  With an offload
+        runtime, the started sessions of a round verify together
+        (``OffloadEngine.session_turns``: one fused ``cache_moe`` launch per
+        MoE layer, ≤2 host syncs per round); a fresh admission prefills and
+        delivers its first token solo, and engines without an offload
+        runtime turn every session solo.
+
+        Yields ``(request_id, token)`` pairs in commit order (request_id
+        defaults to ``"req-<index>"``).  ``self.last_batch`` is reset to
+        ``[]`` here and holds the results in request order once the iterator
+        ends, also when it is closed early (which aborts the unfinished
+        sessions)."""
+        if concurrency < 1:
+            raise ValueError("concurrency must be >= 1")
+        sessions = [Session(self, r) for r in requests]
+        names = [s.request.request_id or f"req-{i}"
+                 for i, s in enumerate(sessions)]
+        self.last_batch = []
+        return self._serve_iter(names, sessions, concurrency)
+
+    def _serve_iter(self, names: List[str], sessions: List[Session],
+                    concurrency: int) -> Iterator[Tuple[str, int]]:
+        try:
+            waiting = list(zip(names, sessions))
+            active: List[Tuple[str, Session]] = []
+            while active or waiting:
+                while waiting and len(active) < concurrency:
+                    active.append(waiting.pop(0))
+                # an expired session is retired here, as a finished one
+                # falls out of the round
+                for _, s in active:
+                    if not s.done and s.expired():
+                        s.cancel("deadline")
+                round_ss = [s for _, s in active
+                            if not s.done and s.dstate is not None]
+                delivered: Dict[int, Optional[List[int]]] = {}
+                if round_ss:
+                    res = self.runtime.session_turns(
+                        [s.dstate for s in round_ss])
+                    for s, (chunk, delta, wall) in zip(round_ss, res):
+                        delivered[id(s)] = s.deliver(chunk, delta, wall)
+                for name, s in list(active):
+                    chunk = delivered[id(s)] if id(s) in delivered \
+                        else s.turn()
+                    if s.done:
+                        active.remove((name, s))
+                    for tok in chunk or ():
+                        yield name, tok
+        finally:
+            for s in sessions:
+                s.abort()              # no-op on finished sessions
+            self.last_batch = [s.result for s in sessions]
+
+    def serve_all(self, requests: Sequence[Request], *, concurrency: int = 2
+                  ) -> List[GenerationResult]:
+        """Drain :meth:`serve`; returns the results in request order."""
+        for _ in self.serve(requests, concurrency=concurrency):
+            pass
+        return self.last_batch
 
     def metrics(self) -> Metrics:
         """Cumulative Metrics across every request this engine served."""

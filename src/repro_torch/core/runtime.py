@@ -1,5 +1,6 @@
-"""SP-MoE offload-mode serving engine.  The port of ``repro/core/runtime.py``
-(the solo path; batched cross-session rounds wait for a later slice).
+"""SP-MoE offload-mode serving engine.  The port of ``repro/core/runtime.py``:
+the batched cross-session round (``session_turns``), of which the solo turn
+(``session_turn``) is a round of one.
 
 It combines every paper component end to end:
 
@@ -23,6 +24,10 @@ Verification paths (both run the slot-indexed kernel ``ops.cache_moe``):
   discarded and the slow path re-runs it: the KV caches are written in
   place, but the re-run writes the same slots for the same positions before
   any query reads them.
+* **fused round** — the fast path for several sessions at once: one
+  ``cache_moe`` launch per MoE layer over every session's rows, ≤2 host
+  syncs per round (``_verify_fast_batched``); a session that missed re-runs
+  alone on the slow path.
 * **slow path (miss resolution)** — layer by layer: routing ids are read
   back once per layer, missing experts are loaded in cache-capacity-bounded
   waves while the cached-first compute runs, and each wave's share is added
@@ -43,7 +48,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +66,11 @@ from repro_torch.kernels import ops
 from repro_torch.models.moe import gate_topk
 
 POLICIES = ("spmoe", "adapmoe", "moe-infinity", "on-demand")
+
+
+def _cat(ts: List[torch.Tensor]) -> torch.Tensor:
+    """``torch.cat`` along dim 0 that copies nothing for a single tensor."""
+    return ts[0] if len(ts) == 1 else torch.cat(ts)
 
 
 @dataclasses.dataclass
@@ -157,6 +167,13 @@ class OffloadEngine:
         self.iterations = 0
         self.drafted = 0
         self.accepted = 0
+        # round-level accounting of the batched cross-session scheduler (not
+        # part of counters()): verify_rounds counts session_turns rounds that
+        # verified at least one block (a solo turn is a round of one),
+        # round_launches the verify dispatches those rounds needed — one
+        # fused dispatch per all-hit round however many sessions it served
+        self.verify_rounds = 0
+        self.round_launches = 0
         # graceful-degradation ladder: while the prefetch plane is unhealthy
         # the policy steps down to on-demand loading (see _check_health)
         self._degraded = False
@@ -189,35 +206,72 @@ class OffloadEngine:
     def _verify_fast(self, tokens: torch.Tensor, pos: int, tcache,
                      history: torch.Tensor):
         """The whole verify block, speculating that every routed expert is
-        cache-resident.  Returns (logits, all_hit, new_history, n_active);
-        nothing here syncs with the host."""
+        cache-resident: a round of one session (``_verify_fast_batched``).
+        Returns (logits, all_hit, new_history, n_active); nothing here syncs
+        with the host."""
+        logits, ok, hists, nact = self._verify_fast_batched(
+            [tokens], [pos], [tcache], [history])
+        return logits[0], ok[0], hists[0], nact[0]
+
+    def _verify_fast_batched(self, tokens: List[torch.Tensor],
+                             pos: List[int], tcaches: List[Any],
+                             histories: List[torch.Tensor]):
+        """A whole scheduling round on the fast path: every ready session's
+        verify block ``tokens[i]`` ([1, T_i], ragged) at once, speculating
+        that every routed expert is cache-resident.
+
+        Attention, the gate and the head run per session, at the shapes of
+        the solo ``_verify_fast`` (a product over more rows may sum each row
+        in another order).  What is fused is the one batch-invariant step:
+        per MoE layer, ONE ``ops.cache_moe`` call over the concatenated
+        [ΣT_i, d] rows.  So on one cache snapshot each session's logits are
+        bit-identical to its solo fast block.
+
+        Returns (logits per session, ok [N] all-hit flags, new histories,
+        nact [N]); nothing here syncs with the host.  A round of one (the
+        solo block) issues no concatenating copy.  KV caches are written
+        in place: a session that missed re-runs its block, which rewrites
+        the same slots before any query reads them."""
         cfg, tgt = self.cfg, self.target
-        T = tokens.shape[1]
+        n = len(tokens)
+        Ts = [int(t.shape[1]) for t in tokens]
+        offs = np.cumsum([0] + Ts).tolist()
         E = cfg.num_experts
-        ok = torch.ones((), dtype=torch.bool, device=self.device)
-        nact = torch.zeros((), dtype=torch.float32, device=self.device)
-        acts = []
+        oks = [torch.ones((), dtype=torch.bool, device=self.device)
+               for _ in range(n)]
+        nacts = [torch.zeros((), dtype=torch.float32, device=self.device)
+                 for _ in range(n)]
+        acts: List[List[torch.Tensor]] = [[] for _ in range(n)]
         with self.cache.reading() as (bufs, table):
-            x = tgt.embed(tokens)
+            xs = [tgt.embed(t) for t in tokens]
             for l in range(self.store.num_layers):
-                x, h2 = tgt.attn_half(l, x, tcache["layers"][l], pos)
-                w, ids, _ = self._gate(l, h2)
-                slot_ids = table[l][ids]                   # [T,k]; -1 = miss
-                hit = slot_ids >= 0
-                ok = ok & torch.all(hit)
-                y = self._moe_apply(bufs, h2.reshape(T, cfg.d_model),
-                                    slot_ids,
-                                    torch.where(hit, w, torch.zeros_like(w)))
-                x = x + y.reshape(1, T, cfg.d_model)
-                flat = ids.reshape(-1)
-                activated = torch.zeros(E, dtype=torch.int32,
-                                        device=self.device).index_add_(
-                    0, flat, torch.ones_like(flat, dtype=torch.int32)) > 0
-                nact = nact + activated.sum().float()
-                acts.append(activated)
-            logits = tgt.logits(x)
-        new_history = history + torch.stack(acts).to(history.dtype)
-        return logits, ok, new_history, nact
+                h2s, slots, ws = [], [], []
+                for i in range(n):
+                    xs[i], h2 = tgt.attn_half(l, xs[i], tcaches[i]["layers"][l],
+                                              pos[i])
+                    w, ids, _ = self._gate(l, h2)
+                    slot_ids = table[l][ids]               # [T_i, k]; -1 = miss
+                    hit = slot_ids >= 0
+                    oks[i] = oks[i] & torch.all(hit)
+                    h2s.append(h2.reshape(Ts[i], cfg.d_model))
+                    slots.append(slot_ids)
+                    ws.append(torch.where(hit, w, torch.zeros_like(w)))
+                    flat = ids.reshape(-1)
+                    activated = torch.zeros(E, dtype=torch.int32,
+                                            device=self.device).index_add_(
+                        0, flat, torch.ones_like(flat, dtype=torch.int32)) > 0
+                    nacts[i] = nacts[i] + activated.sum().float()
+                    acts[i].append(activated)
+                y = self._moe_apply(bufs, _cat(h2s), _cat(slots),
+                                    _cat(ws))              # ONE launch
+                for i in range(n):
+                    xs[i] = xs[i] + y[offs[i]:offs[i + 1]].reshape(
+                        1, Ts[i], cfg.d_model)
+            logits = [tgt.logits(x) for x in xs]
+        new_hists = [h + torch.stack(a).to(h.dtype)
+                     for h, a in zip(histories, acts)]
+        return (logits, _cat([o.reshape(1) for o in oks]), new_hists,
+                _cat([a.reshape(1) for a in nacts]))
 
     # ------------------------------------------------------------- verification
     def _ensure_loaded(self, layer: int, ids: np.ndarray
@@ -461,23 +515,146 @@ class OffloadEngine:
         return chunk
 
     def session_turn(self, st: DecodeState) -> Optional[List[int]]:
-        """Advance one session by ONE committed chunk; returns the chunk or
-        None once the session has nothing left to emit."""
-        early = self._turn_early(st)
-        if early is not self._NEEDS_VERIFY:
-            return early
-        self._check_health()
-        if self._degraded:
-            self.degraded_rounds += 1
-        self._st = st
-        drafts, block = self._turn_draft(st)
-        try:
-            tlogits, st.tcache = self._verify_block(block, st.pos, st.tcache)
-        except ExpertLoadError:
-            st.finished = True
-            raise
-        greedy = self._readback(torch.argmax(tlogits, dim=-1))[0]  # accept
-        return self._turn_commit(st, drafts, greedy)
+        """Advance one session by ONE committed chunk (a round of one:
+        ``session_turns([st])``); returns the chunk or None once the session
+        has nothing left to emit.  Raises :class:`ExpertLoadError` when an
+        expert could not be loaded."""
+        (chunk, _, _), = self.session_turns([st])
+        if isinstance(chunk, ExpertLoadError):
+            raise chunk
+        return chunk
+
+    def _counter_delta(self, before: Dict[str, int]) -> Dict[str, int]:
+        after = self.counters()
+        return {k: after[k] - before[k] for k in RUNTIME_COUNTER_KEYS}
+
+    @staticmethod
+    def _merge_delta(into: Dict[str, int], delta: Dict[str, int]):
+        for k, v in delta.items():
+            into[k] = into.get(k, 0) + v
+
+    def session_turns(self, sts: Sequence[DecodeState]
+                      ) -> List[Tuple[Any, Dict[str, int], float]]:
+        """Advance SEVERAL sessions by one committed verify block each in one
+        scheduling round.  Drafting (and its prefetch submissions) runs per
+        session first; then the sessions whose fast path is armed verify
+        together (``_round_fused``: one ``cache_moe`` launch per MoE layer,
+        ≤2 host syncs for the whole round), and the others verify solo on
+        their usual path.  A fused session whose block missed falls back
+        ALONE to the slow path; its batchmates commit.
+
+        Returns one ``(chunk, counter_delta, wall_s)`` per session.  A chunk
+        is a list of tokens, None (session done) or an ``ExpertLoadError``
+        (the session could not load an expert).  ``counter_delta`` is the
+        growth of the cumulative counters this session caused (the round's
+        two shared syncs are charged to its first fused session), so the
+        per-request ledgers add up to the cumulative counters; ``wall_s`` is
+        the time of this session's own phases plus an even share of the
+        fused dispatch."""
+        chunks: List[Any] = [None] * len(sts)
+        deltas: List[Dict[str, int]] = [{} for _ in sts]
+        walls: List[float] = [0.0] * len(sts)
+        pend: List[Tuple[int, DecodeState, List[int], torch.Tensor]] = []
+        for i, st in enumerate(sts):
+            before = self.counters()
+            t0 = time.perf_counter()
+            early = self._turn_early(st)
+            if early is not self._NEEDS_VERIFY:
+                chunks[i] = early
+                deltas[i] = self._counter_delta(before)
+                walls[i] += time.perf_counter() - t0
+                continue
+            self._st = st
+            if not pend:
+                # one ladder step per verifying round, and its degraded
+                # tick, inside the first verifying session's delta window
+                self._check_health()
+                if self._degraded:
+                    self.degraded_rounds += 1
+            drafts, block = self._turn_draft(st)
+            deltas[i] = self._counter_delta(before)
+            walls[i] += time.perf_counter() - t0
+            pend.append((i, st, drafts, block))
+        if pend:
+            self.verify_rounds += 1
+        fused = [p for p in pend
+                 if p[1].fast_ok and self.policy != "adapmoe"]
+        if len(fused) >= 2:
+            fused_idx = {p[0] for p in fused}
+            solo = [p for p in pend if p[0] not in fused_idx]
+            self._round_fused(fused, chunks, deltas, walls)
+        else:
+            solo = pend
+        for i, st, drafts, block in solo:
+            before = self.counters()
+            t0 = time.perf_counter()
+            self._st = st
+            self.round_launches += 1
+            try:
+                tlogits, st.tcache = self._verify_block(block, st.pos,
+                                                        st.tcache)
+                greedy = self._readback(torch.argmax(tlogits, dim=-1))[0]
+                chunks[i] = self._turn_commit(st, drafts, greedy)
+            except ExpertLoadError as e:
+                st.finished = True           # ends only this session
+                chunks[i] = e
+            self._merge_delta(deltas[i], self._counter_delta(before))
+            walls[i] += time.perf_counter() - t0
+        return list(zip(chunks, deltas, walls))
+
+    def _round_fused(self, fused, chunks, deltas, walls):
+        """The fused leg of a round: one ``_verify_fast_batched`` call over
+        every armed session's block, the all-hit vector and the round's
+        argmax read back once each, then a commit per hit session and a
+        solo slow re-run per session that missed."""
+        idxs = [p[0] for p in fused]
+        sts = [p[1] for p in fused]
+        blocks = [p[3] for p in fused]
+        self.round_launches += 1
+        t0 = time.perf_counter()
+        logits, ok_vec, new_hists, nact_vec = self._verify_fast_batched(
+            blocks, [st.pos for st in sts], [st.tcache for st in sts],
+            [st.history_dev for st in sts])
+        ok = self._readback(ok_vec)                          # round sync 1
+        greedy = self._readback(torch.cat(
+            [torch.argmax(lg, dim=-1) for lg in logits], dim=1))[0]  # sync 2
+        shared = (time.perf_counter() - t0) / len(fused)
+        for i in idxs:
+            walls[i] += shared
+        deltas[idxs[0]]["host_syncs"] = \
+            deltas[idxs[0]].get("host_syncs", 0) + 2
+        off = 0
+        for j, (i, st, drafts, block) in enumerate(fused):
+            T = block.shape[1]
+            before = self.counters()
+            t0 = time.perf_counter()
+            self._st = st
+            self.verify_blocks += 1
+            if bool(ok[j]):
+                st.history_dev = new_hists[j]
+                st.fast_active_dev = st.fast_active_dev + nact_vec[j]
+                st.fast_blocks += 1
+                self.fast_blocks += 1
+                chunks[i] = self._turn_commit(st, drafts,
+                                              greedy[off:off + T])
+            else:
+                # mispredicted availability: this session falls back alone
+                st.fast_ok = False
+                st.fast_penalty = 2
+                self._fast_hint = False
+                self.fast_fallbacks += 1
+                self.round_launches += 1
+                try:
+                    tlogits, st.tcache = self._verify_block_slow(
+                        block, st.pos, st.tcache)
+                    g = self._readback(torch.argmax(tlogits, dim=-1))[0]
+                    chunks[i] = self._turn_commit(st, drafts, g)
+                except ExpertLoadError as e:
+                    st.finished = True       # its batchmates committed
+                    chunks[i] = e
+            off += T
+            self._merge_delta(deltas[i], self._counter_delta(before))
+            walls[i] += time.perf_counter() - t0
 
     def _prefetch(self, st: DecodeState, keys):
         """Submit a prefetch on behalf of ``st`` (nothing while the ladder
@@ -534,8 +711,7 @@ class OffloadEngine:
         for chunk in self.generate_stream(prompt, max_new_tokens):
             out.extend(chunk)
         dt = time.perf_counter() - t0
-        after = self.counters()
-        d = {k: after[k] - before[k] for k in RUNTIME_COUNTER_KEYS}
+        d = self._counter_delta(before)
         stats = dict(d, wall_s=dt, tpot_wall=dt / max(len(out), 1),
                      acceptance_rate=d["accepted"] / max(d["drafted"], 1),
                      hit_rate=d["hits"] / max(d["lookups"], 1),

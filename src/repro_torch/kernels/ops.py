@@ -8,6 +8,9 @@ import torch
 
 from repro_torch.kernels import cache_moe as K
 from repro_torch.kernels import ref as R
+# prefill attention, q [B,Sq,H,D], k/v [B,Skv,Hkv,D] -> [B,Sq,H,D]: its
+# wrapper already routes a CPU tensor to the plain version
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 
 
 def cache_moe(x: torch.Tensor, slot_ids: torch.Tensor, weights: torch.Tensor,

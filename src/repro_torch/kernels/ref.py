@@ -7,10 +7,110 @@ slots in Python); nothing on the main path calls them with a CUDA tensor.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# attention (causal + sliding window + GQA)
+# ---------------------------------------------------------------------------
+
+def _attn_mask(sq: int, skv: int, causal: bool, window: Optional[int],
+               q0: int = 0, k0: int = 0, bq: Optional[int] = None,
+               bk: Optional[int] = None, device=None) -> torch.Tensor:
+    """[bq, bk] mask of queries q0.. against keys k0..; queries are
+    right-aligned to the keys (absolute position i + skv - sq)."""
+    bq = sq if bq is None else bq
+    bk = skv if bk is None else bk
+    qpos = q0 + torch.arange(bq, device=device)[:, None] + (skv - sq)
+    kpos = k0 + torch.arange(bk, device=device)[None, :]
+    m = torch.ones((bq, bk), dtype=torch.bool, device=device)
+    if causal:
+        m &= kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    return m
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """q: [B,Sq,H,D], k/v: [B,Skv,Hkv,D] -> [B,Sq,H,D].  f32 softmax over
+    scores masked to -1e30 (the reference's ``attention_ref``)."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, rep, D)
+    s = torch.einsum("bqkrd,bskd->bkrqs", qg, k).float() / math.sqrt(D)
+    m = _attn_mask(Sq, Skv, causal, window, device=q.device)
+    s = torch.where(m[None, None, None], s,
+                    torch.full((), NEG_INF, dtype=torch.float32,
+                               device=q.device))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bkrqs,bskd->bqkrd", p, v).reshape(B, Sq, H, D)
+
+
+def flash_blocks(sq: int, skv: int, block_q: int, block_k: int):
+    """The reference's blocking (``flash_attention.py:82-84``): block sizes
+    capped at the sequence lengths, which they must divide."""
+    bq, bk = min(block_q, sq), min(block_k, skv)
+    if sq % bq or skv % bk:
+        raise ValueError(f"flash attention: sequence lengths ({sq}, {skv}) "
+                         f"must be multiples of the blocks ({bq}, {bk}); "
+                         f"pad sequences to block multiples")
+    return bq, bk
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        block_q: int = 128, block_k: int = 128
+                        ) -> torch.Tensor:
+    """Plain version of the flash-attention kernel: the reference's blocked
+    online softmax (``_flash_kernel``) step by step, with its blocks.
+
+    Per (q block, kv block): scores in f32 times 1/sqrt(D), masked to
+    -1e30; m_new = max(m, rowmax s); p = exp(s - m_new) in f32;
+    l = l·alpha + rowsum p; acc = acc·alpha + p (rounded to v's dtype) @ v
+    in f32; out = acc / max(l, 1e-30) in q's dtype.  Every block is
+    visited, masked or not."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    bq, bk = flash_blocks(Sq, Skv, block_q, block_k)
+    scale = 1.0 / math.sqrt(D)
+    qh = q.permute(0, 2, 1, 3).float()                     # [B,H,Sq,D]
+    kh = k.permute(0, 2, 1, 3).repeat_interleave(rep, dim=1).float()
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+    out = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=q.device)
+    for i in range(Sq // bq):
+        qb = qh[:, :, i * bq:(i + 1) * bq]
+        m = torch.full((B, H, bq, 1), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H, bq, 1), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, bq, D), dtype=torch.float32,
+                          device=q.device)
+        for j in range(Skv // bk):
+            kb = kh[:, :, j * bk:(j + 1) * bk]
+            vb = vh[:, :, j * bk:(j + 1) * bk]
+            s = (qb @ kb.transpose(-1, -2)) * scale
+            mask = _attn_mask(Sq, Skv, causal, window, i * bq, j * bk, bq,
+                              bk, q.device)
+            s = torch.where(mask, s, neg)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + p.to(v.dtype).float() @ vb.float()
+            m = m_new
+        out[:, :, i * bq:(i + 1) * bq] = \
+            (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return out.permute(0, 2, 1, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -49,9 +149,12 @@ def cache_moe_ref(x: torch.Tensor, slot_ids: torch.Tensor,
     contribute 0.  swiglu when wg is given, tanh-gelu up-projection
     otherwise.
 
-    Choices are stably sorted by slot and each occupied slot's rows go
-    through that slot's weights in one product: no [T·k, d, f] weight
-    gather.  The combine is in f32, in each token's choice order."""
+    Choices are stably sorted by slot and each routed row goes through its
+    slot's weights as a product of one row: no [T·k, d, f] weight gather,
+    and a row's bits do not depend on how many rows share the call (a
+    product over several rows may sum each row in another order as the row
+    count changes, which would make batched verify rounds differ from solo
+    blocks).  The combine is in f32, in each token's choice order."""
     T, k = slot_ids.shape
     S = wu.shape[0]
     flat = slot_ids.reshape(-1).long()
@@ -64,10 +167,9 @@ def cache_moe_ref(x: torch.Tensor, slot_ids: torch.Tensor,
                      device=x.device)
     lo = 0
     for s in range(S):
-        hi = lo + counts[s]
-        if hi > lo:
-            ys[lo:hi] = _expert(xs[lo:hi], s, wu, wd, wg).float()
-        lo = hi
+        for p in range(lo, lo + counts[s]):
+            ys[p:p + 1] = _expert(xs[p:p + 1], s, wu, wd, wg).float()
+        lo += counts[s]
     wf = torch.where(flat >= 0, weights.reshape(-1).float(),
                      torch.zeros((), dtype=torch.float32, device=x.device))
     y = torch.zeros((T, x.shape[1]), dtype=torch.float32, device=x.device)

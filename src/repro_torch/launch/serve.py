@@ -10,12 +10,14 @@ lossless; offload policies require an MoE target.  The legacy single-axis
 ``--decode sd --offload none``, ``spmoe`` -> ``--decode sd --offload
 spmoe``, ...).
 
-One Engine serves all ``--requests`` requests, one after another, so
-request 2+ hits a warm expert cache (watch ``hit_rate`` climb).
-``--concurrency`` takes only 1 in the port so far (concurrent sessions wait
-for a later slice).  ``--stream`` prints tokens as each verify block
-commits; ``--stop-token`` ends a request early on every decode x offload
-combination identically.
+One Engine serves all ``--requests`` requests, so request 2+ hits a warm
+expert cache (watch ``hit_rate`` climb).  ``--concurrency N`` decodes up to
+N requests at once on that one cache: each scheduling round verifies the
+ready sessions' blocks together (one expert-FFN launch per MoE layer, ≤2
+host syncs per round); 1, the default, serves them one after another.
+``--stream`` prints ``request_id:token`` pairs as each verify block commits;
+``--stop-token`` ends a request early on every decode x offload combination
+identically.
 
 Chaos hardening: ``--chaos`` turns on the seeded fault injector
 (core/chaos.py) against the expert I/O plane — transient fetch/insert
@@ -31,8 +33,9 @@ wall-clock budget (``finish_reason="deadline"`` when it expires).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --decode sd --offload spmoe --tokens 32 --requests 2
 
-    # the same on the CPU
-    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    # the same on the CPU; four requests, two decoded concurrently
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --requests 4 --concurrency 2
 """
 from __future__ import annotations
 
@@ -80,9 +83,10 @@ def main():
                     help="DEPRECATED single-axis alias for --decode/--offload")
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--requests", type=int, default=1)
-    ap.add_argument("--concurrency", type=int, default=1, choices=(1,),
-                    help="requests decoded concurrently (the port serves "
-                         "them one after another so far)")
+    ap.add_argument("--concurrency", type=int, default=1,
+                    help="requests decoded concurrently on the one warm "
+                         "cache (1 = one after another); each round "
+                         "verifies the ready sessions' blocks together")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--draft-len", type=int, default=4)
@@ -160,16 +164,16 @@ def main():
             print(f"    {k}: {v}")
 
     with Engine(config, device=args.device) as eng:
-        for req in reqs:
-            if args.stream:
-                print(f"[{req.request_id}] tokens:", end=" ", flush=True)
-                for tok in eng.stream(req):
-                    print(tok, end=" ", flush=True)
-                print()
-                res = eng.last_result
-            else:
-                res = eng.submit(req)
-                print(f"[{req.request_id}] tokens: {res.tokens}")
+        if args.stream:
+            for rid, tok in eng.serve(reqs, concurrency=args.concurrency):
+                print(f"{rid}:{tok}", end=" ", flush=True)
+            print()
+            results = eng.last_batch
+        else:
+            results = eng.serve_all(reqs, concurrency=args.concurrency)
+        for res in results:
+            if not args.stream:
+                print(f"[{res.request_id}] tokens: {res.tokens}")
             report(res)
         cum = eng.metrics()
         print(f"cumulative: requests={cum.requests} tokens={cum.tokens} "

@@ -5,7 +5,8 @@ Functions take their weights as attributes of a module (``p.wq``) in the
 reference's layouts (``wq [d, H, hd]``, ``wo [H, hd, d]``, ``wg [d, f]``) and
 compute in the input's dtype; reductions (softmax, norms) run in f32, as the
 reference does.  Attention is plain tensor ops, as the reference's ``mha`` is
-plain jnp.
+plain jnp, except full-sequence attention under ``attn_impl="kernel"``, which
+runs the flash-attention kernel (``kernels/ops.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 
 
 # ---------------------------------------------------------------------------
@@ -114,12 +116,13 @@ def causal_mask(sq: int, skv: int, window: Optional[int] = None,
 def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
                       positions: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
-    """Full-sequence attention (train / prefill), x: [B,S,D].  The reference's
-    ``attn_impl="xla"`` branch; the Pallas flash-attention branch is not
-    ported yet."""
-    if cfg.attn_impl != "xla":
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r}: flash attention is not ported yet")
+    """Full-sequence attention (train / prefill), x: [B,S,D].
+
+    ``attn_impl="kernel"`` without a logit softcap goes through the flash
+    attention kernel with the reference's blocks, ``min(128, S)`` each (so
+    S must be a multiple of 128 once it exceeds 128, as in the reference);
+    anything else through ``mha``.  The port has no mask or cross-attention
+    arguments here, the reference's other two conditions for the kernel."""
     B, S, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)
     k = torch.einsum("bsd,dhk->bshk", x, p.wk)
@@ -128,8 +131,13 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
         positions = torch.arange(S, device=x.device)[None, :]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    mask = causal_mask(S, S, cfg.sliding_window, x.device)
-    out = mha(q, k, v, mask, cfg.attn_logit_softcap)
+    if cfg.attn_impl == "kernel" and cfg.attn_logit_softcap is None:
+        out = ops.flash_attention(q, k, v, causal=True,
+                                  window=cfg.sliding_window,
+                                  block_q=min(128, S), block_k=min(128, S))
+    else:
+        mask = causal_mask(S, S, cfg.sliding_window, x.device)
+        out = mha(q, k, v, mask, cfg.attn_logit_softcap)
     return torch.einsum("bshk,hkd->bsd", out, p.wo)
 
 

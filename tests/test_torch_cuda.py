@@ -1,10 +1,13 @@
-"""PyTorch port on a card: the hand-written CUDA kernel against its plain
-version, and the offload engine serving through it.  Every test is marked
-``cuda`` and skips without a card (the kernel has no CPU mode).  This file
+"""PyTorch port on a card: the hand-written CUDA kernels (expert FFN, flash
+attention) against their plain versions, and the offload engine serving
+through them, solo and in fused cross-session rounds.  Every test is marked
+``cuda`` and skips without a card (the kernels have no CPU mode).  This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -13,6 +16,7 @@ from repro_torch.core.engine import (Engine, EngineConfig, Request,
                                      derive_draft_config)
 from repro_torch.core.sd import greedy_generate
 from repro_torch.kernels import cache_moe as K
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref as R
 from repro_torch.models.registry import build_model
 
@@ -90,3 +94,78 @@ def test_engine_on_the_card_matches_its_greedy(cuda, slots):
         assert eng.runtime.cache.check_invariants()
     assert res.tokens == ref
     assert K.gate_up.launches > before
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,window", [
+    (1, 256, 256, 32, 8, 128, None),     # mixtral heads, causal
+    (2, 96, 160, 8, 2, 64, 48),          # GQA, kv longer, window, ragged
+    (1, 64, 64, 4, 4, 16, 7),            # reduced head dim, small window
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, D, window,
+                                    dtype, tol):
+    """Tolerance relative to each query row's own max |out| (a row that
+    sees many keys has a small output): f32 differs only in summation
+    order, bf16 in where p is rounded and the output's one rounding (one
+    bf16 step is up to 2^-7 of an element).  The plain version's blocks
+    must divide the lengths."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    q = torch.randn((B, Sq, H, D), generator=gen, device=cuda).to(dtype)
+    k, v = [torch.randn((B, Skv, Hkv, D), generator=gen, device=cuda
+                        ).to(dtype) for _ in range(2)]
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=True, window=window,
+                             block_q=32, block_k=32)
+    assert FA.flash_attention.launches == before + 1
+    want = R.flash_attention_ref(q, k, v, causal=True, window=window,
+                                 block_q=32, block_k=32)
+    err = (got.float() - want.float()).abs().amax(dim=-1)
+    scale = want.float().abs().amax(dim=-1)
+    assert torch.isfinite(got).all()
+    assert bool((err <= tol * scale).all())
+
+
+def test_fused_round_logits_equal_solo_fast_blocks_on_the_card(cuda):
+    """One all-hit fused round (reduced mixtral in bf16, flash-attention
+    draft prefill) gives each session the logits of its solo fast block on
+    the same cache snapshot, bit for bit."""
+    cfg = dataclasses.replace(
+        get_config("mixtral-8x7b").reduced(dtype="bfloat16"),
+        attn_impl="kernel")
+    dcfg = derive_draft_config(cfg)
+    target = build_model(cfg, cuda, seed=0)
+    draft = build_model(dcfg, cuda, seed=1)
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=gen)
+               for n in (6, 9)]
+    slots = cfg.num_moe_layers * cfg.num_experts
+    with Engine(EngineConfig(model=cfg, draft=dcfg, decode="sd",
+                             offload="spmoe", cache_slots=slots,
+                             draft_len=3, max_seq=64), target, draft) as eng:
+        rt = eng.runtime
+        every = [(l, e) for l in range(rt.store.num_layers)
+                 for e in range(rt.store.num_experts)]
+        rt.cache.insert(every, rt.store.fetch(every))
+        sts = [rt.start_session(p.to(cuda), 8) for p in prompts]
+        blocks = [torch.cat([st.cur, torch.randint(
+            0, cfg.vocab_size, (1, n), generator=gen).to(cuda)], dim=1)
+            for st, n in zip(sts, (3, 2))]
+
+        def caches():
+            return [{"layers": [{n: t.clone() for n, t in c.items()}
+                                for c in st.tcache["layers"]]}
+                    for st in sts]
+
+        solo = [rt._verify_fast(b, st.pos, tc, st.history_dev)
+                for b, st, tc in zip(blocks, sts, caches())]
+        logits, ok, _, _ = rt._verify_fast_batched(
+            blocks, [st.pos for st in sts], caches(),
+            [st.history_dev for st in sts])
+        torch.cuda.synchronize()
+        for st in sts:
+            rt.finish_session(st)
+    assert bool(ok.all())
+    for j, (lg, ok1, _, _) in enumerate(solo):
+        assert bool(ok1)
+        assert torch.equal(logits[j], lg)

@@ -1,7 +1,8 @@
 """PyTorch port, serving: the port's ``Engine`` on ``device="cpu"`` with
 the JAX reference's weights (through ``params_from_jax``).
 
-* one sd × spmoe run emits the JAX engine's tokens;
+* one sd × spmoe run emits the JAX engine's tokens, and its stream holds
+  against both packages' teacher-forced forward;
 * every {greedy, sd, sd-adaptive} × {none, spmoe, on-demand} combination
   emits the port's own greedy reference token for token;
 * the fast verify path syncs with the host at most twice per block;
@@ -69,17 +70,48 @@ def _ample(ms):
 
 
 def test_sd_spmoe_matches_jax_engine_tokens(ms):
+    """Both engines prefetch synchronously (``prefetch_mode="vanilla"``), so
+    each block's hit/miss split, and with it how the expert products are
+    grouped, follows from the request alone and not from thread timing."""
     config = JaxEngineConfig(model=ms["jcfg"], draft=ms["jdcfg"], decode="sd",
                              offload="spmoe", cache_slots=8, draft_len=3,
-                             max_seq=64)
+                             max_seq=64, prefetch_mode="vanilla")
     with JaxEngine(config, ms["jtp"], ms["jdp"]) as jeng:
         want = jeng.submit(JaxRequest(prompt=jnp.asarray(ms["prompt"]),
                                       max_new_tokens=TOK)).tokens
-    with _engine(ms) as eng:
+    with _engine(ms, prefetch_mode="vanilla") as eng:
         got = eng.submit(Request(prompt=ms["prompt"], max_new_tokens=TOK))
     assert got.tokens == want
     assert got.tokens == ms["ref"]
     assert got.finish_reason == "length"
+
+
+def test_sd_spmoe_stream_teacher_forced_against_jax(ms):
+    """The emitted stream, teacher-forced through both packages' model: f32
+    logits agree at atol 1e-4, and the argmaxes (and the emitted tokens)
+    agree wherever the top-2 margin exceeds 1e-3 (the two levels of
+    lossless: a near-tie may flip on either side).  Teacher forcing is
+    ``prefill`` of the prompt and one ``decode_step`` over the rest of the
+    stream: the reference's ``forward`` routes a sequence of more than 8
+    tokens with capacity drops (its training route), which serving never
+    does."""
+    with _engine(ms, prefetch_mode="vanilla") as eng:
+        got = eng.submit(Request(prompt=ms["prompt"], max_new_tokens=TOK))
+    rest = np.asarray(got.tokens[:-1])[None]
+    P = ms["prompt"].shape[1]
+    jm = jax_build(ms["jcfg"])
+    jl0, jc = jm.prefill(ms["jtp"], jnp.asarray(ms["prompt"]), 64)
+    jl1, _, _ = jm.decode_step(ms["jtp"], jc, jnp.asarray(rest), P)
+    jl = np.concatenate([np.asarray(jl0), np.asarray(jl1)[0]])
+    tl0, tc = ms["target"].prefill(torch.from_numpy(ms["prompt"]), 64)
+    tl1, _, _ = ms["target"].decode_step(tc, torch.from_numpy(rest), P)
+    tl = torch.cat([tl0, tl1[0]]).numpy()
+    np.testing.assert_allclose(tl, jl, atol=1e-4, rtol=0)
+    top2 = np.sort(jl, axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 1e-3
+    assert clear.any()
+    assert (tl.argmax(-1) == jl.argmax(-1))[clear].all()
+    assert (np.asarray(got.tokens) == jl.argmax(-1))[clear].all()
 
 
 @pytest.mark.parametrize("offload", ["none", "spmoe", "on-demand"])
