@@ -8,14 +8,22 @@ Drives the port's SP-MoE serving paths (decode="sd" x offload="spmoe",
 heads x 128, expert d_ff 14336, 8 experts top-2, vocab 32000, sliding window
 4096) with its dense mistral-7b draft, both cut to 4 layers, random weights
 from fixed seeds.  Every admitted request prefills its draft through the
-flash-attention kernel and verifies through the expert-FFN kernels.
+flash-attention kernel and verifies through the expert-FFN kernels.  Then
+the SSD families' path (decode="greedy" x offload="none"): mamba2-780m at
+full width and full depth (48 layers, d_model 1536, 48 heads x 64, state
+128, vocab 50280) and zamba2-7b at full width cut to 12 layers (two groups
+of 5 mamba layers around the shared attention block), bf16, random weights
+from seed 0; every prefill runs each mamba layer through the SSD-scan
+kernel.
 
 Phases (each raises on failure):
   1. device line; build the CUDA kernels from ``src/repro_torch/csrc``
   2. each kernel against its plain PyTorch version at full-width shapes,
      bf16 and f32 (expert FFN at T 1 / 5 / 64 / 512 with a batch-invariance
      check; flash attention at S 64 / 512 / 2048 causal, 1024 with a 256
-     window and 8192 with the 4096 window)
+     window and 8192 with the 4096 window; the SSD scan at the mamba2 widths
+     at S 77 / 300 / 512 / 2048 and the zamba2 widths at S 512 and 300, 300
+     padded to 384, y and final state)
   3. solo serving with a tight cache (12 slots): misses, prefetches,
      evictions
   4. solo serving with an ample cache (32 slots): the fast path, <=2 host
@@ -27,13 +35,23 @@ Phases (each raises on failure):
   6. lossless check: every emitted token of phases 3-5 against the
      resident-expert model run teacher-forced over the stream (argmax, or
      within a stated margin)
+  7. mamba2-780m serving through ``Engine.submit``: two 512-token prompts
+     and one of 300, 32 new tokens each; the SSD kernel launches once per
+     layer per prefill (48 per request); then one prefill and one decode
+     step timed alone and traced with ``torch.profiler`` (the device's
+     kernels, their busy time with the SSD scan's apart, its idle share)
+  8. zamba2-7b serving, one 512-token prompt, the same way (10 launches)
+  9. lossless check of phases 7-8: every emitted token against the same
+     model run teacher-forced over the stream on the card, which holds the
+     recurrent decode step against the chunked kernel
 
-Each serving path (3-4, and 5) runs with the kernels' launch counts set to 0
-just before it and read just after; each kernel must have launched there.
+Each serving path (3-4, 5, 7 and 8) runs with the kernels' launch counts set
+to 0 just before it and read just after; each kernel of the path must have
+launched there.
 
-Prints JSON lines (kernels, requests, breakdown, memory), then the card's
-name and power limit, then ``{"ok": true, "device": {...}}`` as the last
-line.  Exits non-zero, printing no result, without a CUDA device or without
+Prints JSON lines (kernels, requests, ssm_requests, breakdown, memory), then
+the card's name and power limit, then ``{"ok": true, "device": {...}}`` as
+the last line.  Exits non-zero, printing no result, without a CUDA device or without
 the rest of the repository.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -73,6 +91,27 @@ FA_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # reference's argmax must be within this many logits of it.
 MARGIN = 0.25
 CONC_PROMPT, CONC_NEW, CONC_REQS = 512, 32, 4     # phase 5
+# SSD scan: (model, heads, head dim p, state n, sequence lengths); a length
+# past 128 that 128 does not divide is padded at the end with dt = 0, as
+# mamba_forward pads it.  Tolerance of y relative to its max |value|: f32
+# differs from the plain version in summation order and in how the prefix
+# sums of dt*A are taken; bf16 also in y's one rounding (2^-8 of an
+# element).  The final state is f32 in both types: 1e-4.
+SSD_SHAPES = (("mamba2", 48, 64, 128, (77, 300, 512, 2048)),
+              ("zamba2", 112, 64, 64, (512, 300)))
+SSD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+SSD_STATE_TOL = 1e-4
+SSM_PROMPTS, SSM_NEW = (512, 512, 300), 32            # phase 7
+ZAMBA_LAYERS = 12                                     # phase 8
+# lossless check of the SSD families: the engine (chunked prefill, then the
+# recurrent step in f32 with its own conv) and the teacher-forced forward
+# round the bf16 residual stream at different places through 48 layers.  A
+# token that is not the reference's argmax must be within this many logits
+# of it (on an H100 the worst gap moved between 0.09 and 0.31 as only the
+# kernel's f32 summation order changed), and at least this share of the
+# tokens must be the exact argmax, so that a wrong recurrent step, whose
+# tokens would fall near the top of random-weight logits, cannot pass.
+SSM_MARGIN, SSM_MIN_EXACT = 0.5, 0.8
 
 
 def log(msg: str):
@@ -290,27 +329,124 @@ def flash_phase(dev):
     return rows, timing
 
 
+def ssd_inputs(gen, dev, S: int, h: int, p: int, n: int, dtype):
+    """One sequence of SSD inputs as a mamba layer at init sees them: dt
+    log-uniform in [1e-3, 1e-1] and A = -(1..h), so slow heads carry their
+    state across chunks and fast ones forget it."""
+    import math
+    import torch
+    u = torch.rand((1, S, h), generator=gen, device=dev)
+    dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    A = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
+    x, B, C = [torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((1, S, h, p), (1, S, n), (1, S, n))]
+    return x, dt, A, B, C
+
+
+def ssd_bound(S: int, Q: int, h: int, p: int, n: int, el: int):
+    """Least time for one SSD call at batch 1: the per-head chunked
+    algorithm's operations, 2 (Q^2 n + Q^2 p + 2 Q n p) per head and chunk,
+    at the bf16 tensor rate, against x, y, B and C (``el`` bytes each), dt,
+    A and the f32 final state moved once at the memory rate."""
+    flops = h * (S // Q) * 2 * (Q * Q * n + Q * Q * p + 2 * Q * n * p)
+    nbytes = (2 * S * h * p + 2 * S * n) * el + (S * h + h + h * p * n) * 4
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), flops, nbytes
+
+
+def ssd_phase(dev):
+    """The SSD-scan kernel against its plain version at the mamba2 and
+    zamba2 widths, bf16 and f32, y and final state; a padded length also
+    against the plain version of the unpadded sequence (its state must not
+    move over the pad).  Timed (bf16, mamba2 widths) at S 512 and 2048."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import ssd_scan as SSD
+    gen = torch.Generator(dev).manual_seed(3)
+    rows, timing = [], {}
+    for model, h, p, n, lengths in SSD_SHAPES:
+        for S in lengths:
+            Q = min(128, S)
+            pad = (-S) % Q
+            for dt_name in ("bfloat16", "float32"):
+                dtype = getattr(torch, dt_name)
+                raw = ssd_inputs(gen, dev, S, h, p, n, dtype)
+                x, dt, A, B, C = [
+                    F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                    if pad and t.dim() > 1 else t for t in raw]
+                y, st = SSD.ssd_scan(x, dt, A, B, C, Q)
+                torch.cuda.synchronize()
+                y_ref, st_ref = R.ssd_ref(x, dt, A, B, C, Q)
+                checks = [("y", y, y_ref, SSD_TOL[dt_name]),
+                          ("state", st, st_ref, SSD_STATE_TOL)]
+                if pad:                 # the unpadded sequence, chunks of Q'
+                    Qu = max(q for q in range(1, 129) if S % q == 0)
+                    yu, su = R.ssd_ref(*raw, Qu)
+                    checks += [("y_unpadded", y[:, :S], yu,
+                                SSD_TOL[dt_name]),
+                               ("state_unpadded", st, su, SSD_STATE_TOL)]
+                for what, got, want, tol in checks:
+                    err = (got.float() - want.float()).abs().max().item()
+                    scale = want.float().abs().max().item()
+                    ok = torch.isfinite(got).all().item() and \
+                        err <= tol * max(scale, 1e-6)
+                    rows.append({"kernel": "ssd_scan", "model": model,
+                                 "dtype": dt_name, "S": S, "chunk": Q,
+                                 "padded_to": S + pad, "output": what,
+                                 "max_abs_err": err,
+                                 "max_rel_err": err / max(scale, 1e-30),
+                                 "tol_rel": tol, "ok": bool(ok)})
+                    if not ok:
+                        raise AssertionError(
+                            f"ssd_scan {model} {dt_name} S={S} {what}: max "
+                            f"abs err {err} vs scale {scale}")
+                if model == "mamba2" and dt_name == "bfloat16" \
+                        and S in (512, 2048):
+                    bound, by, flops, nbytes = ssd_bound(S, Q, h, p, n, 2)
+                    timing[S] = {
+                        "ms": cuda_ms(lambda: SSD.ssd_scan(x, dt, A, B, C,
+                                                           Q)),
+                        "plain_ms": cuda_ms(
+                            lambda: R.ssd_ref(x, dt, A, B, C, Q), iters=3),
+                        "library_ms": None, "bound_ms": bound,
+                        "bound_by": by, "flops": flops, "bytes": nbytes,
+                        "max_abs_err": rows[-2]["max_abs_err"]}
+                del x, dt, A, B, C, raw, y, st, y_ref, st_ref, checks
+    torch.cuda.empty_cache()
+    return rows, timing
+
+
 # ---------------------------------------------------------------------------
 # phases 3-6: serving
 # ---------------------------------------------------------------------------
+
+MOE_PATH = ("cache_moe_gate_up", "cache_moe_down", "flash_attention")
+
 
 def reset_launches():
     from repro_torch.kernels import cache_moe as K
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SSD
     K.gate_up.launches = K.down.launches = ops.cache_moe.launches = 0
     FA.flash_attention.launches = 0
+    SSD.ssd_scan.launches = 0
 
 
-def read_launches(path: str):
-    """The launch counts of a serving path; each kernel must have run."""
+def read_launches(path: str, kernels=MOE_PATH):
+    """The launch counts of a serving path; each of its kernels must have
+    run."""
     from repro_torch.kernels import cache_moe as K
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
     got = {"cache_moe_gate_up": K.gate_up.launches,
            "cache_moe_down": K.down.launches,
-           "flash_attention": FA.flash_attention.launches}
-    for name, n in got.items():
-        if n <= 0:
+           "flash_attention": FA.flash_attention.launches,
+           "ssd_scan": SSD.ssd_scan.launches}
+    for name in kernels:
+        if got[name] <= 0:
             raise AssertionError(f"{name} was never launched on the "
                                  f"{path} path")
     return got
@@ -537,15 +673,17 @@ def teacher_force(target, seq):
     return logits[:, :S]
 
 
-def lossless_phase(target, prompts_by_req, dev):
-    """Teacher-force the resident-expert model over each emitted stream."""
+def lossless_phase(target, prompts_by_req, dev, forward=teacher_force,
+                   margin: float = MARGIN):
+    """Teacher-force the resident model over each emitted stream
+    (``forward(target, seq) -> logits``)."""
     import torch
     exact = explained = 0
     worst = 0.0
     for prompt, tokens in prompts_by_req:
         seq = torch.cat([prompt[0].to(dev),
                          torch.tensor(tokens[:-1], device=dev)])[None]
-        logits = teacher_force(target, seq)
+        logits = forward(target, seq)
         lg = logits[0, prompt.shape[1] - 1:].float()
         tok = torch.tensor(tokens, device=dev)
         gap = lg.max(dim=-1).values - lg.gather(1, tok[:, None])[:, 0]
@@ -553,17 +691,137 @@ def lossless_phase(target, prompts_by_req, dev):
         for is_top, g in zip(top.tolist(), gap.tolist()):
             if is_top:
                 exact += 1
-            elif g <= MARGIN:
+            elif g <= margin:
                 explained += 1
                 worst = max(worst, g)
             else:
                 raise AssertionError(f"emitted token {g:.4f} logits below "
                                      f"the reference's argmax (margin "
-                                     f"{MARGIN})")
+                                     f"{margin})")
         if not torch.isfinite(lg).all():
             raise AssertionError("non-finite reference logits")
     return {"exact": exact, "margin_explained": explained,
-            "worst_gap": worst, "margin": MARGIN}
+            "worst_gap": worst, "margin": margin}
+
+
+def device_profile(fn, ms: float):
+    """One warm call of ``fn`` traced with ``torch.profiler``: the kernels
+    the device ran (the SSD scan's two kernels counted apart), the time it
+    was busy (union of the kernels' intervals), and the share of ``ms``, the
+    call's untraced event time, in which it was idle.  None where the
+    profiler saw no device activity."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = {"ssd": [], "rest": [], "copy": []}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kind = "copy" if e.name.startswith(("Memcpy", "Memset")) else \
+            "ssd" if re.search(r"\bssd_(scan|cb)<", e.name) else "rest"
+        spans[kind].append((e.time_range.start, e.time_range.end))
+
+    def busy_ms(iv):
+        total, end = 0.0, float("-inf")
+        for a, b in sorted(iv):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total / 1e3
+
+    every = spans["ssd"] + spans["rest"] + spans["copy"]
+    if not every:
+        return None
+    busy = busy_ms(every)
+    return {"kernels": len(spans["ssd"]) + len(spans["rest"]),
+            "ssd_kernels": len(spans["ssd"]), "copies": len(spans["copy"]),
+            "device_busy_ms": busy, "ssd_busy_ms": busy_ms(spans["ssd"]),
+            "rest_busy_ms": busy_ms(spans["rest"]),
+            "event_ms": ms, "idle_share": max(0.0, 1 - busy / ms)}
+
+
+def mamba_layers(cfg) -> int:
+    """Mamba blocks of a model: one SSD launch each per prefill."""
+    shared = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" \
+        else 0
+    return cfg.num_layers - shared
+
+
+def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int):
+    """Greedy x none serving of an ssm / hybrid model through
+    ``Engine.submit``, with the launch counts set to 0 just before and read
+    just after; then the model's prefill and one decode step timed alone,
+    and every emitted token teacher-forced."""
+    import torch
+    from repro_torch.core.engine import Engine, EngineConfig, Request
+    from repro_torch.models.registry import build_model
+    t0 = time.perf_counter()
+    target = build_model(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    max_seq = max(p.shape[1] for p in prompts) + new_tokens + 8
+    eng = Engine(EngineConfig(model=cfg, decode="greedy", offload="none",
+                              max_seq=max_seq), target)
+    reset_launches()
+    t0 = time.perf_counter()
+    results = [eng.submit(Request(prompt=p, max_new_tokens=new_tokens,
+                                  request_id=f"{name}-{i}"))
+               for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(name, ("ssd_scan",))
+    want = mamba_layers(cfg) * len(prompts)
+    if launches["ssd_scan"] != want:
+        raise AssertionError(f"{name}: {launches['ssd_scan']} SSD launches, "
+                             f"expected {want} (one per mamba layer per "
+                             f"prefill)")
+    for i, res in enumerate(results):
+        if len(res.tokens) != new_tokens or res.finish_reason != "length":
+            raise AssertionError(f"{name}: request {i} ended "
+                                 f"{res.finish_reason} after "
+                                 f"{len(res.tokens)} tokens")
+    p0 = prompts[0].to(dev)
+    prefill_ms = cuda_ms(lambda: target.prefill(p0, max_seq), iters=3)
+    _, cache = target.prefill(p0, max_seq)
+    tok = p0[:, -1:]
+    step_ms = cuda_ms(lambda: target.decode_step(cache, tok, p0.shape[1]))
+    prefill_prof = device_profile(lambda: target.prefill(p0, max_seq),
+                                  prefill_ms)
+    step_prof = device_profile(
+        lambda: target.decode_step(cache, tok, p0.shape[1]), step_ms)
+    loss = lossless_phase(target, [(p, r.tokens) for p, r in
+                                   zip(prompts, results)], dev,
+                          forward=lambda m, seq: m.forward(seq)[0],
+                          margin=SSM_MARGIN)
+    if loss["exact"] < SSM_MIN_EXACT * len(prompts) * new_tokens:
+        raise AssertionError(f"{name}: only {loss['exact']} of "
+                             f"{len(prompts) * new_tokens} tokens are the "
+                             f"teacher-forced argmax")
+    info = {"model": cfg.name, "layers": cfg.num_layers,
+            "mamba_layers": mamba_layers(cfg),
+            "params": sum(t.numel() for t in target.parameters()),
+            "model_init_s": init_s, "wall_s": wall,
+            "tokens_per_s": len(prompts) * new_tokens / wall,
+            "prefill_ms": prefill_ms, "prefill_tokens": p0.shape[1],
+            "decode_step_ms": step_ms, "prefill_profile": prefill_prof,
+            "decode_step_profile": step_prof,
+            "launches": launches["ssd_scan"],
+            "lossless": loss}
+    requests = [{"id": r.request_id, "prompt": p.shape[1],
+                 "tokens": len(r.tokens), "tpot_wall_s": r.metrics.tpot_wall,
+                 "finish_reason": r.finish_reason}
+                for p, r in zip(prompts, results)]
+    del eng, target, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return requests, info
 
 
 def main() -> int:
@@ -596,9 +854,10 @@ def main() -> int:
                                num_layers=4, attn_impl="kernel")
     rows, main_k = kernel_phase(dev, cfg.d_model, cfg.moe_d_ff)
     fa_rows, fa_timing = flash_phase(dev)
-    rows += fa_rows
+    ssd_rows, ssd_timing = ssd_phase(dev)
+    rows += fa_rows + ssd_rows
     log(f"[2] kernels match their plain versions ({len(rows)} checks); "
-        f"flash {fa_timing}")
+        f"flash {fa_timing}; ssd {ssd_timing}")
 
     t0 = time.perf_counter()
     target = build_model(cfg, dev, seed=0, expert_device="cpu")
@@ -652,6 +911,24 @@ def main() -> int:
                                    zip(prompts + conc_prompts,
                                        tight + ample + conc)], dev)
     log(f"[6] lossless: {loss}")
+    del target, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phases 7-9: the SSD families, greedy x none, all weights resident
+    gen = torch.Generator().manual_seed(40)
+    mcfg = get_config("mamba2-780m")
+    ssm_prompts = [torch.randint(0, mcfg.vocab_size, (1, n), generator=gen)
+                   for n in SSM_PROMPTS]
+    mamba_reqs, mamba_info = ssm_phase("mamba2", mcfg, dev, ssm_prompts,
+                                       SSM_NEW)
+    log(f"[7] mamba2-780m serving ok: {mamba_info}")
+    zcfg = dataclasses.replace(get_config("zamba2-7b"),
+                               num_layers=ZAMBA_LAYERS)
+    zamba_reqs, zamba_info = ssm_phase(
+        "zamba2", zcfg, dev, [torch.randint(0, zcfg.vocab_size, (1, 512),
+                                            generator=gen)], SSM_NEW)
+    log(f"[8] zamba2-7b serving ok: {zamba_info}")
 
     timing = main_k["timing"]
     kernels = []
@@ -677,11 +954,25 @@ def main() -> int:
         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    t = ssd_timing[SSM_PROMPTS[0]]
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:26",
+        "launches": mamba_info["launches"],
+        "launches_zamba2_path": zamba_info["launches"],
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"flash_timing": {
         "shape": {"B": 1, "H": FA_HEADS, "Hkv": FA_KV_HEADS, "D": FA_DIM,
                   "dtype": "bfloat16", "causal": True},
         **{f"S{S}": t for S, t in fa_timing.items()}}}))
+    print(json.dumps({"ssd_timing": {
+        "shape": {"b": 1, "h": 48, "p": 64, "n": 128, "chunk": 128,
+                  "dtype": "bfloat16"},
+        **{f"S{S}": t for S, t in ssd_timing.items()}}}))
     print(json.dumps({"kernel_checks": rows,
                       "timing_shape": {"T": BLOCK_T, "k": K_TOP,
                                        "pool": S_POOL, "dtype": "bfloat16",
@@ -701,6 +992,8 @@ def main() -> int:
         for r in tight + ample + conc],
         "tight": tight_tot, "ample": ample_tot, "concurrent": conc_info,
         "lossless": loss}))
+    print(json.dumps({"ssm_requests": mamba_reqs + zamba_reqs,
+                      "mamba2": mamba_info, "zamba2": zamba_info}))
     print(json.dumps({"breakdown": brk}))
     print(json.dumps({"memory": {
         "device_max_allocated_bytes": torch.cuda.max_memory_allocated(),

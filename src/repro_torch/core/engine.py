@@ -111,6 +111,15 @@ class EngineConfig:
             raise ValueError(
                 f"offload policy {self.offload!r} requires an MoE target "
                 f"(model {self.model.name!r} is dense)")
+        if self.model.family in ("ssm", "hybrid") \
+                and self.decode != DecodePolicy.GREEDY.value:
+            raise ValueError(
+                f"decode {self.decode!r} verifies blocks of several tokens "
+                f"in one target step, and the {self.model.family} target "
+                f"{self.model.name!r} cannot: its mamba layers' recurrent "
+                f"decode takes one token per step (the reference reads only "
+                f"a block's first token and spreads its output over the "
+                f"block); use decode='greedy'")
         if self.decode == DecodePolicy.SD.value and self.draft_len < 1:
             raise ValueError("decode='sd' needs draft_len >= 1")
         if not 1 <= self.min_draft_len <= self.max_draft_len:

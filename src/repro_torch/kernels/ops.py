@@ -8,9 +8,13 @@ import torch
 
 from repro_torch.kernels import cache_moe as K
 from repro_torch.kernels import ref as R
-# prefill attention, q [B,Sq,H,D], k/v [B,Skv,Hkv,D] -> [B,Sq,H,D]: its
-# wrapper already routes a CPU tensor to the plain version
+# These two wrappers route a CPU tensor to the plain version themselves and
+# count their own launches (``flash_attention.launches``, ``ssd.launches``).
+# Prefill attention, q [B,Sq,H,D], k/v [B,Skv,Hkv,D] -> [B,Sq,H,D]:
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+# Mamba2 chunked SSD scan (every mamba layer's full-sequence path),
+# x [b,s,h,p], dt [b,s,h], A [h], B/C [b,s,n] -> (y, final state [b,h,p,n]):
+from repro_torch.kernels.ssd_scan import ssd_scan as ssd  # noqa: F401
 
 
 def cache_moe(x: torch.Tensor, slot_ids: torch.Tensor, weights: torch.Tensor,
@@ -27,3 +31,4 @@ def cache_moe(x: torch.Tensor, slot_ids: torch.Tensor, weights: torch.Tensor,
 
 
 cache_moe.launches = 0
+

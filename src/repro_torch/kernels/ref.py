@@ -3,12 +3,14 @@
 They compute what the kernels compute, with plain tensor ops: the CPU path
 of every kernel wrapper, and what ``chip_smoke.py`` holds each kernel against
 on the card.  They may synchronise with the host (they loop over occupied
-slots in Python); nothing on the main path calls them with a CUDA tensor.
+slots in Python); nothing on the main path calls them with a CUDA tensor,
+except ``ssd_decode_ref``: the one-token recurrent SSD step, which the
+reference too runs as plain array code and no kernel replaces.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -205,3 +207,85 @@ def slot_down_ref(h: torch.Tensor, wd: torch.Tensor, grp_slot: torch.Tensor,
         if n:
             y[lo:lo + n] = h[lo:lo + n] @ wd[s]
     return y
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space dual) chunked scan
+# ---------------------------------------------------------------------------
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x: [..., L] -> [..., L, L] with out[i, j] = sum_{j<t<=i} x[t] for
+    j <= i and -inf above the diagonal (so exp gives exactly 0 there)."""
+    L = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    return torch.where(mask, seg, torch.full((), -math.inf,
+                                             dtype=seg.dtype,
+                                             device=x.device))
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, chunk: int,
+            init_state: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (Mamba2, alg. 1 of arXiv:2405.21060), single B/C group:
+    the reference's ``ssd_ref``, all maths in f32.
+
+    x: [b,s,h,p]  dt: [b,s,h]  A: [h] (negative)  B, C: [b,s,n]; s must be
+    a multiple of ``chunk``.  Returns (y [b,s,h,p] in x's dtype,
+    final_state [b,h,p,n] f32).  ``init_state`` [b,h,p,n] is the state
+    before the first token (zeros when omitted)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"chunk {chunk}")
+    nc = s // chunk
+    f32 = torch.float32
+    xc = x.reshape(b, nc, chunk, h, p).to(f32)
+    dtc = dt.reshape(b, nc, chunk, h).to(f32)
+    Bc = B.reshape(b, nc, chunk, n).to(f32)
+    Cc = C.reshape(b, nc, chunk, n).to(f32)
+    dA = dtc * A.to(f32)                                       # [b,nc,l,h]
+    dA_cum = torch.cumsum(dA, dim=2)                           # inclusive
+    xdt = xc * dtc[..., None]                                  # [b,nc,l,h,p]
+    # intra-chunk (diagonal blocks): (C B^T o L) (dt x)
+    Lmat = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))         # [b,nc,h,l,l]
+    CB = torch.einsum("bcln,bcsn->bcls", Cc, Bc)               # [b,nc,l,l]
+    y_diag = torch.einsum("bchls,bcshp->bclhp", CB[:, :, None] * Lmat, xdt)
+    # each chunk's own contribution to the state at its end
+    decay_to_end = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)    # [b,nc,l,h]
+    states = torch.einsum("bcln,bclhp->bchpn", Bc,
+                          xdt * decay_to_end[..., None])       # [b,nc,h,p,n]
+    # inter-chunk recurrence: the state before each chunk
+    chunk_decay = torch.exp(dA_cum[:, :, -1, :])               # [b,nc,h]
+    st = torch.zeros((b, h, p, n), dtype=f32, device=x.device) \
+        if init_state is None else init_state.to(f32)
+    prev = []
+    for c in range(nc):
+        prev.append(st)
+        st = st * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                     # [b,nc,h,p,n]
+    # off-diagonal contribution: C S, decayed from the chunk start
+    y_off = torch.einsum("bcln,bchpn->bclhp", Cc, prev_states) \
+        * torch.exp(dA_cum)[..., None]
+    y = (y_diag + y_off).reshape(b, s, h, p)
+    return y.to(x.dtype), st
+
+
+def ssd_decode_ref(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                   A: torch.Tensor, B: torch.Tensor, C: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent step.  state: [b,h,p,n]; x: [b,h,p]; dt: [b,h];
+    A: [h]; B, C: [b,n] -> (y [b,h,p] in x's dtype, new state in state's
+    dtype).  All maths in f32, in broadcasts (one kernel each on the card,
+    where an ``einsum`` launches several)."""
+    f32 = torch.float32
+    dtf = dt.to(f32)
+    dA = torch.exp(dtf * A.to(f32))                            # [b,h]
+    upd = (dtf[:, :, None] * x.to(f32))[..., None] \
+        * B.to(f32)[:, None, None, :]                          # [b,h,p,n]
+    new = state.to(f32) * dA[:, :, None, None] + upd
+    y = (new * C.to(f32)[:, None, None, :]).sum(dim=-1)
+    return y.to(x.dtype), new.to(state.dtype)

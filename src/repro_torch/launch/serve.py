@@ -5,7 +5,10 @@ raises without one; ``--device cpu`` runs it on the CPU.
 Policy is two-axis: ``--decode`` picks how tokens are committed (greedy |
 sd | sd-adaptive), ``--offload`` picks where expert weights live (none |
 spmoe | adapmoe | moe-infinity | on-demand).  Any combination is valid and
-lossless; offload policies require an MoE target.  The legacy single-axis
+lossless; offload policies require an MoE target, and the ssm / hybrid
+targets (``--arch mamba2-780m``, ``--arch zamba2-7b``) decode greedy only,
+their default: their mamba layers step one token at a time, so they cannot
+verify a draft block.  The legacy single-axis
 ``--policy`` flag is kept as a deprecated alias (``sd-only`` ->
 ``--decode sd --offload none``, ``spmoe`` -> ``--decode sd --offload
 spmoe``, ...).
@@ -36,6 +39,10 @@ wall-clock budget (``finish_reason="deadline"`` when it expires).
     # the same on the CPU; four requests, two decoded concurrently
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 4 --concurrency 2
+
+    # mamba2-780m, reduced, greedy (its default decode), on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch mamba2-780m --decode greedy --tokens 8
 """
 from __future__ import annotations
 
@@ -76,7 +83,8 @@ def main():
     ap.add_argument("--arch", default="mixtral-8x7b")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--decode", default=None, choices=DECODE_POLICIES,
-                    help="token-commit policy (default: sd)")
+                    help="token-commit policy (default: sd; greedy for an "
+                         "ssm / hybrid arch)")
     ap.add_argument("--offload", default=None, choices=OFFLOAD_POLICIES,
                     help="expert-weight policy (default: spmoe for MoE)")
     ap.add_argument("--policy", default=None, choices=sorted(LEGACY_POLICY),
@@ -130,7 +138,7 @@ def main():
               f"--decode {decode} --offload {offload}")
     cfg, dcfg = reduced_pair(args.arch)
     if decode is None:
-        decode = "sd"
+        decode = "greedy" if cfg.family in ("ssm", "hybrid") else "sd"
     if offload is None:
         offload = "spmoe" if cfg.is_moe else "none"
 

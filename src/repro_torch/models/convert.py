@@ -1,10 +1,14 @@
 """Carry weights across from the reference: a JAX param tree (numpy leaves,
 as from ``jax.tree.map(np.asarray, params)``) into the port's modules.
 
-Leaves of the stacked ``layers`` subtree have a leading ``[L, ...]`` axis,
-which is unstacked into ``layers.<l>.<path>``.  bf16 leaves (numpy dtype
-name ``bfloat16``) are read through a ``uint16`` view, so nothing of JAX is
-imported here.
+The reference stacks layers of one structure along leading axes, which are
+unstacked here: ``layers`` and ``tail`` are ``[L, ...]`` and become
+``layers.<l>.<path>`` and ``tail.<t>.<path>``; a hybrid model's
+``mamba_groups`` is ``[G, per, ...]`` and becomes
+``mamba_groups.<g>.<i>.<path>``.  Any other subtree
+(``shared_attn``, one block whose weights every group reuses) keeps its
+path.  bf16 leaves (numpy dtype name ``bfloat16``) are read through a
+``uint16`` view, so nothing of JAX is imported here.
 """
 from __future__ import annotations
 
@@ -12,6 +16,9 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+# top-level subtree -> number of stacked leading axes
+STACKED = {"layers": 1, "tail": 1, "mamba_groups": 2}
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -34,13 +41,15 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Reference param tree -> the port's state dict (CPU tensors)."""
     state: Dict[str, torch.Tensor] = {}
     for name, leaf in _flatten(tree):
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
-            t = _tensor(leaf)
-            for l in range(t.shape[0]):
-                state[f"layers.{l}.{rest}"] = t[l].clone()
-        else:
-            state[name] = _tensor(leaf)
+        top, _, rest = name.partition(".")
+        depth = STACKED.get(top, 0)
+        t = _tensor(leaf)
+        if not depth:
+            state[name] = t
+            continue
+        for idx in np.ndindex(*t.shape[:depth]):
+            at = ".".join(str(i) for i in idx)
+            state[f"{top}.{at}.{rest}"] = t[idx].clone()
     return state
 
 

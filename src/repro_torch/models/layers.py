@@ -15,6 +15,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -23,6 +24,11 @@ from repro_torch.kernels import ops
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    """A weight of the port's modules: inference only, no gradient."""
+    return nn.Parameter(t, requires_grad=False)
+
 
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
                device: torch.device, scale: float = 1.0) -> torch.Tensor:

@@ -7,9 +7,9 @@ from repro_torch.models.transformer import DecoderLM
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None, **kw) -> DecoderLM:
-    """The decoder LM for ``cfg`` (encoder-decoder models are not ported
-    yet).  ``kw`` goes to :class:`DecoderLM` (seed, generator,
-    expert_device)."""
+    """The decoder LM for ``cfg``: dense, moe, ssm or hybrid
+    (encoder-decoder models are not ported yet).  ``kw`` goes to
+    :class:`DecoderLM` (seed, generator, expert_device)."""
     if cfg.family == "encdec":
         raise NotImplementedError("encoder-decoder models are not ported yet")
     return DecoderLM(cfg, device, **kw)

@@ -1,11 +1,21 @@
-"""Decoder-only LM for the dense and moe families (the port of
-``repro/models/transformer.py``; ssm / hybrid / MLA wait).
+"""Decoder-only LM for the dense, moe, ssm and hybrid families (the port of
+``repro/models/transformer.py``; MLA and leading dense layers wait).
 
 The model is an ``nn.Module`` that owns its weights.  Parameter names follow
-the reference's param-tree paths with the stacked layer axis unstacked:
+the reference's param-tree paths with the stacked layer axes unstacked:
 ``wte``, ``head``, ``ln_f``, ``layers.<l>.ln1``, ``layers.<l>.attn.wq``,
-``layers.<l>.moe.gate``, ``layers.<l>.moe.wg``, ``layers.<l>.ffn.wg`` ...
-(``models/convert.py`` loads a reference param tree into them).
+``layers.<l>.moe.gate``, ``layers.<l>.moe.wg``, ``layers.<l>.ffn.wg``,
+``layers.<l>.mamba.in_proj`` ... (``models/convert.py`` loads a reference
+param tree into them).
+
+Layouts (the reference's ``_stacks``):
+
+* dense / moe / ssm: ``layers`` in order (every block ``mamba`` for ssm);
+* hybrid (zamba2-style): G = num_layers // attn_every groups, each
+  ``attn_every - 1`` mamba blocks (``mamba_groups.<g>.<i>``) and then the
+  one ``shared_attn`` block, whose weights every group reuses with a KV
+  cache of its own; then ``num_layers % attn_every`` mamba blocks
+  (``tail.<t>``).
 
 Three modes share one block function:
 
@@ -15,8 +25,10 @@ Three modes share one block function:
                    returns each layer's gate input (the SP-MoE predictor's
                    taps)
 
-KV caches are ``{"layers": [per-layer {"k", "v", "pos_map"}]}`` and are
-updated in place.
+Caches mirror the layout: per-block caches listed under ``layers``, or
+under ``mamba_groups`` [G][per], ``shared_attn`` [G] and ``tail`` for a
+hybrid.  An attention block's is ``{"k", "v", "pos_map"}``, a mamba block's
+``{"ssm", "conv"}``.  They are updated in place.
 """
 from __future__ import annotations
 
@@ -28,13 +40,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 
 Cache = Dict[str, Any]
-
-
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
 
 
 class Attention(nn.Module):
@@ -42,19 +51,19 @@ class Attention(nn.Module):
         super().__init__()
         d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
             cfg.head_dim
-        self.wq = _param(L.dense_init(gen, (d, H, hd), dtype, device))
-        self.wk = _param(L.dense_init(gen, (d, Hkv, hd), dtype, device))
-        self.wv = _param(L.dense_init(gen, (d, Hkv, hd), dtype, device))
-        self.wo = _param(L.dense_init(gen, (H, hd, d), dtype, device))
+        self.wq = L.param(L.dense_init(gen, (d, H, hd), dtype, device))
+        self.wk = L.param(L.dense_init(gen, (d, Hkv, hd), dtype, device))
+        self.wv = L.param(L.dense_init(gen, (d, Hkv, hd), dtype, device))
+        self.wo = L.param(L.dense_init(gen, (H, hd, d), dtype, device))
 
 
 class FFN(nn.Module):
     def __init__(self, d: int, f: int, activation: str, dtype, device, gen):
         super().__init__()
         if activation == "swiglu":
-            self.wg = _param(L.dense_init(gen, (d, f), dtype, device))
-        self.wu = _param(L.dense_init(gen, (d, f), dtype, device))
-        self.wd = _param(L.dense_init(gen, (f, d), dtype, device))
+            self.wg = L.param(L.dense_init(gen, (d, f), dtype, device))
+        self.wu = L.param(L.dense_init(gen, (d, f), dtype, device))
+        self.wd = L.param(L.dense_init(gen, (f, d), dtype, device))
 
 
 class MoE(nn.Module):
@@ -70,14 +79,15 @@ class MoE(nn.Module):
         d, E, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
         if cfg.num_shared_experts:
             raise NotImplementedError("shared experts are not ported yet")
-        self.gate = _param(L.dense_init(gen, (d, E), torch.float32, device))
+        self.gate = L.param(L.dense_init(gen, (d, E), torch.float32,
+                                         device))
         names = ("wg", "wu", "wd") if cfg.ffn_activation == "swiglu" \
             else ("wu", "wd")
         for n in names:
             shape = (E, f, d) if n == "wd" else (E, d, f)
             w = torch.stack([L.dense_init(gen, shape[1:], dtype, device)
                              for _ in range(E)]).to(expert_device)
-            setattr(self, n, _param(w))
+            setattr(self, n, L.param(w))
 
 
 class Block(nn.Module):
@@ -85,8 +95,13 @@ class Block(nn.Module):
                  expert_device):
         super().__init__()
         self.kind = kind
-        self.ln1 = _param(torch.ones(cfg.d_model, dtype=dtype, device=device))
-        self.ln2 = _param(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        self.ln1 = L.param(torch.ones(cfg.d_model, dtype=dtype,
+                                      device=device))
+        if kind == "mamba":
+            self.mamba = M.Mamba(cfg, dtype, device, gen)
+            return
+        self.ln2 = L.param(torch.ones(cfg.d_model, dtype=dtype,
+                                      device=device))
         self.attn = Attention(cfg, dtype, device, gen)
         if kind == "moe":
             self.moe = MoE(cfg, dtype, device, gen, expert_device)
@@ -96,7 +111,9 @@ class Block(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """Families: dense, moe (mixtral-style: every layer MoE).
+    """Families: dense, moe (mixtral-style: every layer MoE), ssm (every
+    layer mamba) and hybrid (mamba groups around one shared attention
+    block).
 
     ``device`` defaults to the card and raises without one (pass
     ``device="cpu"`` to run on the CPU).  Weights are drawn from
@@ -108,11 +125,11 @@ class DecoderLM(nn.Module):
                  seed: int = 0, generator: Optional[torch.Generator] = None,
                  expert_device: DeviceLike = None):
         super().__init__()
-        if cfg.family not in ("dense", "moe") or cfg.use_mla \
-                or cfg.first_dense_layers:
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
+                or cfg.use_mla or cfg.first_dense_layers:
             raise NotImplementedError(
-                f"{cfg.name}: only dense and mixtral-style moe models are "
-                f"ported yet")
+                f"{cfg.name}: only dense, mixtral-style moe, ssm and hybrid "
+                f"models are ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
@@ -121,16 +138,34 @@ class DecoderLM(nn.Module):
         gen = generator if generator is not None else \
             torch.Generator(self.device).manual_seed(seed)
         dt, dev = self.dtype, self.device
-        self.wte = _param(L.dense_init(gen, (cfg.vocab_size, cfg.d_model),
+        self.wte = L.param(L.dense_init(gen, (cfg.vocab_size, cfg.d_model),
                                        dt, dev, scale=cfg.d_model ** 0.5))
-        self.ln_f = _param(torch.ones(cfg.d_model, dtype=dt, device=dev))
+        self.ln_f = L.param(torch.ones(cfg.d_model, dtype=dt, device=dev))
         if not cfg.tie_embeddings:
-            self.head = _param(L.dense_init(gen, (cfg.d_model,
+            self.head = L.param(L.dense_init(gen, (cfg.d_model,
                                                   cfg.vocab_size), dt, dev))
-        kind = "moe" if cfg.is_moe else "dense"
-        self.layers = nn.ModuleList(
-            Block(kind, cfg, dt, dev, gen, expert_device)
-            for _ in range(cfg.num_layers))
+
+        def blocks(kind: str, n: int) -> nn.ModuleList:
+            return nn.ModuleList(Block(kind, cfg, dt, dev, gen, expert_device)
+                                 for _ in range(n))
+
+        if cfg.family == "hybrid":
+            groups, per, tail = self.hybrid_layout()
+            self.mamba_groups = nn.ModuleList(blocks("mamba", per)
+                                              for _ in range(groups))
+            self.shared_attn = Block("dense", cfg, dt, dev, gen,
+                                     expert_device)
+            self.tail = blocks("mamba", tail)
+        else:
+            kind = "mamba" if cfg.family == "ssm" else \
+                "moe" if cfg.is_moe else "dense"
+            self.layers = blocks(kind, cfg.num_layers)
+
+    def hybrid_layout(self) -> Tuple[int, int, int]:
+        """(groups, mamba blocks per group, tail mamba blocks)."""
+        cfg = self.cfg
+        return (cfg.num_layers // cfg.attn_every, cfg.attn_every - 1,
+                cfg.num_layers % cfg.attn_every)
 
     # -- pieces the offload runtime drives one at a time ---------------------
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -160,21 +195,62 @@ class DecoderLM(nn.Module):
             if blk.kind == "moe":
                 for n in ("wg", "wu", "wd"):
                     if hasattr(blk.moe, n):
-                        setattr(blk.moe, n, _param(torch.empty(0)))
+                        setattr(blk.moe, n, L.param(torch.empty(0)))
 
     # -- caches ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int) -> Cache:
-        return {"layers": [L.init_kv_cache(self.cfg, batch, max_seq,
-                                           self.dtype, self.device)
-                           for _ in range(self.cfg.num_layers)]}
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+
+        def kv():
+            return L.init_kv_cache(cfg, batch, max_seq, dt, dev)
+
+        def ssm(n: int):
+            return [M.init_mamba_cache(cfg, batch, dt, dev)
+                    for _ in range(n)]
+
+        if cfg.family == "hybrid":
+            groups, per, tail = self.hybrid_layout()
+            return {"mamba_groups": [ssm(per) for _ in range(groups)],
+                    "shared_attn": [kv() for _ in range(groups)],
+                    "tail": ssm(tail)}
+        if cfg.family == "ssm":
+            return {"layers": ssm(cfg.num_layers)}
+        return {"layers": [kv() for _ in range(cfg.num_layers)]}
+
+    def _sites(self, cache: Optional[Cache]):
+        """(block, its cache or None) in the order the model applies them."""
+        if self.cfg.family != "hybrid":
+            for l, blk in enumerate(self.layers):
+                yield blk, cache["layers"][l] if cache is not None else None
+            return
+        for g, group in enumerate(self.mamba_groups):
+            for i, blk in enumerate(group):
+                yield blk, (cache["mamba_groups"][g][i] if cache is not None
+                            else None)
+            yield self.shared_attn, (cache["shared_attn"][g]
+                                     if cache is not None else None)
+        for t, blk in enumerate(self.tail):
+            yield blk, cache["tail"][t] if cache is not None else None
 
     # -- block ------------------------------------------------------------------
     def _block(self, blk: Block, x: torch.Tensor, mode: str,
                cache_l: Optional[Dict], pos: int
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """-> (x_out, aux_loss, gate_input_tap)."""
+        """-> (x_out, aux_loss, gate_input_tap); a mamba block's tap is its
+        output, as in the reference."""
         cfg = self.cfg
         h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if blk.kind == "mamba":
+            if mode == "decode":
+                y, _ = M.mamba_decode(blk.mamba, h, cache_l, cfg)
+            elif mode == "prefill":
+                y, new = M.mamba_forward(blk.mamba, h, cfg, with_cache=True)
+                cache_l.update(new)
+            else:
+                y = M.mamba_forward(blk.mamba, h, cfg)
+            x = x + y
+            return x, aux, x
         if mode == "decode":
             a, _ = L.attention_decode(blk.attn, h, cache_l, pos, cfg)
         else:
@@ -183,7 +259,6 @@ class DecoderLM(nn.Module):
                 _attn_prefill_cache(blk.attn, h, cfg, cache_l)
         x = x + a
         h2 = L.rms_norm(x, blk.ln2, cfg.norm_eps)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if blk.kind == "moe":
             y, aux = MOE.moe_global(blk.moe, h2, cfg)
         else:
@@ -192,16 +267,18 @@ class DecoderLM(nn.Module):
 
     def _run(self, x: torch.Tensor, mode: str, cache: Optional[Cache],
              pos: int, collect_taps: bool = False):
+        """-> (x, aux, taps); taps are collected for ``layers`` only (the
+        reference collects none for hybrid models)."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         taps: List[torch.Tensor] = []
-        for l, blk in enumerate(self.layers):
-            cl = cache["layers"][l] if cache is not None else None
+        for blk, cl in self._sites(cache):
             x, aux, tap = self._block(blk, x, mode, cl, pos)
             aux_total = aux_total + aux
             if collect_taps:
                 taps.append(tap)
-        return x, aux_total, ({"layers": torch.stack(taps)} if collect_taps
-                              else {})
+        if not collect_taps or self.cfg.family == "hybrid":
+            return x, aux_total, {}
+        return x, aux_total, {"layers": torch.stack(taps)}
 
     # -- public API -----------------------------------------------------------
     def forward(self, tokens: torch.Tensor

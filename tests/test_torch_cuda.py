@@ -1,12 +1,16 @@
 """PyTorch port on a card: the hand-written CUDA kernels (expert FFN, flash
-attention) against their plain versions, and the offload engine serving
-through them, solo and in fused cross-session rounds.  Every test is marked
-``cuda`` and skips without a card (the kernels have no CPU mode).  This file
-imports nothing of JAX, so it also runs where JAX is not installed:
+attention, SSD scan) against their plain versions, the offload engine
+serving through them, solo and in fused cross-session rounds, and the SSD
+families' models on the card against themselves on the CPU.  Every test is
+marked ``cuda`` and skips without a card (the kernels have no CPU mode).
+This file imports nothing of JAX, so it also runs where JAX is not
+installed:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import math
+import sys
 
 import pytest
 import torch
@@ -17,7 +21,9 @@ from repro_torch.core.engine import (Engine, EngineConfig, Request,
 from repro_torch.core.sd import greedy_generate
 from repro_torch.kernels import cache_moe as K
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
+from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.models.registry import build_model
 
 pytestmark = pytest.mark.cuda
@@ -169,3 +175,129 @@ def test_fused_round_logits_equal_solo_fast_blocks_on_the_card(cuda):
     for j, (lg, ok1, _, _) in enumerate(solo):
         assert bool(ok1)
         assert torch.equal(logits[j], lg)
+
+
+def _ssd_inputs(dev, b, s, h, p, n, dtype, seed=0):
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    # dt log-uniform in [1e-3, 1e-1] and A = -(1..h), as a mamba layer
+    # starts: slow heads carry the state across chunks, fast ones forget it
+    u = torch.rand((b, s, h), generator=gen, device=dev)
+    dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    A = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
+    x = rnd(b, s, h, p).to(dtype)
+    return x, dt, A, rnd(b, s, n).to(dtype), rnd(b, s, n).to(dtype)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 64, 3, 8, 16, 16),               # reduced widths, p below a tile
+    (1, 77, 4, 64, 128, 77),             # mamba2 widths, Q not a power of 2
+    (1, 384, 5, 64, 64, 128),            # zamba2 widths, carried state
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype, tol):
+    """y and the final state against ``ref.ssd_ref`` on the same inputs,
+    relative to each output's max |value|.  Both compute in f32 from the
+    same values; f32 differs in summation order and in how the prefix sums
+    of dt·A are taken, bf16 also in y's one rounding (2^-8 of an element).
+    The state is f32 in both types."""
+    x, dt, A, B, C = _ssd_inputs(cuda, b, s, h, p, n, dtype)
+    before = SSD.ssd_scan.launches
+    y, state = SSD.ssd_scan(x, dt, A, B, C, chunk)
+    assert SSD.ssd_scan.launches == before + 1
+    y_ref, state_ref = R.ssd_ref(x, dt, A, B, C, chunk)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    for got, want, t in ((y, y_ref, tol), (state, state_ref, 1e-4)):
+        assert torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= t * want.float().abs().max().item()
+
+
+def test_ssd_kernel_padding_leaves_the_state_unchanged(cuda):
+    """S = 300 padded to 384 with dt = 0 (as ``mamba_forward`` pads) gives
+    the state of the unpadded sequence in chunks of 100."""
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 300, 4, 64, 64, torch.float32)
+    pad = [torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, 84))
+           for t in (x, dt, B, C)]
+    y, state = ops.ssd(pad[0], pad[1], A, pad[2], pad[3], 128)
+    y_ref, state_ref = R.ssd_ref(x, dt, A, B, C, 100)
+    for got, want in ((y[:, :300], y_ref), (state, state_ref)):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item()
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 64, 2, 16, 16, torch.float32)
+    with pytest.raises(ValueError):
+        SSD.ssd_scan(x, dt, A, B, C, 24)              # 64 % 24
+    x2, dt2, A2, B2, C2 = _ssd_inputs(cuda, 1, 256, 2, 16, 16,
+                                      torch.float32)
+    with pytest.raises(ValueError):
+        SSD.ssd_scan(x2, dt2, A2, B2, C2, 256)        # chunk > 128
+    with pytest.raises(TypeError):
+        SSD.ssd_scan(x.half(), dt, A, B.half(), C.half(), 16)
+    with pytest.raises(TypeError):
+        SSD.ssd_scan(x, dt.bfloat16(), A, B, C, 16)
+    with pytest.raises(ValueError):
+        SSD.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                     B, C, 16)
+    wide = torch.zeros((1, 64, 256), device=cuda)
+    with pytest.raises(ValueError):
+        SSD.ssd_scan(x, dt, A, wide, wide, 16)       # n > 128
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("mamba2-780m", {}), ("zamba2-7b", {}),
+    ("zamba2-7b", {"num_layers": 7, "attn_every": 3}),   # a tail block
+])
+def test_ssd_models_on_the_card_match_the_cpu(cuda, arch, over):
+    """Reduced f32 models, the same weights on both devices: the prefill
+    (chunked kernel on the card, ``ssd_ref`` on the CPU; a 40-token prompt
+    is padded to 48 in chunks of 16) and four recurrent decode steps give
+    the same logits, and greedy serving through ``Engine`` emits the same
+    tokens."""
+    cfg = get_config(arch).reduced(dtype="float32", **over)
+    cpu = build_model(cfg, "cpu", seed=0)
+    gpu = build_model(cfg, cuda, seed=0)
+    gpu.load_state_dict(cpu.state_dict())
+    prompt = torch.randint(0, cfg.vocab_size, (1, 40),
+                           generator=torch.Generator().manual_seed(2))
+    before = ops.ssd.launches
+    lc, cc = cpu.prefill(prompt, 64)
+    lg, cg = gpu.prefill(prompt.to(cuda), 64)
+    assert ops.ssd.launches - before == cfg.num_layers - \
+        (cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=0)
+    tok = torch.argmax(lc, -1)[:, None]
+    for pos in range(40, 44):
+        lc, cc, _ = cpu.decode_step(cc, tok, pos)
+        lg, cg, _ = gpu.decode_step(cg, tok.to(cuda), pos)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=0)
+        tok = torch.argmax(lc[:, -1], -1)[:, None]
+    config = EngineConfig(model=cfg, decode="greedy", max_seq=64)
+    want = Engine(config, cpu).submit(Request(prompt=prompt,
+                                              max_new_tokens=8)).tokens
+    got = Engine(config, gpu).submit(Request(prompt=prompt,
+                                             max_new_tokens=8)).tokens
+    assert got == want
+
+
+def test_launcher_serves_mamba2_on_the_card(cuda, capsys, monkeypatch):
+    """``launch/serve.py --arch mamba2-780m --decode greedy`` with no
+    ``--device``: the reduced model on the card, one SSD launch per layer of
+    the prefill."""
+    from repro_torch.launch import serve as launcher
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "mamba2-780m", "--decode", "greedy", "--tokens",
+        "4", "--prompt-len", "40", "--stream"])
+    before = ops.ssd.launches
+    launcher.main()
+    lines = capsys.readouterr().out.splitlines()
+    assert [p.split(":")[0] for p in lines[0].split()] == ["req-0"] * 4
+    assert "[req-0] finish=length" in lines
+    assert ops.ssd.launches - before == \
+        get_config("mamba2-780m").reduced().num_layers
