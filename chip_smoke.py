@@ -8,22 +8,28 @@ Drives the port's SP-MoE serving paths (decode="sd" x offload="spmoe",
 heads x 128, expert d_ff 14336, 8 experts top-2, vocab 32000, sliding window
 4096) with its dense mistral-7b draft, both cut to 4 layers, random weights
 from fixed seeds.  Every admitted request prefills its draft through the
-flash-attention kernel and verifies through the expert-FFN kernels.  Then
-the SSD families' path (decode="greedy" x offload="none"): mamba2-780m at
-full width and full depth (48 layers, d_model 1536, 48 heads x 64, state
-128, vocab 50280) and zamba2-7b at full width cut to 12 layers (two groups
-of 5 mamba layers around the shared attention block), bf16, random weights
-from seed 0; every prefill runs each mamba layer through the SSD-scan
-kernel.
+flash-attention kernel, drafts through the flash-decode kernel and verifies
+through the expert-FFN kernels.  Then the same with gelu experts, the
+SSD families' path (decode="greedy" x offload="none": mamba2-780m at full
+width and full depth (48 layers, d_model 1536, 48 heads x 64, state 128,
+vocab 50280) and zamba2-7b at full width cut to 12 layers (two groups of 5
+mamba layers around the shared attention block), bf16, random weights from
+seed 0; every prefill runs each mamba layer through the SSD-scan kernel),
+and the dense target llama3.2-3b at full width and full depth, greedy and
+speculative, every one-token step through flash-decode.
 
 Phases (each raises on failure):
   1. device line; build the CUDA kernels from ``src/repro_torch/csrc``
   2. each kernel against its plain PyTorch version at full-width shapes,
      bf16 and f32 (expert FFN at T 1 / 5 / 64 / 512 with a batch-invariance
-     check; flash attention at S 64 / 512 / 2048 causal, 1024 with a 256
-     window and 8192 with the 4096 window; the SSD scan at the mamba2 widths
-     at S 77 / 300 / 512 / 2048 and the zamba2 widths at S 512 and 300, 300
-     padded to 384, y and final state)
+     check, for swiglu experts and for gelu experts' up-gelu stage; flash
+     attention at S 64 / 512 / 2048 causal, 1024 with a 256 window and 8192
+     with the 4096 window; flash-decode at the llama3.2-3b and mixtral-draft
+     widths, lengths 1 / 77 / 512 / 543 / 4096 in caches of 576 and 4112,
+     and three rows of mixed lengths each equal to its one-row call bit for
+     bit; the SSD scan at the mamba2 widths at S 77 / 300 / 512 / 2048 and
+     the zamba2 widths at S 512 and 300, 300 padded to 384, y and final
+     state)
   3. solo serving with a tight cache (12 slots): misses, prefetches,
      evictions
   4. solo serving with an ample cache (32 slots): the fast path, <=2 host
@@ -35,24 +41,36 @@ Phases (each raises on failure):
   6. lossless check: every emitted token of phases 3-5 against the
      resident-expert model run teacher-forced over the stream (argmax, or
      within a stated margin)
-  7. mamba2-780m serving through ``Engine.submit``: two 512-token prompts
+  7. gelu experts: mixtral-8x7b widths with ``ffn_activation="gelu"`` (a
+     variant the config allows, not a published model), 2 layers, sd x
+     spmoe, one 64-token request: up-gelu and down launch, gate_up never;
+     every token teacher-forced
+  8. mamba2-780m serving through ``Engine.submit``: two 512-token prompts
      and one of 300, 32 new tokens each; the SSD kernel launches once per
      layer per prefill (48 per request); then one prefill and one decode
      step timed alone and traced with ``torch.profiler`` (the device's
      kernels, their busy time with the SSD scan's apart, its idle share)
-  8. zamba2-7b serving, one 512-token prompt, the same way (10 launches)
-  9. lossless check of phases 7-8: every emitted token against the same
+  9. zamba2-7b serving, one 512-token prompt, the same way (10 launches)
+ 10. lossless check of phases 8-9: every emitted token against the same
      model run teacher-forced over the stream on the card, which holds the
      recurrent decode step against the chunked kernel
+ 11. llama3.2-3b (28 layers, d 3072, 24 / 8 heads x 128, vocab 128256)
+     through ``Engine.submit``: a 512-token prompt greedy x none (one
+     flash-decode launch per layer per target step) and one sd x none with
+     the derived 14-layer draft (one per layer per draft step), 32 new
+     tokens each; one warm greedy decode step timed alone and traced; every
+     token teacher-forced
 
-Each serving path (3-4, 5, 7 and 8) runs with the kernels' launch counts set
-to 0 just before it and read just after; each kernel of the path must have
-launched there.
+Each serving path (3-4, 5, 7, 8, 9 and 11) runs with the kernels' launch
+counts set to 0 just before it and read just after; each kernel of the path
+must have launched there.
 
-Prints JSON lines (kernels, requests, ssm_requests, breakdown, memory), then
-the card's name and power limit, then ``{"ok": true, "device": {...}}`` as
-the last line.  Exits non-zero, printing no result, without a CUDA device or without
-the rest of the repository.  Imports nothing of JAX.
+Prints JSON lines (kernels, decode_timing, flash_timing, ssd_timing,
+kernel_checks, requests, ssm_requests, gelu_requests, dense_requests,
+breakdown, memory), then the card's name and power limit, then ``{"ok":
+true, "device": {...}}`` as the last line.  Exits non-zero, printing no
+result, without a CUDA device or without the rest of the repository.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -112,6 +130,28 @@ ZAMBA_LAYERS = 12                                     # phase 8
 # tokens must be the exact argmax, so that a wrong recurrent step, whose
 # tokens would fall near the top of random-weight logits, cannot pass.
 SSM_MARGIN, SSM_MIN_EXACT = 0.5, 0.8
+# flash-decode: (model, q heads, kv heads, head dim) and (cache length,
+# three mixed lengths, the model timed at the first of them).  Tolerance:
+# the reference's own sweep (tests/test_kernels.py), atol 2e-5 f32 / 2e-2
+# bf16 plus rtol 1e-2: f32 differs in summation order and where the softmax
+# is split, bf16 also in that the plain version rounds the scores and p to
+# bf16 (as the reference's decode_attention_ref) and the kernel p only.
+DECODE_WIDTHS = (("llama3.2-3b", 24, 8, 128),
+                 ("mistral-7b-draft", 32, 8, 128))
+DECODE_CACHES = ((576, (543, 1, 77), "llama3.2-3b"),
+                 (4112, (4096, 1, 512), "mistral-7b-draft"))
+DECODE_LENGTHS = (1, 77, 512, 543, 4096)
+DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+DECODE_RTOL = 1e-2
+# the gelu-expert phase: mixtral-8x7b widths with ffn_activation="gelu"
+GELU_LAYERS, GELU_PROMPT, GELU_NEW = 2, 64, 16
+# the dense phase: llama3.2-3b at full width and depth; its one-token
+# steps read a cache of DENSE_MAX_SEQ slots.  Lossless check: the engine
+# (cached decode steps through flash-decode, verify blocks of five) and
+# the teacher-forced forward round the bf16 residual stream at different
+# places through 28 layers: the deep stacks' rule of the SSD phases.
+DENSE_PROMPT, DENSE_NEW, DENSE_MAX_SEQ = 512, 32, 576
+DENSE_MARGIN, DENSE_MIN_EXACT = SSM_MARGIN, SSM_MIN_EXACT
 
 
 def log(msg: str):
@@ -139,22 +179,46 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return a.elapsed_time(b) / iters
 
 
+def traced_ms(fn, iters: int = 50) -> float:
+    """Device time per call of ``fn``: the summed durations of the kernels
+    and copies ``torch.profiler`` saw over ``iters`` warm calls (unlike
+    ``cuda_ms``, not set by the host's issue time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / iters / 1e3
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_phase(dev, d: int, f: int):
+def kernel_phase(dev, d: int, f: int, gelu: bool = False):
+    """The expert-FFN stages against their plain versions at T 1 / 5 / 64 /
+    512, bf16 and f32, with a batch-invariance check: swiglu experts
+    (gate_up, then down), or with ``gelu`` the gelu experts' route (up_gelu,
+    then down)."""
     import torch
     from repro_torch.kernels import cache_moe as K
     from repro_torch.kernels import ref as R
-    gen = torch.Generator(dev).manual_seed(0)
+    stage1 = "cache_moe_up_gelu" if gelu else "cache_moe_gate_up"
+    experts = "gelu" if gelu else "swiglu"
+    gen = torch.Generator(dev).manual_seed(4 if gelu else 0)
     rows, main = [], {}
     for dt_name, dt in (("bfloat16", torch.bfloat16),
                         ("float32", torch.float32)):
         def w(shape, fan):
             return (torch.randn(shape, generator=gen, device=dev)
                     * fan ** -0.5).to(dt)
-        wg, wu = w((S_POOL, d, f), d), w((S_POOL, d, f), d)
+        wg = None if gelu else w((S_POOL, d, f), d)
+        wu = w((S_POOL, d, f), d)
         wd = w((S_POOL, f, d), f)
         outs = {}
         for T in (1, BLOCK_T, 64, CONC_PROMPT):
@@ -169,33 +233,39 @@ def kernel_phase(dev, d: int, f: int):
                 si[1, 1] = si[1, 0] = max(int(si[1, 0]), 0)   # a repeat
             wt = torch.rand((T, K_TOP), generator=gen, device=dev).to(dt)
             g = K.slot_groups(si, S_POOL)
-            h = K.gate_up(x, g, wg, wu)
-            h_ref = R.slot_gate_up_ref(x, g.row_tok, wg, wu, g.grp_slot,
-                                       g.grp_start, g.grp_count)
+            if gelu:
+                h = K.up_gelu(x, g, wu)
+                h_ref = R.slot_up_gelu_ref(x, g.row_tok, wu, g.grp_slot,
+                                           g.grp_start, g.grp_count)
+            else:
+                h = K.gate_up(x, g, wg, wu)
+                h_ref = R.slot_gate_up_ref(x, g.row_tok, wg, wu, g.grp_slot,
+                                           g.grp_start, g.grp_count)
             y = K.down(h, g, wd)
             y_ref = R.slot_down_ref(h, wd, g.grp_slot, g.grp_start,
                                     g.grp_count)
             full = K.cache_moe(x, si, wt, wu, wd, wg)
             full_ref = R.cache_moe_ref(x, si, wt, wu, wd, wg)
             torch.cuda.synchronize()
-            for name, got, want in (("cache_moe_gate_up", h, h_ref),
+            for name, got, want in ((stage1, h, h_ref),
                                     ("cache_moe_down", y, y_ref),
                                     ("cache_moe", full, full_ref)):
                 err = (got.float() - want.float()).abs().max().item()
                 scale = want.float().abs().max().item()
                 ok = torch.isfinite(got).all().item() and \
                     err <= TOL[dt_name] * max(scale, 1e-6)
-                rows.append({"kernel": name, "dtype": dt_name, "T": T,
-                             "max_abs_err": err,
+                rows.append({"kernel": name, "experts": experts,
+                             "dtype": dt_name, "T": T, "max_abs_err": err,
                              "max_rel_err": err / max(scale, 1e-30),
                              "tol_rel": TOL[dt_name], "ok": bool(ok)})
                 if not ok:
-                    raise AssertionError(f"{name} {dt_name} T={T}: max abs "
-                                         f"err {err} vs scale {scale}")
+                    raise AssertionError(f"{name} ({experts}) {dt_name} "
+                                         f"T={T}: max abs err {err} vs "
+                                         f"scale {scale}")
             outs[T] = (x, si, wt, full)
             if dt_name == "bfloat16" and T == BLOCK_T:
                 main.update(x=x, si=si, wt=wt, g=g, h=h, wg=wg, wu=wu, wd=wd,
-                            err={"cache_moe_gate_up": rows[-3]["max_abs_err"],
+                            err={stage1: rows[-3]["max_abs_err"],
                                  "cache_moe_down": rows[-2]["max_abs_err"]})
         # batch invariance: each row of the T=5 and T=512 calls equals its
         # own T=1 call, bit for bit
@@ -205,22 +275,26 @@ def kernel_phase(dev, d: int, f: int):
                 one = K.cache_moe(x[t:t + 1], si[t:t + 1], wt[t:t + 1], wu,
                                   wd, wg)
                 if not torch.equal(one, full[t:t + 1]):
-                    raise AssertionError(f"{dt_name}: row {t} of the T={T} "
-                                         f"call differs from its T=1 call")
-            rows.append({"check": "batch_invariance", "dtype": dt_name,
-                         "T": T, "ok": True})
+                    raise AssertionError(f"{experts} {dt_name}: row {t} of "
+                                         f"the T={T} call differs from its "
+                                         f"T=1 call")
+            rows.append({"check": "batch_invariance", "experts": experts,
+                         "dtype": dt_name, "T": T, "ok": True})
         if dt_name == "bfloat16":
-            main["timing"] = time_kernels(main, d, f)
+            main["timing"] = time_kernels(main, d, f, gelu)
         del wg, wu, wd, outs
         gc.collect()
         torch.cuda.empty_cache()
     return rows, main
 
 
-def time_kernels(m, d: int, f: int):
+def time_kernels(m, d: int, f: int, gelu: bool = False):
     """Kernel, plain and library times at the verify-block shape (bf16,
-    T=5, k=2, pool of 12), with the bound from this input's touched slots."""
+    T=5, k=2, pool of 12), with the bound from this input's touched slots:
+    gate_up and down for swiglu experts, up_gelu (its down stage is the
+    same kernel) for gelu experts."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import cache_moe as K
     from repro_torch.kernels import ref as R
     g, x, h = m["g"], m["x"], m["h"]
@@ -234,25 +308,36 @@ def time_kernels(m, d: int, f: int):
     idx = torch.tensor(touched, device=x.device)
     xg = torch.zeros((len(touched), C, d), dtype=x.dtype, device=x.device)
     hg = torch.zeros((len(touched), C, f), dtype=x.dtype, device=x.device)
-    wg_c, wu_c, wd_c = wg[idx], wu[idx], wd[idx]
+    wu_c = wu[idx]
     b = 2                                   # bf16 bytes
     out = {}
-    gate_bytes = len(touched) * 2 * d * f * b + x.numel() * b + \
-        g.row_tok.numel() * f * b
-    down_bytes = len(touched) * f * d * b + g.row_tok.numel() * (f + d) * b
-    for name, kern, plain, lib, nbytes, flops in (
-            ("cache_moe_gate_up",
-             lambda: K.gate_up(x, g, wg, wu),
-             lambda: R.slot_gate_up_ref(x, g.row_tok, wg, wu, g.grp_slot,
-                                        g.grp_start, g.grp_count),
-             lambda: (torch.bmm(xg, wg_c), torch.bmm(xg, wu_c)),
-             gate_bytes, 2 * 2 * rows_n * d * f),
-            ("cache_moe_down",
-             lambda: K.down(h, g, wd),
-             lambda: R.slot_down_ref(h, wd, g.grp_slot, g.grp_start,
-                                     g.grp_count),
-             lambda: torch.bmm(hg, wd_c),
-             down_bytes, 2 * rows_n * f * d)):
+    h_bytes = x.numel() * b + g.row_tok.numel() * f * b
+    if gelu:
+        cases = (("cache_moe_up_gelu",
+                  lambda: K.up_gelu(x, g, wu),
+                  lambda: R.slot_up_gelu_ref(x, g.row_tok, wu, g.grp_slot,
+                                             g.grp_start, g.grp_count),
+                  lambda: F.gelu(torch.bmm(xg, wu_c), approximate="tanh"),
+                  len(touched) * d * f * b + h_bytes,
+                  2 * rows_n * d * f),)
+    else:
+        wg_c, wd_c = wg[idx], wd[idx]
+        cases = (("cache_moe_gate_up",
+                  lambda: K.gate_up(x, g, wg, wu),
+                  lambda: R.slot_gate_up_ref(x, g.row_tok, wg, wu,
+                                             g.grp_slot, g.grp_start,
+                                             g.grp_count),
+                  lambda: (torch.bmm(xg, wg_c), torch.bmm(xg, wu_c)),
+                  len(touched) * 2 * d * f * b + h_bytes,
+                  2 * 2 * rows_n * d * f),
+                 ("cache_moe_down",
+                  lambda: K.down(h, g, wd),
+                  lambda: R.slot_down_ref(h, wd, g.grp_slot, g.grp_start,
+                                          g.grp_count),
+                  lambda: torch.bmm(hg, wd_c),
+                  len(touched) * f * d * b + g.row_tok.numel() * (f + d) * b,
+                  2 * rows_n * f * d))
+    for name, kern, plain, lib, nbytes, flops in cases:
         t_bytes = nbytes / HBM_BYTES_S * 1e3
         t_ops = flops / BF16_FLOPS * 1e3
         out[name] = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
@@ -325,6 +410,108 @@ def flash_phase(dev):
                             qt, kt, vt, is_causal=True, enable_gqa=True)),
                     "bound_ms": bound, "bound_by": by, "max_abs_err": err}
             del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return rows, timing
+
+
+def decode_bound(B: int, H: int, Hkv: int, D: int, lengths, el: int):
+    """Least time for one flash-decode call: 4 * D flops per (q head, live
+    key) at the bf16 tensor rate, against the live K and V prefix, q and
+    out moved once at the memory rate."""
+    keys = sum(lengths)
+    t_ops = H * keys * 4 * D / BF16_FLOPS * 1e3
+    nbytes = (2 * keys * Hkv * D + 2 * B * H * D) * el
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
+def decode_phase(dev):
+    """The flash-decode kernel against its plain version at the llama3.2-3b
+    and mixtral-draft widths, bf16 and f32: one row at each length that
+    fits the cache, and three rows of mixed lengths whose every row must
+    equal its own one-row call bit for bit.  Timed (bf16, one row) at
+    length 543 of 576 (llama3.2-3b) and 4096 of 4112 (mixtral draft)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ref as R
+    gen = torch.Generator(dev).manual_seed(5)
+    rows, timing = [], {}
+
+    def check(model, dt_name, q, k, v, lens_list):
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        got = DA.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        want = R.decode_attention_ref(q, k, v, lens).float()
+        diff = (got.float() - want).abs()
+        excess = (diff - DECODE_TOL[dt_name] - DECODE_RTOL * want.abs()
+                  ).max().item()
+        ok = torch.isfinite(got).all().item() and excess <= 0
+        rows.append({"kernel": "decode_attention", "model": model,
+                     "dtype": dt_name, "S": k.shape[1], "lengths": lens_list,
+                     "max_abs_err": diff.max().item(),
+                     "atol": DECODE_TOL[dt_name], "rtol": DECODE_RTOL,
+                     "ok": bool(ok)})
+        if not ok:
+            raise AssertionError(f"decode_attention {model} {dt_name} "
+                                 f"S={k.shape[1]} lengths={lens_list}: "
+                                 f"{excess} over atol + rtol |want|")
+        return got, lens
+
+    for model, H, Hkv, D in DECODE_WIDTHS:
+        for S, mixed, timed in DECODE_CACHES:
+            for dt_name in ("bfloat16", "float32"):
+                dt = getattr(torch, dt_name)
+                q = torch.randn((3, H, D), generator=gen, device=dev).to(dt)
+                k, v = [torch.randn((3, S, Hkv, D), generator=gen,
+                                    device=dev).to(dt) for _ in range(2)]
+                errs = {}
+                for n in DECODE_LENGTHS:
+                    if n <= S:
+                        check(model, dt_name, q[:1], k[:1], v[:1], [n])
+                        errs[n] = rows[-1]["max_abs_err"]
+                got, lens = check(model, dt_name, q, k, v, list(mixed))
+                for b in range(3):
+                    one = DA.decode_attention(q[b:b + 1], k[b:b + 1],
+                                              v[b:b + 1], lens[b:b + 1])
+                    if not torch.equal(one, got[b:b + 1]):
+                        raise AssertionError(
+                            f"decode_attention {model} {dt_name} S={S}: row "
+                            f"{b} of the 3-row call differs from its 1-row "
+                            f"call")
+                rows.append({"check": "batch_invariance",
+                             "kernel": "decode_attention", "model": model,
+                             "dtype": dt_name, "S": S, "lengths": list(mixed),
+                             "ok": True})
+                if dt_name == "bfloat16" and timed == model:
+                    n = mixed[0]
+                    q1, k1, v1, l1 = q[:1], k[:1], v[:1], lens[:1]
+                    bound, by, nbytes = decode_bound(1, H, Hkv, D, [n], 2)
+                    qs = q1[:, :, None, :]
+                    ks, vs = (t[:, :n].transpose(1, 2) for t in (k1, v1))
+                    timing[model] = {
+                        "S": S, "length": n, "H": H, "Hkv": Hkv, "D": D,
+                        "ms": cuda_ms(lambda: DA.decode_attention(
+                            q1, k1, v1, l1), iters=100),
+                        "plain_ms": cuda_ms(lambda: R.decode_attention_ref(
+                            q1, k1, v1, l1), iters=20),
+                        "library_ms": cuda_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                qs, ks, vs, enable_gqa=True), iters=100),
+                        "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                        "max_abs_err": errs[n]}
+                    # the kernel's own time, which the host's issue time
+                    # hides in "ms" at these sizes, and the others'
+                    timing[model].update(
+                        device_ms=traced_ms(lambda: DA.decode_attention(
+                            q1, k1, v1, l1)),
+                        plain_device_ms=traced_ms(
+                            lambda: R.decode_attention_ref(q1, k1, v1, l1)),
+                        library_device_ms=traced_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                qs, ks, vs, enable_gqa=True)))
+                del q, k, v, got
     torch.cuda.empty_cache()
     return rows, timing
 
@@ -422,16 +609,19 @@ def ssd_phase(dev):
 # phases 3-6: serving
 # ---------------------------------------------------------------------------
 
-MOE_PATH = ("cache_moe_gate_up", "cache_moe_down", "flash_attention")
+MOE_PATH = ("cache_moe_gate_up", "cache_moe_down", "flash_attention",
+            "decode_attention")
 
 
 def reset_launches():
     from repro_torch.kernels import cache_moe as K
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as SSD
-    K.gate_up.launches = K.down.launches = ops.cache_moe.launches = 0
-    FA.flash_attention.launches = 0
+    K.gate_up.launches = K.up_gelu.launches = K.down.launches = 0
+    ops.cache_moe.launches = 0
+    FA.flash_attention.launches = DA.decode_attention.launches = 0
     SSD.ssd_scan.launches = 0
 
 
@@ -439,11 +629,14 @@ def read_launches(path: str, kernels=MOE_PATH):
     """The launch counts of a serving path; each of its kernels must have
     run."""
     from repro_torch.kernels import cache_moe as K
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SSD
     got = {"cache_moe_gate_up": K.gate_up.launches,
+           "cache_moe_up_gelu": K.up_gelu.launches,
            "cache_moe_down": K.down.launches,
            "flash_attention": FA.flash_attention.launches,
+           "decode_attention": DA.decode_attention.launches,
            "ssd_scan": SSD.ssd_scan.launches}
     for name in kernels:
         if got[name] <= 0:
@@ -555,7 +748,10 @@ def breakdown(eng, draft, dev):
             moe()
         host_ms = (time.perf_counter() - t0) * 1e3 / 10
         torch.cuda.synchronize()
-    dcache = draft.init_cache(1, 256)
+    # the draft's steps over a prefilled prefix, as served (flash-decode)
+    _, dcache = draft.prefill(torch.randint(
+        0, cfg.vocab_size, (1, 100), generator=torch.Generator().manual_seed(
+            8)).to(dev), 256)
     tok = block[:, :1]
     draft_ms = cuda_ms(lambda: [draft.decode_step(dcache, tok, 100 + i,
                                                   collect_taps=True)
@@ -704,12 +900,17 @@ def lossless_phase(target, prompts_by_req, dev, forward=teacher_force,
             "worst_gap": worst, "margin": margin}
 
 
-def device_profile(fn, ms: float):
+FOCUS_SSD = ("ssd", r"\bssd_(scan|cb)<")
+FOCUS_DECODE = ("decode", r"\bdecode_(split|combine)<")
+
+
+def device_profile(fn, ms: float, focus=FOCUS_SSD):
     """One warm call of ``fn`` traced with ``torch.profiler``: the kernels
-    the device ran (the SSD scan's two kernels counted apart), the time it
-    was busy (union of the kernels' intervals), and the share of ``ms``, the
-    call's untraced event time, in which it was idle.  None where the
-    profiler saw no device activity."""
+    the device ran (those of one of the port's kernels, ``focus`` = (name,
+    pattern of its kernel names), counted apart), the time it was busy
+    (union of the kernels' intervals), and the share of ``ms``, the call's
+    untraced event time, in which it was idle.  None where the profiler saw
+    no device activity."""
     import re
     import torch
     from torch.autograd import DeviceType
@@ -720,12 +921,13 @@ def device_profile(fn, ms: float):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = {"ssd": [], "rest": [], "copy": []}
+    name, pattern = focus
+    spans = {name: [], "rest": [], "copy": []}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         kind = "copy" if e.name.startswith(("Memcpy", "Memset")) else \
-            "ssd" if re.search(r"\bssd_(scan|cb)<", e.name) else "rest"
+            name if re.search(pattern, e.name) else "rest"
         spans[kind].append((e.time_range.start, e.time_range.end))
 
     def busy_ms(iv):
@@ -736,13 +938,13 @@ def device_profile(fn, ms: float):
                 end = b
         return total / 1e3
 
-    every = spans["ssd"] + spans["rest"] + spans["copy"]
+    every = spans[name] + spans["rest"] + spans["copy"]
     if not every:
         return None
     busy = busy_ms(every)
-    return {"kernels": len(spans["ssd"]) + len(spans["rest"]),
-            "ssd_kernels": len(spans["ssd"]), "copies": len(spans["copy"]),
-            "device_busy_ms": busy, "ssd_busy_ms": busy_ms(spans["ssd"]),
+    return {"kernels": len(spans[name]) + len(spans["rest"]),
+            f"{name}_kernels": len(spans[name]), "copies": len(spans["copy"]),
+            "device_busy_ms": busy, f"{name}_busy_ms": busy_ms(spans[name]),
             "rest_busy_ms": busy_ms(spans["rest"]),
             "event_ms": ms, "idle_share": max(0.0, 1 - busy / ms)}
 
@@ -824,6 +1026,171 @@ def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int):
     return requests, info
 
 
+def gelu_phase(dev):
+    """sd x spmoe over mixtral-8x7b at full width with gelu experts
+    (``ffn_activation="gelu"``, which both packages' configs allow; a
+    gelu-expert variant, not a published model), cut to 2 layers with a
+    2-layer mistral draft, an ample cache: one 64-token request through
+    ``Engine.submit``, the launch counts set to 0 just before and read just
+    after (the expert FFN must run up_gelu and down, never gate_up), then
+    every token teacher-forced through the resident experts."""
+    import torch
+    from repro_torch.configs.registry import get_config, get_draft_config
+    from repro_torch.core.engine import Engine, EngineConfig, Request
+    from repro_torch.models.registry import build_model
+    gcfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                               num_layers=GELU_LAYERS, ffn_activation="gelu",
+                               attn_impl="kernel")
+    dcfg = dataclasses.replace(get_draft_config("mixtral-8x7b"),
+                               num_layers=GELU_LAYERS, attn_impl="kernel")
+    # experts resident on the card as well: the teacher-forced check
+    # reads them there, the engine copies them to its host store
+    target = build_model(gcfg, dev, seed=0)
+    draft = build_model(dcfg, dev, seed=1)
+    prompt = torch.randint(0, gcfg.vocab_size, (1, GELU_PROMPT),
+                           generator=torch.Generator().manual_seed(50))
+    eng = Engine(EngineConfig(model=gcfg, draft=dcfg, decode="sd",
+                              offload="spmoe",
+                              cache_slots=gcfg.num_moe_layers *
+                              gcfg.num_experts, draft_len=4, max_seq=128),
+                 target, draft)
+    names = list(eng.runtime.store.names)
+    if names != ["wu", "wd"]:
+        raise AssertionError(f"gelu experts: the store holds {names}")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = eng.submit(Request(prompt=prompt, max_new_tokens=GELU_NEW,
+                             request_id="gelu-0"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches("gelu-expert", ("cache_moe_up_gelu",
+                                             "cache_moe_down",
+                                             "flash_attention",
+                                             "decode_attention"))
+    if launches["cache_moe_gate_up"]:
+        raise AssertionError("gelu experts ran the swiglu gate_up stage")
+    if len(res.tokens) != GELU_NEW or res.finish_reason != "length":
+        raise AssertionError(f"gelu: the request ended {res.finish_reason} "
+                             f"after {len(res.tokens)} tokens")
+    pinned = eng.runtime.store.pinned_bytes
+    eng.close()
+    loss = lossless_phase(target, [(prompt, res.tokens)], dev)
+    info = {"model": gcfg.name + " (gelu experts)", "layers": GELU_LAYERS,
+            "store": names, "wall_s": wall,
+            "tpot_wall_s": res.metrics.tpot_wall,
+            "pinned_staging_bytes": pinned, "launches": launches,
+            "lossless": loss,
+            **{k: res.metrics[k] for k in ("verify_blocks", "fast_blocks",
+                                           "host_syncs", "on_demand_loads",
+                                           "prefetched")}}
+    del eng, target, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def dense_phase(dev):
+    """llama3.2-3b at full width and full depth (28 layers, d 3072, 24 / 8
+    heads x 128, d_ff 8192, vocab 128256, tied embeddings, bf16,
+    ``attn_impl="kernel"``), random weights from seeds 0 / 1: one 512-token
+    request greedy x none (every target step through flash-decode) and one
+    sd x none with the derived 14-layer draft (every draft step through
+    it), through ``Engine.submit``, the launch counts set to 0 just before
+    and read just after; then one warm greedy decode step timed alone and
+    traced, and every token teacher-forced."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import (Engine, EngineConfig, Request,
+                                         derive_draft_config)
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), attn_impl="kernel")
+    dcfg = derive_draft_config(cfg)
+    t0 = time.perf_counter()
+    target = build_model(cfg, dev, seed=0)
+    draft = build_model(dcfg, dev, seed=1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(60)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, DENSE_PROMPT),
+                             generator=gen) for _ in range(2)]
+    greedy = Engine(EngineConfig(model=cfg, decode="greedy",
+                                 max_seq=DENSE_MAX_SEQ), target)
+    sd = Engine(EngineConfig(model=cfg, draft=dcfg, decode="sd",
+                             draft_len=4, max_seq=DENSE_MAX_SEQ),
+                target, draft)
+    reset_launches()
+    t0 = time.perf_counter()
+    res_g = greedy.submit(Request(prompt=prompts[0],
+                                  max_new_tokens=DENSE_NEW,
+                                  request_id="dense-greedy"))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    after_greedy = read_launches("dense greedy",
+                                 ("flash_attention", "decode_attention"))
+    res_s = sd.submit(Request(prompt=prompts[1], max_new_tokens=DENSE_NEW,
+                              request_id="dense-sd"))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_launches("dense", ("flash_attention", "decode_attention"))
+    for res in (res_g, res_s):
+        if len(res.tokens) != DENSE_NEW or res.finish_reason != "length":
+            raise AssertionError(f"{res.request_id}: ended "
+                                 f"{res.finish_reason} after "
+                                 f"{len(res.tokens)} tokens")
+    # one launch per layer per one-token step: the target's steps (greedy)
+    # and the draft's (sd; a step after a draft block accepted whole skips
+    # a position and takes the masked route)
+    g_dec = after_greedy["decode_attention"]
+    s_dec = launches["decode_attention"] - g_dec
+    if g_dec != cfg.num_layers * (DENSE_NEW - 1):
+        raise AssertionError(f"greedy: {g_dec} flash-decode launches, "
+                             f"expected {cfg.num_layers * (DENSE_NEW - 1)}")
+    drafted = res_s.metrics.drafted
+    if not 0 < s_dec <= dcfg.num_layers * drafted or s_dec % dcfg.num_layers:
+        raise AssertionError(f"sd: {s_dec} flash-decode launches for "
+                             f"{drafted} draft steps of {dcfg.num_layers} "
+                             f"layers")
+    want_flash = 2 * cfg.num_layers + dcfg.num_layers
+    if launches["flash_attention"] != want_flash:
+        raise AssertionError(f"dense: {launches['flash_attention']} flash "
+                             f"launches, expected {want_flash} (the two "
+                             f"target prefills and the draft's)")
+    p0 = prompts[0].to(dev)
+    _, cache = target.prefill(p0, DENSE_MAX_SEQ)
+    tok = p0[:, -1:]
+    step_ms = cuda_ms(lambda: target.decode_step(cache, tok, DENSE_PROMPT))
+    step_prof = device_profile(
+        lambda: target.decode_step(cache, tok, DENSE_PROMPT), step_ms,
+        FOCUS_DECODE)
+    greedy.close()
+    sd.close()
+    loss = lossless_phase(target, [(p, r.tokens) for p, r in
+                                   zip(prompts, (res_g, res_s))], dev,
+                          margin=DENSE_MARGIN)
+    if loss["exact"] < DENSE_MIN_EXACT * 2 * DENSE_NEW:
+        raise AssertionError(f"dense: only {loss['exact']} of "
+                             f"{2 * DENSE_NEW} tokens are the teacher-forced "
+                             f"argmax")
+    info = {"model": cfg.name, "layers": cfg.num_layers,
+            "draft_layers": dcfg.num_layers,
+            "params": sum(t.numel() for t in target.parameters()),
+            "draft_params": sum(t.numel() for t in draft.parameters()),
+            "model_init_s": init_s,
+            "greedy": {"wall_s": t1 - t0, "tpot_wall_s":
+                       res_g.metrics.tpot_wall,
+                       "decode_attention_launches": g_dec},
+            "sd": {"wall_s": t2 - t1, "tpot_wall_s": res_s.metrics.tpot_wall,
+                   "iterations": res_s.metrics.iterations,
+                   "drafted": drafted, "accepted": res_s.metrics.accepted,
+                   "decode_attention_launches": s_dec},
+            "launches": launches, "decode_step_ms": step_ms,
+            "decode_step_profile": step_prof, "lossless": loss}
+    del greedy, sd, target, draft, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -853,11 +1220,14 @@ def main() -> int:
     dcfg = dataclasses.replace(get_draft_config("mixtral-8x7b"),
                                num_layers=4, attn_impl="kernel")
     rows, main_k = kernel_phase(dev, cfg.d_model, cfg.moe_d_ff)
+    gelu_rows, gelu_k = kernel_phase(dev, cfg.d_model, cfg.moe_d_ff,
+                                     gelu=True)
     fa_rows, fa_timing = flash_phase(dev)
+    dec_rows, dec_timing = decode_phase(dev)
     ssd_rows, ssd_timing = ssd_phase(dev)
-    rows += fa_rows + ssd_rows
+    rows += gelu_rows + fa_rows + dec_rows + ssd_rows
     log(f"[2] kernels match their plain versions ({len(rows)} checks); "
-        f"flash {fa_timing}; ssd {ssd_timing}")
+        f"flash {fa_timing}; decode {dec_timing}; ssd {ssd_timing}")
 
     t0 = time.perf_counter()
     target = build_model(cfg, dev, seed=0, expert_device="cpu")
@@ -915,20 +1285,28 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phases 7-9: the SSD families, greedy x none, all weights resident
+    # phase 7: gelu experts, sd x spmoe
+    gelu_info = gelu_phase(dev)
+    log(f"[7] gelu-expert serving ok: {gelu_info}")
+
+    # phases 8-10: the SSD families, greedy x none, all weights resident
     gen = torch.Generator().manual_seed(40)
     mcfg = get_config("mamba2-780m")
     ssm_prompts = [torch.randint(0, mcfg.vocab_size, (1, n), generator=gen)
                    for n in SSM_PROMPTS]
     mamba_reqs, mamba_info = ssm_phase("mamba2", mcfg, dev, ssm_prompts,
                                        SSM_NEW)
-    log(f"[7] mamba2-780m serving ok: {mamba_info}")
+    log(f"[8] mamba2-780m serving ok: {mamba_info}")
     zcfg = dataclasses.replace(get_config("zamba2-7b"),
                                num_layers=ZAMBA_LAYERS)
     zamba_reqs, zamba_info = ssm_phase(
         "zamba2", zcfg, dev, [torch.randint(0, zcfg.vocab_size, (1, 512),
                                             generator=gen)], SSM_NEW)
-    log(f"[8] zamba2-7b serving ok: {zamba_info}")
+    log(f"[9] zamba2-7b serving ok: {zamba_info}")
+
+    # phase 11: the dense target at full width and depth, greedy and sd
+    dense_info = dense_phase(dev)
+    log(f"[11] llama3.2-3b serving ok: {dense_info}")
 
     timing = main_k["timing"]
     kernels = []
@@ -964,7 +1342,32 @@ def main() -> int:
         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    t = dec_timing["llama3.2-3b"]
+    kernels.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:26",
+        "launches": dense_info["launches"]["decode_attention"],
+        "launches_concurrent_path": launches["decode_attention"],
+        "launches_solo_path": solo_launches["decode_attention"],
+        "launches_gelu_path": gelu_info["launches"]["decode_attention"],
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "device_ms": t["device_ms"],
+        "library_device_ms": t["library_device_ms"]})
+    t = gelu_k["timing"]["cache_moe_up_gelu"]
+    kernels.append({
+        "name": "cache_moe_up_gelu", "route": "cuda",
+        "source": "src/repro_torch/csrc/cache_moe.cu",
+        "replaces": "src/repro/kernels/cache_moe.py:120",
+        "launches": gelu_info["launches"]["cache_moe_up_gelu"],
+        "max_abs_err": gelu_k["err"]["cache_moe_up_gelu"],
+        "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"decode_timing": dec_timing}))
     print(json.dumps({"flash_timing": {
         "shape": {"B": 1, "H": FA_HEADS, "Hkv": FA_KV_HEADS, "D": FA_DIM,
                   "dtype": "bfloat16", "causal": True},
@@ -979,7 +1382,10 @@ def main() -> int:
                                        **{n: {k: v for k, v in t.items()
                                               if k in ("touched_slots",
                                                        "rows")}
-                                          for n, t in timing.items()}}}))
+                                          for n, t in {
+                                              **timing,
+                                              **gelu_k["timing"]}.items()}
+                                       }}))
     print(json.dumps({"requests": [
         {"id": r.request_id, "tokens": len(r.tokens),
          "tpot_wall_s": r.metrics.tpot_wall,
@@ -994,6 +1400,8 @@ def main() -> int:
         "lossless": loss}))
     print(json.dumps({"ssm_requests": mamba_reqs + zamba_reqs,
                       "mamba2": mamba_info, "zamba2": zamba_info}))
+    print(json.dumps({"gelu_requests": gelu_info}))
+    print(json.dumps({"dense_requests": dense_info}))
     print(json.dumps({"breakdown": brk}))
     print(json.dumps({"memory": {
         "device_max_allocated_bytes": torch.cuda.max_memory_allocated(),

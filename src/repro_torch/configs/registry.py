@@ -1,8 +1,9 @@
 """``--arch`` id -> ModelConfig registry, trimmed to what the port runs:
-mixtral-8x7b and its dense draft (paper Table 1), llama3.2-3b (a dense
-model with tied embeddings; its reduced form checks the flash-attention
-path against the reference), and the SSD families: mamba2-780m (ssm) and
-zamba2-7b (hybrid), served greedy with all weights resident."""
+mixtral-8x7b and its dense draft (paper Table 1); llama3.2-3b, a dense
+target with tied embeddings served with all weights resident, greedy or
+speculatively with the derived half-depth draft (``derive_draft_config``;
+it has no published draft pairing); and the SSD families: mamba2-780m (ssm)
+and zamba2-7b (hybrid), served greedy with all weights resident."""
 from __future__ import annotations
 
 from typing import Dict, Optional

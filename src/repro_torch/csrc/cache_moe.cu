@@ -1,19 +1,27 @@
 // Slot-indexed grouped expert FFN for Hopper (sm_90a), CUDA C++.
 //
-// Replaces the two Pallas TPU stages that the reference's cache_moe runs for
-// swiglu experts (reached from src/repro/kernels/cache_moe.py:191):
-//   stage 1  src/repro/kernels/moe_gemm.py::_gate_up_kernel (moe_gemm.py:28,
+// Replaces the Pallas TPU stages that the reference's cache_moe runs
+// (src/repro/kernels/cache_moe.py):
+//   stage 1, swiglu experts (reached from cache_moe.py:191):
+//            src/repro/kernels/moe_gemm.py::_gate_up_kernel (moe_gemm.py:28,
 //            pallas_call at moe_gemm.py:74):  h = silu(x @ wg) * (x @ wu)
+//   stage 1, gelu experts (wg = None):
+//            src/repro/kernels/cache_moe.py::_up_gelu_kernel (cache_moe.py:120,
+//            pallas_call at cache_moe.py:143):  h = gelu_tanh(x @ wu)
 //   stage 2  src/repro/kernels/moe_gemm.py::_down_kernel (moe_gemm.py:47,
-//            pallas_call at moe_gemm.py:91):  y = h @ wd
+//            pallas_call at moe_gemm.py:91, and cache_moe.py:157 under gelu):
+//            y = h @ wd
 //
 // What it computes.  The (token, choice) pairs of a verify block are sorted
 // by cache slot on the device (repro_torch/kernels/cache_moe.py::slot_groups,
 // fixed shapes, no host sync).  Group g owns the sorted rows
 // [grp_start[g], grp_start[g] + grp_count[g]), all routed to slot
 // grp_slot[g].  Stage 1 writes h[p] = silu(x[row_tok[p]] @ wg[s]) *
-// (x[row_tok[p]] @ wu[s]) in x's dtype (f32 accumulators, as the Pallas
-// kernel's h_ref.dtype); stage 2 writes y[p] = h[p] @ wd[s].  The weights are
+// (x[row_tok[p]] @ wu[s]), or for gelu experts h[p] = gelu_tanh(x[row_tok[p]]
+// @ wu[s]) = 0.5 a (1 + tanh(sqrt(2/pi) (a + 0.044715 a^3))) with tanhf (what
+// jax.nn.gelu computes by default), in x's dtype (f32 accumulators, as the
+// Pallas kernels' h_ref.dtype); stage 2 writes y[p] = h[p] @ wd[s].  The three
+// are one template, slot_ffn, with the epilogue as its parameter.  The weights are
 // read straight out of the [S, d, f] / [S, f, d] slot pool: nothing gathers
 // or copies a weight row.  Groups with no rows exit at once, so misses and
 // unoccupied slots cost nothing.
@@ -23,7 +31,8 @@
 // matrix-vector products, and it is the weight bytes that bound it:
 //   bytes = M_touched * 3 * d * f * 2   (bf16)
 // At d = 4096, f = 14336 with all 8 experts of a layer touched that is
-// 2.82 GB, 0.84 ms per layer at the H100's 3.35 TB/s.  The operations,
+// 2.82 GB, 0.84 ms per layer at the H100's 3.35 TB/s (gelu experts read two
+// of the three matrices: 2 * d * f * 2 per touched slot).  The operations,
 // 2 * rows * 3 * d * f, are ~1 % of the bf16 tensor-core rate at these rows.
 //
 // How the design answers it.
@@ -59,6 +68,11 @@ constexpr int kRows = 8;                 // rows of one slot per pass
 constexpr int kChunk = 512;              // reduction elements staged per step
 constexpr int kPerWarp = kChunk / kWarps;
 
+// stage epilogues
+constexpr int kLinear = 0;               // out = in_row @ w1
+constexpr int kSwiglu = 1;               // out = silu(in_row @ w1) * (in_row @ w2)
+constexpr int kGelu = 2;                 // out = gelu_tanh(in_row @ w1)
+
 template <typename T>
 struct Traits;
 
@@ -93,10 +107,10 @@ struct Traits<__nv_bfloat16> {
   }
 };
 
-// out[p, :N] for the rows p of group blockIdx.y, columns of tile blockIdx.x.
-// kGated: out = silu(in_row @ w1[s]) * (in_row @ w2[s]); else out = in_row @ w1[s].
+// out[p, :N] for the rows p of group blockIdx.y, columns of tile blockIdx.x,
+// with the epilogue kAct (kLinear, kSwiglu or kGelu) applied to the f32 sums.
 // in_row is in[row_map[p]] when row_map is given, else in[p].
-template <typename T, bool kGated>
+template <typename T, int kAct>
 __global__ void __launch_bounds__(kThreads)
 slot_ffn(const T* __restrict__ in, const int* __restrict__ row_map,
          const T* __restrict__ w1, const T* __restrict__ w2,
@@ -105,6 +119,7 @@ slot_ffn(const T* __restrict__ in, const int* __restrict__ row_map,
   using Tr = Traits<T>;
   constexpr int V = Tr::kVec;
   constexpr int kCols = 32 * V;
+  constexpr bool kGated = kAct == kSwiglu;
   constexpr int kAcc = kGated ? 2 : 1;
   __shared__ float xs[kRows][kChunk];
   __shared__ float red[kAcc][kWarps][kCols];
@@ -191,6 +206,10 @@ slot_ffn(const T* __restrict__ in, const int* __restrict__ row_map,
             }
             float val = s0;
             if constexpr (kGated) val = s0 / (1.f + expf(-s0)) * s1;
+            if constexpr (kAct == kGelu)
+              val = 0.5f * s0 *
+                    (1.f + tanhf(0.7978845608028654f *
+                                 (s0 + 0.044715f * s0 * s0 * s0)));
             out[static_cast<size_t>(start + p0 + r) * N + col] = Tr::from_f(val);
           }
         }
@@ -199,14 +218,14 @@ slot_ffn(const T* __restrict__ in, const int* __restrict__ row_map,
   }
 }
 
-template <typename T, bool kGated>
+template <typename T, int kAct>
 int launch(const void* in, const void* row_map, const void* w1, const void* w2,
            const void* grp_slot, const void* grp_start, const void* grp_count,
            void* out, int K, int N, int groups, void* stream) {
   constexpr int kCols = 32 * Traits<T>::kVec;
   if (groups <= 0) return 0;
   const dim3 grid((N + kCols - 1) / kCols, groups);
-  slot_ffn<T, kGated><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  slot_ffn<T, kAct><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(in), static_cast<const int*>(row_map),
       static_cast<const T*>(w1), static_cast<const T*>(w2),
       static_cast<const int*>(grp_slot), static_cast<const int*>(grp_start),
@@ -224,11 +243,28 @@ extern "C" int cache_moe_gate_up(int dtype, const void* x, const void* row_tok,
                                  const void* grp_count, void* h, int d, int f,
                                  int groups, void* stream) {
   if (dtype == 0)
-    return launch<float, true>(x, row_tok, wg, wu, grp_slot, grp_start,
-                               grp_count, h, d, f, groups, stream);
+    return launch<float, kSwiglu>(x, row_tok, wg, wu, grp_slot, grp_start,
+                                  grp_count, h, d, f, groups, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16, true>(x, row_tok, wg, wu, grp_slot, grp_start,
-                                       grp_count, h, d, f, groups, stream);
+    return launch<__nv_bfloat16, kSwiglu>(x, row_tok, wg, wu, grp_slot,
+                                          grp_start, grp_count, h, d, f,
+                                          groups, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Gelu experts.  x [T, d], row_tok [P], wu [S, d, f], grp_* [groups] -> h [P, f].
+extern "C" int cache_moe_up_gelu(int dtype, const void* x, const void* row_tok,
+                                 const void* wu, const void* grp_slot,
+                                 const void* grp_start, const void* grp_count,
+                                 void* h, int d, int f, int groups,
+                                 void* stream) {
+  if (dtype == 0)
+    return launch<float, kGelu>(x, row_tok, wu, nullptr, grp_slot, grp_start,
+                                grp_count, h, d, f, groups, stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kGelu>(x, row_tok, wu, nullptr, grp_slot,
+                                        grp_start, grp_count, h, d, f, groups,
+                                        stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -238,12 +274,13 @@ extern "C" int cache_moe_down(int dtype, const void* h, const void* wd,
                               const void* grp_count, void* y, int f, int d,
                               int groups, void* stream) {
   if (dtype == 0)
-    return launch<float, false>(h, nullptr, wd, nullptr, grp_slot, grp_start,
-                                grp_count, y, f, d, groups, stream);
+    return launch<float, kLinear>(h, nullptr, wd, nullptr, grp_slot,
+                                  grp_start, grp_count, y, f, d, groups,
+                                  stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16, false>(h, nullptr, wd, nullptr, grp_slot,
-                                        grp_start, grp_count, y, f, d, groups,
-                                        stream);
+    return launch<__nv_bfloat16, kLinear>(h, nullptr, wd, nullptr, grp_slot,
+                                          grp_start, grp_count, y, f, d,
+                                          groups, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

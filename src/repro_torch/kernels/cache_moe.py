@@ -5,17 +5,19 @@ slot_ids [T, k] (-1 = miss or masked out of this wave),
 
     y[t] = sum_c  w[t, c] * FFN_{slot_ids[t, c]}(x[t])        (slot >= 0)
 
-with FFN_s(x) = (silu(x @ wg[s]) * (x @ wu[s])) @ wd[s].  Index prep is
-fixed-shape torch ops on the device (``slot_groups``): no host sync, so the
-fast verify path keeps its ≤2-syncs-per-block contract.  The two GEMM stages
-are the hand-written CUDA kernel ``csrc/cache_moe.cu`` (``gate_up``,
-``down``), which reads the weights straight out of the [S, ...] slot pool.
-The combine is in f32, in each token's choice order, outside the kernel (as
-the reference keeps it outside Pallas).
+with FFN_s(x) = (silu(x @ wg[s]) * (x @ wu[s])) @ wd[s] for swiglu experts
+and gelu_tanh(x @ wu[s]) @ wd[s] for gelu experts (``wg=None``).  Index prep
+is fixed-shape torch ops on the device (``slot_groups``): no host sync, so
+the fast verify path keeps its ≤2-syncs-per-block contract.  The two GEMM
+stages are the hand-written CUDA kernel ``csrc/cache_moe.cu`` (``gate_up`` or
+``up_gelu``, then ``down``), which reads the weights straight out of the
+[S, ...] slot pool.  The combine is in f32, in each token's choice order,
+outside the kernel (as the reference keeps it outside Pallas).
 
 Each wrapper takes the kernel's plain version (``kernels/ref.py``) only when
 its input lies on the CPU; on a CUDA tensor it launches the kernel or raises.
-``gate_up.launches`` / ``down.launches`` count the launches.
+``gate_up.launches`` / ``up_gelu.launches`` / ``down.launches`` count the
+launches.
 """
 from __future__ import annotations
 
@@ -39,6 +41,9 @@ def _lib() -> ctypes.CDLL:
         lib.cache_moe_gate_up.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                           _I, _I, _I, _P]
         lib.cache_moe_gate_up.restype = _I
+        lib.cache_moe_up_gelu.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _P]
+        lib.cache_moe_up_gelu.restype = _I
         lib.cache_moe_down.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I,
                                        _I, _P]
         lib.cache_moe_down.restype = _I
@@ -165,6 +170,34 @@ def gate_up(x: torch.Tensor, g: SlotGroups, wg: torch.Tensor,
 gate_up.launches = 0
 
 
+def up_gelu(x: torch.Tensor, g: SlotGroups, wu: torch.Tensor) -> torch.Tensor:
+    """Stage 1 of gelu experts: h [T·k, f], h[p] = gelu_tanh(x[row] @ wu[s])
+    for each sorted row p of each group (rows of no group are 0)."""
+    if x.device.type == "cpu":
+        return R.slot_up_gelu_ref(x, g.row_tok, wu, g.grp_slot, g.grp_start,
+                                  g.grp_count)
+    _check_call(x, g, wu)
+    d, f = x.shape[1], wu.shape[2]
+    _check("x", x, x.dtype, 2)
+    _check("wu", wu, x.dtype, 3)
+    if wu.shape[1] != d or f % _VEC[x.dtype]:
+        raise ValueError(f"up_gelu shapes: x {tuple(x.shape)}, "
+                         f"wu {tuple(wu.shape)}")
+    h = torch.zeros((g.row_tok.shape[0], f), dtype=x.dtype, device=x.device)
+    lib = _lib()
+    rc = lib.cache_moe_up_gelu(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), g.row_tok.data_ptr(),
+        wu.data_ptr(), g.grp_slot.data_ptr(), g.grp_start.data_ptr(),
+        g.grp_count.data_ptr(), h.data_ptr(), d, f, g.grp_slot.shape[0],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise(lib, "cache_moe_up_gelu", rc)
+    up_gelu.launches += 1
+    return h
+
+
+up_gelu.launches = 0
+
+
 def down(h: torch.Tensor, g: SlotGroups, wd: torch.Tensor) -> torch.Tensor:
     """Stage 2: y [T·k, d], y[p] = h[p] @ wd[s] for each sorted row p of
     each group (rows of no group are 0), in h's dtype."""
@@ -196,14 +229,12 @@ def cache_moe(x: torch.Tensor, slot_ids: torch.Tensor, weights: torch.Tensor,
               wu: torch.Tensor, wd: torch.Tensor,
               wg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: [T, d]; slot_ids/weights: [T, k]; wu/wg: [S, d, f]; wd: [S, f, d]
-    -> y [T, d].  slot_ids < 0 contribute zero."""
-    if wg is None:
-        raise NotImplementedError(
-            "gelu experts (the reference's _up_gelu_kernel) have no Hopper "
-            "kernel yet")
+    -> y [T, d].  slot_ids < 0 contribute zero; ``wg=None`` means gelu
+    experts."""
     T, k = slot_ids.shape
     g = slot_groups(slot_ids, wu.shape[0])
-    yc = down(gate_up(x, g, wg, wu), g, wd)
+    h = up_gelu(x, g, wu) if wg is None else gate_up(x, g, wg, wu)
+    yc = down(h, g, wd)
     per = yc[g.inv].reshape(T, k, x.shape[1]).float()
     w = torch.where(g.valid, weights.float(),
                     torch.zeros((), dtype=torch.float32, device=x.device))

@@ -8,8 +8,13 @@ import torch
 
 from repro_torch.kernels import cache_moe as K
 from repro_torch.kernels import ref as R
-# These two wrappers route a CPU tensor to the plain version themselves and
-# count their own launches (``flash_attention.launches``, ``ssd.launches``).
+# These three wrappers route a CPU tensor to the plain version themselves and
+# count their own launches (``flash_attention.launches``,
+# ``decode_attention.launches``, ``ssd.launches``).
+# One query per row against a KV prefix, q [B,H,D], k/v [B,S,Hkv,D],
+# lengths [B] int32 -> [B,H,D]:
+from repro_torch.kernels.decode_attention import \
+    decode_attention  # noqa: F401
 # Prefill attention, q [B,Sq,H,D], k/v [B,Skv,Hkv,D] -> [B,Sq,H,D]:
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 # Mamba2 chunked SSD scan (every mamba layer's full-sequence path),

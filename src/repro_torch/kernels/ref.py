@@ -116,6 +116,29 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# decode attention (one query per row against a long KV prefix)
+# ---------------------------------------------------------------------------
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """q: [B,H,D], k/v: [B,S,Hkv,D], lengths: [B] valid prefix -> [B,H,D]
+    (the reference's ``decode_attention_ref``, in its order: scores in the
+    input dtype, then f32 / sqrt(D), masked to -1e30, softmax, p cast to
+    v's dtype, then the PV product)."""
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bkrd,bskd->bkrs", qg, k).float() / math.sqrt(D)
+    valid = torch.arange(S, device=q.device)[None, :] < \
+        lengths.to(q.device)[:, None]
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.full((), NEG_INF, dtype=torch.float32,
+                               device=q.device))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bkrs,bskd->bkrd", p, v).reshape(B, H, D)
+
+
+# ---------------------------------------------------------------------------
 # grouped expert GEMM (capacity-gathered layout)
 # ---------------------------------------------------------------------------
 
@@ -193,6 +216,24 @@ def slot_gate_up_ref(x: torch.Tensor, row_tok: torch.Tensor,
         if n:
             xr = x[row_tok[lo:lo + n].long()]
             h[lo:lo + n] = F.silu(xr @ wg[s]) * (xr @ wu[s])
+    return h
+
+
+def slot_up_gelu_ref(x: torch.Tensor, row_tok: torch.Tensor,
+                     wu: torch.Tensor, grp_slot: torch.Tensor,
+                     grp_start: torch.Tensor, grp_count: torch.Tensor
+                     ) -> torch.Tensor:
+    """Plain version of the gelu stage-1 kernel: h[p] =
+    gelu_tanh(x[row_tok[p]] @ wu[s]) for each sorted row p of group g with
+    s = grp_slot[g], in x's dtype (``jax.nn.gelu`` is the tanh form by
+    default).  Rows of no group are 0."""
+    h = torch.zeros((row_tok.shape[0], wu.shape[2]), dtype=x.dtype,
+                    device=x.device)
+    for s, lo, n in zip(grp_slot.tolist(), grp_start.tolist(),
+                        grp_count.tolist()):
+        if n:
+            xr = x[row_tok[lo:lo + n].long()]
+            h[lo:lo + n] = F.gelu(xr @ wu[s], approximate="tanh")
     return h
 
 

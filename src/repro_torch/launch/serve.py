@@ -8,7 +8,10 @@ spmoe | adapmoe | moe-infinity | on-demand).  Any combination is valid and
 lossless; offload policies require an MoE target, and the ssm / hybrid
 targets (``--arch mamba2-780m``, ``--arch zamba2-7b``) decode greedy only,
 their default: their mamba layers step one token at a time, so they cannot
-verify a draft block.  The legacy single-axis
+verify a draft block.  A dense target (``--arch llama3.2-3b``) serves with
+``--offload none`` (its default) under ``--decode greedy`` or ``sd`` /
+``sd-adaptive`` with the derived half-depth draft.  Every arch is served
+reduced.  The legacy single-axis
 ``--policy`` flag is kept as a deprecated alias (``sd-only`` ->
 ``--decode sd --offload none``, ``spmoe`` -> ``--decode sd --offload
 spmoe``, ...).
@@ -43,6 +46,10 @@ wall-clock budget (``finish_reason="deadline"`` when it expires).
     # mamba2-780m, reduced, greedy (its default decode), on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch mamba2-780m --decode greedy --tokens 8
+
+    # llama3.2-3b, reduced, sd x none with its derived half-depth draft
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+        --decode sd --tokens 16
 """
 from __future__ import annotations
 

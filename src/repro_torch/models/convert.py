@@ -54,6 +54,14 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]):
-    """Copy a reference param tree into ``model`` (every name must match)."""
-    model.load_state_dict(params_from_jax(tree), strict=True)
+    """Copy a reference param tree into ``model`` (every name must match).
+    The reference draws an expert gate projection ``moe.wg`` for every
+    expert activation (``init_moe``) but only swiglu experts read it; the
+    port builds none for gelu experts, so it is not copied there."""
+    state = params_from_jax(tree)
+    cfg = getattr(model, "cfg", None)
+    if cfg is not None and cfg.is_moe and cfg.ffn_activation != "swiglu":
+        state = {n: t for n, t in state.items()
+                 if not n.endswith(".moe.wg")}
+    model.load_state_dict(state, strict=True)
     return model

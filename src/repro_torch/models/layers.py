@@ -5,8 +5,9 @@ Functions take their weights as attributes of a module (``p.wq``) in the
 reference's layouts (``wq [d, H, hd]``, ``wo [H, hd, d]``, ``wg [d, f]``) and
 compute in the input's dtype; reductions (softmax, norms) run in f32, as the
 reference does.  Attention is plain tensor ops, as the reference's ``mha`` is
-plain jnp, except full-sequence attention under ``attn_impl="kernel"``, which
-runs the flash-attention kernel (``kernels/ops.py``).
+plain jnp, except under ``attn_impl="kernel"``: there full-sequence attention
+runs the flash-attention kernel and a one-token decode step over a plain
+prefix the flash-decode kernel (``kernels/ops.py``).
 """
 from __future__ import annotations
 
@@ -169,7 +170,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def attention_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                     pos: int, cfg: ModelConfig
+                     pos: int, cfg: ModelConfig, contiguous: bool = False
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Decode a block of Sq >= 1 tokens at absolute positions pos..pos+Sq-1
     (Sq > 1 = speculative-verification block).  x: [B,Sq,D]; pos: int.
@@ -179,7 +180,22 @@ def attention_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     comes from the stored per-slot positions.  Unlike the reference, the
     cache is updated IN PLACE (and returned): a block's writes land on the
     slots of its own positions, so re-running a block (a fast-path fallback)
-    or a later block overwrites them before any query can attend them."""
+    or a later block overwrites them before any query can attend them.
+
+    Route.  Under ``attn_impl="kernel"``, a one-token block (Sq == 1) with
+    no logit softcap whose attendable slots are exactly [0, pos] goes
+    through the flash-decode kernel (``ops.decode_attention``, lengths
+    pos + 1).  That holds when the caller says every position before pos
+    has been written (``contiguous``; a draft whose last token was accepted
+    without being fed has a hole there, which the pos_map mask hides) and
+    ``sliding_window`` is None or pos < ``sliding_window``: then no ring has
+    wrapped (slot = position), each slot < pos holds its own position (each
+    block writes its own slots), slots past pos hold only later positions,
+    and the window excludes nothing, so the pos_map mask is the prefix mask.
+    The route is decided from Python values alone (no host sync).  Every
+    other block (verify blocks, a wrapped or windowed ring, a softcap,
+    ``"xla"``, a hole) runs ``mha`` under the pos_map mask, as the
+    reference does."""
     B, Sq, _ = x.shape
     S = cache["k"].shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)
@@ -195,12 +211,19 @@ def attention_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     ck[:, slots] = k
     cv[:, slots] = v
     pos_map[slots] = qpos
-    # mask [1,1,1,Sq,S]: slot valid for query i iff it holds a position
-    # <= qpos[i] (and within the window for SWA)
-    valid = (pos_map[None, :] <= qpos[:, None]) & (pos_map[None, :] >= 0)
-    if cfg.sliding_window:
-        valid &= pos_map[None, :] > qpos[:, None] - cfg.sliding_window
-    out = mha(q, ck, cv, valid[None, None, None], cfg.attn_logit_softcap)
+    if cfg.attn_impl == "kernel" and Sq == 1 and contiguous \
+            and cfg.attn_logit_softcap is None \
+            and (cfg.sliding_window is None or pos < cfg.sliding_window):
+        lengths = torch.full((B,), pos + 1, dtype=torch.int32,
+                             device=x.device)
+        out = ops.decode_attention(q[:, 0], ck, cv, lengths)[:, None]
+    else:
+        # mask [1,1,1,Sq,S]: slot valid for query i iff it holds a position
+        # <= qpos[i] (and within the window for SWA)
+        valid = (pos_map[None, :] <= qpos[:, None]) & (pos_map[None, :] >= 0)
+        if cfg.sliding_window:
+            valid &= pos_map[None, :] > qpos[:, None] - cfg.sliding_window
+        out = mha(q, ck, cv, valid[None, None, None], cfg.attn_logit_softcap)
     out = torch.einsum("bshk,hkd->bsd", out, p.wo)
     return out, cache
 

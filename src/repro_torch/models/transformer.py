@@ -28,7 +28,11 @@ Three modes share one block function:
 Caches mirror the layout: per-block caches listed under ``layers``, or
 under ``mamba_groups`` [G][per], ``shared_attn`` [G] and ``tail`` for a
 hybrid.  An attention block's is ``{"k", "v", "pos_map"}``, a mamba block's
-``{"ssm", "conv"}``.  They are updated in place.
+``{"ssm", "conv"}``.  They are updated in place.  The top-level dict also
+holds ``written``, a host int: positions [0, written) have all been written.
+A decode step that starts past it leaves positions no block wrote (a draft
+whose last token was accepted without being fed), and from then on its
+one-token steps take the masked attention route (``attention_decode``).
 """
 from __future__ import annotations
 
@@ -184,7 +188,9 @@ class DecoderLM(nn.Module):
         the FFN / gate input).  Writes the layer's KV cache in place."""
         blk = self.layers[l]
         h = L.rms_norm(x, blk.ln1, self.cfg.norm_eps)
-        a, _ = L.attention_decode(blk.attn, h, cache_l, pos, self.cfg)
+        # the offload runtime's target blocks cover every position in turn
+        a, _ = L.attention_decode(blk.attn, h, cache_l, pos, self.cfg,
+                                  contiguous=True)
         x = x + a
         return x, L.rms_norm(x, blk.ln2, self.cfg.norm_eps)
 
@@ -212,10 +218,11 @@ class DecoderLM(nn.Module):
             groups, per, tail = self.hybrid_layout()
             return {"mamba_groups": [ssm(per) for _ in range(groups)],
                     "shared_attn": [kv() for _ in range(groups)],
-                    "tail": ssm(tail)}
+                    "tail": ssm(tail), "written": 0}
         if cfg.family == "ssm":
-            return {"layers": ssm(cfg.num_layers)}
-        return {"layers": [kv() for _ in range(cfg.num_layers)]}
+            return {"layers": ssm(cfg.num_layers), "written": 0}
+        return {"layers": [kv() for _ in range(cfg.num_layers)],
+                "written": 0}
 
     def _sites(self, cache: Optional[Cache]):
         """(block, its cache or None) in the order the model applies them."""
@@ -234,10 +241,11 @@ class DecoderLM(nn.Module):
 
     # -- block ------------------------------------------------------------------
     def _block(self, blk: Block, x: torch.Tensor, mode: str,
-               cache_l: Optional[Dict], pos: int
+               cache_l: Optional[Dict], pos: int, contiguous: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """-> (x_out, aux_loss, gate_input_tap); a mamba block's tap is its
-        output, as in the reference."""
+        output, as in the reference.  ``contiguous``: every position before
+        ``pos`` is in the caches (``attention_decode``)."""
         cfg = self.cfg
         h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -252,7 +260,8 @@ class DecoderLM(nn.Module):
             x = x + y
             return x, aux, x
         if mode == "decode":
-            a, _ = L.attention_decode(blk.attn, h, cache_l, pos, cfg)
+            a, _ = L.attention_decode(blk.attn, h, cache_l, pos, cfg,
+                                      contiguous=contiguous)
         else:
             a = L.attention_forward(blk.attn, h, cfg)
             if mode == "prefill":
@@ -266,13 +275,13 @@ class DecoderLM(nn.Module):
         return x + y, aux, h2
 
     def _run(self, x: torch.Tensor, mode: str, cache: Optional[Cache],
-             pos: int, collect_taps: bool = False):
+             pos: int, collect_taps: bool = False, contiguous: bool = False):
         """-> (x, aux, taps); taps are collected for ``layers`` only (the
         reference collects none for hybrid models)."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         taps: List[torch.Tensor] = []
         for blk, cl in self._sites(cache):
-            x, aux, tap = self._block(blk, x, mode, cl, pos)
+            x, aux, tap = self._block(blk, x, mode, cl, pos, contiguous)
             aux_total = aux_total + aux
             if collect_taps:
                 taps.append(tap)
@@ -295,6 +304,7 @@ class DecoderLM(nn.Module):
         cache)."""
         cache = self.init_cache(tokens.shape[0], max_seq)
         x, _, _ = self._run(self.embed(tokens), "prefill", cache, 0)
+        cache["written"] = tokens.shape[1]
         return self.logits(x[:, -1:])[:, 0], cache
 
     def decode_step(self, cache: Cache, tokens: torch.Tensor, pos: int,
@@ -302,8 +312,12 @@ class DecoderLM(nn.Module):
         """tokens: [B,Sq] at positions pos..pos+Sq-1 (Sq>1 = speculative
         verification block) -> (logits [B,Sq,V], cache, taps).  taps is
         ``{"layers": [L, B, Sq, d]}`` when collected, else {}."""
+        written = cache.get("written", 0)
+        contiguous = pos <= written
         x, _, taps = self._run(self.embed(tokens), "decode", cache, pos,
-                               collect_taps)
+                               collect_taps, contiguous)
+        if contiguous:
+            cache["written"] = max(written, pos + tokens.shape[1])
         return self.logits(x), cache, taps
 
 

@@ -1,7 +1,9 @@
-"""PyTorch port on a card: the hand-written CUDA kernels (expert FFN, flash
-attention, SSD scan) against their plain versions, the offload engine
-serving through them, solo and in fused cross-session rounds, and the SSD
-families' models on the card against themselves on the CPU.  Every test is
+"""PyTorch port on a card: the hand-written CUDA kernels (expert FFN with
+swiglu and gelu experts, flash attention, flash-decode, SSD scan) against
+their plain versions, the offload engine serving through them, solo and in
+fused cross-session rounds, a dense target served greedy and speculatively
+through flash-decode, and the SSD families' models on the card against
+themselves on the CPU.  Every test is
 marked ``cuda`` and skips without a card (the kernels have no CPU mode).
 This file imports nothing of JAX, so it also runs where JAX is not
 installed:
@@ -20,6 +22,7 @@ from repro_torch.core.engine import (Engine, EngineConfig, Request,
                                      derive_draft_config)
 from repro_torch.core.sd import greedy_generate
 from repro_torch.kernels import cache_moe as K
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
@@ -72,11 +75,139 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     w = torch.zeros((4, 64, 64), dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError):
         K.gate_up(x, g, w, w)
-    with pytest.raises(NotImplementedError):
-        K.cache_moe(x.float(), torch.zeros((2, 2), dtype=torch.int32,
-                                           device=cuda),
-                    torch.ones((2, 2), device=cuda), w.float(), w.float(),
-                    None)
+    with pytest.raises(TypeError):
+        K.up_gelu(x, g, w)
+    with pytest.raises(ValueError):
+        K.up_gelu(x.float(), g, w.float()[:, :32])   # wu's d is not x's
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_gelu_route_matches_plain_and_is_batch_invariant(cuda, dtype, tol):
+    """Gelu experts (``wg=None``): the up-gelu and down kernels against
+    their plain versions, stage by stage and through ``cache_moe``
+    (tolerance relative to the output's scale, as the swiglu route), and
+    each row of a 5-token call bit-identical to the same row alone."""
+    gen = torch.Generator(cuda).manual_seed(1)
+    S, d, f = 12, 512, 1024
+    wu = (torch.randn((S, d, f), generator=gen, device=cuda)
+          * d ** -0.5).to(dtype)
+    wd = (torch.randn((S, f, d), generator=gen, device=cuda)
+          * f ** -0.5).to(dtype)
+    x = torch.randn((5, d), generator=gen, device=cuda).to(dtype)
+    si = torch.randint(-1, S, (5, 2), generator=gen, device=cuda
+                       ).to(torch.int32)
+    w = torch.rand((5, 2), generator=gen, device=cuda).to(dtype)
+    g = K.slot_groups(si, S)
+    before = K.up_gelu.launches, K.gate_up.launches
+    h = K.up_gelu(x, g, wu)
+    h_ref = R.slot_up_gelu_ref(x, g.row_tok, wu, g.grp_slot, g.grp_start,
+                               g.grp_count)
+    got = K.cache_moe(x, si, w, wu, wd, None)
+    assert (K.up_gelu.launches, K.gate_up.launches) == \
+        (before[0] + 2, before[1])
+    want = R.cache_moe_ref(x, si, w, wu, wd, None)
+    for a, b in ((h, h_ref), (got, want)):
+        assert torch.isfinite(a).all()
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+    for t in range(5):
+        one = K.cache_moe(x[t:t + 1], si[t:t + 1], w[t:t + 1], wu, wd, None)
+        assert torch.equal(one, got[t:t + 1])
+
+
+@pytest.mark.parametrize("H,Hkv,D,S,lengths", [
+    (24, 8, 128, 576, (1, 77, 543)),     # llama3.2-3b widths
+    (32, 8, 128, 4112, (4096, 64, 65)),  # mixtral draft widths, long cache
+    (8, 2, 64, 100, (100, 3, 64)),       # S not a multiple of the split
+    (4, 4, 16, 40, (40, 1, 17)),         # reduced widths
+    (32, 1, 32, 130, (129, 130, 2)),     # MQA, 32 q heads per kv head
+])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_decode_kernel_matches_plain_and_is_batch_invariant(
+        cuda, H, Hkv, D, S, lengths, dtype, atol):
+    """The flash-decode kernel against ``ref.decode_attention_ref`` with
+    the reference's own tolerances (tests/test_kernels.py: f32 2e-5, bf16
+    2e-2, rtol 1e-2): f32 differs in summation order, bf16 also in that the
+    plain version rounds the scores and p to bf16 before the softmax's max
+    and the kernel rounds p only.  Each row of a 3-row call equals the same
+    row alone, bit for bit; keys past a row's length are never read."""
+    gen = torch.Generator(cuda).manual_seed(2)
+    q = torch.randn((3, H, D), generator=gen, device=cuda).to(dtype)
+    k, v = [torch.randn((3, S, Hkv, D), generator=gen, device=cuda
+                        ).to(dtype) for _ in range(2)]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = DA.decode_attention.launches
+    got = ops.decode_attention(q, k, v, lens)
+    assert DA.decode_attention.launches == before + 1
+    want = R.decode_attention_ref(q, k, v, lens)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=1e-2)
+    for b in range(3):
+        one = ops.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                   lens[b:b + 1])
+        assert torch.equal(one, got[b:b + 1])
+    # what lies past the lengths does not matter
+    k2, v2 = k.clone(), v.clone()
+    for b, n in enumerate(lengths):
+        k2[b, n:] = float("nan")
+        v2[b, n:] = float("nan")
+    assert torch.equal(ops.decode_attention(q, k2, v2, lens), got)
+
+
+def test_decode_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 4, 16), device=cuda)
+    k = torch.zeros((1, 8, 2, 16), device=cuda)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        DA.decode_attention(q.half(), k.half(), k.half(), lens)
+    with pytest.raises(TypeError):
+        DA.decode_attention(q, k.bfloat16(), k, lens)
+    with pytest.raises(ValueError):                  # head dim 24
+        DA.decode_attention(torch.zeros((1, 4, 24), device=cuda),
+                            torch.zeros((1, 8, 2, 24), device=cuda),
+                            torch.zeros((1, 8, 2, 24), device=cuda), lens)
+    with pytest.raises(ValueError):                  # 3 heads over 2
+        DA.decode_attention(torch.zeros((1, 3, 16), device=cuda), k, k,
+                            lens)
+    with pytest.raises(ValueError):                  # 64 q heads per kv
+        DA.decode_attention(torch.zeros((1, 64, 16), device=cuda),
+                            k[:, :, :1], k[:, :, :1], lens)
+    with pytest.raises(ValueError):                  # int64 lengths
+        DA.decode_attention(q, k, k, lens.long())
+    with pytest.raises(ValueError):                  # one length per row
+        DA.decode_attention(q, k, k, torch.ones(2, dtype=torch.int32,
+                                                device=cuda))
+    with pytest.raises(ValueError):                  # D not unit stride
+        DA.decode_attention(q, k.transpose(2, 3).contiguous()
+                            .transpose(2, 3), k, lens)
+
+
+@pytest.mark.parametrize("decode", ["greedy", "sd"])
+def test_dense_engine_on_the_card_matches_its_greedy(cuda, decode):
+    """Reduced llama3.2-3b in f32 under ``attn_impl="kernel"``, served
+    through ``Engine`` (greedy x none, and sd x none with the derived
+    half-depth draft): the port's greedy tokens, with every one-token step
+    of the target (greedy) or the draft (sd) through flash-decode, one
+    launch per layer."""
+    cfg = dataclasses.replace(
+        get_config("llama3.2-3b").reduced(dtype="float32"),
+        attn_impl="kernel")
+    target = build_model(cfg, cuda, seed=0)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 12),
+                           generator=torch.Generator().manual_seed(2))
+    ref = greedy_generate(target, prompt.to(cuda), 16, 64).tolist()
+    before = DA.decode_attention.launches
+    with Engine(EngineConfig(model=cfg, decode=decode, draft_len=3,
+                             max_seq=64), target, seed=0, draft_seed=1,
+                device=cuda) as eng:
+        res = eng.submit(Request(prompt=prompt, max_new_tokens=16))
+        layers = (eng.draft or target).cfg.num_layers
+    assert res.tokens == ref
+    launches = DA.decode_attention.launches - before
+    assert launches > 0 and launches % layers == 0
 
 
 @pytest.mark.parametrize("slots", [6, 32])

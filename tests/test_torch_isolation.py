@@ -37,7 +37,9 @@ def test_no_jax_or_reference_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core.engine, "
             "repro_torch.core.runtime, repro_torch.launch.serve, "
-            "repro_torch.models.mamba, repro_torch.kernels.ssd_scan; "
+            "repro_torch.models.mamba, repro_torch.kernels.ssd_scan, "
+            "repro_torch.kernels.decode_attention, "
+            "repro_torch.kernels.cache_moe; "
             "print('jax' in sys.modules, 'repro' in sys.modules)")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -70,6 +72,9 @@ def test_entry_points_raise_without_a_card(no_card, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(EngineConfig(model=ssm, decode="greedy"))
     monkeypatch.setattr(sys, "argv", ["serve", "--arch", "zamba2-7b"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main()
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", "llama3.2-3b"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main()
 
