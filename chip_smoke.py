@@ -24,7 +24,9 @@ Phases (each raises on failure):
      bf16 and f32 (expert FFN at T 1 / 5 / 64 / 512 with a batch-invariance
      check, for swiglu experts and for gelu experts' up-gelu stage; flash
      attention at S 64 / 512 / 2048 causal, 1024 with a 256 window and 8192
-     with the 4096 window; flash-decode at the llama3.2-3b and mixtral-draft
+     with the 4096 window (32 / 8 heads), and S 512 at 24 / 8 heads (the
+     llama3.2-3b draft's widths), each timed shape one device kernel per
+     call; flash-decode at the llama3.2-3b and mixtral-draft
      widths, lengths 1 / 77 / 512 / 543 / 4096 in caches of 576 and 4112,
      and three rows of mixed lengths each equal to its one-row call bit for
      bit; the SSD scan at the mamba2 widths at S 77 / 300 / 512 / 2048 and
@@ -99,9 +101,11 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # own max |out| (a row that sees many keys has a small output).  f32: kernel
 # and plain version sum the same products in another order (and p is not
 # rounded): 1e-4.  bf16: both round p to bf16 relative to the running max of
-# their own tiles (64 vs 128 keys), and each rounds the output once, which
-# may differ by one bf16 step (up to 2^-7 of an element): 1e-2.
+# 128-key tiles, but sum in another order (so p may round across a bf16
+# step), and each rounds the output once, which may differ by one bf16 step
+# (up to 2^-7 of an element): 1e-2.
 FA_HEADS, FA_KV_HEADS, FA_DIM = 32, 8, 128
+LLAMA_HEADS = 24                      # llama3.2-3b (and its draft): 24 / 8
 FA_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # lossless check: the engine (5-token verify blocks, f32 expert combine) and
 # the resident reference (one teacher-forced forward, bf16 combine) round
@@ -179,21 +183,37 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return a.elapsed_time(b) / iters
 
 
-def traced_ms(fn, iters: int = 50) -> float:
-    """Device time per call of ``fn``: the summed durations of the kernels
-    and copies ``torch.profiler`` saw over ``iters`` warm calls (unlike
-    ``cuda_ms``, not set by the host's issue time)."""
+def traced(fn, iters: int = 50):
+    """Device time per call of ``fn`` in ms, the summed durations of the
+    kernels and copies ``torch.profiler`` saw over ``iters`` warm calls
+    (unlike ``cuda_ms``, not set by the host's issue time), and the device
+    activities per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / iters / 1e3
+    # a window can come back empty (seen once, right after the plain
+    # version's thousands of launches): try it again before failing
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start
+                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if spans:
+            break
+    else:
+        raise AssertionError("the profiler saw no device activity")
+    # the profiler may drop an event or two of a long window: count whole
+    # activities per call, and time them by the mean of those it kept
+    per_call = max(1, round(len(spans) / iters))
+    return sum(spans) / len(spans) * per_call / 1e3, per_call
+
+
+def traced_ms(fn, iters: int = 50) -> float:
+    return traced(fn, iters)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -348,14 +368,15 @@ def time_kernels(m, d: int, f: int, gelu: bool = False):
     return out
 
 
-def flash_bound(S: int, window, nbytes_el: int):
-    """Least time for one causal flash call at B 1, H 32, Hkv 8, D 128: the
-    unmasked (q, k) pairs x 4·D flops at the bf16 tensor rate, against q, k,
-    v and out moved once at the memory rate."""
+def flash_bound(S: int, window, nbytes_el: int, H: int = FA_HEADS,
+                Hkv: int = FA_KV_HEADS):
+    """Least time for one causal flash call at B 1, D 128 (H 32 / Hkv 8 by
+    default): the unmasked (q, k) pairs x 4·D flops at the bf16 tensor rate,
+    against q, k, v and out moved once at the memory rate."""
     W = S if window is None else min(window, S)
-    pairs = sum(min(i + 1, W) for i in range(S)) * FA_HEADS
+    pairs = sum(min(i + 1, W) for i in range(S)) * H
     t_ops = pairs * 4 * FA_DIM / BF16_FLOPS * 1e3
-    nbytes = S * FA_DIM * (2 * FA_HEADS + 2 * FA_KV_HEADS) * nbytes_el
+    nbytes = S * FA_DIM * (2 * H + 2 * Hkv) * nbytes_el
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
                                  else "operations")
@@ -363,22 +384,27 @@ def flash_bound(S: int, window, nbytes_el: int):
 
 def flash_phase(dev):
     """The flash kernel against its plain version at the widths of the
-    draft's prefill, bf16 and f32; timed (bf16) at S 512 and 2048."""
+    mixtral draft's prefill (32 / 8 heads) and the llama3.2-3b draft's (24 /
+    8), bf16 and f32; timed (bf16) at S 512 and 2048 (32 heads) and S 512
+    (24 heads): event time, and device time from the profiler for the
+    kernel, the plain version and SDPA."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref as R
     gen = torch.Generator(dev).manual_seed(1)
     rows, timing = [], {}
-    for S, window, dtypes in ((64, None, ("bfloat16", "float32")),
-                              (512, None, ("bfloat16", "float32")),
-                              (1024, 256, ("bfloat16", "float32")),
-                              (2048, None, ("bfloat16", "float32")),
-                              (8192, 4096, ("bfloat16",))):
+    for S, window, dtypes, H in (
+            (64, None, ("bfloat16", "float32"), FA_HEADS),
+            (512, None, ("bfloat16", "float32"), FA_HEADS),
+            (1024, 256, ("bfloat16", "float32"), FA_HEADS),
+            (2048, None, ("bfloat16", "float32"), FA_HEADS),
+            (8192, 4096, ("bfloat16",), FA_HEADS),
+            (512, None, ("bfloat16",), LLAMA_HEADS)):
         for dt_name in dtypes:
             dt = getattr(torch, dt_name)
             q, k, v = [torch.randn((1, S, h, FA_DIM), generator=gen,
                                    device=dev).to(dt)
-                       for h in (FA_HEADS, FA_KV_HEADS, FA_KV_HEADS)]
+                       for h in (H, FA_KV_HEADS, FA_KV_HEADS)]
             got = FA.flash_attention(q, k, v, causal=True, window=window)
             torch.cuda.synchronize()
             want = R.flash_attention_ref(q, k, v, causal=True, window=window)
@@ -389,7 +415,8 @@ def flash_phase(dev):
             ok = torch.isfinite(got).all().item() and \
                 row_rel <= FA_TOL[dt_name]
             rows.append({"kernel": "flash_attention", "dtype": dt_name,
-                         "S": S, "window": window, "max_abs_err": err,
+                         "S": S, "H": H, "window": window,
+                         "max_abs_err": err,
                          "max_row_rel_err": row_rel,
                          "tol_row_rel": FA_TOL[dt_name], "ok": bool(ok)})
             if not ok:
@@ -398,16 +425,24 @@ def flash_phase(dev):
                                      f"is {row_rel} of its max |out|")
             del diff
             if dt_name == "bfloat16" and S in (512, 2048):
-                bound, by = flash_bound(S, window, 2)
+                bound, by = flash_bound(S, window, 2, H)
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                timing[S] = {
-                    "ms": cuda_ms(lambda: FA.flash_attention(q, k, v)),
-                    "plain_ms": cuda_ms(
-                        lambda: R.flash_attention_ref(q, k, v), iters=2),
-                    "library_ms": cuda_ms(
-                        lambda: torch.nn.functional
-                        .scaled_dot_product_attention(
-                            qt, kt, vt, is_causal=True, enable_gqa=True)),
+                kern = lambda: FA.flash_attention(q, k, v)  # noqa: E731
+                plain = lambda: R.flash_attention_ref(q, k, v)  # noqa: E731
+                F = torch.nn.functional
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+                dev_ms, per_call = traced(kern)
+                if per_call != 1:
+                    raise AssertionError(f"flash_attention S={S}: {per_call} "
+                                         f"device kernels per call, not 1")
+                timing[S if H == FA_HEADS else f"{S}_h{H}"] = {
+                    "H": H, "ms": cuda_ms(kern),
+                    "plain_ms": cuda_ms(plain, iters=2),
+                    "library_ms": cuda_ms(sdpa),
+                    "device_ms": dev_ms,
+                    "plain_device_ms": traced_ms(plain, iters=2),
+                    "library_device_ms": traced_ms(sdpa),
                     "bound_ms": bound, "bound_by": by, "max_abs_err": err}
             del q, k, v, got, want
     torch.cuda.empty_cache()
@@ -502,10 +537,15 @@ def decode_phase(dev):
                         "bound_ms": bound, "bound_by": by, "bytes": nbytes,
                         "max_abs_err": errs[n]}
                     # the kernel's own time, which the host's issue time
-                    # hides in "ms" at these sizes, and the others'
+                    # hides in "ms" at these sizes, and the others'; the
+                    # kernel is one device kernel per call
+                    dev_ms, per_call = traced(lambda: DA.decode_attention(
+                        q1, k1, v1, l1))
+                    if per_call != 1:
+                        raise AssertionError(f"decode_attention: {per_call} "
+                                             f"device kernels per call")
                     timing[model].update(
-                        device_ms=traced_ms(lambda: DA.decode_attention(
-                            q1, k1, v1, l1)),
+                        device_ms=dev_ms, kernels_per_call=per_call,
                         plain_device_ms=traced_ms(
                             lambda: R.decode_attention_ref(q1, k1, v1, l1)),
                         library_device_ms=traced_ms(
@@ -901,7 +941,7 @@ def lossless_phase(target, prompts_by_req, dev, forward=teacher_force,
 
 
 FOCUS_SSD = ("ssd", r"\bssd_(scan|cb)<")
-FOCUS_DECODE = ("decode", r"\bdecode_(split|combine)<")
+FOCUS_DECODE = ("decode", r"\bdecode_(mma|fma)<")
 
 
 def device_profile(fn, ms: float, focus=FOCUS_SSD):
@@ -1331,7 +1371,9 @@ def main() -> int:
         "launches_solo_path": solo_launches["flash_attention"],
         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "device_ms": t["device_ms"],
+        "library_device_ms": t["library_device_ms"]})
     t = ssd_timing[SSM_PROMPTS[0]]
     kernels.append({
         "name": "ssd_scan", "route": "cuda",

@@ -1,5 +1,5 @@
 // Flash-decode for Hopper (sm_90a), CUDA C++: one query token per batch row
-// against a long KV cache.
+// against a long KV cache, in one launch.
 //
 // Replaces src/repro/kernels/decode_attention.py::_decode_kernel
 // (decode_attention.py:26, pallas_call at decode_attention.py:75).
@@ -13,19 +13,59 @@
 // m_new = max(m, rowmax s), p = exp(s - m_new), alpha = exp(m - m_new),
 // l = l * alpha + rowsum p (f32 p), acc = acc * alpha + p @ v with p rounded
 // to v's dtype and an f32 product; out = acc / max(l, 1e-30), rounded once.
-// The tiles are kTile = 64 keys where the reference's are 256.
+// The running state is a warp's, over its keys of each tile (8 of 64 on
+// the tensor-core path, 4 of 32 on the FMA path), where the reference's is a
+// 256-key block's.
 //
-// Grid.  Pass 1 runs one block per (b x kv head, split).  The cache's
-// ceil(S / kTile) tiles are dealt to at most kMaxSplits splits of equal
-// runs of tiles; the split count comes from S, never from the live length,
-// so the launch shape of a decode step does not depend on its position (a
-// captured CUDA graph can replay it).  A split walks its tiles in order and
-// stops at the row's length (a split that starts past it exits at once), and
-// writes its (m, l, acc).  Pass 2, one thread per output element, merges
-// the live splits in split order: M = max m_s, L = sum l_s exp(m_s - M),
-// O = sum acc_s exp(m_s - M), out = O / max(L, 1e-30).  No atomics and a
+// Grid.  One thread-block cluster per (batch row, kv head); its blocks are
+// the splits of the cache, at most kMaxSplits = 16, and their count comes
+// from S alone (num_splits), never from the live length, so a decode step's
+// launch shape does not depend on its position: a captured CUDA graph replays
+// it with the lengths changed in place.  Split s owns the keys [s * span,
+// (s + 1) * span) and reads only the live ones, below lengths[b]; a split
+// that starts past it reads nothing.  Each block merges its warps' (m, l,
+// acc) in warp order into its own shared memory; after cluster.sync() rank 0
+// reads the live splits' partials through distributed shared memory in rank
+// order and merges them with the reference's formulas, M = max m_s,
+// L = sum l_s exp(m_s - M), O = sum acc_s exp(m_s - M), out = O / max(L,
+// 1e-30).  No scratch in device memory, no second launch, no atomics and a
 // fixed order: a row's bits depend only on its own q, K, V, length and on S,
 // never on B or on scheduling.
+//
+// Each block.  Eight warps.  Thread 0 brings the first kStages tiles'
+// K rows and V rows into a ring in shared memory by TMA
+// (cp.async.bulk.tensor, one load each for K and V per tile, completing on
+// the stage's mbarrier; the tensor maps see the cache's [B, S, Hkv, D]
+// layout through its strides); after that the last warp to release a stage
+// (empty mbarrier, elected by a count in shared memory) refills it at once.
+// No byte passes through registers.  Two paths compute a tile:
+//   - bf16 with at most 16 q rows per kv head (every model the repository
+//     serves; decode_mma): the products on the tensor cores.  A warp takes
+//     8 keys of each 64-key tile; S [16 x 8] = Q K^T is mma.sync m16n8k16
+//     over D (Q's rows past rep are zero and its A fragments stay in
+//     registers; K's B fragments by ldmatrix from tiles that TMA wrote with
+//     the widest swizzle a row fills, so the ldmatrix rows hit distinct
+//     banks); the softmax runs on the accumulator (a row's 8 scores sit in
+//     a quad); p, rounded to bf16, is at once the A fragment of O += P V,
+//     mma.sync m16n8k8 with V's B fragments by ldmatrix.trans.  bf16
+//     products are exact in f32 and the sums are f32.  With rep <= 8 the
+//     tile's rows 8..15 are zeros and skipped.  V rows past the length are
+//     zeroed in shared memory first (p = 0 must not meet a NaN there).
+//   - f32, or more than 16 q rows per kv head (decode_fma): FMA on the CUDA
+//     cores (the tensor cores have no f32 product without TF32 rounding).  A
+//     warp takes 4 keys of each 32-key tile, eight lanes per key: a lane
+//     holds D / 8 of the key's elements and its share of the q rows in
+//     registers, the partial dot products meet by three shuffles, max and
+//     sum over the warp's keys by two, for every row at once; PV: a lane
+//     owns D / 32 neighbouring columns of every row, keys in order.
+// Why so (measured with tools/decode_ab.py): one load per tile, not one bulk
+// copy per 256-byte row, or the copy engine's time per request sets the
+// kernel's time; no ninth (producer) warp, which would cut two blocks per SM
+// to 96 registers a thread; two blocks per SM (at most 128 registers and
+// 113 KB), since with one the 13-16-block clusters wait for room (so the
+// tensor-core path keeps two 64-key stages, 32 KB each, in flight: a third
+// made it slower); and rank 0 reads each peer's m and l once per row, not
+// once per element.
 //
 // Layout.  K and V are read in place through their strides in the cache's
 // [B, S, Hkv, D] layout: no transpose copy (the reference builds [B*Hkv, S,
@@ -36,44 +76,50 @@
 // Bound on this card.  The work is 4 * D flops per (q head, live key) against
 // the live K and V bytes (plus q and out) read or written once:
 //   max(B * H * len * 4 * D / 989e12,  (2 * B * len * Hkv * D * el) / 3.35e12)
-// At llama3.2-3b widths (H 24, Hkv 8, D 128, bf16) the bytes bound it by far
+// (an H100 SXM's published rates at its 700 W limit).  At llama3.2-3b
+// widths (H 24, Hkv 8, D 128, bf16) the bytes bound it by far
 // (3 flops per byte against the 295 where the tensor cores would take over):
-// length 543 is 2.2 MB, 0.66 us.  What the design does about it: each K and V
-// element of the live prefix is read once, by one block, as 16-byte vectors
-// that every thread issues at once into registers and then stores to shared
-// memory: a tile's K and V fly together, the next tile's while this one's PV
-// product runs; q and every intermediate stay on chip; splits spread a
-// long prefix over up to kMaxSplits blocks per kv head.  A short prefix is
-// bound by latency and the two launches, not by bytes.  Not yet done: TMA
-// staging, tensor cores, one launch instead of two.
-//
-// Threads.  128 per block (4 warps).  Scores: thread t takes key t % 64 of
-// the tile and half t / 64 of D, reads its row from shared memory (rows
-// padded by 16 bytes, so 8 neighbouring keys hit distinct banks) against q
-// (a broadcast) with one partial sum per 16-byte chunk, and the partial sums
-// and then the two halves are added in order.  Softmax: warp w owns rows w,
-// w + 4, ...; lane owns keys lane and lane + 32; max and sum are butterflies
-// over the warp.  PV: thread t owns column t % D of rows t / D, t / D +
-// 128 / D, ...; keys in order.
+// length 543 is 2.2 MB, 0.66 us; 4096 keys at 32 / 8 heads are 16.8 MB,
+// 5.0 us.  A short prefix is bound by latency: one launch, one round trip to
+// memory per stage, two cluster barriers.  What the design does about it:
+// one launch; up to 16 splits spread a long prefix over 104-128 SMs (8 kv
+// heads) with the ring in flight in each; the copies cost the warps no
+// instructions; the products run on the tensor cores; every intermediate
+// stays on chip.  A block reads at most one partial tile past the live
+// length.
 //
 // C interface (bound with ctypes): every pointer is a device pointer, the
-// stream is the caller's current stream, nothing is allocated here (the
-// scratch comes from the wrapper, sized by decode_attention_splits), and the
+// stream is the caller's current stream, nothing is allocated here, and the
 // entry point returns the launch's cudaError_t (0 = launched).
 
 #include <cmath>
 #include <cstdint>
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;
+namespace cg = cooperative_groups;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_addr;
+using hopper::tma_load_4d;
+
+constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;                // keys per tile (two per lane)
-constexpr int kMaxSplits = 64;           // splits per (row, kv head)
-constexpr int kMaxRep = 32;              // q heads per kv head
+constexpr int kRingBytes = 64 * 1024;          // the ring's shared memory
+constexpr int kMaxStages = 8;                  // tiles in flight per block
+constexpr int kMaxSplits = 16;                 // blocks per cluster
+constexpr int kSpanUnit = 64;                  // a split's keys: a multiple
+constexpr int kMaxRep = 32;                    // q heads per kv head
+constexpr int kMmaRows = 16;                   // the products' m (q rows)
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -95,333 +141,805 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
-// a 16-byte vector of T as floats
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 struct Strides {
   long long qb, qh, kb, ks, kh, vb, vs, vh;
 };
 
-// Tiles per split for a cache of S keys, and the number of splits.
-__host__ __device__ __forceinline__ int tiles_per_split(int S) {
-  const int tiles = (S + kTile - 1) / kTile;
-  return (tiles + kMaxSplits - 1) / kMaxSplits;
+// Keys per split (a multiple of kSpanUnit) for a cache of S keys, and the
+// number of splits: at least kSpanUnit keys each, at most kMaxSplits.
+__host__ __device__ __forceinline__ int split_keys(int S) {
+  int n = (S + kSpanUnit - 1) / kSpanUnit;
+  n = n < 1 ? 1 : (n > kMaxSplits ? kMaxSplits : n);
+  const int per = (S + n - 1) / n;
+  return (per + kSpanUnit - 1) / kSpanUnit * kSpanUnit;
 }
 __host__ __device__ __forceinline__ int num_splits(int S) {
-  const int tiles = (S + kTile - 1) / kTile;
-  const int tps = tiles_per_split(S);
-  return (tiles + tps - 1) / tps;
+  const int span = split_keys(S);
+  return (S + span - 1) / span;
 }
 
 __device__ __forceinline__ int live_length(const int* lengths, int b, int S) {
   return min(max(lengths[b], 0), S);
 }
 
-// One tile's [nj, D] rows of K or V (nj <= kTile) as 16-byte vectors: every
-// thread loads its share into registers first (all loads in flight at once),
-// then stores them to shared memory rows of kRow elements.
-template <typename T, int D>
-struct Tile {
-  static constexpr int kV = 16 / sizeof(T);            // elements per vector
-  static constexpr int kRow = D + kV;                  // padded row
-  static constexpr int kPerRow = D / kV;
-  static constexpr int kIters = (kTile * kPerRow + kThreads - 1) / kThreads;
-  uint4 buf[kIters];
+constexpr int stages_for(int tile_bytes) {
+  return kRingBytes / tile_bytes < 2
+             ? 2
+             : (kRingBytes / tile_bytes > kMaxStages ? kMaxStages
+                                                     : kRingBytes / tile_bytes);
+}
 
-  __device__ __forceinline__ void load(const T* src, long long stride,
-                                       int nj) {
-#pragma unroll
-    for (int it = 0; it < kIters; ++it) {
-      const int i = threadIdx.x + it * kThreads;
-      const int row = i / kPerRow;
-      if (row < nj)
-        buf[it] = __ldg(reinterpret_cast<const uint4*>(
-            src + row * stride + (i - row * kPerRow) * kV));
-    }
-  }
+// Dynamic shared memory of a block (bytes from its kAlign-aligned start):
+// the full and empty mbarriers of the ring, q [kQRows, D] in f32 (rows past
+// rep are zero), the block's merged partials (m [rep], l [rep], acc [rep,
+// D], f32, read by rank 0 of the cluster), then the ring of kStages tiles,
+// which after the key loop holds the warps' partials for the block's merge.
+template <int kQRows, int D, int kTileBytes, int kAlign>
+struct Layout {
+  static constexpr int kStages = stages_for(kTileBytes);
+  static constexpr int kQ = 16 * kStages;
+  static constexpr int kPart = kQ + kQRows * D * 4;
+  static constexpr int kRing =
+      (kPart + kQRows * (D + 2) * 4 + kAlign - 1) / kAlign * kAlign;
+  static constexpr int kMerge = kWarps * kQRows * (D + 3) * 4;
+  static constexpr int kBytes =
+      kAlign + kRing + (kMerge > kStages * kTileBytes ? kMerge
+                                                      : kStages * kTileBytes);
+};
 
-  __device__ __forceinline__ void store(T* dst, int nj) const {
-#pragma unroll
-    for (int it = 0; it < kIters; ++it) {
-      const int i = threadIdx.x + it * kThreads;
-      const int row = i / kPerRow;
-      if (row < nj)
-        *reinterpret_cast<uint4*>(dst + row * kRow +
-                                  (i - row * kPerRow) * kV) = buf[it];
-    }
+// What both kernels share: the block's start (barriers, the first tiles'
+// loads, q into shared memory) and its end (the warps' partials merged in
+// warp order, then rank 0's merge of the cluster's live splits in rank
+// order).
+struct Block {
+  uint32_t base;            // shared memory, aligned
+  unsigned char* smem;
+  uint32_t* released;       // per stage: warps done with it, ever
+  int kStages, split, b, kvh, len, span, begin, end, ntiles, rep;
+
+  __device__ __forceinline__ uint32_t full(int s) const { return base + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return base + 8 * (kStages + s);
   }
 };
 
-// Dynamic shared memory of a split block (bytes): q [rep, D], the scores'
-// two halves and later p [2, rep, kTile], and m / l / alpha [3, kMaxRep], in
-// f32; then the K and the V tile [kTile, kRow] in T.
 template <typename T, int D>
-size_t split_smem(int rep) {
-  return (static_cast<size_t>(rep) * (D + 2 * kTile) + 3 * kMaxRep) *
-             sizeof(float) +
-         2 * static_cast<size_t>(kTile) * Tile<T, D>::kRow * sizeof(T);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-decode_split(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int* __restrict__ lengths,
-             float* __restrict__ part_m, float* __restrict__ part_l,
-             float* __restrict__ part_acc, int S, int Hkv, int rep,
-             Strides st, float scale) {
-  using Tl = Tile<T, D>;
-  constexpr int kV = Tl::kV;
-  constexpr int kRow = Tl::kRow;
-  constexpr int kHalf = D / 2;
-  constexpr int RG = kThreads / D;       // row groups of the PV step
-  constexpr int NA = kMaxRep / RG;       // rows per thread in the PV step
-  extern __shared__ float4 smem[];
-  float* qs = reinterpret_cast<float*>(smem);          // [rep][D]
-  float* sp = qs + rep * D;                            // [2][rep][kTile]
-  float* m_run = sp + 2 * rep * kTile;                 // [kMaxRep]
-  float* l_run = m_run + kMaxRep;
-  float* alpha = l_run + kMaxRep;
-  T* kbuf = reinterpret_cast<T*>(alpha + kMaxRep);     // [kTile][kRow]
-  T* vbuf = kbuf + kTile * kRow;
-
-  const int bh = blockIdx.x;
-  const int split = blockIdx.y;
-  const int nsplit = gridDim.y;
-  const int b = bh / Hkv;
-  const int kvh = bh - b * Hkv;
-  const int len = live_length(lengths, b, S);
-  const int span = tiles_per_split(S) * kTile;
-  const int begin = split * span;
-  if (begin >= len) return;              // uniform across the block
-  const int end = min(len, begin + span);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const T* kb = k + b * st.kb + kvh * st.kh;
-  const T* vb = v + b * st.vb + kvh * st.vh;
-
-  Tl kt, vt;                             // a tile's K and V fly together
-  kt.load(kb + begin * st.ks, st.ks, min(kTile, end - begin));
-  vt.load(vb + begin * st.vs, st.vs, min(kTile, end - begin));
+__device__ __forceinline__ void merge_and_store(cg::cluster_group& cluster,
+                                                const Block& blk, float* ring,
+                                                float* pm, T* out) {
+  const int rep = blk.rep;
+  float* pl = pm + rep;
+  float* pacc = pl + rep;
+  const float* wacc = ring;                      // [kWarps][rep][D]
+  const float* wm = wacc + kWarps * rep * D;     // [kWarps][rep]
+  const float* wl = wm + kWarps * rep;
+  // the warps' weights e^(m_w - M) per row (0 for a warp that saw no key),
+  // then every element of the block's acc, in warp order
+  float* wt = ring + kWarps * rep * (D + 2);     // [kWarps][rep]
+  __syncthreads();
+  for (int r = threadIdx.x; r < rep; r += kThreads) {
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w * rep + r]);
+    float Lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float mw = wm[w * rep + r];
+      const float e = mw > -INFINITY ? expf(mw - M) : 0.f;
+      wt[w * rep + r] = e;
+      Lsum = fmaf(wl[w * rep + r], e, Lsum);
+    }
+    pm[r] = M;
+    pl[r] = Lsum;
+  }
+  __syncthreads();
   for (int i = threadIdx.x; i < rep * D; i += kThreads) {
     const int r = i / D;
-    qs[i] = to_f(q[b * st.qb + (kvh * rep + r) * st.qh + (i - r * D)]);
+    float O = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      O = fmaf(wacc[(w * rep + r) * D + i - r * D], wt[w * rep + r], O);
+    pacc[i] = O;
   }
-  if (threadIdx.x < kMaxRep) {
-    m_run[threadIdx.x] = -INFINITY;
-    l_run[threadIdx.x] = 0.f;
+
+  // rank 0 merges the live splits' partials, in rank order: first each
+  // row's weights e^(m_s - M) and sum L from the peers' m and l (one read
+  // each), then every element of O from the peers' acc
+  cluster.sync();
+  if (blk.split == 0) {
+    const int nlive = (blk.len + blk.span - 1) / blk.span;
+    float* weight = ring;                        // [kMaxSplits][rep], free
+    float* lsum = weight + kMaxSplits * rep;     // [rep]
+    for (int r = threadIdx.x; r < rep; r += kThreads) {
+      float ms[kMaxSplits], ls[kMaxSplits];
+#pragma unroll
+      for (int s = 0; s < kMaxSplits; ++s) {     // the loads fly together
+        const int from = s < nlive ? s : 0;
+        ms[s] = cluster.map_shared_rank(pm, from)[r];
+        ls[s] = cluster.map_shared_rank(pl, from)[r];
+      }
+      float M = -INFINITY;
+#pragma unroll
+      for (int s = 0; s < kMaxSplits; ++s)
+        if (s < nlive) M = fmaxf(M, ms[s]);
+      float Lsum = 0.f;
+#pragma unroll
+      for (int s = 0; s < kMaxSplits; ++s) {
+        const float e = s < nlive ? expf(ms[s] - M) : 0.f;
+        weight[s * rep + r] = e;
+        Lsum = fmaf(ls[s], e, Lsum);
+      }
+      lsum[r] = Lsum;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < rep * D; i += kThreads) {
+      const int r = i / D;
+      float os[kMaxSplits];
+#pragma unroll
+      for (int s = 0; s < kMaxSplits; ++s)
+        os[s] = cluster.map_shared_rank(pacc, s < nlive ? s : 0)[i];
+      float O = 0.f;
+#pragma unroll
+      for (int s = 0; s < kMaxSplits; ++s)
+        if (s < nlive) O = fmaf(os[s], weight[s * rep + r], O);
+      out[i] = from_f<T>(nlive ? O / fmaxf(lsum[r], 1e-30f) : 0.f);
+    }
   }
-  const int rg = threadIdx.x / D;        // PV: rows rg, rg + RG, ...
-  const int dcol = threadIdx.x - rg * D;  //     of column dcol
-  float acc[NA];
-#pragma unroll
-  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+  cluster.sync();                                // peers' partials stay
+}
 
-  for (int j0 = begin; j0 < end; j0 += kTile) {
-    const int nj = min(kTile, end - j0);
-    kt.store(kbuf, nj);
-    vt.store(vbuf, nj);
-    __syncthreads();                     // tiles, q and the row state ready
+// Tile t is done with by this warp: its stage is released, and the last
+// warp to release it refills it with tile t + kStages at once.
+template <typename Load>
+__device__ __forceinline__ void release(const Block& blk, int t,
+                                        const Load& load) {
+  const int s = t % blk.kStages;
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) {
+    mbar_arrive(blk.empty(s));
+    if (t + blk.kStages < blk.ntiles &&
+        atomicAdd(&blk.released[s], 1u) % kWarps == kWarps - 1) {
+      mbar_wait(blk.empty(s), (t / blk.kStages) & 1);
+      load(blk, t + blk.kStages);
+    }
+  }
+  __syncwarp();
+}
 
-    // scores, two halves of D: sp[h][r][j] = q_r[half h] . k_j[half h]
-    {
-      const int j = threadIdx.x & (kTile - 1);
-      const int h = threadIdx.x / kTile;
-      if (j < nj) {
-        const T* row = kbuf + j * kRow + h * kHalf;
+// The block's place in the cluster and the cache, its barriers, and the
+// first kStages tiles' loads (thread 0); q rows into shared memory.
+template <typename T, int D, int kQRows, int kAlign, typename Load>
+__device__ __forceinline__ Block start_block(const T* q, const int* lengths,
+                                             int S, int Hkv, int rep,
+                                             long long q_sb, long long q_sh,
+                                             int kStages,
+                                             unsigned char* smem_raw,
+                                             const Load& load, int tile) {
+  Block blk;
+  cg::cluster_group cluster = cg::this_cluster();
+  const uint32_t raw = smem_addr(smem_raw);
+  blk.base = (raw + kAlign - 1) & ~uint32_t(kAlign - 1);
+  blk.smem = smem_raw + (blk.base - raw);
+  blk.kStages = kStages;
+  blk.split = static_cast<int>(cluster.block_rank());
+  blk.b = blockIdx.x / Hkv;
+  blk.kvh = blockIdx.x - blk.b * Hkv;
+  blk.len = live_length(lengths, blk.b, S);
+  blk.span = split_keys(S);
+  blk.begin = blk.split * blk.span;
+  blk.end = min(blk.len, blk.begin + blk.span);
+  blk.ntiles = blk.end > blk.begin ? (blk.end - blk.begin + tile - 1) / tile : 0;
+  blk.rep = rep;
+  __shared__ uint32_t released[kMaxStages];
+  blk.released = released;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(blk.full(s), 1);
+      mbar_init(blk.empty(s), kWarps);
+      released[s] = 0;
+    }
+    hopper::mbar_init_fence();
+    for (int t = 0; t < min(blk.ntiles, kStages); ++t) load(blk, t);
+  }
+  float* qs = reinterpret_cast<float*>(blk.smem + 16 * kStages);
+  for (int i = threadIdx.x; i < kQRows * D; i += kThreads) {
+    const int r = i / D;
+    qs[i] = r < rep ? to_f(q[blk.b * q_sb + (blk.kvh * rep + r) * q_sh +
+                             (i - r * D)])
+                    : 0.f;
+  }
+  __syncthreads();                               // barriers and q ready
+  return blk;
+}
+
+// ---------------------------------------------------------------------------
+// f32, or more than 16 q rows per kv head: FMA on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kLanesPerKey = 8;
+constexpr int kKeysPerWarp = 32 / kLanesPerKey;
+constexpr int kTile = kWarps * kKeysPerWarp;   // keys per tile
+static_assert(kSpanUnit % kTile == 0, "a split is whole tiles");
+
+template <typename T, int D, int kRep>
+using FmaLayout = Layout<kRep, D, 2 * kTile * D * int(sizeof(T)), 128>;
+
+// kWords 32-bit words of a K row at p (16-byte aligned when kWords = 4) as
+// floats: a word is one f32, or two bf16 (low half first).
+template <typename T, int kWords>
+__device__ __forceinline__ void load_row(const T* p, float* f) {
+  uint32_t w[kWords];
+  if constexpr (kWords == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (kWords == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
 #pragma unroll
-        for (int r = 0; r < kMaxRep; ++r) {
-          if (r >= rep) break;
-          const float* qr = qs + r * D + h * kHalf;
-          // one partial sum per 16-byte chunk (short dependent chains),
-          // added in chunk order
-          float part[kHalf / kV];
+  for (int i = 0; i < kWords; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      f[i] = __uint_as_float(w[i]);
+    } else {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// kRep: the rows a thread keeps registers for (rep <= kRep).
+template <typename T, int D, int kRep>
+__global__ void __launch_bounds__(kThreads, kRep <= 4 ? 2 : 1)
+decode_fma(const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v, const T* __restrict__ q,
+           const int* __restrict__ lengths, T* __restrict__ out, int S,
+           int Hkv, int rep, long long q_sb, long long q_sh, float scale) {
+  using L = FmaLayout<T, D, kRep>;
+  constexpr int kRowBytes = D * static_cast<int>(sizeof(T));
+  constexpr int kSize = static_cast<int>(sizeof(T));
+  constexpr int kE = D / kLanesPerKey;           // a lane's share of a key
+  constexpr int kLoadBytes = kE * kSize < 16 ? kE * kSize : 16;
+  constexpr int kLE = kLoadBytes / kSize;        // elements per load
+  constexpr int kLoads = kE / kLE;
+  constexpr int kCols = D >= 32 ? D / 32 : 1;    // PV columns per lane
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // one TMA load each for a tile's K and V rows (rows past S arrive as
+  // zeros; rows past the length are read but never used)
+  const auto load = [&](const Block& blk, int t) {
+    const int s = t % L::kStages;
+    const uint32_t dst = blk.base + L::kRing + s * (2 * kTile * kRowBytes);
+    mbar_expect_tx(blk.full(s), 2 * kTile * kRowBytes);
+    tma_load_4d(dst, &tm_k, blk.full(s), 0, blk.kvh, blk.begin + t * kTile,
+                blk.b);
+    tma_load_4d(dst + kTile * kRowBytes, &tm_v, blk.full(s), 0, blk.kvh,
+                blk.begin + t * kTile, blk.b);
+  };
+  if (threadIdx.x == 0) {                        // ahead of the first loads
+    hopper::prefetch_tensor_map(&tm_k);
+    hopper::prefetch_tensor_map(&tm_v);
+  }
+  const Block blk = start_block<T, D, kRep, 128>(
+      q, lengths, S, Hkv, rep, q_sb, q_sh, L::kStages, smem_raw,
+      load, kTile);
+  const float* qs = reinterpret_cast<const float*>(blk.smem + L::kQ);
+  unsigned char* ring = blk.smem + L::kRing;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const bool col_lane = lane * kCols < D;        // lane owns PV columns
+
+  float m[kRep], l[kRep], acc[kRep][kCols];
 #pragma unroll
-          for (int c = 0; c < kHalf / kV; ++c) {
-            float kvals[kV];
-            unpack(*reinterpret_cast<const uint4*>(row + c * kV), kvals);
-            part[c] = 0.f;
+  for (int r = 0; r < kRep; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
 #pragma unroll
-            for (int e = 0; e < kV; ++e)
-              part[c] = fmaf(qr[c * kV + e], kvals[e], part[c]);
-          }
-          float s = part[0];
+    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
+  }
+  const int kk = lane / kLanesPerKey;            // the lane's key of 4
+  const int seg = lane % kLanesPerKey;
+  const int key0 = warp * kKeysPerWarp;          // the warp's keys in a tile
+  // the lane's share of every q row stays in registers for the whole loop:
+  // bf16 pairs for bf16 q (exact: q is bf16), f32 words for f32
+  constexpr int kQW = kSize == 2 ? kE / 2 : kE;
+  uint32_t qw[kRep][kQW];
 #pragma unroll
-          for (int c = 1; c < kHalf / kV; ++c) s += part[c];
-          sp[(h * rep + r) * kTile + j] = s;
+  for (int r = 0; r < kRep; ++r)
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i)
+#pragma unroll
+      for (int j = 0; j < kLE; ++j) {
+        const int e = i * kLE + j;
+        const uint32_t bits =
+            __float_as_uint(qs[r * D + (i * kLanesPerKey + seg) * kLE + j]);
+        if constexpr (kSize == 2) {
+          if (e & 1)
+            qw[r][e >> 1] |= bits & 0xffff0000u;
+          else
+            qw[r][e >> 1] = bits >> 16;
+        } else {
+          qw[r][e] = bits;
+        }
+      }
+
+  for (int t = 0; t < blk.ntiles; ++t) {
+    const int s = t % L::kStages;
+    mbar_wait(blk.full(s), (t / L::kStages) & 1);
+    const T* kt =
+        reinterpret_cast<const T*>(ring + s * (2 * kTile * kRowBytes));
+    const T* vt = kt + kTile * D;
+    const int nvalid =
+        min(kKeysPerWarp, blk.end - (blk.begin + t * kTile + key0));
+    if (nvalid > 0) {                            // uniform across the warp
+      float kf[kE];
+      const T* krow = kt + (key0 + kk) * D;
+#pragma unroll
+      for (int i = 0; i < kLoads; ++i)
+        load_row<T, kLoadBytes / 4>(krow + (i * kLanesPerKey + seg) * kLE,
+                                    kf + i * kLE);
+      const bool valid = kk < nvalid;
+      // every row at once, so that the rows' shuffles overlap
+      float sc[kRep], mt[kRep], p[kRep], al[kRep], ps[kRep];
+#pragma unroll
+      for (int r = 0; r < kRep; ++r) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          float qe;
+          if constexpr (kSize == 2)
+            qe = __uint_as_float((e & 1) ? (qw[r][e >> 1] & 0xffff0000u)
+                                         : (qw[r][e >> 1] << 16));
+          else
+            qe = __uint_as_float(qw[r][e]);
+          dot = fmaf(qe, kf[e], dot);
+        }
+        sc[r] = dot;
+      }
+#pragma unroll
+      for (int o = 1; o < kLanesPerKey; o <<= 1)
+#pragma unroll
+        for (int r = 0; r < kRep; ++r)
+          sc[r] += __shfl_xor_sync(0xffffffffu, sc[r], o);
+#pragma unroll
+      for (int r = 0; r < kRep; ++r) {
+        sc[r] = valid ? sc[r] * scale : -INFINITY;
+        mt[r] = sc[r];
+      }
+#pragma unroll
+      for (int o = kLanesPerKey; o < 32; o <<= 1)
+#pragma unroll
+        for (int r = 0; r < kRep; ++r)
+          mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], o));
+#pragma unroll
+      for (int r = 0; r < kRep; ++r) {
+        const float m_new = fmaxf(m[r], mt[r]);   // finite: a key is valid
+        p[r] = valid ? expf(sc[r] - m_new) : 0.f;
+        al[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+        ps[r] = p[r];
+      }
+#pragma unroll
+      for (int o = kLanesPerKey; o < 32; o <<= 1)
+#pragma unroll
+        for (int r = 0; r < kRep; ++r)
+          ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], o);
+#pragma unroll
+      for (int r = 0; r < kRep; ++r) {
+        l[r] = l[r] * al[r] + ps[r];
+        p[r] = round_to<T>(p[r]);
+      }
+      // acc = acc * alpha, then + p v key by key, in key order
+#pragma unroll
+      for (int r = 0; r < kRep; ++r)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[r][c] *= al[r];
+#pragma unroll
+      for (int j = 0; j < kKeysPerWarp; ++j) {
+        if (j >= nvalid) break;
+        float vv[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          vv[c] = col_lane ? to_f(vt[(key0 + j) * D + lane * kCols + c]) : 0.f;
+#pragma unroll
+        for (int r = 0; r < kRep; ++r) {
+          const float pj = __shfl_sync(0xffffffffu, p[r], j * kLanesPerKey);
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
         }
       }
     }
-    __syncthreads();
-
-    // online softmax over this tile: p (rounded to T) replaces half 0
-    for (int r = warp; r < rep; r += kWarps) {
-      float* s0 = sp + r * kTile;
-      const float* s1 = sp + (rep + r) * kTile;
-      const float a = lane < nj ? (s0[lane] + s1[lane]) * scale : -INFINITY;
-      const float c = lane + 32 < nj
-                          ? (s0[lane + 32] + s1[lane + 32]) * scale
-                          : -INFINITY;
-      float mt = fmaxf(a, c);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_prev = m_run[r];
-      const float m_new = fmaxf(m_prev, mt);
-      const float pa = lane < nj ? expf(a - m_new) : 0.f;
-      const float pc = lane + 32 < nj ? expf(c - m_new) : 0.f;
-      float l = pa + pc;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        l += __shfl_xor_sync(0xffffffffu, l, off);
-      s0[lane] = round_to<T>(pa);
-      s0[lane + 32] = round_to<T>(pc);
-      __syncwarp();
-      if (lane == 0) {
-        const float al = expf(m_prev - m_new);
-        alpha[r] = al;
-        l_run[r] = l_run[r] * al + l;
-        m_run[r] = m_new;
-      }
-    }
-    if (j0 + kTile < end) {              // the next tiles fly during PV
-      const int nn = min(kTile, end - j0 - kTile);
-      kt.load(kb + (j0 + kTile) * st.ks, st.ks, nn);
-      vt.load(vb + (j0 + kTile) * st.vs, st.vs, nn);
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p @ v, keys in order
-    float pv[NA];
-#pragma unroll
-    for (int i = 0; i < NA; ++i) pv[i] = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < nj; ++j) {
-      const float vv = to_f(vbuf[j * kRow + dcol]);
-#pragma unroll
-      for (int i = 0; i < NA; ++i) {
-        const int r = rg + i * RG;
-        if (r >= rep) break;
-        pv[i] = fmaf(sp[r * kTile + j], vv, pv[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      const int r = rg + i * RG;
-      if (r >= rep) break;
-      acc[i] = fmaf(acc[i], alpha[r], pv[i]);
-    }
-    __syncthreads();                     // buffers free for the next tile
+    release(blk, t, load);
   }
+  __syncthreads();                               // the ring is free
 
-  const size_t first = (static_cast<size_t>(bh) * nsplit + split) * rep;
+  float* wacc = reinterpret_cast<float*>(ring);  // [kWarps][rep][D]
+  float* wm = wacc + kWarps * rep * D;           // [kWarps][rep]
+  float* wl = wm + kWarps * rep;
 #pragma unroll
-  for (int i = 0; i < NA; ++i) {
-    const int r = rg + i * RG;
+  for (int r = 0; r < kRep; ++r) {
     if (r >= rep) break;
-    part_acc[(first + r) * D + dcol] = acc[i];
+    if (col_lane) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        wacc[(warp * rep + r) * D + lane * kCols + c] = acc[r][c];
+    }
+    if (lane == 0) {
+      wm[warp * rep + r] = m[r];
+      wl[warp * rep + r] = l[r];
+    }
   }
-  if (threadIdx.x < rep) {
-    part_m[first + threadIdx.x] = m_run[threadIdx.x];
-    part_l[first + threadIdx.x] = l_run[threadIdx.x];
-  }
+  cg::cluster_group cluster = cg::this_cluster();
+  merge_and_store<T, D>(cluster, blk, wacc,
+                        reinterpret_cast<float*>(blk.smem + L::kPart),
+                        out + (static_cast<size_t>(blk.b) * Hkv + blk.kvh) *
+                                  rep * D);
 }
 
-// out[b, kvh * rep + r, d] from the live splits' (m, l, acc), in split order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_combine(const int* __restrict__ lengths,
-               const float* __restrict__ part_m,
-               const float* __restrict__ part_l,
-               const float* __restrict__ part_acc, T* __restrict__ out,
-               int S, int Hkv, int rep, int D, int nsplit) {
-  const int bh = blockIdx.x;
-  const int b = bh / Hkv;
-  const int kvh = bh - b * Hkv;
-  const int span = tiles_per_split(S) * kTile;
-  const int nlive = (live_length(lengths, b, S) + span - 1) / span;
-  const size_t first = static_cast<size_t>(bh) * nsplit * rep;
-  const int o = blockIdx.y * kThreads + threadIdx.x;
-  if (o < rep * D) {
-    const int r = o / D;
-    const int d = o - r * D;
-    // unrolled by 8 so that eight splits' loads fly at once
-    float M = -INFINITY;
-#pragma unroll 8
-    for (int s = 0; s < nlive; ++s)
-      M = fmaxf(M, part_m[first + s * rep + r]);
-    float L = 0.f;
-    float O = 0.f;
-#pragma unroll 8
-    for (int s = 0; s < nlive; ++s) {
-      const size_t row = first + s * rep + r;
-      const float w = expf(part_m[row] - M);
-      L = fmaf(part_l[row], w, L);
-      O = fmaf(part_acc[row * D + d], w, O);
-    }
-    const size_t at =
-        (static_cast<size_t>(b) * Hkv * rep + kvh * rep + r) * D + d;
-    out[at] = from_f<T>(nlive ? O / fmaxf(L, 1e-30f) : 0.f);
+// ---------------------------------------------------------------------------
+// bf16, at most 16 q rows per kv head: the products on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// A warp takes 8 keys of each 64-key tile.  S [16 x 8] = Q K^T is mma.sync
+// m16n8k16 over D (Q's rows past rep are zero, its A fragments stay in
+// registers; K's B fragments by ldmatrix); the online softmax runs on the
+// accumulator (a row's 8 scores sit in the 4 lanes of a quad); p, rounded
+// to bf16, is at once the A fragment of O [16 x D] += P V, mma.sync m16n8k8
+// with V's B fragments by ldmatrix.trans.  bf16 products are exact in f32
+// and the sums are f32, as on the FMA path.  K and V tiles arrive by TMA
+// with the widest swizzle a row of D (or of 64 of its elements) fills, so
+// the ldmatrix rows hit distinct banks.
+
+constexpr int kMmaKeys = 8;                    // keys per warp per tile
+constexpr int kMmaTile = kWarps * kMmaKeys;    // keys per tile
+static_assert(kSpanUnit % kMmaTile == 0, "a split is whole tiles");
+
+template <int D>
+struct MmaTile {
+  static constexpr int kChunk = D < 64 ? D : 64;   // elements per row
+  static constexpr int kRowBytes = kChunk * 2;     // one swizzle span
+  static constexpr int kChunks = D / kChunk;
+  static constexpr int kBoxBytes = kMmaTile * kRowBytes;
+  static constexpr int kBytes = 2 * kChunks * kBoxBytes;   // K, then V
+  static constexpr uint32_t kSwizzle = kRowBytes / 16 - 1;  // 7, 3 or 1
+  // byte offset of row r, 16-byte chunk c (of D) in a K or V tile, swizzled
+  // as TMA wrote it: bits [4, 7) of the offset XOR bits [7, 10)
+  __device__ __forceinline__ static uint32_t at(int r, int c) {
+    const uint32_t o = (c / (kChunk / 8)) * kBoxBytes + r * kRowBytes +
+                       (c % (kChunk / 8)) * 16;
+    return o ^ (((o >> 7) & kSwizzle) << 4);
   }
+};
+template <int D, int kRows>
+using MmaLayout = Layout<kRows, D, MmaTile<D>::kBytes, 1024>;
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
+// c[16 x 8] += a[16 x 16] b[16 x 8]; lane t = 4 g + i holds c rows g and
+// g + 8, columns 2 i and 2 i + 1.
+__device__ __forceinline__ void mma_k16(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// c[16 x 8] += a[16 x 8] b[8 x 8]
+__device__ __forceinline__ void mma_k8(float (&c)[4], uint32_t a0,
+                                       uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// kRows: the q rows the products carry, 8 or 16 (rep <= kRows); with 8,
+// the m16 tile's rows 8..15 are zeros, and their softmax is not run.
+template <int D, int kRows>
+__global__ void __launch_bounds__(kThreads, 2)
+decode_mma(const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v,
+           const __nv_bfloat16* __restrict__ q,
+           const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
+           int S, int Hkv, int rep, long long q_sb, long long q_sh,
+           float scale) {
+  using L = MmaLayout<D, kRows>;
+  using Tl = MmaTile<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // K's boxes, then V's: kChunks column boxes of 64 rows each
+  const auto load = [&](const Block& blk, int t) {
+    const int s = t % L::kStages;
+    const uint32_t dst = blk.base + L::kRing + s * Tl::kBytes;
+    const int k0 = blk.begin + t * kMmaTile;
+    mbar_expect_tx(blk.full(s), Tl::kBytes);
+#pragma unroll
+    for (int c = 0; c < Tl::kChunks; ++c) {
+      tma_load_4d(dst + c * Tl::kBoxBytes, &tm_k, blk.full(s),
+                  c * Tl::kChunk, blk.kvh, k0, blk.b);
+      tma_load_4d(dst + (Tl::kChunks + c) * Tl::kBoxBytes, &tm_v, blk.full(s),
+                  c * Tl::kChunk, blk.kvh, k0, blk.b);
+    }
+  };
+  if (threadIdx.x == 0) {                        // ahead of the first loads
+    hopper::prefetch_tensor_map(&tm_k);
+    hopper::prefetch_tensor_map(&tm_v);
+  }
+  const Block blk = start_block<__nv_bfloat16, D, kRows, 1024>(
+      q, lengths, S, Hkv, rep, q_sb, q_sh, L::kStages, smem_raw,
+      load, kMmaTile);
+  const float* qs = reinterpret_cast<const float*>(blk.smem + L::kQ);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;                       // rows g and g + 8
+  const int tq = lane & 3;                       // keys / columns 2 tq, + 1
+  const int key0 = warp * kMmaKeys;              // the warp's keys in a tile
+
+  // Q's A fragments (rows past rep are zero), for the whole loop; rows
+  // g + 8 only when kRows is 16
+  constexpr int kHalves = kRows / 8;
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = g + 8 * (e & 1);
+      const int col = 16 * ks + 8 * (e >> 1) + 2 * tq;
+      qa[ks][e] = (e & 1) && kHalves == 1
+                      ? 0u
+                      : pack_bf16(qs[row * D + col], qs[row * D + col + 1]);
+    }
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY};
+  float l_r[2] = {0.f, 0.f};                     // this lane's part of l
+
+  for (int t = 0; t < blk.ntiles; ++t) {
+    const int s = t % L::kStages;
+    mbar_wait(blk.full(s), (t / L::kStages) & 1);
+    const uint32_t kst = blk.base + L::kRing + s * Tl::kBytes;
+    const uint32_t vst = kst + Tl::kChunks * Tl::kBoxBytes;
+    const int first = blk.begin + t * kMmaTile + key0;   // the warp's key 0
+    const int nvalid = min(kMmaKeys, blk.end - first);
+    if (nvalid > 0) {                            // uniform across the warp
+      if (nvalid < kMmaKeys) {
+        // rows past the length may hold anything (NaN): p = 0 must meet
+        // zeros in P V
+        for (int i = lane; i < (kMmaKeys - nvalid) * (D / 8); i += 32) {
+          const int r = key0 + nvalid + i / (D / 8);
+          const uint32_t a = vst + Tl::at(r, i % (D / 8));
+          asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(a),
+                       "r"(0u)
+                       : "memory");
+        }
+        __syncwarp();
+      }
+      // S = Q K^T: the warp's 8 keys, D in steps of 16
+      float sc[4] = {0.f, 0.f, 0.f, 0.f};
+      const int lr = key0 + (lane & 7);          // ldmatrix row of this lane
+      if constexpr (D == 16) {
+        uint32_t kb[2];
+        ldsm_x2(kb, kst + Tl::at(lr, (lane >> 3) & 1));
+        mma_k16(sc, qa[0], kb[0], kb[1]);
+      } else {
+#pragma unroll
+        for (int p = 0; p < D / 32; ++p) {
+          uint32_t kb[4];
+          ldsm_x4(kb, kst + Tl::at(lr, 4 * p + (lane >> 3)));
+          mma_k16(sc, qa[2 * p], kb[0], kb[1]);
+          mma_k16(sc, qa[2 * p + 1], kb[2], kb[3]);
+        }
+      }
+      // the online softmax, rows g (r = 0) and g + 8 (r = 1)
+      uint32_t pa[2] = {0u, 0u};
+#pragma unroll
+      for (int r = 0; r < kHalves; ++r) {
+        float x0 = first + 2 * tq < blk.end ? sc[2 * r] * scale : -INFINITY;
+        float x1 = first + 2 * tq + 1 < blk.end ? sc[2 * r + 1] * scale
+                                                 : -INFINITY;
+        float mt = fmaxf(x0, x1);
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float m_new = fmaxf(m_r[r], mt);   // finite: a key is valid
+        x0 = expf(x0 - m_new);
+        x1 = expf(x1 - m_new);
+        const float alpha = expf(m_r[r] - m_new);
+        l_r[r] = l_r[r] * alpha + (x0 + x1);
+        m_r[r] = m_new;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[n][2 * r] *= alpha;
+          o[n][2 * r + 1] *= alpha;
+        }
+        pa[r] = pack_bf16(x0, x1);               // p rounded to bf16
+      }
+      // O += P V, 8 columns of D per product
+      if constexpr (D == 16) {
+        uint32_t vb[2];
+        ldsm_x2_trans(vb, vst + Tl::at(lr, (lane >> 3) & 1));
+        mma_k8(o[0], pa[0], pa[1], vb[0]);
+        mma_k8(o[1], pa[0], pa[1], vb[1]);
+      } else {
+#pragma unroll
+        for (int p = 0; p < D / 32; ++p) {
+          uint32_t vb[4];
+          ldsm_x4_trans(vb, vst + Tl::at(lr, 4 * p + (lane >> 3)));
+#pragma unroll
+          for (int m = 0; m < 4; ++m) mma_k8(o[4 * p + m], pa[0], pa[1], vb[m]);
+        }
+      }
+      if (nvalid < kMmaKeys)                     // the zeros, before TMA
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    release(blk, t, load);
+  }
+  __syncthreads();                               // the ring is free
+
+  // this warp's (m, l, acc) of rows < rep into the ring
+  float* wacc = reinterpret_cast<float*>(blk.smem + L::kRing);
+  float* wm = wacc + kWarps * rep * D;
+  float* wl = wm + kWarps * rep;
+#pragma unroll
+  for (int r = 0; r < kHalves; ++r) {
+    const int row = g + 8 * r;
+    float l = l_r[r];                            // the quad's parts of l
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (row < rep) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        wacc[(warp * rep + row) * D + 8 * n + 2 * tq] = o[n][2 * r];
+        wacc[(warp * rep + row) * D + 8 * n + 2 * tq + 1] = o[n][2 * r + 1];
+      }
+      if (tq == 0) {
+        wm[warp * rep + row] = m_r[r];
+        wl[warp * rep + row] = l;
+      }
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  merge_and_store<__nv_bfloat16, D>(
+      cluster, blk, wacc, reinterpret_cast<float*>(blk.smem + L::kPart),
+      out + (static_cast<size_t>(blk.b) * Hkv + blk.kvh) * rep * D);
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// Launches `fn` on a (B * Hkv, splits) grid in clusters of (1, splits),
+// after setting, once per kernel and before any capture, its shared memory
+// and clusters of more than 8 blocks.
+template <auto fn, typename... Args>
+int launch_cluster(int smem, int B, int S, int Hkv, cudaStream_t stream,
+                   Args... args) {
+  static const cudaError_t ready = [smem] {
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return e;
+  }();
+  if (ready != cudaSuccess) return static_cast<int>(ready);
+  const int nsplit = num_splits(S);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * Hkv, nsplit, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = nsplit;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, fn, args...));
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* out, float* part_m, float* part_l, float* part_acc, int B,
-           int S, int Hkv, int rep, const Strides& st, float scale,
-           cudaStream_t stream) {
-  const int nsplit = num_splits(S);
-  const size_t smem = split_smem<T, D>(rep);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_split<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+           void* out, int B, int S, int Hkv, int rep, const Strides& st,
+           float scale, cudaStream_t stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const CUtensorMapDataType dtype = kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const bool mma = kBf16 && rep <= kMmaRows;
+  // the tensor-core path reads swizzled column boxes of 64 keys, the FMA
+  // path plain rows of 32 keys
+  const int box_d = mma ? MmaTile<D>::kChunk : D;
+  const int box_s = mma ? kMmaTile : kTile;
+  const CUtensorMapSwizzle swizzle =
+      !mma ? CU_TENSOR_MAP_SWIZZLE_NONE
+           : (MmaTile<D>::kRowBytes == 128
+                  ? CU_TENSOR_MAP_SWIZZLE_128B
+                  : (MmaTile<D>::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                 : CU_TENSOR_MAP_SWIZZLE_32B));
+  CUtensorMap mk, mv;
+  int rc = hopper::tensor_map(&mk, dtype, sizeof(T), k, B, S, Hkv, D, st.kb,
+                              st.ks, st.kh, box_d, box_s, swizzle);
+  if (rc == 0)
+    rc = hopper::tensor_map(&mv, dtype, sizeof(T), v, B, S, Hkv, D, st.vb,
+                            st.vs, st.vh, box_d, box_s, swizzle);
+  if (rc) return rc;
+  const auto* qp = static_cast<const T*>(q);
+  const auto* lp = static_cast<const int*>(lengths);
+  auto* op = static_cast<T*>(out);
+  if constexpr (kBf16) {
+    if (mma && rep <= 8)
+      return launch_cluster<decode_mma<D, 8>>(MmaLayout<D, 8>::kBytes, B, S,
+                                              Hkv,
+                                              stream, mk, mv, qp, lp, op, S,
+                                              Hkv, rep, st.qb, st.qh, scale);
+    if (mma)
+      return launch_cluster<decode_mma<D, 16>>(MmaLayout<D, 16>::kBytes, B, S,
+                                               Hkv, stream, mk, mv, qp, lp, op,
+                                               S, Hkv, rep, st.qb, st.qh,
+                                               scale);
   }
-  decode_split<T, D><<<dim3(B * Hkv, nsplit), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(lengths), part_m,
-      part_l, part_acc, S, Hkv, rep, st, scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid2(B * Hkv, (rep * D + kThreads - 1) / kThreads);
-  decode_combine<T><<<grid2, kThreads, 0, stream>>>(
-      static_cast<const int*>(lengths), part_m, part_l, part_acc,
-      static_cast<T*>(out), S, Hkv, rep, D, nsplit);
-  return static_cast<int>(cudaGetLastError());
+  if (rep <= 4)
+    return launch_cluster<decode_fma<T, D, 4>>(FmaLayout<T, D, 4>::kBytes, B,
+                                               S, Hkv, stream, mk, mv, qp, lp, op, S, Hkv, rep,
+                          st.qb, st.qh, scale);
+  return launch_cluster<decode_fma<T, D, kMaxRep>>(
+      FmaLayout<T, D, kMaxRep>::kBytes, B, S, Hkv, stream,
+                        mk, mv, qp, lp, op, S, Hkv, rep, st.qb, st.qh, scale);
 }
 
 template <typename T>
 int dispatch(int D, const void* q, const void* k, const void* v,
-             const void* lengths, void* out, float* part_m, float* part_l,
-             float* part_acc, int B, int S, int Hkv, int rep,
+             const void* lengths, void* out, int B, int S, int Hkv, int rep,
              const Strides& st, float scale, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, lengths, out, part_m, part_l, part_acc,
-                           B, S, Hkv, rep, st, scale, stream);
+      return launch<T, 16>(q, k, v, lengths, out, B, S, Hkv, rep, st, scale,
+                           stream);
     case 32:
-      return launch<T, 32>(q, k, v, lengths, out, part_m, part_l, part_acc,
-                           B, S, Hkv, rep, st, scale, stream);
+      return launch<T, 32>(q, k, v, lengths, out, B, S, Hkv, rep, st, scale,
+                           stream);
     case 64:
-      return launch<T, 64>(q, k, v, lengths, out, part_m, part_l, part_acc,
-                           B, S, Hkv, rep, st, scale, stream);
+      return launch<T, 64>(q, k, v, lengths, out, B, S, Hkv, rep, st, scale,
+                           stream);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, out, part_m, part_l, part_acc,
-                            B, S, Hkv, rep, st, scale, stream);
+      return launch<T, 128>(q, k, v, lengths, out, B, S, Hkv, rep, st, scale,
+                            stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -429,8 +947,7 @@ int dispatch(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Splits per (row, kv head) for a cache of S keys: the wrapper sizes the
-// scratch as [B * Hkv * splits * rep] (m, l) and [... * D] (acc) f32.
+// Splits (blocks per cluster) for a cache of S keys.
 extern "C" int decode_attention_splits(int S) {
   return S > 0 ? num_splits(S) : 0;
 }
@@ -442,9 +959,8 @@ extern "C" int decode_attention_max_rep() { return kMaxRep; }
 // 16-byte aligned), lengths [B] int32, out [B, H, D] contiguous.
 extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k,
                                     const void* v, const void* lengths,
-                                    void* out, void* part_m, void* part_l,
-                                    void* part_acc, int B, int S, int H,
-                                    int Hkv, int D, const long long* strides,
+                                    void* out, int B, int S, int H, int Hkv,
+                                    int D, const long long* strides,
                                     float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (Hkv <= 0 || H % Hkv || H / Hkv > kMaxRep)
@@ -452,18 +968,15 @@ extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k,
   const Strides st{strides[0], strides[1], strides[2], strides[3],
                    strides[4], strides[5], strides[6], strides[7]};
   const auto s = static_cast<cudaStream_t>(stream);
-  auto* pm = static_cast<float*>(part_m);
-  auto* pl = static_cast<float*>(part_l);
-  auto* pa = static_cast<float*>(part_acc);
   if (dtype == 0)
-    return dispatch<float>(D, q, k, v, lengths, out, pm, pl, pa, B, S, Hkv,
-                           H / Hkv, st, scale, s);
+    return dispatch<float>(D, q, k, v, lengths, out, B, S, Hkv, H / Hkv, st,
+                           scale, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k, v, lengths, out, pm, pl, pa, B,
-                                   S, Hkv, H / Hkv, st, scale, s);
+    return dispatch<__nv_bfloat16>(D, q, k, v, lengths, out, B, S, Hkv,
+                                   H / Hkv, st, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* decode_attention_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return hopper::error_string(code);
 }

@@ -13,16 +13,10 @@
 // p = exp(s - m_new), alpha = exp(m - m_new), l = l * alpha + rowsum p (f32 p),
 // acc = acc * alpha + p @ v with p rounded to v's dtype first and an f32
 // accumulator; out = acc / max(l, 1e-30), rounded once to the output dtype.
-// The kernel tiles by 64 x 64 where the reference tiles by 128 x 128; the
-// online softmax gives the same function, and only the place where p is
-// rounded (relative to the running max of a tile) moves: a bf16 result moves
-// by a rounding step of p, an f32 one not at all.
-//
-// Grid.  One thread block per (q tile of 64 rows, batch row x q head); the
-// loop over KV tiles inside the block takes the place of the reference's
-// sequential kj grid axis.  q, k and v are read in place through their
-// strides in the public [B, S, H, D] layout (no transpose, no repeat of K/V
-// for GQA); the q tiles with the most keys are launched first.
+// The bf16 kernel tiles by 128 x 128, the reference's own block_q = block_k =
+// 128 (flash_attention.py:72), so p is rounded to bf16 at the same running
+// max as in the TPU kernel; the f32 kernel tiles by 64 x 64, which moves only
+// the summation order (f32 p is not rounded).
 //
 // Skipped tiles.  A KV tile that is masked for every row of the q tile (above
 // the diagonal, or wholly outside the window) is not visited.  That is exact:
@@ -37,49 +31,80 @@
 // B * H heads, 4 * D flops each (q k^T and p v), against bytes of q, k, v and
 // out read or written once:
 //   max(pairs * 4 * D / 989e12 (bf16 dense),  bytes / 3.35e12)
-// At H 32, Hkv 8, D 128, causal, the bytes bound it below S ~ 740 and the
-// operations above: prefill is a tensor-core kernel.  What the design does
-// about it: every intermediate stays on chip (scores, p, m, l and the
-// accumulator never touch device memory), each K/V tile is read once per q
-// tile as 16-byte vectors into shared memory, masked tiles are skipped, and
-// in bf16 both products run on the tensor cores (mma.sync m16n8k16, f32
-// accumulators) while the next K/V tile streams in by cp.async (double
-// buffered).  Not yet done: TMA loads, wgmma and warp specialisation.
+// (the published dense bf16 and memory rates of an H100 SXM at its 700 W
+// limit).  At H 32, Hkv 8, D 128, causal, the bytes bound it below S ~ 740
+// and the operations above (S 2048: 0.0348 ms): prefill is a tensor-core
+// kernel, and on Hopper only wgmma reaches the tensor cores' rate.
 //
-// Two paths, one arithmetic.
-//   bf16 (flash_fwd_mma): 4 warps, warp w owns query rows 16 w .. 16 w + 15.
-//     Its q fragments stay in registers; S = q K^T for a tile is 8 mma
-//     accumulator tiles whose layout is the A operand layout of p V, so p is
-//     rounded to bf16 and multiplied from registers.  Row max and row sum
-//     are shuffles over the 4 lanes that share a row.  K and V fragments come
-//     from shared memory by ldmatrix (V transposed).
-//   f32 (flash_fwd, FMA on the CUDA cores; the tensor cores have no f32
-//     product without TF32 rounding): 8 warps, warp w owns query rows
-//     8 w .. 8 w + 7; for the scores a lane owns keys lane and lane + 32 of
-//     the tile, for the output D / 32 neighbouring columns (D = 16: lanes
-//     0..15, one column each); row max and sum are butterfly shuffles over
-//     the warp; p goes through shared memory.
-// Shared memory rows carry 16 bytes of padding, so 8 lanes reading 16 bytes
-// each (or an ldmatrix phase) hit distinct banks.
+// bf16 (flash_fwd_wgmma): FlashAttention-3 in its plain form.  A block of
+// two warpgroups (8 warps) owns 128 query rows of one (batch row, q head):
+//   - loads: Q once, then the 128-key K and V tiles into a ring of kStages
+//     stages, each by TMA (cp.async.bulk.tensor) on full mbarriers (K and V
+//     of a stage have one each, so the scores start before V lands).  Thread
+//     0 issues Q and the first kStages tiles; after that the last warp to
+//     release a stage (empty mbarrier, and a count in shared memory that
+//     elects it) refills it at once, so no warpgroup waits for the other to
+//     issue a load.  The tensor maps describe the public [B, S, H, D] layout
+//     through the caller's strides, with the widest swizzle a row of D (or of
+//     64 of its elements) fills; rows past a sequence arrive as zeros.  There
+//     is no producer warp: a ninth warp puts three warps on one scheduler,
+//     which caps every thread at 168 registers, and setmaxnreg did not lift
+//     ptxas's cap (the wgmma were serialised for want of registers); with 8
+//     warps a consumer thread may hold the ~190 it needs.
+//   - compute: each warpgroup takes 64 query rows, so every K/V tile is read
+//     from L2 once for 128 rows.  S = Q K^T is wgmma m64n128k16 with Q and K
+//     from shared memory; the online softmax runs on the accumulator
+//     registers (a row's 128 scores sit in the 4 lanes of a quad, 32 each;
+//     exp2 on the special-function unit, the scale folded in); p, rounded to
+//     bf16, becomes the register A operand of O += P V, wgmma m64nDk16 with V
+//     read MN-major from shared memory (the transpose bit: no transposed copy
+//     of V).  Software pipeline: step j issues S of tile j and P V of tile
+//     j - 1, then runs tile j's softmax while P V still runs.  Ping-pong: the
+//     warpgroups take turns (two named barriers) to issue their products, so
+//     that one's softmax runs while the other's products hold the tensor
+//     cores.  The masks are computed only on the tiles that straddle the
+//     diagonal, the window edge or the end of the keys.
+//   The longest q tiles are launched first.  Every D in {16, 32, 64, 128}
+//   takes this path: a row of D = 16 / 32 fills a 32 / 64-byte swizzle, and
+//   D = 128 is two 64-element column boxes per tile.
+// f32 (flash_fwd, FMA on the CUDA cores; the tensor cores have no f32 product
+//   without TF32 rounding): 8 warps, warp w owns query rows 8 w .. 8 w + 7;
+//   for the scores a lane owns keys lane and lane + 32 of the tile, for the
+//   output D / 32 neighbouring columns (D = 16: lanes 0..15, one column
+//   each); row max and sum are butterfly shuffles over the warp; p goes
+//   through shared memory.  Shared memory rows carry 16 bytes of padding, so
+//   8 lanes reading 16 bytes each hit distinct banks.
 //
 // C interface (bound with ctypes): every pointer is a device pointer, the
-// stream is the caller's current stream, nothing is allocated here, and the
-// entry point returns the launch's cudaError_t (0 = launched).
+// stream is the caller's current stream, nothing is allocated on the device
+// here, and the entry point returns the launch's cudaError_t (0 = launched),
+// or kEncodeError + the CUresult when a tensor map cannot be encoded (the
+// maps are encoded and kept by hopper.cuh: a prefill encodes each tensor's
+// map once).
 
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_addr;
+using hopper::tma_load_4d;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 8;
-constexpr int kBQ = kWarps * kRowsPerWarp;   // query rows per block
-constexpr int kBK = 64;                      // keys per KV tile
+constexpr int kBQ = kWarps * kRowsPerWarp;   // query rows per block (f32)
+constexpr int kBK = 64;                      // keys per KV tile (f32)
 constexpr float kMasked = -1e30f;
 
 template <int kBytes>
@@ -148,8 +173,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The KV tiles [kt_begin, kt_end) a q tile of rows [q0, q0 + rows) visits
-// (see "Skipped tiles" above).
+// The KV tiles of kTileK keys, [kt_begin, kt_end), that a q tile of rows
+// [q0, q0 + rows) visits (see "Skipped tiles" above).
+template <int kTileK = kBK>
 __device__ __forceinline__ void kv_tiles(int q0, int rows, int Sq, int Skv,
                                          int causal, int has_window,
                                          int window, int& kt_begin,
@@ -158,10 +184,10 @@ __device__ __forceinline__ void kv_tiles(int q0, int rows, int Sq, int Skv,
   const int q_lo = q0 + off;
   const int q_hi = min(q0 + rows, Sq) - 1 + off;
   kt_begin = 0;
-  kt_end = (Skv + kBK - 1) / kBK;
+  kt_end = (Skv + kTileK - 1) / kTileK;
   if (causal && q_lo >= 0 && (!has_window || window >= 1)) {
-    kt_end = min(kt_end, q_hi / kBK + 1);
-    if (has_window) kt_begin = max(0, (q_lo - window + 1) / kBK);
+    kt_end = min(kt_end, q_hi / kTileK + 1);
+    if (has_window) kt_begin = max(0, (q_lo - window + 1) / kTileK);
   }
 }
 
@@ -171,10 +197,11 @@ __device__ __forceinline__ float masked_score(float dot, float scale,
                                               int qpos, int kpos, int Skv,
                                               int causal, int has_window,
                                               int window) {
-  if (kpos >= Skv) return -INFINITY;
-  if ((causal && kpos > qpos) || (has_window && kpos <= qpos - window))
-    return kMasked;
-  return dot * scale;
+  // selects, not branches: the tensor-core path masks 64 scores a thread
+  const bool masked =
+      (causal && kpos > qpos) || (has_window && kpos <= qpos - window);
+  const float v = masked ? kMasked : dot * scale;
+  return kpos >= Skv ? -INFINITY : v;
 }
 
 // ---------------------------------------------------------------------------
@@ -332,44 +359,65 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync m16n8k16 (f32 accumulators)
+// bf16 on Hopper: TMA loads, wgmma, one producer and two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaWarps = 4;                 // 16 query rows each
-constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kTQ = 128;                     // query rows per block
+constexpr int kTK = 128;                     // keys per K/V tile
+constexpr int kStages = 3;                   // K/V ring depth
+constexpr int kWgThreads = 128;
+// two consumer warpgroups, one of whose threads also issues the loads: with
+// 8 warps ptxas may give a thread up to 255 registers, which the pipelined
+// consumers need (sc, o and p live at once); a ninth warp (a producer warp
+// or warpgroup) puts three warps on one scheduler and caps every thread at
+// 168, and setmaxnreg did not lift ptxas's cap: the wgmma were serialised
+// for want of registers
+constexpr int kHopperThreads = 2 * kWgThreads;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle (1 = 128 B, 2 = 64 B, 3 = 32 B).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
-// Four 8 x 8 b16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8.  Plain: lane t gets M[t / 4][2 (t % 4) + {0, 1}] of each matrix;
-// .trans: M[2 (t % 4) + {0, 1}][t / 4].
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most kPending committed wgmma groups are still running.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+// Ties each accumulator register to this point, so that no read of it is
+// scheduled between an asynchronous wgmma and the wait for it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for a register A operand, which a running wgmma still reads.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// c[16 x 8] += a[16 x 16] b[16 x 8]; lane t = 4 g + i holds c rows g and
-// g + 8, columns 2 i and 2 i + 1.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x by the special-function unit (relative error below 2^-22; -inf and
+// arguments below -126 give 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -377,282 +425,533 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// 16 bytes from global to shared memory without passing through registers;
-// zero-filled when !valid (no bytes are read then).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
+// d[64] (+)= A * B, m64n128k16, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// d[8] += A * B, m64n16k16, A from registers (the m16n8k16 A fragment
+// of the thread's warp), B MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+// d[16] += A * B, m64n32k16, A from registers (the m16n8k16 A fragment
+// of the thread's warp), B MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
-// load_tile's rows, issued as asynchronous copies (one commit group per
-// call site; the caller waits for it).
-template <int D, int kRows, int kNThreads>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, int ld,
-                                                const __nv_bfloat16* src,
-                                                long long stride_s, int row0,
-                                                int rows) {
-  constexpr int kVec = 8;
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < kRows * kPerRow; i += kNThreads) {
-    const int r = i / kPerRow;
-    const int c = (i - r * kPerRow) * kVec;
-    const bool valid = row0 + r < rows;
-    cp_async16(dst + r * ld + c,
-               valid ? src + (row0 + r) * stride_s + c : src, valid);
+// d[32] += A * B, m64n64k16, A from registers (the m16n8k16 A fragment
+// of the thread's warp), B MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// d[64] += A * B, m64n128k16, A from registers (the m16n8k16 A fragment
+// of the thread's warp), B MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+
+// O += P V for one 16-key slice, N = D.
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 16)
+    wgmma_rs_n16(d, a, b);
+  else if constexpr (D == 32)
+    wgmma_rs_n32(d, a, b);
+  else if constexpr (D == 64)
+    wgmma_rs_n64(d, a, b);
+  else
+    wgmma_rs_n128(d, a, b);
+}
+
+// Shared memory of a block: Q [128 x D], then kStages K tiles and kStages V
+// tiles [128 x D], then the mbarriers.  A tile is D / kChunk column boxes of
+// 128 rows x kChunk elements, each row one swizzle span (kRowBytes), so a
+// box is the canonical swizzled layout wgmma reads: 8-row atoms of
+// 8 * kRowBytes bytes, one after another.
+template <int D>
+struct HopperSmem {
+  static constexpr int kChunk = D < 64 ? D : 64;
+  static constexpr int kRowBytes = kChunk * 2;
+  static constexpr int kChunks = D / kChunk;
+  static constexpr int kChunkBytes = kTK * kRowBytes;
+  static constexpr int kTileBytes = kChunks * kChunkBytes;
+  static constexpr int kAtomBytes = 8 * kRowBytes;
+  static constexpr uint64_t kLayout =
+      kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
+  static constexpr int kK = kTileBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;
+  static constexpr int kBars = 1 + 3 * kStages;      // q, full K / V, empty
+  static constexpr size_t kBytes = 1024 + kBar + 8 * kBars;   // + alignment
+};
+static_assert(kTQ == kTK, "Q, K and V tiles share one box shape");
+
+
+// S = Q K^T of one tile, over D in steps of 16 (issued, not waited for).
+// A step's descriptors are the tile's plus a constant: the start address
+// field (address / 16, under 2^14 in shared memory) never carries.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[kTK / 2], uint32_t q_wg,
+                                         uint32_t kst) {
+  using L = HopperSmem<D>;
+  const uint64_t qd = gmma_desc(q_wg, 16, L::kAtomBytes, L::kLayout);
+  const uint64_t kd = gmma_desc(kst, 16, L::kAtomBytes, L::kLayout);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 16 / L::kChunk;
+    const uint64_t step = (c * L::kChunkBytes + (kk * 16 - c * L::kChunk) * 2)
+                          >> 4;
+    wgmma_ss_n128(sc, qd + step, kd + step, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V of one tile (issued, not waited for).
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pa)[kTK / 16][4],
+                                         uint32_t vst) {
+  using L = HopperSmem<D>;
+  const uint64_t vd =
+      gmma_desc(vst, L::kChunkBytes, L::kAtomBytes, L::kLayout);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTK / 16; ++kk)
+    wgmma_pv<D>(o, pa[kk], vd + ((kk * 16 * L::kRowBytes) >> 4));
+  wgmma_commit();
+}
+
+// The online softmax of one tile on its scores (base 2: the scale carries
+// log2 e), masked only where the tile straddles a mask edge: leaves p in sc,
+// updates m and this thread's part of l, and gives each row's alpha.  The
+// thread's rows sit at positions qpos0 and qpos0 + 8, its keys at
+// kpos0 + 8 n + {0, 1}.
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[kTK / 2], float (&m_r)[2], float (&l_r)[2], float (&alpha)[2],
+    bool edge, float scale_log2, int qpos0, int kpos0, int Skv, int causal,
+    int has_window, int window) {
+  float sc_scale = scale_log2;
+  if (edge) {
+#pragma unroll
+    for (int n = 0; n < kTK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[4 * n + e] = masked_score(sc[4 * n + e], scale_log2,
+                                     qpos0 + 8 * (e >> 1),
+                                     kpos0 + 8 * n + (e & 1), Skv, causal,
+                                     has_window, window);
+    sc_scale = 1.f;
+  }
+  // (max and sum in two interleaved chains per row: shorter dependences)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kTK / 8; ++n)
+      mx[n & 1] = fmaxf(mx[n & 1],
+                        fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
+    float m = fmaxf(mx[0], mx[1]);
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float m_new = fmaxf(m_r[r], m * sc_scale);
+    alpha[r] = fast_exp2(m_r[r] - m_new);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < kTK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = sc[4 * n + 2 * r + e];
+        x = fast_exp2(fmaf(x, sc_scale, -m_new));
+        sum[n & 1] += x;
+      }
+    l_r[r] = l_r[r] * alpha[r] + (sum[0] + sum[1]);
+    m_r[r] = m_new;
   }
 }
 
+// O *= alpha; p rounded to bf16 (v's dtype) into P V's A fragments.
 template <int D>
-struct MmaSmem {
-  static constexpr int kLd = D + 8;          // 16 bytes of padding per row
-  static constexpr size_t kTile = size_t(kBK) * kLd * sizeof(__nv_bfloat16);
-  static constexpr size_t kBytes = 5 * kTile;   // q, and K and V twice
-};
+__device__ __forceinline__ void rescale_and_pack(float (&o)[D / 2],
+                                                 uint32_t (&pa)[kTK / 16][4],
+                                                 const float (&sc)[kTK / 2],
+                                                 const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
+#pragma unroll
+  for (int kk = 0; kk < kTK / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+}
 
-// Warp w owns query rows 16 w .. 16 w + 15 of the 64-row tile.  S = q K^T
-// for the 64 keys of a tile is 8 accumulator tiles of 16 x 8; its layout is
-// the A layout of the next product, so p (rounded to bf16) feeds p V from
-// registers.  The q fragments stay in registers for the whole KV loop.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
-              int rep, long long q_sb, long long q_ss, long long q_sh,
-              long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-              long long v_ss, long long v_sh, int causal, int has_window,
-              int window, float scale) {
-  using T = __nv_bfloat16;
-  constexpr int kLd = MmaSmem<D>::kLd;
-  constexpr int kDSteps = D / 16;            // k steps of q K^T
-  constexpr int kDTiles = D / 8;             // n tiles of p V
-  constexpr int kTileEl = kBK * kLd;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + kTileEl;                      // two buffers: tiles kt, kt + 1
-  T* Vs = Ks + 2 * kTileEl;
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
+                int rep, int causal, int has_window, int window,
+                float scale_log2) {
+  using L = HopperSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::kBar;
+  const auto full_k = [&](int s) { return bar_q + 8 * (1 + s); };
+  const auto full_v = [&](int s) { return bar_q + 8 * (1 + kStages + s); };
+  const auto empty = [&](int s) { return bar_q + 8 * (1 + 2 * kStages + s); };
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;                   // accumulator row (and + 8)
-  const int tig = lane & 3;                  // accumulator column pair
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int hk = h / rep;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // longest rows first
-  const int off = Skv - Sq;
-
-  load_tile<T, D, kBQ, kMmaThreads>(Qs, kLd, q + b * q_sb + h * q_sh, q_ss,
-                                    q0, Sq);
-  __syncthreads();
-  uint32_t qf[kDSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kDSteps; ++ks)
-    ldsm_x4(qf[ks], Qs + (warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kLd +
-                        ks * 16 + (lane >> 4) * 8);
-
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTQ;   // longest rows first
   int kt_begin, kt_end;
-  kv_tiles(q0, kBQ, Sq, Skv, causal, has_window, window, kt_begin, kt_end);
-  const T* kb = k + b * k_sb + hk * k_sh;
-  const T* vb = v + b * v_sb + hk * v_sh;
-  const int qpos0 = q0 + warp * 16 + g + off;          // row g; row g + 8 is +8
+  kv_tiles<kTK>(q0, kTQ, Sq, Skv, causal, has_window, window, kt_begin,
+                kt_end);
 
-  float o[kDTiles][4];
+  // Thread 0 loads Q and the first kStages K/V tiles; after that, the last
+  // warp to release a stage (counted in `released`) refills it at once,
+  // so neither warpgroup waits for the other to issue a load.
+  const int n_tiles = kt_end - kt_begin;
+  __shared__ uint32_t released[kStages];
+  const auto load_kv = [&](int i) {
+    const int s = i % kStages;
+    const int k0 = (kt_begin + i) * kTK;
+    const uint32_t dk = base + L::kK + s * L::kTileBytes;
+    const uint32_t dv = base + L::kV + s * L::kTileBytes;
+    mbar_expect_tx(full_k(s), L::kTileBytes);
 #pragma unroll
-  for (int j = 0; j < kDTiles; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m_r[2] = {kMasked, kMasked};
-  float l_r[2] = {0.f, 0.f};
-
-  // K/V tiles are double-buffered: tile kt + 1 streams in (cp.async) while
-  // tile kt is computed.
-  if (kt_begin < kt_end) {
-    load_tile_async<D, kBK, kMmaThreads>(Ks, kLd, kb, k_ss, kt_begin * kBK,
-                                         Skv);
-    load_tile_async<D, kBK, kMmaThreads>(Vs, kLd, vb, v_ss, kt_begin * kBK,
-                                         Skv);
-    cp_async_commit();
-  }
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBK;
-    const int buf = (kt - kt_begin) & 1;
-    if (kt + 1 < kt_end) {
-      // the other buffer's readers finished at the end of the last tile
-      load_tile_async<D, kBK, kMmaThreads>(Ks + (buf ^ 1) * kTileEl, kLd, kb,
-                                           k_ss, k0 + kBK, Skv);
-      load_tile_async<D, kBK, kMmaThreads>(Vs + (buf ^ 1) * kTileEl, kLd, vb,
-                                           v_ss, k0 + kBK, Skv);
-      cp_async_commit();
-      cp_async_wait<1>();                    // tile kt has landed
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* Kt = Ks + buf * kTileEl;
-    const T* Vt = Vs + buf * kTileEl;
-
-    float s[8][4];
+    for (int c = 0; c < L::kChunks; ++c)
+      tma_load_4d(dk + c * L::kChunkBytes, &tm_k, full_k(s), c * L::kChunk,
+                  hk, k0, b);
+    mbar_expect_tx(full_v(s), L::kTileBytes);
 #pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kDSteps; ++ks) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {       // keys 16 np .. 16 np + 15
-        uint32_t kf[4];
-        ldsm_x4(kf, Kt + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * kLd +
-                        ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
+    for (int c = 0; c < L::kChunks; ++c)
+      tma_load_4d(dv + c * L::kChunkBytes, &tm_v, full_v(s), c * L::kChunk,
+                  hk, k0, b);
+  };
+  // tile i is done with by this warp: its stage is released, and refilled
+  // with tile i + kStages by the last warp
+  const auto release = [&](int i) {
+    const int s = i % kStages;
+    if ((threadIdx.x & 31) == 0) {
+      mbar_arrive(empty(s));
+      if (i + kStages < n_tiles &&
+          atomicAdd(&released[s], 1u) % (kHopperThreads / 32) ==
+              kHopperThreads / 32 - 1) {
+        mbar_wait(empty(s), (i / kStages) & 1);
+        load_kv(i + kStages);
       }
     }
+    __syncwarp();
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty(s), kHopperThreads / 32);   // every warp
+    }
+    for (int s = 0; s < kStages; ++s) released[s] = 0;
+    hopper::mbar_init_fence();
+    mbar_expect_tx(bar_q, L::kTileBytes);
+#pragma unroll
+    for (int c = 0; c < L::kChunks; ++c)
+      tma_load_4d(base + c * L::kChunkBytes, &tm_q, bar_q, c * L::kChunk, h,
+                  q0, b);
+    for (int i = 0; i < min(n_tiles, kStages); ++i) load_kv(i);
+  }
+  __syncthreads();
 
-    // mask and online softmax for rows g (r = 0) and g + 8 (r = 1)
+  {
+    // warpgroup cw owns query rows 64 cw .. 64 cw + 63; in it, lane t of
+    // warp w holds rows 16 w + t / 4 (r = 0) and + 8 (r = 1) of every
+    // accumulator, columns 8 n + 2 (t % 4) + {0, 1}
+    const int cw = threadIdx.x / kWgThreads;
+    const int t = threadIdx.x % kWgThreads;
+    const int lane = t & 31;
+    const int tq = lane & 3;
+    const int row0 = cw * 64 + (t >> 5) * 16 + (lane >> 2);
+    const int off = Skv - Sq;
+    const int qpos0 = q0 + row0 + off;
+    const int qlo = q0 + cw * 64 + off;        // the warpgroup's positions
+    const int qhi = qlo + 63;
+    const uint32_t q_wg = base + cw * 64 * L::kRowBytes;
+
+    float o[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+    float m_r[2] = {kMasked, kMasked};
+    float l_r[2] = {0.f, 0.f};                 // this thread's part of l
+    float sc[kTK / 2];                         // S, then p, of one tile
+    uint32_t pa[kTK / 16][4];                  // p in bf16: P V's A operand
+    float alpha[2];
+
+    // Software pipeline: step j issues S = Q K^T of tile j, then O += P V
+    // of tile j - 1, and runs tile j's softmax while the tensor cores still
+    // multiply tile j - 1's P by V.  A q tile visits at least one KV tile
+    // (its first row sees its own key, or nothing is skipped).
+    const auto edge = [&](int j) {
+      const int k0 = (kt_begin + j) * kTK;
+      return k0 + kTK > Skv || (causal && k0 + kTK - 1 > qlo) ||
+             (has_window && k0 <= qhi - window);
+    };
+    const auto kpos0 = [&](int j) { return (kt_begin + j) * kTK + 2 * tq; };
+    // ping-pong: warpgroup cw issues products only in its turn (barrier
+    // 1 + cw) and then passes the turn on; warpgroup 0 has the first, and
+    // warpgroup 1 does not pass its last
+    const auto turn_take = [&] {
+      hopper::named_barrier_sync(1 + cw, 2 * kWgThreads);
+    };
+    const auto turn_pass = [&] {
+      hopper::named_barrier_arrive(2 - cw, 2 * kWgThreads);
+    };
+    if (cw == 1) turn_pass();
+    mbar_wait(bar_q, 0);
+    mbar_wait(full_k(0), 0);
+    turn_take();
+    issue_qk<D>(sc, q_wg, base + L::kK);
+    turn_pass();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax_tile(sc, m_r, l_r, alpha, edge(0), scale_log2, qpos0, kpos0(0),
+                 Skv, causal, has_window, window);
+    rescale_and_pack<D>(o, pa, sc, alpha);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const int sp = (j - 1) % kStages;
+      mbar_wait(full_k(s), (j / kStages) & 1);
+      mbar_wait(full_v(sp), ((j - 1) / kStages) & 1);
+      turn_take();
+      issue_qk<D>(sc, q_wg, base + L::kK + s * L::kTileBytes);
+      issue_pv<D>(o, pa, base + L::kV + sp * L::kTileBytes);
+      turn_pass();
+      wgmma_wait<1>();                           // S is in; P V runs on
+      fence_regs(sc);
+      softmax_tile(sc, m_r, l_r, alpha, edge(j), scale_log2, qpos0,
+                   kpos0(j), Skv, causal, has_window, window);
+      wgmma_wait<0>();                           // P V of tile j - 1 is done
+      fence_regs(o);
+      fence_regs(pa);
+      release(j - 1);
+      rescale_and_pack<D>(o, pa, sc, alpha);
+    }
+    {
+      const int sp = (n_tiles - 1) % kStages;
+      mbar_wait(full_v(sp), ((n_tiles - 1) / kStages) & 1);
+      turn_take();
+      issue_pv<D>(o, pa, base + L::kV + sp * L::kTileBytes);
+      if (cw == 0) turn_pass();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+    }
+
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int qpos = qpos0 + 8 * r;
-      float mx = -INFINITY;
+      float l = l_r[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = q0 + row0 + 8 * r;
+      if (row < Sq) {
+        const float inv = 1.f / fmaxf(l, 1e-30f);
+        __nv_bfloat16* dst =
+            out + ((static_cast<long long>(b) * Sq + row) * H + h) * D + 2 * tq;
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[n][2 * r + e];
-          x = masked_score(x, scale, qpos, k0 + n * 8 + 2 * tig + e, Skv,
-                           causal, has_window, window);
-          mx = fmaxf(mx, x);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_r[r], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[n][2 * r + e];
-          x = expf(x - m_new);
-          sum += x;
-        }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float alpha = expf(m_r[r] - m_new);
-      l_r[r] = l_r[r] * alpha + sum;
-      m_r[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < kDTiles; ++j) {
-        o[j][2 * r] *= alpha;
-        o[j][2 * r + 1] *= alpha;
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+              pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
       }
-    }
-
-    // o += p V, p rounded to bf16 (v's dtype) as the A operand
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {         // keys 16 kk .. 16 kk + 15
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < kDTiles / 2; ++dp) {
-        uint32_t vf[4];
-        ldsm_x4_trans(vf, Vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                                   kLd + dp * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
-        mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();                         // this buffer's readers are done
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row < Sq) {
-      const float inv = 1.f / fmaxf(l_r[r], 1e-30f);
-      T* dst = out + ((static_cast<long long>(b) * Sq + row) * H + h) * D +
-               2 * tig;
-#pragma unroll
-      for (int j = 0; j < kDTiles; ++j)
-        *reinterpret_cast<uint32_t*>(dst + j * 8) =
-            pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
     }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int H, int Hkv, const long long* st, int causal,
-           int has_window, int window, float scale, void* stream) {
-  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
-  constexpr size_t kBytes = kMma ? MmaSmem<D>::kBytes : Smem<D>::kBytes;
-  constexpr int kN = kMma ? kMmaThreads : kThreads;
-  const void* fn;
-  if constexpr (kMma)
-    fn = reinterpret_cast<const void*>(flash_fwd_mma<D>);
-  else
-    fn = reinterpret_cast<const void*>(flash_fwd<D>);
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kBytes));
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int B, int Sq, int Skv, int H, int Hkv, const long long* st,
+                 int causal, int has_window, int window, float scale,
+                 cudaStream_t stream) {
+  using L = HopperSmem<D>;
+  // boxes of 128 rows x kChunk elements, one swizzle span per row
+  const CUtensorMapSwizzle swizzle =
+      L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : (L::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B);
+  const auto map = [&](CUtensorMap* m, const void* p, int S, int Hx,
+                       const long long* s3) {
+    return hopper::tensor_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p, B, S,
+                              Hx, D, s3[0], s3[1], s3[2], L::kChunk, kTK,
+                              swizzle);
+  };
+  CUtensorMap mq, mk, mv;
+  int rc = map(&mq, q, Sq, H, st);
+  if (rc == 0) rc = map(&mk, k, Skv, Hkv, st + 3);
+  if (rc == 0) rc = map(&mv, v, Skv, Hkv, st + 6);
+  if (rc) return rc;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::kBytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  const auto strm = static_cast<cudaStream_t>(stream);
-  if constexpr (kMma)
-    flash_fwd_mma<D><<<grid, kN, kBytes, strm>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, H / Hkv,
-        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-        causal, has_window, window, scale);
-  else
-    flash_fwd<D><<<grid, kN, kBytes, strm>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, H / Hkv,
-        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-        causal, has_window, window, scale);
+  const dim3 grid(B * H, (Sq + kTQ - 1) / kTQ);
+  flash_fwd_wgmma<D><<<grid, kHopperThreads, L::kBytes, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), Sq, Skv, H, H / Hkv,
+      causal, has_window, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(int D, const void* q, const void* k, const void* v, void* out,
-             int B, int Sq, int Skv, int H, int Hkv, const long long* st,
-             int causal, int has_window, int window, float scale,
-             void* stream) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, out, B, Sq, Skv, H, Hkv, st, causal,
-                           has_window, window, scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, out, B, Sq, Skv, H, Hkv, st, causal,
-                           has_window, window, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, Sq, Skv, H, Hkv, st, causal,
-                           has_window, window, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, Sq, Skv, H, Hkv, st, causal,
-                            has_window, window, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+               int Sq, int Skv, int H, int Hkv, const long long* st,
+               int causal, int has_window, int window, float scale,
+               cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Smem<D>::kBytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
+  flash_fwd<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H,
+      H / Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      causal, has_window, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v, void* out,
+           int B, int Sq, int Skv, int H, int Hkv, const long long* st,
+           int causal, int has_window, int window, float scale,
+           cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, out, B, Sq, Skv, H, Hkv, st, causal,
+                         has_window, window, scale, stream);
+  return launch_wgmma<D>(q, k, v, out, B, Sq, Skv, H, Hkv, st, causal,
+                         has_window, window, scale, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q [B, Sq, H, D], k/v [B, Skv, Hkv, D],
 // each with unit stride over D and the (batch, sequence, head) strides in
-// `strides` (q's three, then k's, then v's, in elements); out is a contiguous
-// [B, Sq, H, D].  D in {16, 32, 64, 128}; H a multiple of Hkv.
+// `strides` (q's three, then k's, then v's, in elements; 16-byte multiples);
+// out is a contiguous [B, Sq, H, D].  D in {16, 32, 64, 128}; H a multiple of
+// Hkv.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* out, int B, int Sq,
                                    int Skv, int H, int Hkv, int D,
@@ -660,16 +959,26 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    int has_window, int window, float scale,
                                    void* stream) {
   if (Sq <= 0 || Skv <= 0 || B <= 0) return 0;
-  if (dtype == 0)
-    return dispatch<float>(D, q, k, v, out, B, Sq, Skv, H, Hkv, strides,
-                           causal, has_window, window, scale, stream);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k, v, out, B, Sq, Skv, H, Hkv,
-                                   strides, causal, has_window, window, scale,
-                                   stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch<16>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, strides,
+                        causal, has_window, window, scale, s);
+    case 32:
+      return launch<32>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, strides,
+                        causal, has_window, window, scale, s);
+    case 64:
+      return launch<64>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, strides,
+                        causal, has_window, window, scale, s);
+    case 128:
+      return launch<128>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, strides,
+                         causal, has_window, window, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* flash_attention_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return hopper::error_string(code);
 }

@@ -1,0 +1,180 @@
+// Hopper (sm_90a) building blocks shared by the attention kernels: mbarriers,
+// TMA tensor loads, and tensor maps encoded on the host and kept per
+// (pointer, shape, strides, box).
+//
+// The tensor maps are encoded through libcuda's cuTensorMapEncodeTiled,
+// reached with cudaGetDriverEntryPoint(ByVersion), so nothing links against
+// libcuda.  A map describes a [B, S, Hx, D] tensor with unit stride over D
+// (rank 4, innermost first: D, Hx, S, B) through the caller's strides; rows
+// past S read as zeros.  A map encodes only those numbers and the box, so
+// one kept for the same key is the same map: a prefill or a decode loop
+// encodes each tensor's map once.
+
+#pragma once
+
+#include <array>
+#include <cstdint>
+#include <map>
+#include <mutex>
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+namespace hopper {
+
+// Returned (plus the CUresult) when a tensor map cannot be encoded; the
+// entry points' error strings name it.
+constexpr int kEncodeError = 10000;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// The barriers' initialisation, visible to the async proxy (TMA) and to the
+// rest of the cluster.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.  A
+// wait that outlasts 2^28 polls (seconds) can only be a lost copy: it traps,
+// and the call fails, rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  uint32_t polls = 0;
+  do {
+    if (++polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a rank-4 tensor map (coordinates innermost first) into shared
+// memory; its bytes complete on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// The tensor map's descriptor into the cache ahead of its first load.
+__device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads: wait
+// there, or only count this warp's arrival.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The map of a [B, S, Hx, D] tensor of `elem` bytes per element (element
+// strides sb, ss, sh; unit stride over D), read in boxes of (box_d, 1, box_s,
+// 1) with `swizzle`.  0, or kEncodeError + the CUresult.
+inline int tensor_map(CUtensorMap* out, CUtensorMapDataType dtype, int elem,
+                      const void* ptr, int B, int S, int Hx, int D,
+                      long long sb, long long ss, long long sh, int box_d,
+                      int box_s, CUtensorMapSwizzle swizzle) {
+  // a dimension of extent 1 is never stepped: give it a packed stride
+  if (Hx == 1) sh = D;
+  if (S == 1) ss = Hx * sh;
+  if (B == 1) sb = S * ss;
+  using Key = std::array<uint64_t, 12>;
+  const Key key = {reinterpret_cast<uint64_t>(ptr), uint64_t(dtype),
+                   uint64_t(B),  uint64_t(S),  uint64_t(Hx),
+                   uint64_t(D),  uint64_t(sb), uint64_t(ss),
+                   uint64_t(sh), uint64_t(box_d), uint64_t(box_s),
+                   uint64_t(swizzle)};
+  static std::mutex mu;
+  static std::map<Key, CUtensorMap> kept;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = kept.find(key);
+  if (it != kept.end()) {
+    *out = it->second;
+    return 0;
+  }
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(Hx), cuuint64_t(S),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(sh) * elem, cuuint64_t(ss) * elem,
+                                 cuuint64_t(sb) * elem};
+  const cuuint32_t box[4] = {cuuint32_t(box_d), 1, cuuint32_t(box_s), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUtensorMap map;
+  const CUresult r = fn(&map, dtype, 4, const_cast<void*>(ptr), dims, strides,
+                        box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return kEncodeError + static_cast<int>(r);
+  if (kept.size() >= 4096) kept.clear();
+  kept.emplace(key, map);
+  *out = map;
+  return 0;
+}
+
+inline const char* error_string(int code) {
+  if (code >= kEncodeError)
+    return "cuTensorMapEncodeTiled refused a tensor (the code less 10000 is "
+           "its CUresult)";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // namespace hopper

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/lib<name>-<hash>.so`` at the root of
-the checkout.  The hash covers the source and the flags, so an edited source
-builds anew and an unchanged one is loaded as it is.  There is no fallback:
+the checkout.  The hash covers the source, the headers in ``csrc/`` and the
+flags, so an edited source builds anew and an unchanged one is loaded as it
+is.  There is no fallback:
 a missing ``nvcc`` or a failed build raises.
 
 Nothing here runs at import time.  ``build_all`` starts one ``nvcc`` per
@@ -43,6 +44,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -4,10 +4,14 @@ port of ``repro/kernels/decode_attention.py``.
 ``decode_attention`` keeps the reference's public layout (q [B, H, D], k/v
 [B, S, Hkv, D], lengths [B] -> [B, H, D]; key j of row b is attended iff
 j < lengths[b]).  On a CUDA tensor it launches the hand-written kernel
-``csrc/decode_attention.cu`` (a split pass over at most 64 splits of the
-cache, fixed by S, and a fixed-order combine pass, both in one call); on a
-CPU tensor it runs the plain version ``ref.decode_attention_ref``.  ``decode_attention.launches``
-counts the calls that launched the kernel.
+``csrc/decode_attention.cu`` (one launch: a thread-block cluster per
+(row, kv head) whose blocks split the cache, at most 16 of them and as many
+as S alone sets, merged in a fixed order through distributed shared memory);
+on a CPU tensor it runs the plain version ``ref.decode_attention_ref``.  The
+call allocates its output only, and its launch shape depends on S and the
+widths alone, so a CUDA graph can capture it and replay it with ``lengths``
+changed in place.  ``decode_attention.launches`` counts the calls that
+launched the kernel.
 
 What the kernel takes: float32 or bfloat16, D in ``HEAD_DIMS``, H a multiple
 of Hkv with at most 32 q heads per kv head, unit stride over D, k and v
@@ -38,7 +42,7 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("decode_attention")
     if not getattr(lib, "_repro_bound", False):
         lib.decode_attention_fwd.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+            _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _P]
         lib.decode_attention_fwd.restype = _I
         lib.decode_attention_splits.argtypes = [_I]
@@ -107,18 +111,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     lib = _lib()
-    nsplit = lib.decode_attention_splits(S)
-    rows = B * Hkv * nsplit * (H // Hkv)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_m, part_l = torch.empty(rows, **f32), torch.empty(rows, **f32)
-    part_acc = torch.empty(rows * D, **f32)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 8)(*q.stride()[:2], *k.stride()[:3],
                                       *v.stride()[:3])
     rc = lib.decode_attention_fwd(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), part_acc.data_ptr(), B, S, H, Hkv, D, strides,
+        lengths.data_ptr(), out.data_ptr(), B, S, H, Hkv, D, strides,
         ctypes.c_float(1.0 / math.sqrt(D)),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:

@@ -7,9 +7,12 @@ and sliding-window masking and GQA, the port of
 ``window``, ``block_q``, ``block_k``) and its precondition: each sequence
 length must be a multiple of its block, capped at the length.  On a CUDA
 tensor it launches the hand-written kernel ``csrc/flash_attention.cu``
-(which tiles by 64 x 64 itself: the blocks only fix the precondition), on a
-CPU tensor it runs the plain version ``ref.flash_attention_ref`` with the
-reference's blocks.  ``flash_attention.launches`` counts the launches.
+(bf16: 128 x 128 tiles loaded by TMA into a wgmma pipeline; f32: 64 x 64
+tiles on FMA; the kernel tiles itself, the blocks only fix the
+precondition), on a CPU tensor it runs the plain version
+``ref.flash_attention_ref`` with the reference's blocks.  A launch or a
+tensor-map encode that fails raises.  ``flash_attention.launches`` counts
+the launches.
 """
 from __future__ import annotations
 

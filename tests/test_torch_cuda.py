@@ -116,23 +116,28 @@ def test_gelu_route_matches_plain_and_is_batch_invariant(cuda, dtype, tol):
         assert torch.equal(one, got[t:t + 1])
 
 
-@pytest.mark.parametrize("H,Hkv,D,S,lengths", [
-    (24, 8, 128, 576, (1, 77, 543)),     # llama3.2-3b widths
-    (32, 8, 128, 4112, (4096, 64, 65)),  # mixtral draft widths, long cache
-    (8, 2, 64, 100, (100, 3, 64)),       # S not a multiple of the split
-    (4, 4, 16, 40, (40, 1, 17)),         # reduced widths
-    (32, 1, 32, 130, (129, 130, 2)),     # MQA, 32 q heads per kv head
+@pytest.mark.parametrize("H,Hkv,D,S,lengths,splits", [
+    (24, 8, 128, 576, (1, 77, 543), 9),        # llama3.2-3b widths
+    (32, 8, 128, 4112, (4096, 64, 65), 13),    # mixtral draft, long cache
+    (32, 8, 128, 4096, (4096, 1, 4095), 16),   # the most splits
+    (8, 2, 128, 64, (64, 1, 33), 1),           # one split
+    (8, 2, 64, 100, (100, 3, 64), 2),          # S not a multiple of a split
+    (4, 4, 16, 40, (40, 1, 17), 1),            # reduced widths
+    (16, 1, 32, 200, (200, 1, 129), 4),        # 16 q heads per kv head
+    (32, 1, 32, 130, (129, 130, 2), 3),        # MQA, 32 q heads per kv head
 ])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
 def test_decode_kernel_matches_plain_and_is_batch_invariant(
-        cuda, H, Hkv, D, S, lengths, dtype, atol):
+        cuda, H, Hkv, D, S, lengths, splits, dtype, atol):
     """The flash-decode kernel against ``ref.decode_attention_ref`` with
     the reference's own tolerances (tests/test_kernels.py: f32 2e-5, bf16
     2e-2, rtol 1e-2): f32 differs in summation order, bf16 also in that the
     plain version rounds the scores and p to bf16 before the softmax's max
     and the kernel rounds p only.  Each row of a 3-row call equals the same
-    row alone, bit for bit; keys past a row's length are never read."""
+    row alone, bit for bit; keys past a row's length are never read; the
+    cache splits into as many cluster blocks as S alone sets."""
+    assert DA._lib().decode_attention_splits(S) == splits
     gen = torch.Generator(cuda).manual_seed(2)
     q = torch.randn((3, H, D), generator=gen, device=cuda).to(dtype)
     k, v = [torch.randn((3, S, Hkv, D), generator=gen, device=cuda
@@ -155,6 +160,29 @@ def test_decode_kernel_matches_plain_and_is_batch_invariant(
         k2[b, n:] = float("nan")
         v2[b, n:] = float("nan")
     assert torch.equal(ops.decode_attention(q, k2, v2, lens), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_replays_in_a_cuda_graph(cuda, dtype):
+    """One flash-decode call captured in a CUDA graph: its launch shape is
+    fixed by S, so a replay after ``lengths`` changed in place equals the
+    eager call at the new lengths, bit for bit, and allocates nothing."""
+    gen = torch.Generator(cuda).manual_seed(3)
+    q = torch.randn((2, 24, 128), generator=gen, device=cuda).to(dtype)
+    k, v = [torch.randn((2, 576, 8, 128), generator=gen, device=cuda
+                        ).to(dtype) for _ in range(2)]
+    lens = torch.tensor([100, 7], dtype=torch.int32, device=cuda)
+    DA.decode_attention(q, k, v, lens)          # build, encode, set up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = DA.decode_attention(q, k, v, lens)
+    for new in ((1, 576), (543, 64), (576, 1), (65, 300)):
+        lens.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = DA.decode_attention(q, k, v, lens.clone())
+        assert torch.equal(out, want)
 
 
 def test_decode_kernel_refuses_what_it_does_not_take(cuda):
@@ -237,6 +265,12 @@ def test_engine_on_the_card_matches_its_greedy(cuda, slots):
     (1, 256, 256, 32, 8, 128, None),     # mixtral heads, causal
     (2, 96, 160, 8, 2, 64, 48),          # GQA, kv longer, window, ragged
     (1, 64, 64, 4, 4, 16, 7),            # reduced head dim, small window
+    (1, 128, 512, 8, 2, 128, None),      # right-aligned queries, Sq < Skv
+    (1, 256, 256, 8, 8, 64, 40),         # a window under one 128-key tile
+    (1, 64, 64, 8, 8, 128, None),        # S 64: one part-filled tile
+    (1, 384, 384, 8, 4, 128, None),      # S 128 + 128 k
+    (1, 256, 256, 4, 2, 32, None),       # D 32
+    (1, 256, 256, 24, 8, 128, None),     # llama3.2-3b heads, 24 / 8
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
