@@ -22,14 +22,18 @@ Phases (each raises on failure):
   1. device line; build the CUDA kernels from ``src/repro_torch/csrc``
   2. each kernel against its plain PyTorch version at full-width shapes,
      bf16 and f32 (expert FFN at T 1 / 5 / 64 / 512 with a batch-invariance
-     check, for swiglu experts and for gelu experts' up-gelu stage; flash
+     check, for swiglu experts and for gelu experts' up-gelu stage, timed at
+     T 5 and T 512; flash
      attention at S 64 / 512 / 2048 causal, 1024 with a 256 window and 8192
      with the 4096 window (32 / 8 heads), and S 512 at 24 / 8 heads (the
-     llama3.2-3b draft's widths), each timed shape one device kernel per
+     llama3.2-3b draft's widths), and at S 512 at the other head shapes of
+     the registered configs (32 / 32 x 112, zamba2-7b; 96 / 8 x 192,
+     nemotron-4-340b; 48 / 1 x 128, granite-20b; and 384 with a 100 window
+     at 96 / 8 x 192), each timed shape one device kernel per
      call; flash-decode at the llama3.2-3b and mixtral-draft
-     widths, lengths 1 / 77 / 512 / 543 / 4096 in caches of 576 and 4112,
-     and three rows of mixed lengths each equal to its one-row call bit for
-     bit; the SSD scan at the mamba2 widths at S 77 / 300 / 512 / 2048 and
+     widths and those three, lengths 1 / 77 / 512 / 543 / 4096 in caches of
+     576 and 4112, and three rows of mixed lengths each equal to its one-row
+     call bit for bit; the SSD scan at the mamba2 widths at S 77 / 300 / 512 / 2048 and
      the zamba2 widths at S 512 and 300, 300 padded to 384, y and final
      state)
   3. solo serving with a tight cache (12 slots): misses, prefetches,
@@ -52,7 +56,10 @@ Phases (each raises on failure):
      layer per prefill (48 per request); then one prefill and one decode
      step timed alone and traced with ``torch.profiler`` (the device's
      kernels, their busy time with the SSD scan's apart, its idle share)
-  9. zamba2-7b serving, one 512-token prompt, the same way (10 launches)
+  9. zamba2-7b serving, one 512-token prompt, the same way (10 launches),
+     under ``attn_impl="kernel"``: its shared attention block (32 / 32 heads
+     x 112) runs flash attention in the prefill and flash-decode in every
+     greedy step; both must have launched
  10. lossless check of phases 8-9: every emitted token against the same
      model run teacher-forced over the stream on the card, which holds the
      recurrent decode step against the chunked kernel
@@ -107,6 +114,13 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FA_HEADS, FA_KV_HEADS, FA_DIM = 32, 8, 128
 LLAMA_HEADS = 24                      # llama3.2-3b (and its draft): 24 / 8
 FA_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# the other head shapes of the registered configs: (model, q heads, kv
+# heads, head dim); zamba2-7b's shared block serves under attn_impl="kernel"
+# in phase 9, nemotron-4-340b and granite-20b are the reference's configs
+# the port has yet to register (at D 192 the bf16 kernel takes 64-key tiles,
+# which moves where p rounds by at most one bf16 step)
+FA_SHAPES = (("zamba2-7b", 32, 32, 112), ("nemotron-4-340b", 96, 8, 192),
+             ("granite-20b", 48, 1, 128))
 # lossless check: the engine (5-token verify blocks, f32 expert combine) and
 # the resident reference (one teacher-forced forward, bf16 combine) round
 # the bf16 residual stream at different places; a token that is not the
@@ -141,9 +155,9 @@ SSM_MARGIN, SSM_MIN_EXACT = 0.5, 0.8
 # is split, bf16 also in that the plain version rounds the scores and p to
 # bf16 (as the reference's decode_attention_ref) and the kernel p only.
 DECODE_WIDTHS = (("llama3.2-3b", 24, 8, 128),
-                 ("mistral-7b-draft", 32, 8, 128))
-DECODE_CACHES = ((576, (543, 1, 77), "llama3.2-3b"),
-                 (4112, (4096, 1, 512), "mistral-7b-draft"))
+                 ("mistral-7b-draft", 32, 8, 128), *FA_SHAPES)
+DECODE_CACHES = ((576, (543, 1, 77), ("llama3.2-3b", "zamba2-7b")),
+                 (4112, (4096, 1, 512), ("mistral-7b-draft",)))
 DECODE_LENGTHS = (1, 77, 512, 543, 4096)
 DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DECODE_RTOL = 1e-2
@@ -216,6 +230,28 @@ def traced_ms(fn, iters: int = 50) -> float:
     return traced(fn, iters)[0]
 
 
+def kernel_device_ms(fn, prefix: str, iters: int = 10) -> float:
+    """Device time per call of ``fn``'s kernels whose names start with
+    ``prefix`` (one kernel of several that a call launches), from
+    ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and
+             e.name.split("<")[0].split("::")[-1].split("(")[0]
+             .removeprefix("void ").startswith(prefix)]
+    if not spans:
+        raise AssertionError(f"the profiler saw no {prefix} kernel")
+    return sum(spans) / len(spans) / 1e3          # one such kernel a call
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -283,10 +319,11 @@ def kernel_phase(dev, d: int, f: int, gelu: bool = False):
                                          f"T={T}: max abs err {err} vs "
                                          f"scale {scale}")
             outs[T] = (x, si, wt, full)
-            if dt_name == "bfloat16" and T == BLOCK_T:
-                main.update(x=x, si=si, wt=wt, g=g, h=h, wg=wg, wu=wu, wd=wd,
-                            err={stage1: rows[-3]["max_abs_err"],
-                                 "cache_moe_down": rows[-2]["max_abs_err"]})
+            if dt_name == "bfloat16" and T in (BLOCK_T, CONC_PROMPT):
+                main[T] = dict(x=x, si=si, wt=wt, g=g, h=h, wg=wg, wu=wu,
+                               wd=wd,
+                               err={stage1: rows[-3]["max_abs_err"],
+                                    "cache_moe_down": rows[-2]["max_abs_err"]})
         # batch invariance: each row of the T=5 and T=512 calls equals its
         # own T=1 call, bit for bit
         for T in (BLOCK_T, CONC_PROMPT):
@@ -301,7 +338,10 @@ def kernel_phase(dev, d: int, f: int, gelu: bool = False):
             rows.append({"check": "batch_invariance", "experts": experts,
                          "dtype": dt_name, "T": T, "ok": True})
         if dt_name == "bfloat16":
-            main["timing"] = time_kernels(main, d, f, gelu)
+            for T in (BLOCK_T, CONC_PROMPT):
+                main[T]["timing"] = time_kernels(main[T], d, f, gelu)
+                for name in ("x", "si", "wt", "g", "h", "wg", "wu", "wd"):
+                    del main[T][name]
         del wg, wu, wd, outs
         gc.collect()
         torch.cuda.empty_cache()
@@ -309,10 +349,13 @@ def kernel_phase(dev, d: int, f: int, gelu: bool = False):
 
 
 def time_kernels(m, d: int, f: int, gelu: bool = False):
-    """Kernel, plain and library times at the verify-block shape (bf16,
-    T=5, k=2, pool of 12), with the bound from this input's touched slots:
-    gate_up and down for swiglu experts, up_gelu (its down stage is the
-    same kernel) for gelu experts."""
+    """Kernel, plain and library times of one call (bf16, k=2, pool of 12:
+    the verify block, T=5, or the concurrent path's prefill block, T=512),
+    with the bound from this input's touched slots and rows: gate_up and
+    down for swiglu experts, up_gelu (its down stage is the same kernel)
+    for gelu experts.  ``device_ms`` is the kernel's own time from the
+    profiler (``ms``, an event time, also holds the wrapper's zeroed
+    output and the host's issue time)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import cache_moe as K
@@ -362,21 +405,24 @@ def time_kernels(m, d: int, f: int, gelu: bool = False):
         t_ops = flops / BF16_FLOPS * 1e3
         out[name] = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
                      "library_ms": cuda_ms(lib),
+                     "device_ms": kernel_device_ms(kern, "slot_ffn"),
+                     "library_device_ms": traced_ms(lib, iters=10),
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "touched_slots": len(touched), "rows": rows_n}
+                     "touched_slots": len(touched), "rows": rows_n,
+                     "T": x.shape[0]}
     return out
 
 
 def flash_bound(S: int, window, nbytes_el: int, H: int = FA_HEADS,
-                Hkv: int = FA_KV_HEADS):
-    """Least time for one causal flash call at B 1, D 128 (H 32 / Hkv 8 by
+                Hkv: int = FA_KV_HEADS, D: int = FA_DIM):
+    """Least time for one causal flash call at B 1 (H 32 / Hkv 8 x 128 by
     default): the unmasked (q, k) pairs x 4·D flops at the bf16 tensor rate,
     against q, k, v and out moved once at the memory rate."""
     W = S if window is None else min(window, S)
     pairs = sum(min(i + 1, W) for i in range(S)) * H
-    t_ops = pairs * 4 * FA_DIM / BF16_FLOPS * 1e3
-    nbytes = S * FA_DIM * (2 * H + 2 * Hkv) * nbytes_el
+    t_ops = pairs * 4 * D / BF16_FLOPS * 1e3
+    nbytes = S * D * (2 * H + 2 * Hkv) * nbytes_el
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
                                  else "operations")
@@ -385,26 +431,34 @@ def flash_bound(S: int, window, nbytes_el: int, H: int = FA_HEADS,
 def flash_phase(dev):
     """The flash kernel against its plain version at the widths of the
     mixtral draft's prefill (32 / 8 heads) and the llama3.2-3b draft's (24 /
-    8), bf16 and f32; timed (bf16) at S 512 and 2048 (32 heads) and S 512
-    (24 heads): event time, and device time from the profiler for the
-    kernel, the plain version and SDPA."""
+    8), and at the head shapes of FA_SHAPES (zamba2-7b's D 112, nemotron's
+    D 192, granite's 48 : 1), bf16 and f32; timed (bf16) at S 512 and 2048
+    (32 heads), S 512 (24 heads) and S 512 of each FA_SHAPES model: event
+    time, and device time from the profiler for the kernel, the plain
+    version and SDPA."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref as R
     gen = torch.Generator(dev).manual_seed(1)
     rows, timing = [], {}
-    for S, window, dtypes, H in (
-            (64, None, ("bfloat16", "float32"), FA_HEADS),
-            (512, None, ("bfloat16", "float32"), FA_HEADS),
-            (1024, 256, ("bfloat16", "float32"), FA_HEADS),
-            (2048, None, ("bfloat16", "float32"), FA_HEADS),
-            (8192, 4096, ("bfloat16",), FA_HEADS),
-            (512, None, ("bfloat16",), LLAMA_HEADS)):
+    both = ("bfloat16", "float32")
+    mixtral = (FA_HEADS, FA_KV_HEADS, FA_DIM, None)
+    for S, window, dtypes, (H, Hkv, D, model) in (
+            (64, None, both, mixtral),
+            (512, None, both, mixtral),
+            (1024, 256, both, mixtral),
+            (2048, None, both, mixtral),
+            (8192, 4096, ("bfloat16",), mixtral),
+            (512, None, ("bfloat16",), (LLAMA_HEADS, FA_KV_HEADS, FA_DIM,
+                                        None)),
+            *((512, None, both, (h, hkv, d, m))
+              for m, h, hkv, d in FA_SHAPES),
+            (384, 100, both, FA_SHAPES[1][1:] + (None,))):
         for dt_name in dtypes:
             dt = getattr(torch, dt_name)
-            q, k, v = [torch.randn((1, S, h, FA_DIM), generator=gen,
+            q, k, v = [torch.randn((1, S, h, D), generator=gen,
                                    device=dev).to(dt)
-                       for h in (H, FA_KV_HEADS, FA_KV_HEADS)]
+                       for h in (H, Hkv, Hkv)]
             got = FA.flash_attention(q, k, v, causal=True, window=window)
             torch.cuda.synchronize()
             want = R.flash_attention_ref(q, k, v, causal=True, window=window)
@@ -415,17 +469,19 @@ def flash_phase(dev):
             ok = torch.isfinite(got).all().item() and \
                 row_rel <= FA_TOL[dt_name]
             rows.append({"kernel": "flash_attention", "dtype": dt_name,
-                         "S": S, "H": H, "window": window,
+                         "S": S, "H": H, "Hkv": Hkv, "D": D,
+                         "window": window,
                          "max_abs_err": err,
                          "max_row_rel_err": row_rel,
                          "tol_row_rel": FA_TOL[dt_name], "ok": bool(ok)})
             if not ok:
                 raise AssertionError(f"flash_attention {dt_name} S={S} "
-                                     f"window={window}: a row's max abs err "
-                                     f"is {row_rel} of its max |out|")
+                                     f"{H}/{Hkv}x{D} window={window}: a "
+                                     f"row's max abs err is {row_rel} of its "
+                                     f"max |out|")
             del diff
-            if dt_name == "bfloat16" and S in (512, 2048):
-                bound, by = flash_bound(S, window, 2, H)
+            if dt_name == "bfloat16" and S in (512, 2048) and window is None:
+                bound, by = flash_bound(S, window, 2, H, Hkv, D)
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                 kern = lambda: FA.flash_attention(q, k, v)  # noqa: E731
                 plain = lambda: R.flash_attention_ref(q, k, v)  # noqa: E731
@@ -436,8 +492,10 @@ def flash_phase(dev):
                 if per_call != 1:
                     raise AssertionError(f"flash_attention S={S}: {per_call} "
                                          f"device kernels per call, not 1")
-                timing[S if H == FA_HEADS else f"{S}_h{H}"] = {
-                    "H": H, "ms": cuda_ms(kern),
+                key = S if (H, D) == (FA_HEADS, FA_DIM) else \
+                    f"{S}_{model}" if model else f"{S}_h{H}"
+                timing[key] = {
+                    "H": H, "Hkv": Hkv, "D": D, "ms": cuda_ms(kern),
                     "plain_ms": cuda_ms(plain, iters=2),
                     "library_ms": cuda_ms(sdpa),
                     "device_ms": dev_ms,
@@ -463,10 +521,11 @@ def decode_bound(B: int, H: int, Hkv: int, D: int, lengths, el: int):
 
 def decode_phase(dev):
     """The flash-decode kernel against its plain version at the llama3.2-3b
-    and mixtral-draft widths, bf16 and f32: one row at each length that
-    fits the cache, and three rows of mixed lengths whose every row must
-    equal its own one-row call bit for bit.  Timed (bf16, one row) at
-    length 543 of 576 (llama3.2-3b) and 4096 of 4112 (mixtral draft)."""
+    and mixtral-draft widths and the head shapes of FA_SHAPES, bf16 and
+    f32: one row at each length that fits the cache, and three rows of
+    mixed lengths whose every row must equal its own one-row call bit for
+    bit.  Timed (bf16, one row) at length 543 of 576 (llama3.2-3b,
+    zamba2-7b) and 4096 of 4112 (mixtral draft)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
@@ -519,7 +578,7 @@ def decode_phase(dev):
                              "kernel": "decode_attention", "model": model,
                              "dtype": dt_name, "S": S, "lengths": list(mixed),
                              "ok": True})
-                if dt_name == "bfloat16" and timed == model:
+                if dt_name == "bfloat16" and model in timed:
                     n = mixed[0]
                     q1, k1, v1, l1 = q[:1], k[:1], v[:1], lens[:1]
                     bound, by, nbytes = decode_bound(1, H, Hkv, D, [n], 2)
@@ -996,11 +1055,15 @@ def mamba_layers(cfg) -> int:
     return cfg.num_layers - shared
 
 
-def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int):
+def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int,
+              kernels=("ssd_scan",)):
     """Greedy x none serving of an ssm / hybrid model through
     ``Engine.submit``, with the launch counts set to 0 just before and read
-    just after; then the model's prefill and one decode step timed alone,
-    and every emitted token teacher-forced."""
+    just after (each of ``kernels`` must have run; the SSD scan once per
+    mamba layer per prefill); then the model's prefill and one decode step
+    timed alone, and every emitted token teacher-forced (under
+    ``attn_impl="kernel"`` through ``teacher_force``, which pads the
+    sequence for flash attention)."""
     import torch
     from repro_torch.core.engine import Engine, EngineConfig, Request
     from repro_torch.models.registry import build_model
@@ -1018,7 +1081,7 @@ def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int):
                for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches(name, ("ssd_scan",))
+    launches = read_launches(name, kernels)
     want = mamba_layers(cfg) * len(prompts)
     if launches["ssd_scan"] != want:
         raise AssertionError(f"{name}: {launches['ssd_scan']} SSD launches, "
@@ -1040,7 +1103,9 @@ def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int):
         lambda: target.decode_step(cache, tok, p0.shape[1]), step_ms)
     loss = lossless_phase(target, [(p, r.tokens) for p, r in
                                    zip(prompts, results)], dev,
-                          forward=lambda m, seq: m.forward(seq)[0],
+                          forward=teacher_force
+                          if cfg.attn_impl == "kernel"
+                          else lambda m, seq: m.forward(seq)[0],
                           margin=SSM_MARGIN)
     if loss["exact"] < SSM_MIN_EXACT * len(prompts) * new_tokens:
         raise AssertionError(f"{name}: only {loss['exact']} of "
@@ -1055,6 +1120,8 @@ def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int):
             "decode_step_ms": step_ms, "prefill_profile": prefill_prof,
             "decode_step_profile": step_prof,
             "launches": launches["ssd_scan"],
+            "attn_impl": cfg.attn_impl,
+            "kernel_launches": {k: launches[k] for k in kernels},
             "lossless": loss}
     requests = [{"id": r.request_id, "prompt": p.shape[1],
                  "tokens": len(r.tokens), "tpot_wall_s": r.metrics.tpot_wall,
@@ -1337,31 +1404,38 @@ def main() -> int:
     mamba_reqs, mamba_info = ssm_phase("mamba2", mcfg, dev, ssm_prompts,
                                        SSM_NEW)
     log(f"[8] mamba2-780m serving ok: {mamba_info}")
+    # zamba2-7b's shared attention block (32 / 32 heads x 112) through the
+    # flash kernel in every prefill and flash-decode in every greedy step
     zcfg = dataclasses.replace(get_config("zamba2-7b"),
-                               num_layers=ZAMBA_LAYERS)
+                               num_layers=ZAMBA_LAYERS, attn_impl="kernel")
     zamba_reqs, zamba_info = ssm_phase(
         "zamba2", zcfg, dev, [torch.randint(0, zcfg.vocab_size, (1, 512),
-                                            generator=gen)], SSM_NEW)
+                                            generator=gen)], SSM_NEW,
+        kernels=("ssd_scan", "flash_attention", "decode_attention"))
     log(f"[9] zamba2-7b serving ok: {zamba_info}")
 
     # phase 11: the dense target at full width and depth, greedy and sd
     dense_info = dense_phase(dev)
     log(f"[11] llama3.2-3b serving ok: {dense_info}")
 
-    timing = main_k["timing"]
     kernels = []
-    for name, line in (("cache_moe_gate_up", 28), ("cache_moe_down", 47)):
-        t = timing[name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/cache_moe.cu",
-            "replaces": f"src/repro/kernels/moe_gemm.py:{line}",
-            "launches": launches[name],
-            "launches_solo_path": solo_launches[name],
-            "max_abs_err": main_k["err"][name],
-            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+    # the expert FFN at the verify block (T 5) and, one row more per stage,
+    # at the concurrent path's 512-token prefill block
+    for T, suffix in ((BLOCK_T, ""), (CONC_PROMPT, f"_t{CONC_PROMPT}")):
+        for name, line in (("cache_moe_gate_up", 28), ("cache_moe_down", 47)):
+            t = main_k[T]["timing"][name]
+            kernels.append({
+                "name": name + suffix, "route": "cuda",
+                "source": "src/repro_torch/csrc/cache_moe.cu",
+                "replaces": f"src/repro/kernels/moe_gemm.py:{line}",
+                "launches": launches[name],
+                "launches_solo_path": solo_launches[name], "T": T,
+                "max_abs_err": main_k[T]["err"][name],
+                "ms": t["ms"], "kernel_ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"]})
     t = fa_timing[CONC_PROMPT]
     kernels.append({
         "name": "flash_attention", "route": "cuda",
@@ -1398,16 +1472,18 @@ def main() -> int:
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "device_ms": t["device_ms"],
         "library_device_ms": t["library_device_ms"]})
-    t = gelu_k["timing"]["cache_moe_up_gelu"]
-    kernels.append({
-        "name": "cache_moe_up_gelu", "route": "cuda",
-        "source": "src/repro_torch/csrc/cache_moe.cu",
-        "replaces": "src/repro/kernels/cache_moe.py:120",
-        "launches": gelu_info["launches"]["cache_moe_up_gelu"],
-        "max_abs_err": gelu_k["err"]["cache_moe_up_gelu"],
-        "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"]})
+    for T, suffix in ((BLOCK_T, ""), (CONC_PROMPT, f"_t{CONC_PROMPT}")):
+        t = gelu_k[T]["timing"]["cache_moe_up_gelu"]
+        kernels.append({
+            "name": "cache_moe_up_gelu" + suffix, "route": "cuda",
+            "source": "src/repro_torch/csrc/cache_moe.cu",
+            "replaces": "src/repro/kernels/cache_moe.py:120",
+            "launches": gelu_info["launches"]["cache_moe_up_gelu"], "T": T,
+            "max_abs_err": gelu_k[T]["err"]["cache_moe_up_gelu"],
+            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"decode_timing": dec_timing}))
     print(json.dumps({"flash_timing": {
@@ -1419,15 +1495,14 @@ def main() -> int:
                   "dtype": "bfloat16"},
         **{f"S{S}": t for S, t in ssd_timing.items()}}}))
     print(json.dumps({"kernel_checks": rows,
-                      "timing_shape": {"T": BLOCK_T, "k": K_TOP,
-                                       "pool": S_POOL, "dtype": "bfloat16",
-                                       **{n: {k: v for k, v in t.items()
-                                              if k in ("touched_slots",
-                                                       "rows")}
-                                          for n, t in {
-                                              **timing,
-                                              **gelu_k["timing"]}.items()}
-                                       }}))
+                      "timing_shape": {
+                          "k": K_TOP, "pool": S_POOL, "dtype": "bfloat16",
+                          **{f"T{T}": {n: {k: v for k, v in t.items()
+                                           if k in ("touched_slots", "rows")}
+                                       for n, t in {
+                                           **main_k[T]["timing"],
+                                           **gelu_k[T]["timing"]}.items()}
+                             for T in (BLOCK_T, CONC_PROMPT)}}}))
     print(json.dumps({"requests": [
         {"id": r.request_id, "tokens": len(r.tokens),
          "tpot_wall_s": r.metrics.tpot_wall,

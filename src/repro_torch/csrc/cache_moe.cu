@@ -21,46 +21,94 @@
 // @ wu[s]) = 0.5 a (1 + tanh(sqrt(2/pi) (a + 0.044715 a^3))) with tanhf (what
 // jax.nn.gelu computes by default), in x's dtype (f32 accumulators, as the
 // Pallas kernels' h_ref.dtype); stage 2 writes y[p] = h[p] @ wd[s].  The three
-// are one template, slot_ffn, with the epilogue as its parameter.  The weights are
-// read straight out of the [S, d, f] / [S, f, d] slot pool: nothing gathers
+// are one template per route (slot_ffn_tc for bf16, slot_ffn for f32) with
+// the epilogue as its parameter.  The weights are read straight out of the [S, d, f] / [S, f, d] slot pool: nothing gathers
 // or copies a weight row.  Groups with no rows exit at once, so misses and
 // unoccupied slots cost nothing.
 //
-// Bound.  A verify block has T = draft_len + 1 = 5 tokens and top-2 routing,
-// so each touched slot sees at most a handful of rows: the work is a few
-// matrix-vector products, and it is the weight bytes that bound it:
-//   bytes = M_touched * 3 * d * f * 2   (bf16)
-// At d = 4096, f = 14336 with all 8 experts of a layer touched that is
-// 2.82 GB, 0.84 ms per layer at the H100's 3.35 TB/s (gelu experts read two
-// of the three matrices: 2 * d * f * 2 per touched slot).  The operations,
-// 2 * rows * 3 * d * f, are ~1 % of the bf16 tensor-core rate at these rows.
+// Bound.  Each touched slot's weights are read once and each row's input
+// and output moved once:
+//   bytes = M_touched * m * d * f * 2 + rows * (d + f) * 2       (bf16)
+//   flops = 2 * m * rows * d * f
+// with m the stage's matrices (2 for swiglu's stage 1, else 1).
+// A verify block (T = 5, top-2) gives each touched slot a row or two: at
+// d = 4096, f = 14336 with 8 slots touched, stage 1 (two matrices) is
+// 1.88 GB, 0.561 ms at the H100's 3.35 TB/s, stage 2 0.281 ms; the
+// operations are ~1 % of the bf16 tensor-core rate.  A 512-token prefill
+// block gives each slot ~128 rows and is still bound by the bytes (0.561 /
+// 0.281 ms against 0.243 / 0.122 ms of operations) if each slot's weights
+// are read once.
 //
-// How the design answers it.
-//   * Neighbouring threads own neighbouring output columns and load them as
-//     one 16-byte vector, so every warp reads whole contiguous weight rows.
-//   * Each weight element is loaded once per (slot, column tile) and applied
-//     to all of that slot's rows (up to kRows per pass, accumulators in
-//     registers); the rows themselves sit in shared memory as f32.
-//   * The reduction axis is split over the block's 8 warps in a fixed pattern
-//     (chunks of kChunk, each warp a fixed kChunk / 8 slice), and the warps'
-//     partial sums are added in warp order.  That order depends on d and f
-//     alone, never on T, M or the number of rows: every output row is
-//     bit-identical however many other rows share the launch (batch
-//     invariance, which lossless batched verify rests on).  No split-K
-//     across blocks, no atomics.
-//   * No tensor cores, TMA or wgmma yet: at these row counts the CUDA cores
-//     keep up with the memory; a later PR can pipeline the loads with TMA.
+// bf16 (slot_ffn_tc): the weights stream through a TMA ring and the rows
+// meet them on the tensor cores.
+//   * A block owns 64 (or 128) output columns of one group: grid
+//     (ceil(N / 64), groups), so stage 2's 4096 columns give 64 blocks per
+//     slot and every SM streams (the FMA kernel had 16 column tiles of 256).
+//   * Producer warps, after the consumers, bring weight tiles of 64
+//     reduction rows x 64 columns (8 KB a matrix) by TMA
+//     (cp.async.bulk.tensor through a tensor map of the [S, K, N] pool,
+//     128-byte swizzle) into a ring of 4-10 stages on full / empty
+//     mbarriers: 64-160 KB of weights in flight per SM and no block-wide
+//     barrier in the stream.  The same warps copy the pass's rows of the
+//     input (x[row_tok[p]], gathered, or h[p]) for those 64 reduction
+//     elements with cp.async into the stage, in the swizzled K-major layout
+//     wgmma reads; the hardware arrives on the stage's full barrier for
+//     each lane once its copies land (cp.async.mbarrier.arrive), and the
+//     consumers fence them for the async proxy.
+//   * The row products are wgmma with A and B swapped: D [64 columns x N
+//     rows] += W^T [64 x 16] X^T [16 x N], the weight tile MN-major through
+//     the transpose bit.  Two block shapes, picked by the call's row count
+//     (TcLayout): verify blocks (up to 64 rows) take N = 16, one consumer
+//     warpgroup and two blocks per SM; the prefill block takes two consumer
+//     warpgroups and 256 rows a pass (N = 128 for swiglu's two
+//     accumulators, N = 256 on 128 columns for the one-matrix stages), so
+//     the 512-token prefill block reads each slot's weights once, not once
+//     per 8 rows.  A warpgroup with no rows in a pass skips its products.
+//   * Batch invariance: an output element is the f32 sum of its 64-element
+//     tiles in order, each four k16 products, whatever the row count, the
+//     groups, the block shape or the row's place in the tile (wgmma's N
+//     does not change an element's sum: chip_smoke.py holds the T 512
+//     call's rows, N = 128 / 256, to their T 1 calls, N = 16, bit for bit).
+//     One block owns the whole reduction: no split of K, no atomics.
+//   * The epilogues (linear, silu(a) * b, tanh-gelu) run in f32 on the
+//     accumulators; each output is rounded to bf16 once.
+//   What the A/B runs showed (tools/moe_ab.py): a producer that waited for
+//   its copies before arriving ran at one tile per round trip to L2; one
+//   producer warp could not issue the prefill block's ~128 rows a tile
+//   (the copies, not the products or the weights, set its time: four warps
+//   took swiglu's T 512 call from 1.48 to 0.88 ms); N = 128 for every call
+//   spent ~40 us of a verify block's 0.36 ms on products of empty rows.
+// f32 (slot_ffn): FMA on the CUDA cores (the tensor cores have no f32
+// product without TF32 rounding).  Neighbouring threads own neighbouring
+// output columns (one 16-byte load of a weight row each), each weight
+// element is applied to up to kRows rows of its slot, and the reduction is
+// split over the block's 8 warps in a fixed pattern added in warp order:
+// the same batch invariance.
 //
 // C interface (bound with ctypes): every pointer is a device pointer, the
-// stream is the caller's current stream, nothing is allocated here, and each
-// entry point returns the launch's cudaError_t (0 = launched).
+// stream is the caller's current stream, nothing is allocated on the device
+// here, and each entry point returns the launch's cudaError_t (0 =
+// launched), or hopper::kEncodeError + the CUresult when a weight tensor
+// map cannot be encoded (maps are kept per pool, hopper.cuh).
 
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using hopper::cp_async_16;
+using hopper::fence_proxy_async;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_addr;
+using hopper::tma_load_4d;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -87,23 +135,6 @@ struct Traits<float> {
     v[1] = a.y;
     v[2] = a.z;
     v[3] = a.w;
-  }
-};
-
-template <>
-struct Traits<__nv_bfloat16> {
-  static constexpr int kVec = 8;         // 16 bytes
-  __device__ static float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ static __nv_bfloat16 from_f(float v) { return __float2bfloat16(v); }
-  __device__ static void load(const __nv_bfloat16* p, float (&v)[8]) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float2 f = __bfloat1622float2(h[q]);
-      v[2 * q] = f.x;
-      v[2 * q + 1] = f.y;
-    }
   }
 };
 
@@ -218,6 +249,346 @@ slot_ffn(const T* __restrict__ in, const int* __restrict__ row_map,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: a TMA weight ring, wgmma row products
+// ---------------------------------------------------------------------------
+
+constexpr int kTcCols = 64;              // output columns per block: wgmma M
+constexpr int kTcK = 64;                 // reduction elements per tile
+constexpr int kWTile = kTcK * kTcCols * 2;     // one weight tile, 8 KB
+
+// The shapes of a block: kWG consumer warpgroups of kN rows each (wgmma's
+// N), in kCG groups of 64 output columns (the block's kBN = 64 kCG columns)
+// by kWG / kCG groups of rows.  The small shape (16 rows a pass, one
+// warpgroup, two blocks per SM) serves verify blocks; the large ones (256
+// rows a pass) the prefill block, whose ~128 rows a slot then read the
+// slot's weights once: swiglu as two warpgroups of 128 rows on 64 columns
+// (two accumulators of 64 registers), the one-matrix stages as two of 256
+// rows on 128 columns, which halves the rows' copies a column sees and
+// doubles the weight bytes a stage holds.
+template <int kAct, int kN, int kWG, int kCG>
+struct TcLayout {
+  static constexpr int kMats = kAct == kSwiglu ? 2 : 1;
+  static constexpr int kBN = kTcCols * kCG;              // columns per block
+  static constexpr int kWBytes = kCG * kWTile;           // a matrix's tiles
+  static constexpr int kPass = kN * (kWG / kCG);         // rows per pass
+  static constexpr int kXTile = kPass * kTcK * 2;        // the rows' tile
+  static constexpr int kXAlloc = kXTile < 1024 ? 1024 : kXTile;
+  static constexpr int kStage = kMats * kWBytes + kXAlloc;
+  static constexpr int kBlocks = kPass <= 16 ? 2 : 1;    // per SM
+  static constexpr int kStages = (kBlocks == 2 ? 96 : 200) * 1024 / kStage;
+  static constexpr int kBar = kStages * kStage;
+  static constexpr int kBytes = 1024 + kBar + 16 * kStages;
+  static constexpr int kConsumers = kWG * 128;
+  // producer warps: the large shape copies ~128 rows a tile, which one warp
+  // issued too slowly (tools/moe_ab.py: the copies, not the products or
+  // the weights, set its time)
+  static constexpr int kProducers = kPass <= 16 ? 1 : 4;
+  static constexpr int kThreads = kConsumers + 32 * kProducers;
+};
+
+// d[kN / 2] += A * B, m64nNk16 (N = 16, 128 or 256): A MN-major (the
+// weight tile, transpose bit), B K-major (the rows), both in shared memory.
+__device__ __forceinline__ void wgmma_tn(float (&d)[8], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b));
+}
+__device__ __forceinline__ void wgmma_tn(float (&d)[64], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b));
+}
+
+__device__ __forceinline__ void wgmma_tn(float (&d)[128], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b));
+}
+
+// Shared memory: kStages stages of [w1 tiles][w2 tiles (swiglu)][rows
+// tile], each 1024-aligned, then the full and empty mbarriers.  A weight
+// tile is kTcK rows of the [K, N] matrix x 64 columns (128 bytes, the
+// 128-byte swizzle as TMA writes it; kCG of them side by side): the
+// MN-major A operand.  The rows tile is
+// kPass rows x kTcK reduction elements (128 bytes a row, swizzled the same
+// way by the producer's copies): the K-major B operand.
+//
+// out[p, col0 .. col0 + kBN - 1] for the rows p of group blockIdx.y, with the
+// epilogue kAct on the f32 sums; in_row is in[row_map[p]] when row_map is
+// given, else in[p].  The consumer warpgroups come first, then the producer
+// warps.  The work of a block is `passes` passes over the group's rows, each
+// of ceil(K / 64) tiles; producer and consumers walk the same sequence of
+// tiles through the ring.
+template <int kAct, int kN, int kWG, int kCG>
+__global__ void __launch_bounds__(TcLayout<kAct, kN, kWG, kCG>::kThreads,
+                                  TcLayout<kAct, kN, kWG, kCG>::kBlocks)
+slot_ffn_tc(const __grid_constant__ CUtensorMap tm_w1,
+            const __grid_constant__ CUtensorMap tm_w2,
+            const __nv_bfloat16* __restrict__ in,
+            const int* __restrict__ row_map, const int* __restrict__ grp_slot,
+            const int* __restrict__ grp_start,
+            const int* __restrict__ grp_count,
+            __nv_bfloat16* __restrict__ out, int K, int N) {
+  using L = TcLayout<kAct, kN, kWG, kCG>;
+  constexpr bool kGated = kAct == kSwiglu;
+  const int g = blockIdx.y;
+  const int count = grp_count[g];
+  if (count <= 0) return;                // uniform across the block
+  const int start = grp_start[g];
+  const int slot = grp_slot[g];
+  const int col0 = blockIdx.x * L::kBN;
+  const int ktiles = (K + kTcK - 1) / kTcK;
+  const int passes = (count + L::kPass - 1) / L::kPass;
+  const int total = passes * ktiles;
+
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const auto w1s = [&](int s) { return base + s * L::kStage; };
+  const auto xs = [&](int s) { return w1s(s) + L::kMats * L::kWBytes; };
+  const auto full = [&](int s) { return base + L::kBar + 8 * s; };
+  const auto empty = [&](int s) {
+    return base + L::kBar + 8 * (L::kStages + s);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      // the weights' bytes, and each producer lane's rows
+      mbar_init(full(s), 1 + 32 * L::kProducers);
+      mbar_init(empty(s), L::kConsumers / 32);  // every consumer warp
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();                       // the only block-wide barrier
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= L::kConsumers / 32) {
+    // The producers: weight tiles by TMA (lane 0 of the first), the rows'
+    // tile by cp.async (every lane), stage by stage as the consumers release
+    // them.  Producer lane l copies 16-byte piece l % 8 of rows l / 8 +
+    // kLanes / 8 * i (eight lanes read a row's 128 bytes), whose sources it
+    // looks up once per pass; each lane's arrival on the stage's full
+    // barrier is made by the hardware once its copies have landed, so no
+    // producer waits for them.
+    constexpr int kLanes = 32 * L::kProducers;
+    const int pl = threadIdx.x - L::kConsumers;
+    const bool issuer = pl == 0;
+    if (issuer) {
+      hopper::prefetch_tensor_map(&tm_w1);
+      if constexpr (kGated) hopper::prefetch_tensor_map(&tm_w2);
+    }
+    constexpr int kStep = kLanes / 8;        // rows between a lane's rows
+    constexpr int kPer = L::kPass / kStep;   // rows a lane copies per pass
+    const int c = pl & 7;
+    int src[kPer];                           // the lane's rows' input rows
+    int rows = 0;
+    for (int it = 0; it < total; ++it) {
+      const int s = it % L::kStages;
+      const int pass = it / ktiles;
+      const int kt = it - pass * ktiles;
+      if (kt == 0) {
+        rows = min(L::kPass, count - pass * L::kPass);
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int r = (pl >> 3) + kStep * i;
+          if (r >= rows) break;
+          const int p = start + pass * L::kPass + r;
+          src[i] = row_map ? row_map[p] : p;
+        }
+      }
+      if (it >= L::kStages) mbar_wait(empty(s), ((it / L::kStages) & 1) ^ 1);
+      const int k0 = kt * kTcK;
+      if (issuer) {
+        mbar_expect_tx(full(s), L::kMats * L::kWBytes);
+#pragma unroll
+        for (int cb = 0; cb < kCG; ++cb) {
+          tma_load_4d(w1s(s) + cb * kWTile, &tm_w1, full(s),
+                      col0 + cb * kTcCols, 0, k0, slot);
+          if constexpr (kGated)
+            tma_load_4d(w1s(s) + L::kWBytes + cb * kWTile, &tm_w2, full(s),
+                        col0 + cb * kTcCols, 0, k0, slot);
+        }
+      }
+      // rows past the pass's are not copied: they are columns of B whose
+      // outputs are never stored; pieces past K are zeros
+      const int k = k0 + 8 * c;
+      const int nbytes = k < K ? 16 : 0;
+      const __nv_bfloat16* from = in + (k < K ? k : 0);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int r = (pl >> 3) + kStep * i;
+        if (r >= rows) break;                // the pass's rows only
+        cp_async_16(xs(s) + r * 128 + ((c ^ (r & 7)) << 4),
+                    from + static_cast<size_t>(src[i]) * K, nbytes);
+      }
+      hopper::cp_async_mbar_arrive(full(s));
+    }
+    return;
+  }
+
+  // Consumers.  Warpgroup cg takes columns 64 (cg % kCG) + 0..63 and rows
+  // kN (cg / kCG) + 0..kN-1 of a pass: D [64 columns x kN rows] += W^T [64
+  // x 16] X^T [16 x kN], four k16 steps a tile.  A warpgroup with no rows
+  // in a pass only paces itself on the full barriers and releases each
+  // stage.  Lane t of warp w holds output columns 16 w + t / 4 (+ 8) of
+  // rows 8 j + 2 (t % 4) (+ 1).
+  const int cg = threadIdx.x / 128;
+  const int cb = cg % kCG;
+  const int ccol0 = col0 + cb * kTcCols;
+  const int w = warp & 3;
+  const int tg = lane >> 2;
+  const int tq = lane & 3;
+  const auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  };
+  int it = 0;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int pr = pass * L::kPass + cg / kCG * kN;   // its row 0
+    const bool active = pr < count;
+    float a1[kN / 2];
+    float a2[kGated ? kN / 2 : 1];
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) a1[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (kGated ? kN / 2 : 1); ++i) a2[i] = 0.f;
+    int prev = -1;
+    for (int kt = 0; kt < ktiles; ++kt, ++it) {
+      const int s = it % L::kStages;
+      mbar_wait(full(s), (it / L::kStages) & 1);
+      if (active) {
+        fence_proxy_async();             // the rows, copied by cp.async
+        const uint64_t da =
+            hopper::gmma_desc(w1s(s) + cb * kWTile, kWTile, 1024, 1);
+        const uint64_t db =
+            hopper::gmma_desc(xs(s) + cg / kCG * kN * 128, 16, 1024, 1);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kTcK / 16; ++kk)   // 16 weight rows: 2048 B
+          wgmma_tn(a1, da + kk * 128, db + kk * 2);
+        if constexpr (kGated) {
+#pragma unroll
+          for (int kk = 0; kk < kTcK / 16; ++kk)
+            wgmma_tn(a2, da + (L::kWBytes >> 4) + kk * 128, db + kk * 2);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();         // the tile before this one is done
+      }
+      if (prev >= 0) release(prev);
+      prev = s;
+    }
+    if (active) {
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(a1);
+      hopper::fence_regs(a2);
+    }
+    release(prev);
+    if (!active) continue;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = pr + 8 * j + 2 * tq + (e & 1);
+        const int col = ccol0 + 16 * w + tg + 8 * (e >> 1);
+        if (p < count && col < N) {
+          const float s0 = a1[4 * j + e];
+          float val = s0;
+          if constexpr (kGated) val = s0 / (1.f + expf(-s0)) * a2[4 * j + e];
+          if constexpr (kAct == kGelu)
+            val = 0.5f * s0 *
+                  (1.f + tanhf(0.7978845608028654f *
+                               (s0 + 0.044715f * s0 * s0 * s0)));
+          out[static_cast<size_t>(start + p) * N + col] = __float2bfloat16(val);
+        }
+      }
+  }
+}
+
 template <typename T, int kAct>
 int launch(const void* in, const void* row_map, const void* w1, const void* w2,
            const void* grp_slot, const void* grp_start, const void* grp_count,
@@ -233,22 +604,80 @@ int launch(const void* in, const void* row_map, const void* w1, const void* w2,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The weights of a [slots, K, N] pool as a tensor map, read in tiles of
+// kTcK rows x kTcCols columns with the 128-byte swizzle.
+inline int weight_map(CUtensorMap* m, const void* w, int slots, int K, int N) {
+  return hopper::tensor_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, slots,
+                            K, 1, N, static_cast<long long>(K) * N, N, N,
+                            kTcCols, kTcK, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int kAct, int kN, int kWG, int kCG>
+int launch_shape(const CUtensorMap& m1, const CUtensorMap& m2,
+                 const void* in, const void* row_map, const void* grp_slot,
+                 const void* grp_start, const void* grp_count, void* out,
+                 int K, int N, int groups, void* stream) {
+  using L = TcLayout<kAct, kN, kWG, kCG>;
+  static const cudaError_t ready = cudaFuncSetAttribute(
+      slot_ffn_tc<kAct, kN, kWG, kCG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (ready != cudaSuccess) return static_cast<int>(ready);
+  const dim3 grid((N + L::kBN - 1) / L::kBN, groups);
+  slot_ffn_tc<kAct, kN, kWG, kCG><<<grid, L::kThreads, L::kBytes,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      m1, m2, static_cast<const __nv_bfloat16*>(in),
+      static_cast<const int*>(row_map), static_cast<const int*>(grp_slot),
+      static_cast<const int*>(grp_start), static_cast<const int*>(grp_count),
+      static_cast<__nv_bfloat16*>(out), K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `rows` is the call's row count (T * k), which bounds every group's: up to
+// 64 rows (verify blocks and fused rounds: a few rows a slot) take the small
+// shape, more the large one.
+template <int kAct>
+int launch_tc(const void* in, const void* row_map, const void* w1,
+              const void* w2, const void* grp_slot, const void* grp_start,
+              const void* grp_count, void* out, int K, int N, int slots,
+              int groups, int rows, void* stream) {
+  if (groups <= 0) return 0;
+  CUtensorMap m1, m2;
+  int rc = weight_map(&m1, w1, slots, K, N);
+  if (rc == 0) rc = w2 ? weight_map(&m2, w2, slots, K, N) : 0;
+  if (rc) return rc;
+  if (!w2) m2 = m1;
+  if (rows <= 64)
+    return launch_shape<kAct, 16, 1, 1>(m1, m2, in, row_map, grp_slot,
+                                        grp_start, grp_count, out, K, N,
+                                        groups, stream);
+  if constexpr (kAct == kSwiglu)
+    return launch_shape<kAct, 128, 2, 1>(m1, m2, in, row_map, grp_slot,
+                                         grp_start, grp_count, out, K, N,
+                                         groups, stream);
+  else
+    return launch_shape<kAct, 256, 2, 2>(m1, m2, in, row_map, grp_slot,
+                                         grp_start, grp_count, out, K, N,
+                                         groups, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  x [T, d], row_tok [P], wg/wu [S, d, f],
-// grp_* [groups] -> h [P, f].
+// dtype: 0 = float32, 1 = bfloat16.  x [T, d], row_tok [P], wg/wu [S, d, f]
+// with S = slots, grp_* [groups] -> h [P, f] with P = rows.  bf16 needs d
+// and f to be multiples of 8 (16-byte rows).
 extern "C" int cache_moe_gate_up(int dtype, const void* x, const void* row_tok,
                                  const void* wg, const void* wu,
                                  const void* grp_slot, const void* grp_start,
                                  const void* grp_count, void* h, int d, int f,
-                                 int groups, void* stream) {
+                                 int slots, int rows, int groups,
+                                 void* stream) {
   if (dtype == 0)
     return launch<float, kSwiglu>(x, row_tok, wg, wu, grp_slot, grp_start,
                                   grp_count, h, d, f, groups, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16, kSwiglu>(x, row_tok, wg, wu, grp_slot,
-                                          grp_start, grp_count, h, d, f,
-                                          groups, stream);
+    return launch_tc<kSwiglu>(x, row_tok, wg, wu, grp_slot, grp_start,
+                              grp_count, h, d, f, slots, groups, rows,
+                              stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -256,34 +685,38 @@ extern "C" int cache_moe_gate_up(int dtype, const void* x, const void* row_tok,
 extern "C" int cache_moe_up_gelu(int dtype, const void* x, const void* row_tok,
                                  const void* wu, const void* grp_slot,
                                  const void* grp_start, const void* grp_count,
-                                 void* h, int d, int f, int groups,
-                                 void* stream) {
+                                 void* h, int d, int f, int slots, int rows,
+                                 int groups, void* stream) {
   if (dtype == 0)
     return launch<float, kGelu>(x, row_tok, wu, nullptr, grp_slot, grp_start,
                                 grp_count, h, d, f, groups, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16, kGelu>(x, row_tok, wu, nullptr, grp_slot,
-                                        grp_start, grp_count, h, d, f, groups,
-                                        stream);
+    return launch_tc<kGelu>(x, row_tok, wu, nullptr, grp_slot, grp_start,
+                            grp_count, h, d, f, slots, groups, rows, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// h [P, f], wd [S, f, d], grp_* [groups] -> y [P, d].
+// h [P, f], wd [S, f, d], grp_* [groups] -> y [P, d] with P = rows.
 extern "C" int cache_moe_down(int dtype, const void* h, const void* wd,
                               const void* grp_slot, const void* grp_start,
                               const void* grp_count, void* y, int f, int d,
-                              int groups, void* stream) {
+                              int slots, int rows, int groups, void* stream) {
   if (dtype == 0)
     return launch<float, kLinear>(h, nullptr, wd, nullptr, grp_slot,
                                   grp_start, grp_count, y, f, d, groups,
                                   stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16, kLinear>(h, nullptr, wd, nullptr, grp_slot,
-                                          grp_start, grp_count, y, f, d,
-                                          groups, stream);
+    return launch_tc<kLinear>(h, nullptr, wd, nullptr, grp_slot, grp_start,
+                              grp_count, y, f, d, slots, groups, rows,
+                              stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The C interface's version: 2 since the entry points take the pool size
+// (the weights' tensor maps need it) and the row count (which picks the
+// block shape); tools/moe_ab.py calls older builds without them.
+extern "C" int cache_moe_interface() { return 2; }
+
 extern "C" const char* cache_moe_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return hopper::error_string(code);
 }

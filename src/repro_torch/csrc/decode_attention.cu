@@ -17,7 +17,9 @@
 // the tensor-core path, 4 of 32 on the FMA path), where the reference's is a
 // 256-key block's.
 //
-// Grid.  One thread-block cluster per (batch row, kv head); its blocks are
+// Grid.  One thread-block cluster per (batch row, kv head, group of at most
+// 16 of the kv head's q heads: one group for rep <= 16, three for
+// granite-20b's 48 : 1, each reading the kv head's keys); its blocks are
 // the splits of the cache, at most kMaxSplits = 16, and their count comes
 // from S alone (num_splits), never from the live length, so a decode step's
 // launch shape does not depend on its position: a captured CUDA graph replays
@@ -39,19 +41,18 @@
 // layout through its strides); after that the last warp to release a stage
 // (empty mbarrier, elected by a count in shared memory) refills it at once.
 // No byte passes through registers.  Two paths compute a tile:
-//   - bf16 with at most 16 q rows per kv head (every model the repository
-//     serves; decode_mma): the products on the tensor cores.  A warp takes
+//   - bf16 (decode_mma): the products on the tensor cores.  A warp takes
 //     8 keys of each 64-key tile; S [16 x 8] = Q K^T is mma.sync m16n8k16
-//     over D (Q's rows past rep are zero and its A fragments stay in
+//     over D (Q's rows past the group's are zero and its A fragments stay in
 //     registers; K's B fragments by ldmatrix from tiles that TMA wrote with
 //     the widest swizzle a row fills, so the ldmatrix rows hit distinct
 //     banks); the softmax runs on the accumulator (a row's 8 scores sit in
 //     a quad); p, rounded to bf16, is at once the A fragment of O += P V,
 //     mma.sync m16n8k8 with V's B fragments by ldmatrix.trans.  bf16
-//     products are exact in f32 and the sums are f32.  With rep <= 8 the
-//     tile's rows 8..15 are zeros and skipped.  V rows past the length are
+//     products are exact in f32 and the sums are f32.  With at most 8 rows
+//     the tile's rows 8..15 are zeros and skipped.  V rows past the length are
 //     zeroed in shared memory first (p = 0 must not meet a NaN there).
-//   - f32, or more than 16 q rows per kv head (decode_fma): FMA on the CUDA
+//   - f32 (decode_fma): FMA on the CUDA
 //     cores (the tensor cores have no f32 product without TF32 rounding).  A
 //     warp takes 4 keys of each 32-key tile, eight lanes per key: a lane
 //     holds D / 8 of the key's elements and its share of the q rows in
@@ -66,6 +67,12 @@
 // tensor-core path keeps two 64-key stages, 32 KB each, in flight: a third
 // made it slower); and rank 0 reads each peer's m and l once per row, not
 // once per element.
+// Head dims.  D = 112 (zamba2-7b) is carried as 128 columns in shared memory:
+// its tensor maps have D 112 and the boxes reach 128, so TMA writes zeros
+// past 112 (they add nothing to q k^T; their output columns are not stored);
+// 112 = 7 x 16 would fit the products, but its rows fill no swizzle span.
+// D = 192 (nemotron-4-340b) is three 64-column boxes, its O 96 registers a
+// thread: one block per SM.
 //
 // Layout.  K and V are read in place through their strides in the cache's
 // [B, S, Hkv, D] layout: no transpose copy (the reference builds [B*Hkv, S,
@@ -118,8 +125,18 @@ constexpr int kRingBytes = 64 * 1024;          // the ring's shared memory
 constexpr int kMaxStages = 8;                  // tiles in flight per block
 constexpr int kMaxSplits = 16;                 // blocks per cluster
 constexpr int kSpanUnit = 64;                  // a split's keys: a multiple
-constexpr int kMaxRep = 32;                    // q heads per kv head
+constexpr int kMaxRep = 48;                    // q heads per kv head
 constexpr int kMmaRows = 16;                   // the products' m (q rows)
+// q rows per cluster: a kv head with more q heads (rep > 16) is split into
+// groups of 16, a cluster each (granite-20b's 48 : 1 is three)
+constexpr int kGroupRows = kMmaRows;
+
+// The head dim a kernel computes with: D = 112 is kept as 128 columns in
+// shared memory, where TMA writes zeros past the tensor maps' 112 (they add
+// nothing to q k^T, and give output columns that are not stored).
+__host__ __device__ constexpr int padded_dim(int D) {
+  return D == 112 ? 128 : D;
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -133,12 +150,6 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
-}
-
-// p rounded to the value dtype, as the reference's p.astype(v.dtype).
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f(from_f<T>(v));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -200,7 +211,9 @@ struct Block {
   uint32_t base;            // shared memory, aligned
   unsigned char* smem;
   uint32_t* released;       // per stage: warps done with it, ever
-  int kStages, split, b, kvh, len, span, begin, end, ntiles, rep;
+  // rep: the q rows of this block's group (at most kGroupRows); row0: the
+  // group's first q head
+  int kStages, split, b, kvh, len, span, begin, end, ntiles, rep, row0;
 
   __device__ __forceinline__ uint32_t full(int s) const { return base + 8 * s; }
   __device__ __forceinline__ uint32_t empty(int s) const {
@@ -212,15 +225,16 @@ template <typename T, int D>
 __device__ __forceinline__ void merge_and_store(cg::cluster_group& cluster,
                                                 const Block& blk, float* ring,
                                                 float* pm, T* out) {
+  constexpr int Dp = padded_dim(D);
   const int rep = blk.rep;
   float* pl = pm + rep;
   float* pacc = pl + rep;
-  const float* wacc = ring;                      // [kWarps][rep][D]
-  const float* wm = wacc + kWarps * rep * D;     // [kWarps][rep]
+  const float* wacc = ring;                      // [kWarps][rep][Dp]
+  const float* wm = wacc + kWarps * rep * Dp;     // [kWarps][rep]
   const float* wl = wm + kWarps * rep;
   // the warps' weights e^(m_w - M) per row (0 for a warp that saw no key),
   // then every element of the block's acc, in warp order
-  float* wt = ring + kWarps * rep * (D + 2);     // [kWarps][rep]
+  float* wt = ring + kWarps * rep * (Dp + 2);     // [kWarps][rep]
   __syncthreads();
   for (int r = threadIdx.x; r < rep; r += kThreads) {
     float M = -INFINITY;
@@ -238,12 +252,12 @@ __device__ __forceinline__ void merge_and_store(cg::cluster_group& cluster,
     pl[r] = Lsum;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < rep * D; i += kThreads) {
-    const int r = i / D;
+  for (int i = threadIdx.x; i < rep * Dp; i += kThreads) {
+    const int r = i / Dp;
     float O = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
-      O = fmaf(wacc[(w * rep + r) * D + i - r * D], wt[w * rep + r], O);
+      O = fmaf(wacc[(w * rep + r) * Dp + i - r * Dp], wt[w * rep + r], O);
     pacc[i] = O;
   }
 
@@ -277,8 +291,10 @@ __device__ __forceinline__ void merge_and_store(cg::cluster_group& cluster,
       lsum[r] = Lsum;
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < rep * D; i += kThreads) {
-      const int r = i / D;
+    for (int i = threadIdx.x; i < rep * Dp; i += kThreads) {
+      const int r = i / Dp;
+      const int c = i - r * Dp;
+      if (Dp != D && c >= D) continue;           // a padding column
       float os[kMaxSplits];
 #pragma unroll
       for (int s = 0; s < kMaxSplits; ++s)
@@ -287,7 +303,7 @@ __device__ __forceinline__ void merge_and_store(cg::cluster_group& cluster,
 #pragma unroll
       for (int s = 0; s < kMaxSplits; ++s)
         if (s < nlive) O = fmaf(os[s], weight[s * rep + r], O);
-      out[i] = from_f<T>(nlive ? O / fmaxf(lsum[r], 1e-30f) : 0.f);
+      out[r * D + c] = from_f<T>(nlive ? O / fmaxf(lsum[r], 1e-30f) : 0.f);
     }
   }
   cluster.sync();                                // peers' partials stay
@@ -316,6 +332,7 @@ __device__ __forceinline__ void release(const Block& blk, int t,
 template <typename T, int D, int kQRows, int kAlign, typename Load>
 __device__ __forceinline__ Block start_block(const T* q, const int* lengths,
                                              int S, int Hkv, int rep,
+                                             int groups,
                                              long long q_sb, long long q_sh,
                                              int kStages,
                                              unsigned char* smem_raw,
@@ -327,14 +344,17 @@ __device__ __forceinline__ Block start_block(const T* q, const int* lengths,
   blk.smem = smem_raw + (blk.base - raw);
   blk.kStages = kStages;
   blk.split = static_cast<int>(cluster.block_rank());
-  blk.b = blockIdx.x / Hkv;
-  blk.kvh = blockIdx.x - blk.b * Hkv;
+  blk.b = blockIdx.x / (Hkv * groups);
+  const int hg = blockIdx.x - blk.b * Hkv * groups;
+  blk.kvh = hg / groups;
+  const int grp = hg - blk.kvh * groups;
+  blk.row0 = blk.kvh * rep + grp * kGroupRows;
   blk.len = live_length(lengths, blk.b, S);
   blk.span = split_keys(S);
   blk.begin = blk.split * blk.span;
   blk.end = min(blk.len, blk.begin + blk.span);
   blk.ntiles = blk.end > blk.begin ? (blk.end - blk.begin + tile - 1) / tile : 0;
-  blk.rep = rep;
+  blk.rep = min(kGroupRows, rep - grp * kGroupRows);
   __shared__ uint32_t released[kMaxStages];
   blk.released = released;
   if (threadIdx.x == 0) {
@@ -346,12 +366,15 @@ __device__ __forceinline__ Block start_block(const T* q, const int* lengths,
     hopper::mbar_init_fence();
     for (int t = 0; t < min(blk.ntiles, kStages); ++t) load(blk, t);
   }
+  // q rows [kQRows, Dp] in f32, zero past the group's rows and past D
+  constexpr int Dp = padded_dim(D);
   float* qs = reinterpret_cast<float*>(blk.smem + 16 * kStages);
-  for (int i = threadIdx.x; i < kQRows * D; i += kThreads) {
-    const int r = i / D;
-    qs[i] = r < rep ? to_f(q[blk.b * q_sb + (blk.kvh * rep + r) * q_sh +
-                             (i - r * D)])
-                    : 0.f;
+  for (int i = threadIdx.x; i < kQRows * Dp; i += kThreads) {
+    const int r = i / Dp;
+    const int c = i - r * Dp;
+    qs[i] = r < blk.rep && c < D
+                ? to_f(q[blk.b * q_sb + (blk.row0 + r) * q_sh + c])
+                : 0.f;
   }
   __syncthreads();                               // barriers and q ready
   return blk;
@@ -366,53 +389,44 @@ constexpr int kKeysPerWarp = 32 / kLanesPerKey;
 constexpr int kTile = kWarps * kKeysPerWarp;   // keys per tile
 static_assert(kSpanUnit % kTile == 0, "a split is whole tiles");
 
-template <typename T, int D, int kRep>
-using FmaLayout = Layout<kRep, D, 2 * kTile * D * int(sizeof(T)), 128>;
+template <int D, int kRep>
+using FmaLayout = Layout<kRep, padded_dim(D), 2 * kTile * padded_dim(D) * 4,
+                         128>;
 
-// kWords 32-bit words of a K row at p (16-byte aligned when kWords = 4) as
-// floats: a word is one f32, or two bf16 (low half first).
-template <typename T, int kWords>
-__device__ __forceinline__ void load_row(const T* p, float* f) {
-  uint32_t w[kWords];
-  if constexpr (kWords == 4) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
-  } else if constexpr (kWords == 2) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    w[0] = v.x;
-    w[1] = v.y;
+// kN floats of a K row at p (aligned to their size, at most 16 bytes).
+template <int kN>
+__device__ __forceinline__ void load_row(const float* p, float* f) {
+  if constexpr (kN == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  } else if constexpr (kN == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    f[0] = v.x;
+    f[1] = v.y;
   } else {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  }
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    if constexpr (sizeof(T) == 4) {
-      f[i] = __uint_as_float(w[i]);
-    } else {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
+    f[0] = *p;
   }
 }
 
-// kRep: the rows a thread keeps registers for (rep <= kRep).
-template <typename T, int D, int kRep>
-__global__ void __launch_bounds__(kThreads, kRep <= 4 ? 2 : 1)
+// kRep: the rows a thread keeps registers for (a group's rows <= kRep).
+template <int D, int kRep>
+__global__ void __launch_bounds__(kThreads, kRep <= 4 && D <= 128 ? 2 : 1)
 decode_fma(const __grid_constant__ CUtensorMap tm_k,
-           const __grid_constant__ CUtensorMap tm_v, const T* __restrict__ q,
-           const int* __restrict__ lengths, T* __restrict__ out, int S,
-           int Hkv, int rep, long long q_sb, long long q_sh, float scale) {
-  using L = FmaLayout<T, D, kRep>;
-  constexpr int kRowBytes = D * static_cast<int>(sizeof(T));
-  constexpr int kSize = static_cast<int>(sizeof(T));
-  constexpr int kE = D / kLanesPerKey;           // a lane's share of a key
-  constexpr int kLoadBytes = kE * kSize < 16 ? kE * kSize : 16;
-  constexpr int kLE = kLoadBytes / kSize;        // elements per load
+           const __grid_constant__ CUtensorMap tm_v,
+           const float* __restrict__ q, const int* __restrict__ lengths,
+           float* __restrict__ out, int S, int Hkv, int rep, int groups,
+           long long q_sb, long long q_sh, float scale) {
+  using T = float;
+  constexpr int Dp = padded_dim(D);
+  using L = FmaLayout<D, kRep>;
+  constexpr int kRowBytes = Dp * 4;
+  constexpr int kE = Dp / kLanesPerKey;          // a lane's share of a key
+  constexpr int kLE = kE < 4 ? kE : 4;           // floats per load
   constexpr int kLoads = kE / kLE;
-  constexpr int kCols = D >= 32 ? D / 32 : 1;    // PV columns per lane
+  constexpr int kCols = Dp >= 32 ? Dp / 32 : 1;  // PV columns per lane
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // one TMA load each for a tile's K and V rows (rows past S arrive as
   // zeros; rows past the length are read but never used)
@@ -430,13 +444,14 @@ decode_fma(const __grid_constant__ CUtensorMap tm_k,
     hopper::prefetch_tensor_map(&tm_v);
   }
   const Block blk = start_block<T, D, kRep, 128>(
-      q, lengths, S, Hkv, rep, q_sb, q_sh, L::kStages, smem_raw,
+      q, lengths, S, Hkv, rep, groups, q_sb, q_sh, L::kStages, smem_raw,
       load, kTile);
+  const int rows = blk.rep;
   const float* qs = reinterpret_cast<const float*>(blk.smem + L::kQ);
   unsigned char* ring = blk.smem + L::kRing;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const bool col_lane = lane * kCols < D;        // lane owns PV columns
+  const bool col_lane = lane * kCols < Dp;       // lane owns PV columns
 
   float m[kRep], l[kRep], acc[kRep][kCols];
 #pragma unroll
@@ -449,44 +464,30 @@ decode_fma(const __grid_constant__ CUtensorMap tm_k,
   const int kk = lane / kLanesPerKey;            // the lane's key of 4
   const int seg = lane % kLanesPerKey;
   const int key0 = warp * kKeysPerWarp;          // the warp's keys in a tile
-  // the lane's share of every q row stays in registers for the whole loop:
-  // bf16 pairs for bf16 q (exact: q is bf16), f32 words for f32
-  constexpr int kQW = kSize == 2 ? kE / 2 : kE;
-  uint32_t qw[kRep][kQW];
+  // the lane's share of every q row stays in registers for the whole loop
+  float qv[kRep][kE];
 #pragma unroll
   for (int r = 0; r < kRep; ++r)
 #pragma unroll
     for (int i = 0; i < kLoads; ++i)
 #pragma unroll
-      for (int j = 0; j < kLE; ++j) {
-        const int e = i * kLE + j;
-        const uint32_t bits =
-            __float_as_uint(qs[r * D + (i * kLanesPerKey + seg) * kLE + j]);
-        if constexpr (kSize == 2) {
-          if (e & 1)
-            qw[r][e >> 1] |= bits & 0xffff0000u;
-          else
-            qw[r][e >> 1] = bits >> 16;
-        } else {
-          qw[r][e] = bits;
-        }
-      }
+      for (int j = 0; j < kLE; ++j)
+        qv[r][i * kLE + j] = qs[r * Dp + (i * kLanesPerKey + seg) * kLE + j];
 
   for (int t = 0; t < blk.ntiles; ++t) {
     const int s = t % L::kStages;
     mbar_wait(blk.full(s), (t / L::kStages) & 1);
     const T* kt =
         reinterpret_cast<const T*>(ring + s * (2 * kTile * kRowBytes));
-    const T* vt = kt + kTile * D;
+    const T* vt = kt + kTile * Dp;
     const int nvalid =
         min(kKeysPerWarp, blk.end - (blk.begin + t * kTile + key0));
     if (nvalid > 0) {                            // uniform across the warp
       float kf[kE];
-      const T* krow = kt + (key0 + kk) * D;
+      const T* krow = kt + (key0 + kk) * Dp;
 #pragma unroll
       for (int i = 0; i < kLoads; ++i)
-        load_row<T, kLoadBytes / 4>(krow + (i * kLanesPerKey + seg) * kLE,
-                                    kf + i * kLE);
+        load_row<kLE>(krow + (i * kLanesPerKey + seg) * kLE, kf + i * kLE);
       const bool valid = kk < nvalid;
       // every row at once, so that the rows' shuffles overlap
       float sc[kRep], mt[kRep], p[kRep], al[kRep], ps[kRep];
@@ -494,15 +495,7 @@ decode_fma(const __grid_constant__ CUtensorMap tm_k,
       for (int r = 0; r < kRep; ++r) {
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < kE; ++e) {
-          float qe;
-          if constexpr (kSize == 2)
-            qe = __uint_as_float((e & 1) ? (qw[r][e >> 1] & 0xffff0000u)
-                                         : (qw[r][e >> 1] << 16));
-          else
-            qe = __uint_as_float(qw[r][e]);
-          dot = fmaf(qe, kf[e], dot);
-        }
+        for (int e = 0; e < kE; ++e) dot = fmaf(qv[r][e], kf[e], dot);
         sc[r] = dot;
       }
 #pragma unroll
@@ -535,8 +528,7 @@ decode_fma(const __grid_constant__ CUtensorMap tm_k,
           ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], o);
 #pragma unroll
       for (int r = 0; r < kRep; ++r) {
-        l[r] = l[r] * al[r] + ps[r];
-        p[r] = round_to<T>(p[r]);
+        l[r] = l[r] * al[r] + ps[r];             // v is f32: p stays f32
       }
       // acc = acc * alpha, then + p v key by key, in key order
 #pragma unroll
@@ -549,7 +541,7 @@ decode_fma(const __grid_constant__ CUtensorMap tm_k,
         float vv[kCols];
 #pragma unroll
         for (int c = 0; c < kCols; ++c)
-          vv[c] = col_lane ? to_f(vt[(key0 + j) * D + lane * kCols + c]) : 0.f;
+          vv[c] = col_lane ? vt[(key0 + j) * Dp + lane * kCols + c] : 0.f;
 #pragma unroll
         for (int r = 0; r < kRep; ++r) {
           const float pj = __shfl_sync(0xffffffffu, p[r], j * kLanesPerKey);
@@ -562,27 +554,27 @@ decode_fma(const __grid_constant__ CUtensorMap tm_k,
   }
   __syncthreads();                               // the ring is free
 
-  float* wacc = reinterpret_cast<float*>(ring);  // [kWarps][rep][D]
-  float* wm = wacc + kWarps * rep * D;           // [kWarps][rep]
-  float* wl = wm + kWarps * rep;
+  float* wacc = reinterpret_cast<float*>(ring);  // [kWarps][rows][Dp]
+  float* wm = wacc + kWarps * rows * Dp;         // [kWarps][rows]
+  float* wl = wm + kWarps * rows;
 #pragma unroll
   for (int r = 0; r < kRep; ++r) {
-    if (r >= rep) break;
+    if (r >= rows) break;
     if (col_lane) {
 #pragma unroll
       for (int c = 0; c < kCols; ++c)
-        wacc[(warp * rep + r) * D + lane * kCols + c] = acc[r][c];
+        wacc[(warp * rows + r) * Dp + lane * kCols + c] = acc[r][c];
     }
     if (lane == 0) {
-      wm[warp * rep + r] = m[r];
-      wl[warp * rep + r] = l[r];
+      wm[warp * rows + r] = m[r];
+      wl[warp * rows + r] = l[r];
     }
   }
   cg::cluster_group cluster = cg::this_cluster();
   merge_and_store<T, D>(cluster, blk, wacc,
                         reinterpret_cast<float*>(blk.smem + L::kPart),
-                        out + (static_cast<size_t>(blk.b) * Hkv + blk.kvh) *
-                                  rep * D);
+                        out + (static_cast<size_t>(blk.b) * Hkv * rep +
+                               blk.row0) * D);
 }
 
 // ---------------------------------------------------------------------------
@@ -620,7 +612,8 @@ struct MmaTile {
   }
 };
 template <int D, int kRows>
-using MmaLayout = Layout<kRows, D, MmaTile<D>::kBytes, 1024>;
+using MmaLayout = Layout<kRows, padded_dim(D), MmaTile<padded_dim(D)>::kBytes,
+                         1024>;
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
@@ -669,18 +662,21 @@ __device__ __forceinline__ void mma_k8(float (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(b0));
 }
 
-// kRows: the q rows the products carry, 8 or 16 (rep <= kRows); with 8,
-// the m16 tile's rows 8..15 are zeros, and their softmax is not run.
+// kRows: the q rows the products carry, 8 or 16 (a group's rows <= kRows);
+// with 8, the m16 tile's rows 8..15 are zeros, and their softmax is not run.
+// D = 192 holds O in 96 registers a thread and a 48 KB K/V tile: one block
+// per SM.
 template <int D, int kRows>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
 decode_mma(const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v,
            const __nv_bfloat16* __restrict__ q,
            const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
-           int S, int Hkv, int rep, long long q_sb, long long q_sh,
+           int S, int Hkv, int rep, int groups, long long q_sb, long long q_sh,
            float scale) {
+  constexpr int Dp = padded_dim(D);
   using L = MmaLayout<D, kRows>;
-  using Tl = MmaTile<D>;
+  using Tl = MmaTile<Dp>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // K's boxes, then V's: kChunks column boxes of 64 rows each
   const auto load = [&](const Block& blk, int t) {
@@ -701,8 +697,9 @@ decode_mma(const __grid_constant__ CUtensorMap tm_k,
     hopper::prefetch_tensor_map(&tm_v);
   }
   const Block blk = start_block<__nv_bfloat16, D, kRows, 1024>(
-      q, lengths, S, Hkv, rep, q_sb, q_sh, L::kStages, smem_raw,
+      q, lengths, S, Hkv, rep, groups, q_sb, q_sh, L::kStages, smem_raw,
       load, kMmaTile);
+  const int rows = blk.rep;
   const float* qs = reinterpret_cast<const float*>(blk.smem + L::kQ);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -713,20 +710,20 @@ decode_mma(const __grid_constant__ CUtensorMap tm_k,
   // Q's A fragments (rows past rep are zero), for the whole loop; rows
   // g + 8 only when kRows is 16
   constexpr int kHalves = kRows / 8;
-  uint32_t qa[D / 16][4];
+  uint32_t qa[Dp / 16][4];
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
+  for (int ks = 0; ks < Dp / 16; ++ks)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = g + 8 * (e & 1);
       const int col = 16 * ks + 8 * (e >> 1) + 2 * tq;
       qa[ks][e] = (e & 1) && kHalves == 1
                       ? 0u
-                      : pack_bf16(qs[row * D + col], qs[row * D + col + 1]);
+                      : pack_bf16(qs[row * Dp + col], qs[row * Dp + col + 1]);
     }
-  float o[D / 8][4];
+  float o[Dp / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < Dp / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m_r[2] = {-INFINITY, -INFINITY};
   float l_r[2] = {0.f, 0.f};                     // this lane's part of l
 
@@ -741,9 +738,9 @@ decode_mma(const __grid_constant__ CUtensorMap tm_k,
       if (nvalid < kMmaKeys) {
         // rows past the length may hold anything (NaN): p = 0 must meet
         // zeros in P V
-        for (int i = lane; i < (kMmaKeys - nvalid) * (D / 8); i += 32) {
-          const int r = key0 + nvalid + i / (D / 8);
-          const uint32_t a = vst + Tl::at(r, i % (D / 8));
+        for (int i = lane; i < (kMmaKeys - nvalid) * (Dp / 8); i += 32) {
+          const int r = key0 + nvalid + i / (Dp / 8);
+          const uint32_t a = vst + Tl::at(r, i % (Dp / 8));
           asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(a),
                        "r"(0u)
                        : "memory");
@@ -753,13 +750,13 @@ decode_mma(const __grid_constant__ CUtensorMap tm_k,
       // S = Q K^T: the warp's 8 keys, D in steps of 16
       float sc[4] = {0.f, 0.f, 0.f, 0.f};
       const int lr = key0 + (lane & 7);          // ldmatrix row of this lane
-      if constexpr (D == 16) {
+      if constexpr (Dp == 16) {
         uint32_t kb[2];
         ldsm_x2(kb, kst + Tl::at(lr, (lane >> 3) & 1));
         mma_k16(sc, qa[0], kb[0], kb[1]);
       } else {
 #pragma unroll
-        for (int p = 0; p < D / 32; ++p) {
+        for (int p = 0; p < Dp / 32; ++p) {
           uint32_t kb[4];
           ldsm_x4(kb, kst + Tl::at(lr, 4 * p + (lane >> 3)));
           mma_k16(sc, qa[2 * p], kb[0], kb[1]);
@@ -783,21 +780,21 @@ decode_mma(const __grid_constant__ CUtensorMap tm_k,
         l_r[r] = l_r[r] * alpha + (x0 + x1);
         m_r[r] = m_new;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
+        for (int n = 0; n < Dp / 8; ++n) {
           o[n][2 * r] *= alpha;
           o[n][2 * r + 1] *= alpha;
         }
         pa[r] = pack_bf16(x0, x1);               // p rounded to bf16
       }
       // O += P V, 8 columns of D per product
-      if constexpr (D == 16) {
+      if constexpr (Dp == 16) {
         uint32_t vb[2];
         ldsm_x2_trans(vb, vst + Tl::at(lr, (lane >> 3) & 1));
         mma_k8(o[0], pa[0], pa[1], vb[0]);
         mma_k8(o[1], pa[0], pa[1], vb[1]);
       } else {
 #pragma unroll
-        for (int p = 0; p < D / 32; ++p) {
+        for (int p = 0; p < Dp / 32; ++p) {
           uint32_t vb[4];
           ldsm_x4_trans(vb, vst + Tl::at(lr, 4 * p + (lane >> 3)));
 #pragma unroll
@@ -811,43 +808,43 @@ decode_mma(const __grid_constant__ CUtensorMap tm_k,
   }
   __syncthreads();                               // the ring is free
 
-  // this warp's (m, l, acc) of rows < rep into the ring
+  // this warp's (m, l, acc) of the group's rows into the ring
   float* wacc = reinterpret_cast<float*>(blk.smem + L::kRing);
-  float* wm = wacc + kWarps * rep * D;
-  float* wl = wm + kWarps * rep;
+  float* wm = wacc + kWarps * rows * Dp;
+  float* wl = wm + kWarps * rows;
 #pragma unroll
   for (int r = 0; r < kHalves; ++r) {
     const int row = g + 8 * r;
     float l = l_r[r];                            // the quad's parts of l
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    if (row < rep) {
+    if (row < rows) {
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        wacc[(warp * rep + row) * D + 8 * n + 2 * tq] = o[n][2 * r];
-        wacc[(warp * rep + row) * D + 8 * n + 2 * tq + 1] = o[n][2 * r + 1];
+      for (int n = 0; n < Dp / 8; ++n) {
+        wacc[(warp * rows + row) * Dp + 8 * n + 2 * tq] = o[n][2 * r];
+        wacc[(warp * rows + row) * Dp + 8 * n + 2 * tq + 1] = o[n][2 * r + 1];
       }
       if (tq == 0) {
-        wm[warp * rep + row] = m_r[r];
-        wl[warp * rep + row] = l;
+        wm[warp * rows + row] = m_r[r];
+        wl[warp * rows + row] = l;
       }
     }
   }
   cg::cluster_group cluster = cg::this_cluster();
   merge_and_store<__nv_bfloat16, D>(
       cluster, blk, wacc, reinterpret_cast<float*>(blk.smem + L::kPart),
-      out + (static_cast<size_t>(blk.b) * Hkv + blk.kvh) * rep * D);
+      out + (static_cast<size_t>(blk.b) * Hkv * rep + blk.row0) * D);
 }
 
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
-// Launches `fn` on a (B * Hkv, splits) grid in clusters of (1, splits),
+// Launches `fn` on a (clusters, splits) grid in clusters of (1, splits),
 // after setting, once per kernel and before any capture, its shared memory
 // and clusters of more than 8 blocks.
 template <auto fn, typename... Args>
-int launch_cluster(int smem, int B, int S, int Hkv, cudaStream_t stream,
+int launch_cluster(int smem, int clusters, int S, cudaStream_t stream,
                    Args... args) {
   static const cudaError_t ready = [smem] {
     cudaError_t e = cudaFuncSetAttribute(
@@ -860,7 +857,7 @@ int launch_cluster(int smem, int B, int S, int Hkv, cudaStream_t stream,
   if (ready != cudaSuccess) return static_cast<int>(ready);
   const int nsplit = num_splits(S);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * Hkv, nsplit, 1);
+  cfg.gridDim = dim3(clusters, nsplit, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -874,24 +871,30 @@ int launch_cluster(int smem, int B, int S, int Hkv, cudaStream_t stream,
   return static_cast<int>(cudaLaunchKernelEx(&cfg, fn, args...));
 }
 
+// One cluster per (batch row, kv head, group of at most kGroupRows q heads):
+// bf16 on the tensor cores (8 or 16 rows a product), f32 on FMA (4 or 16
+// rows in registers).
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, int B, int S, int Hkv, int rep, const Strides& st,
            float scale, cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int Dp = padded_dim(D);
   const CUtensorMapDataType dtype = kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  const bool mma = kBf16 && rep <= kMmaRows;
+  const int groups = (rep + kGroupRows - 1) / kGroupRows;
+  const int rows = rep < kGroupRows ? rep : kGroupRows;
   // the tensor-core path reads swizzled column boxes of 64 keys, the FMA
-  // path plain rows of 32 keys
-  const int box_d = mma ? MmaTile<D>::kChunk : D;
-  const int box_s = mma ? kMmaTile : kTile;
+  // path plain rows of 32 keys; either reaches past D = 112 to 128 columns
+  const int box_d = kBf16 ? MmaTile<Dp>::kChunk : Dp;
+  const int box_s = kBf16 ? kMmaTile : kTile;
   const CUtensorMapSwizzle swizzle =
-      !mma ? CU_TENSOR_MAP_SWIZZLE_NONE
-           : (MmaTile<D>::kRowBytes == 128
-                  ? CU_TENSOR_MAP_SWIZZLE_128B
-                  : (MmaTile<D>::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                 : CU_TENSOR_MAP_SWIZZLE_32B));
+      !kBf16 ? CU_TENSOR_MAP_SWIZZLE_NONE
+             : (MmaTile<Dp>::kRowBytes == 128
+                    ? CU_TENSOR_MAP_SWIZZLE_128B
+                    : (MmaTile<Dp>::kRowBytes == 64
+                           ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B));
   CUtensorMap mk, mv;
   int rc = hopper::tensor_map(&mk, dtype, sizeof(T), k, B, S, Hkv, D, st.kb,
                               st.ks, st.kh, box_d, box_s, swizzle);
@@ -902,25 +905,24 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   const auto* qp = static_cast<const T*>(q);
   const auto* lp = static_cast<const int*>(lengths);
   auto* op = static_cast<T*>(out);
+  const int clusters = B * Hkv * groups;
   if constexpr (kBf16) {
-    if (mma && rep <= 8)
-      return launch_cluster<decode_mma<D, 8>>(MmaLayout<D, 8>::kBytes, B, S,
-                                              Hkv,
-                                              stream, mk, mv, qp, lp, op, S,
-                                              Hkv, rep, st.qb, st.qh, scale);
-    if (mma)
-      return launch_cluster<decode_mma<D, 16>>(MmaLayout<D, 16>::kBytes, B, S,
-                                               Hkv, stream, mk, mv, qp, lp, op,
-                                               S, Hkv, rep, st.qb, st.qh,
-                                               scale);
+    if (rows <= 8)
+      return launch_cluster<decode_mma<D, 8>>(
+          MmaLayout<D, 8>::kBytes, clusters, S, stream, mk, mv, qp, lp, op, S,
+          Hkv, rep, groups, st.qb, st.qh, scale);
+    return launch_cluster<decode_mma<D, 16>>(
+        MmaLayout<D, 16>::kBytes, clusters, S, stream, mk, mv, qp, lp, op, S,
+        Hkv, rep, groups, st.qb, st.qh, scale);
+  } else {
+    if (rows <= 4)
+      return launch_cluster<decode_fma<D, 4>>(
+          FmaLayout<D, 4>::kBytes, clusters, S, stream, mk, mv, qp, lp, op, S,
+          Hkv, rep, groups, st.qb, st.qh, scale);
+    return launch_cluster<decode_fma<D, kGroupRows>>(
+        FmaLayout<D, kGroupRows>::kBytes, clusters, S, stream, mk, mv, qp, lp,
+        op, S, Hkv, rep, groups, st.qb, st.qh, scale);
   }
-  if (rep <= 4)
-    return launch_cluster<decode_fma<T, D, 4>>(FmaLayout<T, D, 4>::kBytes, B,
-                                               S, Hkv, stream, mk, mv, qp, lp, op, S, Hkv, rep,
-                          st.qb, st.qh, scale);
-  return launch_cluster<decode_fma<T, D, kMaxRep>>(
-      FmaLayout<T, D, kMaxRep>::kBytes, B, S, Hkv, stream,
-                        mk, mv, qp, lp, op, S, Hkv, rep, st.qb, st.qh, scale);
 }
 
 template <typename T>
@@ -937,8 +939,14 @@ int dispatch(int D, const void* q, const void* k, const void* v,
     case 64:
       return launch<T, 64>(q, k, v, lengths, out, B, S, Hkv, rep, st, scale,
                            stream);
+    case 112:
+      return launch<T, 112>(q, k, v, lengths, out, B, S, Hkv, rep, st, scale,
+                            stream);
     case 128:
       return launch<T, 128>(q, k, v, lengths, out, B, S, Hkv, rep, st, scale,
+                            stream);
+    case 192:
+      return launch<T, 192>(q, k, v, lengths, out, B, S, Hkv, rep, st, scale,
                             stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

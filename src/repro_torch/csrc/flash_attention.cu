@@ -15,8 +15,10 @@
 // accumulator; out = acc / max(l, 1e-30), rounded once to the output dtype.
 // The bf16 kernel tiles by 128 x 128, the reference's own block_q = block_k =
 // 128 (flash_attention.py:72), so p is rounded to bf16 at the same running
-// max as in the TPU kernel; the f32 kernel tiles by 64 x 64, which moves only
-// the summation order (f32 p is not rounded).
+// max as in the TPU kernel; at D 192 it takes 64-key tiles (see HopperSmem),
+// which moves where p is rounded by at most one bf16 step.  The f32 kernel
+// tiles by 64 x 64, which moves only the summation order (f32 p is not
+// rounded).
 //
 // Skipped tiles.  A KV tile that is masked for every row of the q tile (above
 // the diagonal, or wholly outside the window) is not visited.  That is exact:
@@ -64,9 +66,14 @@
 //     that one's softmax runs while the other's products hold the tensor
 //     cores.  The masks are computed only on the tiles that straddle the
 //     diagonal, the window edge or the end of the keys.
-//   The longest q tiles are launched first.  Every D in {16, 32, 64, 128}
-//   takes this path: a row of D = 16 / 32 fills a 32 / 64-byte swizzle, and
-//   D = 128 is two 64-element column boxes per tile.
+//   The longest q tiles are launched first.  Every D in {16, 32, 64, 112,
+//   128, 192} takes this path: a row of D = 16 / 32 fills a 32 / 64-byte
+//   swizzle, and D = 128 is two 64-element column boxes per tile, D = 192
+//   three.  D = 112 is 7 x 16, which wgmma takes, but its 224-byte rows fill
+//   no swizzle span: its tiles are D = 128's, the second column box reaching
+//   past the tensor maps' 112 columns, where TMA writes zeros.  D = 192 does
+//   not fit Q and three stages of 128-key K and V tiles (48 + 288 KB), nor
+//   O (96 registers) beside the 128-key S: it takes 64-key tiles.
 // f32 (flash_fwd, FMA on the CUDA cores; the tensor cores have no f32 product
 //   without TF32 rounding): 8 warps, warp w owns query rows 8 w .. 8 w + 7;
 //   for the scores a lane owns keys lane and lane + 32 of the tile, for the
@@ -93,12 +100,17 @@
 
 namespace {
 
+using hopper::fence_regs;
+using hopper::gmma_desc;
 using hopper::mbar_arrive;
 using hopper::mbar_expect_tx;
 using hopper::mbar_init;
 using hopper::mbar_wait;
 using hopper::smem_addr;
 using hopper::tma_load_4d;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -122,24 +134,33 @@ struct Raw<4> {
   using type = uint32_t;
 };
 
-// N floats at p (4 N bytes, aligned to that) in one vector access.
+// N floats at p (4 N bytes, aligned to that, or to 16 for N = 8) in one
+// vector access (two for N = 8).
 template <int N>
 __device__ __forceinline__ void load_f(const float* p, float (&out)[N]) {
-  using R = typename Raw<4 * N>::type;
-  const R raw = *reinterpret_cast<const R*>(p);
-  const float* e = reinterpret_cast<const float*>(&raw);
+  constexpr int kW = N < 4 ? N : 4;
+  using R = typename Raw<4 * kW>::type;
 #pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = e[i];
+  for (int v = 0; v < N / kW; ++v) {
+    const R raw = *reinterpret_cast<const R*>(p + v * kW);
+    const float* e = reinterpret_cast<const float*>(&raw);
+#pragma unroll
+    for (int i = 0; i < kW; ++i) out[v * kW + i] = e[i];
+  }
 }
 
 template <int N>
 __device__ __forceinline__ void store_f(float* p, const float (&in)[N]) {
-  using R = typename Raw<4 * N>::type;
-  R raw;
-  float* e = reinterpret_cast<float*>(&raw);
+  constexpr int kW = N < 4 ? N : 4;
+  using R = typename Raw<4 * kW>::type;
 #pragma unroll
-  for (int i = 0; i < N; ++i) e[i] = in[i];
-  *reinterpret_cast<R*>(p) = raw;
+  for (int v = 0; v < N / kW; ++v) {
+    R raw;
+    float* e = reinterpret_cast<float*>(&raw);
+#pragma unroll
+    for (int i = 0; i < kW; ++i) e[i] = in[v * kW + i];
+    *reinterpret_cast<R*>(p + v * kW) = raw;
+  }
 }
 
 // Rows [row0, row0 + kRows) of one head of a [B, S, H, D] tensor into shared
@@ -231,7 +252,9 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   using L = Smem<D>;
   constexpr int kVec = L::kVec;
   constexpr int kLd = L::kLd;
-  constexpr int kCols = D >= 32 ? D / 32 : 1;        // output columns per lane
+  // output columns per lane: D / 32 rounded up to a vector (lanes past D
+  // own none: D 16 uses 16 lanes, D 112 28, D 192 24)
+  constexpr int kCols = D <= 32 ? 1 : (D <= 64 ? 2 : (D <= 128 ? 4 : 8));
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* Ks = reinterpret_cast<T*>(smem + L::kQ);
@@ -363,7 +386,6 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 constexpr int kTQ = 128;                     // query rows per block
-constexpr int kTK = 128;                     // keys per K/V tile
 constexpr int kStages = 3;                   // K/V ring depth
 constexpr int kWgThreads = 128;
 // two consumer warpgroups, one of whose threads also issues the loads: with
@@ -373,44 +395,6 @@ constexpr int kWgThreads = 128;
 // 168, and setmaxnreg did not lift ptxas's cap: the wgmma were serialised
 // for want of registers
 constexpr int kHopperThreads = 2 * kWgThreads;
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle (1 = 128 B, 2 = 64 B, 3 = 32 B).
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most kPending committed wgmma groups are still running.
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
-               : "memory");
-}
-
-// Ties each accumulator register to this point, so that no read of it is
-// scheduled between an asynchronous wgmma and the wait for it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// The same for a register A operand, which a running wgmma still reads.
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
 
 // 2^x by the special-function unit (relative error below 2^-22; -inf and
 // arguments below -126 give 0).
@@ -457,6 +441,29 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[32] (+)= A * B, m64n64k16, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -558,50 +565,68 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 }
 
 
-// O += P V for one 16-key slice, N = D.
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (D == 16)
-    wgmma_rs_n16(d, a, b);
-  else if constexpr (D == 32)
-    wgmma_rs_n32(d, a, b);
-  else if constexpr (D == 64)
-    wgmma_rs_n64(d, a, b);
-  else
-    wgmma_rs_n128(d, a, b);
-}
-
-// Shared memory of a block: Q [128 x D], then kStages K tiles and kStages V
-// tiles [128 x D], then the mbarriers.  A tile is D / kChunk column boxes of
-// 128 rows x kChunk elements, each row one swizzle span (kRowBytes), so a
-// box is the canonical swizzled layout wgmma reads: 8-row atoms of
-// 8 * kRowBytes bytes, one after another.
+// Shared memory of a block and the tile shapes of head dim D.  D = 112 is
+// kept as 128 columns (kDp): its tensor maps have D 112, and TMA fills the
+// 16 columns past it with zeros, which add nothing to Q K^T, and which give
+// zero output columns in P V that are not stored.  D = 192 takes 64-key
+// tiles (kTK), so that Q and a 3-stage K/V ring fit (48 + 144 KB) and the
+// accumulators (O 96, S 32 registers a thread) fit the register file; the
+// others take 128-key tiles, the reference's own blocks.
+// Layout: Q [kTQ x kDp], then kStages K tiles and kStages V tiles [kTK x
+// kDp], then the mbarriers.  A tile is kDp / kChunk column boxes of its rows
+// x kChunk elements, each row one swizzle span (kRowBytes), so a box is the
+// canonical swizzled layout wgmma reads: 8-row atoms of 8 * kRowBytes bytes,
+// one after another.
 template <int D>
 struct HopperSmem {
-  static constexpr int kChunk = D < 64 ? D : 64;
+  static constexpr int kDp = D == 112 ? 128 : D;
+  static constexpr int kTK = D > 128 ? 64 : 128;
+  static constexpr int kChunk = kDp < 64 ? kDp : 64;
   static constexpr int kRowBytes = kChunk * 2;
-  static constexpr int kChunks = D / kChunk;
-  static constexpr int kChunkBytes = kTK * kRowBytes;
+  static constexpr int kChunks = kDp / kChunk;
+  static constexpr int kQChunkBytes = kTQ * kRowBytes;
+  static constexpr int kQBytes = kChunks * kQChunkBytes;
+  static constexpr int kChunkBytes = kTK * kRowBytes;   // of a K / V tile
   static constexpr int kTileBytes = kChunks * kChunkBytes;
   static constexpr int kAtomBytes = 8 * kRowBytes;
   static constexpr uint64_t kLayout =
       kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
-  static constexpr int kK = kTileBytes;
+  static constexpr int kK = kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBar = kV + kStages * kTileBytes;
   static constexpr int kBars = 1 + 3 * kStages;      // q, full K / V, empty
   static constexpr size_t kBytes = 1024 + kBar + 8 * kBars;   // + alignment
 };
-static_assert(kTQ == kTK, "Q, K and V tiles share one box shape");
 
+// O += P V for one 16-key slice, N = kDp: one product, or for kDp = 192
+// three of N = 64, one per column box (an m64n64 accumulator's registers
+// are the m64n192 one's 32 c .. 32 c + 31).
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[HopperSmem<D>::kDp / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  using L = HopperSmem<D>;
+  if constexpr (L::kDp == 16) {
+    wgmma_rs_n16(d, a, b);
+  } else if constexpr (L::kDp == 32) {
+    wgmma_rs_n32(d, a, b);
+  } else if constexpr (L::kDp == 64) {
+    wgmma_rs_n64(d, a, b);
+  } else if constexpr (L::kDp == 128) {
+    wgmma_rs_n128(d, a, b);
+  } else {
+#pragma unroll
+    for (int c = 0; c < L::kChunks; ++c)
+      wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(d + 32 * c), a,
+                   b + ((c * L::kChunkBytes) >> 4));
+  }
+}
 
 // S = Q K^T of one tile, over D in steps of 16 (issued, not waited for).
 // A step's descriptors are the tile's plus a constant: the start address
 // field (address / 16, under 2^14 in shared memory) never carries.
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&sc)[kTK / 2], uint32_t q_wg,
-                                         uint32_t kst) {
+__device__ __forceinline__ void issue_qk(float (&sc)[HopperSmem<D>::kTK / 2],
+                                         uint32_t q_wg, uint32_t kst) {
   using L = HopperSmem<D>;
   const uint64_t qd = gmma_desc(q_wg, 16, L::kAtomBytes, L::kLayout);
   const uint64_t kd = gmma_desc(kst, 16, L::kAtomBytes, L::kLayout);
@@ -609,41 +634,46 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kTK / 2], uint32_t q_wg,
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int c = kk * 16 / L::kChunk;
-    const uint64_t step = (c * L::kChunkBytes + (kk * 16 - c * L::kChunk) * 2)
-                          >> 4;
-    wgmma_ss_n128(sc, qd + step, kd + step, kk > 0);
+    const int in_row = (kk * 16 - c * L::kChunk) * 2;
+    const uint64_t qs = (c * L::kQChunkBytes + in_row) >> 4;
+    const uint64_t ks = (c * L::kChunkBytes + in_row) >> 4;
+    if constexpr (L::kTK == 128)
+      wgmma_ss_n128(sc, qd + qs, kd + ks, kk > 0);
+    else
+      wgmma_ss_n64(sc, qd + qs, kd + ks, kk > 0);
   }
   wgmma_commit();
 }
 
 // O += P V of one tile (issued, not waited for).
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&pa)[kTK / 16][4],
-                                         uint32_t vst) {
+__device__ __forceinline__ void issue_pv(
+    float (&o)[HopperSmem<D>::kDp / 2],
+    const uint32_t (&pa)[HopperSmem<D>::kTK / 16][4], uint32_t vst) {
   using L = HopperSmem<D>;
   const uint64_t vd =
       gmma_desc(vst, L::kChunkBytes, L::kAtomBytes, L::kLayout);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kTK / 16; ++kk)
+  for (int kk = 0; kk < L::kTK / 16; ++kk)
     wgmma_pv<D>(o, pa[kk], vd + ((kk * 16 * L::kRowBytes) >> 4));
   wgmma_commit();
 }
 
-// The online softmax of one tile on its scores (base 2: the scale carries
-// log2 e), masked only where the tile straddles a mask edge: leaves p in sc,
-// updates m and this thread's part of l, and gives each row's alpha.  The
-// thread's rows sit at positions qpos0 and qpos0 + 8, its keys at
-// kpos0 + 8 n + {0, 1}.
+// The online softmax of one tile of kTile keys on its scores (base 2: the
+// scale carries log2 e), masked only where the tile straddles a mask edge:
+// leaves p in sc, updates m and this thread's part of l, and gives each
+// row's alpha.  The thread's rows sit at positions qpos0 and qpos0 + 8, its
+// keys at kpos0 + 8 n + {0, 1}.
+template <int kTile>
 __device__ __forceinline__ void softmax_tile(
-    float (&sc)[kTK / 2], float (&m_r)[2], float (&l_r)[2], float (&alpha)[2],
-    bool edge, float scale_log2, int qpos0, int kpos0, int Skv, int causal,
-    int has_window, int window) {
+    float (&sc)[kTile / 2], float (&m_r)[2], float (&l_r)[2],
+    float (&alpha)[2], bool edge, float scale_log2, int qpos0, int kpos0,
+    int Skv, int causal, int has_window, int window) {
   float sc_scale = scale_log2;
   if (edge) {
 #pragma unroll
-    for (int n = 0; n < kTK / 8; ++n)
+    for (int n = 0; n < kTile / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         sc[4 * n + e] = masked_score(sc[4 * n + e], scale_log2,
@@ -657,7 +687,7 @@ __device__ __forceinline__ void softmax_tile(
   for (int r = 0; r < 2; ++r) {
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < kTK / 8; ++n)
+    for (int n = 0; n < kTile / 8; ++n)
       mx[n & 1] = fmaxf(mx[n & 1],
                         fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
     float m = fmaxf(mx[0], mx[1]);
@@ -667,7 +697,7 @@ __device__ __forceinline__ void softmax_tile(
     alpha[r] = fast_exp2(m_r[r] - m_new);
     float sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < kTK / 8; ++n)
+    for (int n = 0; n < kTile / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = sc[4 * n + 2 * r + e];
@@ -680,17 +710,17 @@ __device__ __forceinline__ void softmax_tile(
 }
 
 // O *= alpha; p rounded to bf16 (v's dtype) into P V's A fragments.
-template <int D>
-__device__ __forceinline__ void rescale_and_pack(float (&o)[D / 2],
-                                                 uint32_t (&pa)[kTK / 16][4],
-                                                 const float (&sc)[kTK / 2],
+template <int kCols, int kTile>
+__device__ __forceinline__ void rescale_and_pack(float (&o)[kCols / 2],
+                                                 uint32_t (&pa)[kTile / 16][4],
+                                                 const float (&sc)[kTile / 2],
                                                  const float (&alpha)[2]) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < kCols / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
 #pragma unroll
-  for (int kk = 0; kk < kTK / 16; ++kk)
+  for (int kk = 0; kk < kTile / 16; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
@@ -705,6 +735,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 int rep, int causal, int has_window, int window,
                 float scale_log2) {
   using L = HopperSmem<D>;
+  constexpr int kTK = L::kTK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = base + L::kBar;
@@ -766,10 +797,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
     for (int s = 0; s < kStages; ++s) released[s] = 0;
     hopper::mbar_init_fence();
-    mbar_expect_tx(bar_q, L::kTileBytes);
+    mbar_expect_tx(bar_q, L::kQBytes);
 #pragma unroll
     for (int c = 0; c < L::kChunks; ++c)
-      tma_load_4d(base + c * L::kChunkBytes, &tm_q, bar_q, c * L::kChunk, h,
+      tma_load_4d(base + c * L::kQChunkBytes, &tm_q, bar_q, c * L::kChunk, h,
                   q0, b);
     for (int i = 0; i < min(n_tiles, kStages); ++i) load_kv(i);
   }
@@ -790,9 +821,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     const int qhi = qlo + 63;
     const uint32_t q_wg = base + cw * 64 * L::kRowBytes;
 
-    float o[D / 2];
+    float o[L::kDp / 2];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+    for (int j = 0; j < L::kDp / 2; ++j) o[j] = 0.f;
     float m_r[2] = {kMasked, kMasked};
     float l_r[2] = {0.f, 0.f};                 // this thread's part of l
     float sc[kTK / 2];                         // S, then p, of one tile
@@ -826,9 +857,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     turn_pass();
     wgmma_wait<0>();
     fence_regs(sc);
-    softmax_tile(sc, m_r, l_r, alpha, edge(0), scale_log2, qpos0, kpos0(0),
-                 Skv, causal, has_window, window);
-    rescale_and_pack<D>(o, pa, sc, alpha);
+    softmax_tile<kTK>(sc, m_r, l_r, alpha, edge(0), scale_log2, qpos0,
+                      kpos0(0), Skv, causal, has_window, window);
+    rescale_and_pack<L::kDp, kTK>(o, pa, sc, alpha);
     for (int j = 1; j < n_tiles; ++j) {
       const int s = j % kStages;
       const int sp = (j - 1) % kStages;
@@ -840,13 +871,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       turn_pass();
       wgmma_wait<1>();                           // S is in; P V runs on
       fence_regs(sc);
-      softmax_tile(sc, m_r, l_r, alpha, edge(j), scale_log2, qpos0,
-                   kpos0(j), Skv, causal, has_window, window);
+      softmax_tile<kTK>(sc, m_r, l_r, alpha, edge(j), scale_log2, qpos0,
+                        kpos0(j), Skv, causal, has_window, window);
       wgmma_wait<0>();                           // P V of tile j - 1 is done
       fence_regs(o);
       fence_regs(pa);
       release(j - 1);
-      rescale_and_pack<D>(o, pa, sc, alpha);
+      rescale_and_pack<L::kDp, kTK>(o, pa, sc, alpha);
     }
     {
       const int sp = (n_tiles - 1) % kStages;
@@ -870,7 +901,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         __nv_bfloat16* dst =
             out + ((static_cast<long long>(b) * Sq + row) * H + h) * D + 2 * tq;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+        for (int j = 0; j < D / 8; ++j)          // D, not kDp: the real columns
           *reinterpret_cast<uint32_t*>(dst + 8 * j) =
               pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
       }
@@ -888,21 +919,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  int causal, int has_window, int window, float scale,
                  cudaStream_t stream) {
   using L = HopperSmem<D>;
-  // boxes of 128 rows x kChunk elements, one swizzle span per row
+  // boxes of kTQ (q) or kTK (k, v) rows x kChunk elements, one swizzle span
+  // per row; the maps have D columns, the boxes cover kDp
   const CUtensorMapSwizzle swizzle =
       L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                           : (L::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                 : CU_TENSOR_MAP_SWIZZLE_32B);
   const auto map = [&](CUtensorMap* m, const void* p, int S, int Hx,
-                       const long long* s3) {
+                       const long long* s3, int box_s) {
     return hopper::tensor_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p, B, S,
-                              Hx, D, s3[0], s3[1], s3[2], L::kChunk, kTK,
+                              Hx, D, s3[0], s3[1], s3[2], L::kChunk, box_s,
                               swizzle);
   };
   CUtensorMap mq, mk, mv;
-  int rc = map(&mq, q, Sq, H, st);
-  if (rc == 0) rc = map(&mk, k, Skv, Hkv, st + 3);
-  if (rc == 0) rc = map(&mv, v, Skv, Hkv, st + 6);
+  int rc = map(&mq, q, Sq, H, st, kTQ);
+  if (rc == 0) rc = map(&mk, k, Skv, Hkv, st + 3, L::kTK);
+  if (rc == 0) rc = map(&mv, v, Skv, Hkv, st + 6, L::kTK);
   if (rc) return rc;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -950,8 +982,8 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
 // dtype: 0 = float32, 1 = bfloat16.  q [B, Sq, H, D], k/v [B, Skv, Hkv, D],
 // each with unit stride over D and the (batch, sequence, head) strides in
 // `strides` (q's three, then k's, then v's, in elements; 16-byte multiples);
-// out is a contiguous [B, Sq, H, D].  D in {16, 32, 64, 128}; H a multiple of
-// Hkv.
+// out is a contiguous [B, Sq, H, D].  D in {16, 32, 64, 112, 128, 192}; H a
+// multiple of Hkv.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* out, int B, int Sq,
                                    int Skv, int H, int Hkv, int D,
@@ -971,8 +1003,14 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
     case 64:
       return launch<64>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, strides,
                         causal, has_window, window, scale, s);
+    case 112:
+      return launch<112>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, strides,
+                         causal, has_window, window, scale, s);
     case 128:
       return launch<128>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, strides,
+                         causal, has_window, window, scale, s);
+    case 192:
+      return launch<192>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, strides,
                          causal, has_window, window, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels: mbarriers,
-// TMA tensor loads, and tensor maps encoded on the host and kept per
-// (pointer, shape, strides, box).
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// TMA tensor loads, cp.async, wgmma descriptors and fences, and tensor maps
+// encoded on the host and kept per (pointer, shape, strides, box).
 //
 // The tensor maps are encoded through libcuda's cuTensorMapEncodeTiled,
 // reached with cudaGetDriverEntryPoint(ByVersion), so nothing links against
@@ -99,6 +99,67 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
 }
 __device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// 16 bytes from global to shared memory, bypassing L1; `src_bytes` of them
+// are read and the rest filled with zeros (0: nothing is read).
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// The barrier's arrival of this thread, made once its cp.async copies so far
+// have landed (counted against the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// Shared-memory writes made by the generic proxy (st.shared, cp.async) that
+// this thread has seen, ordered before its later accesses through the async
+// proxy (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle (1 = 128 B, 2 = 64 B, 3 = 32 B).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most kPending committed wgmma groups are still running.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// Ties each accumulator register to this point, so that no read of it is
+// scheduled between an asynchronous wgmma and the wait for it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for a register A operand, which a running wgmma still reads.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,

@@ -11,7 +11,8 @@ is fixed-shape torch ops on the device (``slot_groups``): no host sync, so
 the fast verify path keeps its ≤2-syncs-per-block contract.  The two GEMM
 stages are the hand-written CUDA kernel ``csrc/cache_moe.cu`` (``gate_up`` or
 ``up_gelu``, then ``down``), which reads the weights straight out of the
-[S, ...] slot pool.  The combine is in f32, in each token's choice order,
+[S, ...] slot pool (bf16: a TMA weight ring feeding wgmma row products;
+f32: FMA).  The combine is in f32, in each token's choice order,
 outside the kernel (as the reference keeps it outside Pallas).
 
 Each wrapper takes the kernel's plain version (``kernels/ref.py``) only when
@@ -39,13 +40,13 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("cache_moe")
     if not getattr(lib, "_repro_bound", False):
         lib.cache_moe_gate_up.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                          _I, _I, _I, _P]
+                                          _I, _I, _I, _I, _I, _P]
         lib.cache_moe_gate_up.restype = _I
         lib.cache_moe_up_gelu.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P,
-                                          _I, _I, _I, _P]
+                                          _I, _I, _I, _I, _I, _P]
         lib.cache_moe_up_gelu.restype = _I
         lib.cache_moe_down.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I,
-                                       _I, _P]
+                                       _I, _I, _I, _P]
         lib.cache_moe_down.restype = _I
         lib.cache_moe_error_string.argtypes = [_I]
         lib.cache_moe_error_string.restype = ctypes.c_char_p
@@ -118,9 +119,15 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int):
 
 
 def _check_call(x: torch.Tensor, g: SlotGroups, *weights: torch.Tensor):
+    """What both stages take: float32 or bfloat16 on the input's device,
+    contiguous int32 groups; bf16 also rows of a multiple of 8 elements (the
+    tensor-core body copies 16-byte pieces of them)."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"cache_moe kernel takes float32 or bfloat16, "
                         f"not {x.dtype}")
+    if x.dtype == torch.bfloat16 and x.dim() == 2 and x.shape[1] % 8:
+        raise ValueError(f"bf16 rows of {x.shape[1]} elements: need a "
+                         f"multiple of 8")
     for w in weights:
         if w.device != x.device:
             raise ValueError("weights and activations on different devices")
@@ -160,7 +167,7 @@ def gate_up(x: torch.Tensor, g: SlotGroups, wg: torch.Tensor,
         _DTYPE_CODE[x.dtype], x.data_ptr(), g.row_tok.data_ptr(),
         wg.data_ptr(), wu.data_ptr(), g.grp_slot.data_ptr(),
         g.grp_start.data_ptr(), g.grp_count.data_ptr(), h.data_ptr(),
-        d, f, g.grp_slot.shape[0],
+        d, f, wg.shape[0], g.row_tok.shape[0], g.grp_slot.shape[0],
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise(lib, "cache_moe_gate_up", rc)
     gate_up.launches += 1
@@ -188,7 +195,8 @@ def up_gelu(x: torch.Tensor, g: SlotGroups, wu: torch.Tensor) -> torch.Tensor:
     rc = lib.cache_moe_up_gelu(
         _DTYPE_CODE[x.dtype], x.data_ptr(), g.row_tok.data_ptr(),
         wu.data_ptr(), g.grp_slot.data_ptr(), g.grp_start.data_ptr(),
-        g.grp_count.data_ptr(), h.data_ptr(), d, f, g.grp_slot.shape[0],
+        g.grp_count.data_ptr(), h.data_ptr(), d, f, wu.shape[0],
+        g.row_tok.shape[0], g.grp_slot.shape[0],
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise(lib, "cache_moe_up_gelu", rc)
     up_gelu.launches += 1
@@ -215,7 +223,8 @@ def down(h: torch.Tensor, g: SlotGroups, wd: torch.Tensor) -> torch.Tensor:
     rc = lib.cache_moe_down(
         _DTYPE_CODE[h.dtype], h.data_ptr(), wd.data_ptr(),
         g.grp_slot.data_ptr(), g.grp_start.data_ptr(),
-        g.grp_count.data_ptr(), y.data_ptr(), f, d, g.grp_slot.shape[0],
+        g.grp_count.data_ptr(), y.data_ptr(), f, d, wd.shape[0],
+        g.row_tok.shape[0], g.grp_slot.shape[0],
         torch.cuda.current_stream(h.device).cuda_stream)
     _raise(lib, "cache_moe_down", rc)
     down.launches += 1

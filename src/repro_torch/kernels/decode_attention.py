@@ -13,8 +13,10 @@ widths alone, so a CUDA graph can capture it and replay it with ``lengths``
 changed in place.  ``decode_attention.launches`` counts the calls that
 launched the kernel.
 
-What the kernel takes: float32 or bfloat16, D in ``HEAD_DIMS``, H a multiple
-of Hkv with at most 32 q heads per kv head, unit stride over D, k and v
+What the kernel takes: float32 or bfloat16, D in ``HEAD_DIMS`` (112 is
+zamba2-7b's, 192 nemotron-4-340b's), H a multiple of Hkv with at most 48 q
+heads per kv head (granite-20b's 48 : 1; more than 16 run as clusters of 16
+rows each), unit stride over D, k and v
 16-byte aligned (pointers and their other strides), any S.  The
 lengths stay on the device (nothing here reads them back) and must lie in
 [1, S]; the kernel reads only keys [0, min(length, S)).  The reference's
@@ -32,8 +34,8 @@ from repro_torch.kernels._build import load_library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
-HEAD_DIMS = (16, 32, 64, 128)
-MAX_REP = 32                           # csrc: kMaxRep
+HEAD_DIMS = (16, 32, 64, 112, 128, 192)
+MAX_REP = 48                           # csrc: kMaxRep
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 

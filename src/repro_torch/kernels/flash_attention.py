@@ -7,9 +7,9 @@ and sliding-window masking and GQA, the port of
 ``window``, ``block_q``, ``block_k``) and its precondition: each sequence
 length must be a multiple of its block, capped at the length.  On a CUDA
 tensor it launches the hand-written kernel ``csrc/flash_attention.cu``
-(bf16: 128 x 128 tiles loaded by TMA into a wgmma pipeline; f32: 64 x 64
-tiles on FMA; the kernel tiles itself, the blocks only fix the
-precondition), on a CPU tensor it runs the plain version
+(bf16: 128 x 128 tiles loaded by TMA into a wgmma pipeline, 128 x 64 at
+D 192; f32: 64 x 64 tiles on FMA; the kernel tiles itself, the blocks only
+fix the precondition), on a CPU tensor it runs the plain version
 ``ref.flash_attention_ref`` with the reference's blocks.  A launch or a
 tensor-map encode that fails raises.  ``flash_attention.launches`` counts
 the launches.
@@ -27,7 +27,7 @@ from repro_torch.kernels._build import load_library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 192)   # 112: zamba2-7b, 192: nemotron
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 

@@ -116,6 +116,70 @@ def test_gelu_route_matches_plain_and_is_batch_invariant(cuda, dtype, tol):
         assert torch.equal(one, got[t:t + 1])
 
 
+ROWS_PER_SLOT = (1, 7, 8, 9, 64, 127, 128, 129, 255, 256, 257, 512)
+
+
+@pytest.mark.parametrize("rows", ROWS_PER_SLOT)
+@pytest.mark.parametrize("S,d,f", [(12, 200, 328), (32, 136, 72)])
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_ffn_bodies_match_plain_and_are_batch_invariant(cuda, rows, S, d, f,
+                                                        gelu, dtype, tol):
+    """Both stages at ``rows`` rows on one slot (the tensor-core body's
+    warpgroup and pass edges: 128 rows a warpgroup, 256 a pass), every
+    token's second choice a miss or another slot, token 1's a repeat of
+    its first (one row more), pools of 12 and 32, and d, f that are not
+    multiples of the 64-wide tiles: each stage against its plain version
+    (tolerance relative to the output's scale, as the routes above), and
+    each row of the call through ``cache_moe`` bit-identical to the same
+    token alone."""
+    gen = torch.Generator(cuda).manual_seed(rows)
+    wg = None if gelu else (torch.randn((S, d, f), generator=gen,
+                                        device=cuda) * d ** -0.5).to(dtype)
+    wu = (torch.randn((S, d, f), generator=gen, device=cuda)
+          * d ** -0.5).to(dtype)
+    wd = (torch.randn((S, f, d), generator=gen, device=cuda)
+          * f ** -0.5).to(dtype)
+    x = torch.randn((rows, d), generator=gen, device=cuda).to(dtype)
+    si = torch.full((rows, 2), 3, dtype=torch.int32, device=cuda)
+    other = torch.randint(-1, S - 1, (rows,), generator=gen, device=cuda)
+    si[:, 1] = torch.where(other >= 3, other + 1, other).to(torch.int32)
+    if rows > 1:
+        si[1, 1] = 3
+    w = torch.rand((rows, 2), generator=gen, device=cuda).to(dtype)
+    g = K.slot_groups(si, S)
+    h = K.up_gelu(x, g, wu) if gelu else K.gate_up(x, g, wg, wu)
+    h_ref = R.slot_up_gelu_ref(x, g.row_tok, wu, g.grp_slot, g.grp_start,
+                               g.grp_count) if gelu else \
+        R.slot_gate_up_ref(x, g.row_tok, wg, wu, g.grp_slot, g.grp_start,
+                           g.grp_count)
+    y = K.down(h, g, wd)
+    y_ref = R.slot_down_ref(h, wd, g.grp_slot, g.grp_start, g.grp_count)
+    for a, b in ((h, h_ref), (y, y_ref)):
+        assert torch.isfinite(a).all()
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+    full = K.cache_moe(x, si, w, wu, wd, wg)
+    for t in range(rows):
+        one = K.cache_moe(x[t:t + 1], si[t:t + 1], w[t:t + 1], wu, wd, wg)
+        assert torch.equal(one, full[t:t + 1])
+
+
+def test_ffn_refuses_bf16_rows_it_cannot_copy(cuda):
+    """The tensor-core body copies 16-byte pieces of each row: bf16 rows of
+    d or f elements need d and f to be multiples of 8."""
+    g = K.slot_groups(torch.zeros((2, 2), dtype=torch.int32, device=cuda), 4)
+    x = torch.zeros((2, 60), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((4, 60, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        K.gate_up(x, g, w, w)
+    h = torch.zeros((4, 60), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        K.down(h, g, torch.zeros((4, 60, 64), dtype=torch.bfloat16,
+                                 device=cuda))
+
+
 @pytest.mark.parametrize("H,Hkv,D,S,lengths,splits", [
     (24, 8, 128, 576, (1, 77, 543), 9),        # llama3.2-3b widths
     (32, 8, 128, 4112, (4096, 64, 65), 13),    # mixtral draft, long cache
@@ -125,6 +189,11 @@ def test_gelu_route_matches_plain_and_is_batch_invariant(cuda, dtype, tol):
     (4, 4, 16, 40, (40, 1, 17), 1),            # reduced widths
     (16, 1, 32, 200, (200, 1, 129), 4),        # 16 q heads per kv head
     (32, 1, 32, 130, (129, 130, 2), 3),        # MQA, 32 q heads per kv head
+    (32, 32, 112, 576, (543, 1, 77), 9),       # zamba2-7b's shared block
+    (40, 2, 112, 100, (100, 3, 64), 2),        # D 112, 20 q heads per kv
+    (96, 8, 192, 300, (300, 1, 129), 5),       # nemotron-4-340b's heads
+    (48, 1, 128, 4112, (4096, 64, 65), 13),    # granite-20b's 48 : 1
+    (48, 1, 192, 200, (200, 1, 129), 4),       # 48 : 1 at D 192
 ])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
@@ -162,14 +231,16 @@ def test_decode_kernel_matches_plain_and_is_batch_invariant(
     assert torch.equal(ops.decode_attention(q, k2, v2, lens), got)
 
 
+@pytest.mark.parametrize("H,Hkv,D", [(24, 8, 128),
+                                     (32, 32, 112)])   # zamba2-7b's
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_decode_kernel_replays_in_a_cuda_graph(cuda, dtype):
+def test_decode_kernel_replays_in_a_cuda_graph(cuda, dtype, H, Hkv, D):
     """One flash-decode call captured in a CUDA graph: its launch shape is
     fixed by S, so a replay after ``lengths`` changed in place equals the
     eager call at the new lengths, bit for bit, and allocates nothing."""
     gen = torch.Generator(cuda).manual_seed(3)
-    q = torch.randn((2, 24, 128), generator=gen, device=cuda).to(dtype)
-    k, v = [torch.randn((2, 576, 8, 128), generator=gen, device=cuda
+    q = torch.randn((2, H, D), generator=gen, device=cuda).to(dtype)
+    k, v = [torch.randn((2, 576, Hkv, D), generator=gen, device=cuda
                         ).to(dtype) for _ in range(2)]
     lens = torch.tensor([100, 7], dtype=torch.int32, device=cuda)
     DA.decode_attention(q, k, v, lens)          # build, encode, set up
@@ -271,6 +342,12 @@ def test_engine_on_the_card_matches_its_greedy(cuda, slots):
     (1, 384, 384, 8, 4, 128, None),      # S 128 + 128 k
     (1, 256, 256, 4, 2, 32, None),       # D 32
     (1, 256, 256, 24, 8, 128, None),     # llama3.2-3b heads, 24 / 8
+    (1, 256, 256, 32, 32, 112, None),    # zamba2-7b's shared block, D 112
+    (2, 96, 160, 8, 2, 112, 48),         # D 112, window, ragged
+    (1, 384, 384, 16, 2, 192, None),     # D 192: 64-key tiles
+    (1, 256, 256, 8, 8, 192, 40),        # D 192, a window
+    (1, 128, 512, 8, 1, 192, None),      # D 192, Sq < Skv
+    (1, 256, 256, 48, 1, 128, None),     # granite-20b's 48 : 1
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
@@ -418,6 +495,9 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("arch,over", [
     ("mamba2-780m", {}), ("zamba2-7b", {}),
     ("zamba2-7b", {"num_layers": 7, "attn_every": 3}),   # a tail block
+    # the shared block at zamba2-7b's head dim through flash and
+    # flash-decode on the card, their plain versions on the CPU
+    ("zamba2-7b", {"head_dim": 112, "attn_impl": "kernel"}),
 ])
 def test_ssd_models_on_the_card_match_the_cpu(cuda, arch, over):
     """Reduced f32 models, the same weights on both devices: the prefill

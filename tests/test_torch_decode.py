@@ -70,6 +70,9 @@ def _np(t):
     (1, 64, 8, 8, 32, 16),
     (3, 16, 2, 1, 64, 8),
     (2, 64, 6, 2, 128, 16),           # llama3.2-3b widths, 2 kv heads
+    (2, 32, 4, 2, 112, 8),            # zamba2-7b's head dim
+    (1, 32, 4, 2, 192, 16),           # nemotron-4-340b's head dim
+    (2, 32, 48, 1, 16, 8),            # granite-20b's 48 q heads per kv head
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_matches_jax_kernel(B, S, H, Hkv, D, bk, dtype):
@@ -110,6 +113,10 @@ def test_decode_wrapper_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):                  # int64 lengths
         DA._check(q, k, k, lens.long())
     DA._check(q, k, k, lens)
+    # the registered configs' head shapes: zamba2-7b, nemotron, granite
+    for H, Hkv, D in ((32, 32, 112), (96, 8, 192), (48, 1, 128)):
+        kv = torch.zeros((1, 8, Hkv, D))
+        DA._check(torch.zeros((1, H, D)), kv, kv, lens)
 
 
 def _attn_params(d, H, Hkv, hd, seed):

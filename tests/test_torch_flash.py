@@ -65,6 +65,9 @@ def _np(t):
     (2, 16, 32, 4, 2, 16, 8, 8),      # GQA, kv longer (decode-block case)
     (1, 32, 32, 8, 1, 32, 16, 16),    # MQA
     (1, 8, 8, 2, 2, 64, 8, 8),        # single block
+    (1, 16, 16, 4, 2, 112, 8, 8),     # zamba2-7b's head dim
+    (1, 16, 16, 2, 2, 192, 8, 8),     # nemotron-4-340b's head dim
+    (1, 16, 16, 48, 1, 16, 8, 8),     # granite-20b's 48 q heads per kv head
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_ref_matches_jax_kernel(B, Sq, Skv, H, Hkv, D, bq, bk, dtype):
@@ -133,6 +136,10 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
     k = torch.zeros((1, 8, 2, 16))
     with pytest.raises(ValueError):
         FA._check(q, k, k)                       # 3 heads over 2 kv heads
+    # the registered configs' head shapes: zamba2-7b, nemotron, granite
+    for H, Hkv, D in ((32, 32, 112), (96, 8, 192), (48, 1, 128)):
+        k = torch.zeros((1, 8, Hkv, D))
+        FA._check(torch.zeros((1, 8, H, D)), k, k)
 
 
 def _attn_params(d, H, Hkv, hd, seed):

@@ -31,12 +31,17 @@ from repro_torch.models.registry import build_model
 
 ATOL = 1e-4
 ARCHS = ["mamba2-780m", "zamba2-7b"]
-# reduced configs: each arch as ``reduced`` cuts it, and a zamba2 whose 7
+# reduced configs: each arch as ``reduced`` cuts it, a zamba2 whose 7
 # layers leave a tail after two groups of (2 mamba + the shared block), as
-# zamba2-7b's 81 layers leave 3
+# zamba2-7b's 81 layers leave 3, and a zamba2 whose shared block keeps the
+# full model's head dim, 112, under attn_impl="kernel" (both packages'
+# flash kernel in every forward and prefill, the port's flash-decode in
+# every one-token step; on the CPU the port runs their plain versions)
+D112 = {"head_dim": 112, "attn_impl": "kernel"}
 MODELS = {"mamba2-780m": ("mamba2-780m", {}), "zamba2-7b": ("zamba2-7b", {}),
           "zamba2-7b-tail": ("zamba2-7b", {"num_layers": 7,
-                                           "attn_every": 3})}
+                                           "attn_every": 3}),
+          "zamba2-7b-d112": ("zamba2-7b", D112)}
 LAYOUTS = {"zamba2-7b": (2, 1, 0), "zamba2-7b-tail": (2, 2, 1)}
 # the reference's functions, compiled once per shape (much faster than
 # running them op by op)
@@ -239,3 +244,38 @@ def test_launcher_serves_mamba_greedy_by_default(capsys, monkeypatch):
         "serve", "--device", "cpu", "--arch", "zamba2-7b", "--decode", "sd"])
     with pytest.raises(ValueError, match="greedy"):
         launcher.main()
+
+
+def test_zamba2_head_dim_112_takes_both_attention_kernels(monkeypatch):
+    """Under ``attn_impl="kernel"`` the shared block at head dim 112 runs
+    the flash kernel in the prefill and flash-decode in each one-token step
+    (their plain versions here, which the wrappers take for CPU tensors),
+    once per shared-block site, and gives the logits of the ``"xla"`` route
+    (``mha``) of the same weights."""
+    from repro_torch.kernels import ref as R
+    cfg = get_config("zamba2-7b").reduced(dtype="float32", **D112)
+    tm = build_model(cfg, "cpu", seed=0)
+    xla = build_model(get_config("zamba2-7b").reduced(
+        dtype="float32", head_dim=112), "cpu", seed=0)
+    calls = {"flash": [], "decode": []}
+    for name, key in (("flash_attention_ref", "flash"),
+                      ("decode_attention_ref", "decode")):
+        orig = getattr(R, name)
+
+        def spy(q, *a, _orig=orig, _key=key, **kw):
+            calls[_key].append(q.shape[-1])
+            return _orig(q, *a, **kw)
+        monkeypatch.setattr(R, name, spy)
+    sites = tm.hybrid_layout()[0]
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(0, 256,
+                                                                (1, 21)))
+    tl, tc = tm.prefill(prompt, 32)
+    xl, xc = xla.prefill(prompt, 32)
+    _close(tl, xl.detach().numpy())
+    assert calls == {"flash": [112] * sites, "decode": []}
+    for pos in range(21, 24):
+        tok = prompt[:, pos - 21:pos - 20]
+        tl, tc, _ = tm.decode_step(tc, tok, pos)
+        xl, xc, _ = xla.decode_step(xc, tok, pos)
+        _close(tl, xl.detach().numpy())
+    assert calls["decode"] == [112] * (3 * sites)
