@@ -35,7 +35,8 @@ Phases (each raises on failure):
      576 and 4112, and three rows of mixed lengths each equal to its one-row
      call bit for bit; the SSD scan at the mamba2 widths at S 77 / 300 / 512 / 2048 and
      the zamba2 widths at S 512 and 300, 300 padded to 384, y and final
-     state)
+     state, timed (event and device time, its three device kernels per
+     call) at mamba2 S 512 / 2048 and zamba2 S 512)
   3. solo serving with a tight cache (12 slots): misses, prefetches,
      evictions
   4. solo serving with an ample cache (32 slots): the fast path, <=2 host
@@ -55,7 +56,8 @@ Phases (each raises on failure):
      and one of 300, 32 new tokens each; the SSD kernel launches once per
      layer per prefill (48 per request); then one prefill and one decode
      step timed alone and traced with ``torch.profiler`` (the device's
-     kernels, their busy time with the SSD scan's apart, its idle share)
+     kernels, their busy time with the SSD scan's apart, its idle share;
+     the traced SSD kernels must be three per mamba layer)
   9. zamba2-7b serving, one 512-token prompt, the same way (10 launches),
      under ``attn_impl="kernel"``: its shared attention block (32 / 32 heads
      x 112) runs flash attention in the prefill and flash-decode in every
@@ -137,6 +139,10 @@ SSD_SHAPES = (("mamba2", 48, 64, 128, (77, 300, 512, 2048)),
               ("zamba2", 112, 64, 64, (512, 300)))
 SSD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 SSD_STATE_TOL = 1e-4
+# timed (bf16): (model, S); a call is three device kernels (each chunk's end
+# state, the carry from chunk to chunk, y)
+SSD_TIMED = (("mamba2", 512), ("mamba2", 2048), ("zamba2", 512))
+SSD_KERNELS_PER_CALL = 3
 SSM_PROMPTS, SSM_NEW = (512, 512, 300), 32            # phase 7
 ZAMBA_LAYERS = 12                                     # phase 8
 # lossless check of the SSD families: the engine (chunked prefill, then the
@@ -645,7 +651,8 @@ def ssd_phase(dev):
     """The SSD-scan kernel against its plain version at the mamba2 and
     zamba2 widths, bf16 and f32, y and final state; a padded length also
     against the plain version of the unpadded sequence (its state must not
-    move over the pad).  Timed (bf16, mamba2 widths) at S 512 and 2048."""
+    move over the pad).  Timed (bf16) at ``SSD_TIMED``: event time, device
+    time and kernels per call from the profiler."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref as R
@@ -688,12 +695,18 @@ def ssd_phase(dev):
                         raise AssertionError(
                             f"ssd_scan {model} {dt_name} S={S} {what}: max "
                             f"abs err {err} vs scale {scale}")
-                if model == "mamba2" and dt_name == "bfloat16" \
-                        and S in (512, 2048):
+                if dt_name == "bfloat16" and (model, S) in SSD_TIMED:
                     bound, by, flops, nbytes = ssd_bound(S, Q, h, p, n, 2)
-                    timing[S] = {
+                    dev_ms, per_call = traced(
+                        lambda: SSD.ssd_scan(x, dt, A, B, C, Q))
+                    if per_call != SSD_KERNELS_PER_CALL:
+                        raise AssertionError(f"ssd_scan: {per_call} device "
+                                             f"kernels per call")
+                    timing[f"{model}_S{S}"] = {
+                        "h": h, "p": p, "n": n, "chunk": Q,
                         "ms": cuda_ms(lambda: SSD.ssd_scan(x, dt, A, B, C,
                                                            Q)),
+                        "device_ms": dev_ms, "kernels_per_call": per_call,
                         "plain_ms": cuda_ms(
                             lambda: R.ssd_ref(x, dt, A, B, C, Q), iters=3),
                         "library_ms": None, "bound_ms": bound,
@@ -999,7 +1012,9 @@ def lossless_phase(target, prompts_by_req, dev, forward=teacher_force,
             "worst_gap": worst, "margin": margin}
 
 
-FOCUS_SSD = ("ssd", r"\bssd_(scan|cb)<")
+# every kernel of csrc/ssd_scan.cu (ssd_state_mma / _fma, ssd_state_pass,
+# ssd_scan_mma / _fma)
+FOCUS_SSD = ("ssd", r"\bssd_(state|scan)_(mma|fma|pass)\b")
 FOCUS_DECODE = ("decode", r"\bdecode_(mma|fma)<")
 
 
@@ -1099,6 +1114,12 @@ def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int,
     step_ms = cuda_ms(lambda: target.decode_step(cache, tok, p0.shape[1]))
     prefill_prof = device_profile(lambda: target.prefill(p0, max_seq),
                                   prefill_ms)
+    # the profiler's focus must see every kernel of every SSD call
+    want_traced = mamba_layers(cfg) * SSD_KERNELS_PER_CALL
+    if prefill_prof is None or prefill_prof["ssd_kernels"] != want_traced:
+        raise AssertionError(f"{name}: the traced prefill holds "
+                             f"{prefill_prof and prefill_prof['ssd_kernels']}"
+                             f" SSD kernels, expected {want_traced}")
     step_prof = device_profile(
         lambda: target.decode_step(cache, tok, p0.shape[1]), step_ms)
     loss = lossless_phase(target, [(p, r.tokens) for p, r in
@@ -1448,7 +1469,7 @@ def main() -> int:
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "device_ms": t["device_ms"],
         "library_device_ms": t["library_device_ms"]})
-    t = ssd_timing[SSM_PROMPTS[0]]
+    t = ssd_timing[f"mamba2_S{SSM_PROMPTS[0]}"]
     kernels.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
@@ -1457,7 +1478,9 @@ def main() -> int:
         "launches_zamba2_path": zamba_info["launches"],
         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "device_ms": t["device_ms"],
+        "kernels_per_call": t["kernels_per_call"]})
     t = dec_timing["llama3.2-3b"]
     kernels.append({
         "name": "decode_attention", "route": "cuda",
@@ -1491,9 +1514,7 @@ def main() -> int:
                   "dtype": "bfloat16", "causal": True},
         **{f"S{S}": t for S, t in fa_timing.items()}}}))
     print(json.dumps({"ssd_timing": {
-        "shape": {"b": 1, "h": 48, "p": 64, "n": 128, "chunk": 128,
-                  "dtype": "bfloat16"},
-        **{f"S{S}": t for S, t in ssd_timing.items()}}}))
+        "shape": {"b": 1, "dtype": "bfloat16"}, **ssd_timing}}))
     print(json.dumps({"kernel_checks": rows,
                       "timing_shape": {
                           "k": K_TOP, "pool": S_POOL, "dtype": "bfloat16",

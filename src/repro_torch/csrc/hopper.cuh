@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tensor loads, cp.async, wgmma descriptors and fences, and tensor maps
-// encoded on the host and kept per (pointer, shape, strides, box).
+// TMA tensor loads, cp.async, wgmma descriptors and fences, the m64n64
+// wgmma with its A operand in registers, and tensor maps encoded on the
+// host and kept per (pointer, shape, strides, box).
 //
 // The tensor maps are encoded through libcuda's cuTensorMapEncodeTiled,
 // reached with cudaGetDriverEntryPoint(ByVersion), so nothing links against
@@ -160,6 +161,31 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// d[32] += A * B, m64n64k16, A from registers (the m16n8k16 A fragment
+// of the thread's warp), B MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,

@@ -5,8 +5,9 @@
 A [h], B/C [b, s, n]) and returns what the plain version ``ref.ssd_ref``
 returns: (y [b, s, h, p] in x's dtype, final state [b, h, p, n] f32).  On a
 CPU tensor it runs ``ref.ssd_ref``; on a CUDA tensor it launches the
-hand-written kernel ``csrc/ssd_scan.cu`` (one launch gives y and the state)
-or raises.  ``ssd_scan.launches`` counts the launches.
+hand-written kernel ``csrc/ssd_scan.cu`` (three device kernels: each chunk's
+end state, the carry from chunk to chunk, y) or raises.
+``ssd_scan.launches`` counts the calls that launched it.
 """
 from __future__ import annotations
 
@@ -28,8 +29,7 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = load_library("ssd_scan")
     if not getattr(lib, "_repro_bound", False):
-        lib.ssd_scan_fwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _I, _P]
+        lib.ssd_scan_fwd.argtypes = [_I] + [_P] * 9 + [_I] * 6 + [_P]
         lib.ssd_scan_fwd.restype = _I
         lib.ssd_scan_error_string.argtypes = [_I]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -88,13 +88,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     b, s, h, p = x.shape
     n = B.shape[-1]
     y = torch.empty_like(x)
-    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    cb = torch.empty((b, s // chunk, chunk, chunk), dtype=torch.float32,
-                     device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    state = torch.empty((b, h, p, n), **f32)
+    # scratch: each chunk's end state, then (over it) the state before the
+    # chunk; the prefix sums of dt * A
+    states = torch.empty((b, s // chunk, h, p, n), **f32)
+    cum = torch.empty((b, h, s), **f32)
     lib = _lib()
     rc = lib.ssd_scan_fwd(
         _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-        B.data_ptr(), C.data_ptr(), cb.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, h, p, n, chunk,
+        B.data_ptr(), C.data_ptr(), states.data_ptr(), cum.data_ptr(),
+        y.data_ptr(), state.data_ptr(), b, s, h, p, n, chunk,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc:
         msg = lib.ssd_scan_error_string(rc).decode()

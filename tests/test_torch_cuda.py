@@ -438,6 +438,8 @@ def _ssd_inputs(dev, b, s, h, p, n, dtype, seed=0):
     (2, 64, 3, 8, 16, 16),               # reduced widths, p below a tile
     (1, 77, 4, 64, 128, 77),             # mamba2 widths, Q not a power of 2
     (1, 384, 5, 64, 64, 128),            # zamba2 widths, carried state
+    (1, 2048, 48, 64, 128, 128),         # mamba2-780m: 16 chunks; slow
+                                         # heads carry the state across all
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
@@ -457,6 +459,41 @@ def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype, tol):
         assert torch.isfinite(got).all()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= t * want.float().abs().max().item()
+
+
+def test_ssd_kernel_is_deterministic_and_chunk_0_stands_alone(cuda):
+    """Two identical calls give identical bits (no atomics in any sum), and
+    the first chunk's rows of y from an S 512 call equal an S 128 call on
+    the same rows bit for bit: chunk 0 reads nothing of later chunks."""
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 512, 48, 64, 128, torch.bfloat16)
+    y1, s1 = SSD.ssd_scan(x, dt, A, B, C, 128)
+    y2, s2 = SSD.ssd_scan(x, dt, A, B, C, 128)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    head = [t[:, :128].contiguous() for t in (x, dt, B, C)]
+    y0, _ = SSD.ssd_scan(head[0], head[1], A, head[2], head[3], 128)
+    assert torch.equal(y1[:, :128], y0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_kernel_replays_in_a_cuda_graph(cuda, dtype):
+    """One call captured in a CUDA graph (its launches' shapes depend on the
+    shapes alone, its scratch comes from the graph's pool): replayed after
+    new inputs are copied in place, it equals the eager call bit for bit."""
+    shape = (1, 384, 8, 64, 128)
+    ins = list(_ssd_inputs(cuda, *shape, dtype, seed=1))
+    SSD.ssd_scan(*ins, 128)                      # build, set up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, state = SSD.ssd_scan(*ins, 128)
+    for seed in (2, 3):
+        for dst, src in zip(ins, _ssd_inputs(cuda, *shape, dtype,
+                                             seed=seed)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_y, want_state = SSD.ssd_scan(*ins, 128)
+        assert torch.equal(y, want_y) and torch.equal(state, want_state)
 
 
 def test_ssd_kernel_padding_leaves_the_state_unchanged(cuda):

@@ -2,8 +2,9 @@
 ``ref.ssd_decode_ref`` against the JAX reference's (y and final state, with
 and without an initial state) and against its Pallas kernel in interpret
 mode, at the shapes of the reference's ``test_ssd_scan_sweep`` plus a chunk
-that is not a power of two and a padded length; and the CPU route of the
-kernel's wrappers.
+that is not a power of two and a padded length, and at the served widths
+(mamba2-780m, zamba2-7b; S 512); and the CPU route of the kernel's
+wrappers.
 
 f32, atol 1e-4 / rtol 1e-3 (as the reference's sweep), inputs made from a
 seed with numpy."""
@@ -73,6 +74,33 @@ def test_ssd_ref_matches_the_pallas_kernel(b, s, h, p, n, chunk):
     want = jax_ssd_scan(*_jax(ins), chunk, interpret=True)
     got, _ = R.ssd_ref(*_torch(ins), chunk)
     _close(got, want)
+
+
+# the widths the card times (PERF.md): mamba2-780m (h 48, p 64, n 128) and
+# zamba2-7b (h 112, p 64, n 64), one 512-token sequence in chunks of 128.
+# Tolerance: |y| reaches ~260 there, and an output near 0 is the sum of
+# terms of that size that cancel, so the two packages' f32 summation orders
+# leave up to 1.7e-4 on it (at |y| 0.04; 1.1e-3 at most anywhere, on a
+# large |y|), past TOL's atol of 1e-4.  atol 1e-3 is 4e-6 of the largest
+# |y|; rtol stays TOL's.
+SERVED = {"mamba2": (1, 512, 48, 64, 128, 128),
+          "zamba2": (1, 512, 112, 64, 64, 128)}
+SERVED_TOL = dict(atol=1e-3, rtol=TOL["rtol"])
+
+
+@pytest.mark.parametrize("model", sorted(SERVED))
+def test_ssd_ref_matches_jax_at_the_served_widths(model):
+    """The plain version the card holds the kernel against, at the widths
+    PERF.md times: y and state against the reference's ``ssd_ref``, y
+    against its Pallas kernel in interpret mode."""
+    b, s, h, p, n, chunk = SERVED[model]
+    ins = _inputs(b, s, h, p, n, seed=5)[:5]
+    ty, tst = R.ssd_ref(*_torch(ins), chunk)
+    jy, jst = jax_ssd_ref(*_jax(ins), chunk)
+    ky = jax_ssd_scan(*_jax(ins), chunk, interpret=True)
+    for got, want in ((ty, jy), (tst, jst), (ty, ky)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **SERVED_TOL)
 
 
 def test_ssd_decode_ref_matches_jax_and_the_chunked_scan():
