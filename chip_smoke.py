@@ -15,8 +15,13 @@ width and full depth (48 layers, d_model 1536, 48 heads x 64, state 128,
 vocab 50280) and zamba2-7b at full width cut to 12 layers (two groups of 5
 mamba layers around the shared attention block), bf16, random weights from
 seed 0; every prefill runs each mamba layer through the SSD-scan kernel),
-and the dense target llama3.2-3b at full width and full depth, greedy and
-speculative, every one-token step through flash-decode.
+the dense target llama3.2-3b at full width and full depth, greedy and
+speculative, every one-token step through flash-decode, and
+deepseek-v2-lite-16b (MLA, one leading dense layer, shared experts, 64
+experts top-6) at full width cut to 1 dense + 3 MoE layers (its 26 MoE
+layers' 1664 routed experts would be 28.8 GB on the host, plus pinned
+staging), sd x spmoe with its derived dense MLA draft, through the
+expert-FFN kernels at top-6.
 
 Phases (each raises on failure):
   1. device line; build the CUDA kernels from ``src/repro_torch/csrc``
@@ -71,14 +76,26 @@ Phases (each raises on failure):
      the derived 14-layer draft (one per layer per draft step), 32 new
      tokens each; one warm greedy decode step timed alone and traced; every
      token teacher-forced
+ 12. deepseek-v2-lite-16b (d 2048, 16 MLA heads, latent 512, 64 experts
+     top-6 of width 1408, 2 shared, vocab 102400; 1 dense + 3 MoE layers,
+     bf16, ``attn_impl="kernel"``): the expert FFN against its plain
+     version at top-6 over a 48-slot pool (T 1 / 5 / 64 / 512, bf16 and
+     f32, batch invariance; timed at T 5 and T 512); sd x spmoe with a
+     tight cache (48 slots for 192 experts: misses, waves, evictions) and
+     an ample one (192 slots: <= 2 host syncs per fast block, counters
+     reset after the first request); two 256-token requests two at a time
+     on a cache preloaded with every expert (fused rounds, <= 2 syncs each,
+     one all-hit round equal to the solo blocks bit for bit); no attention
+     kernel launches (MLA is plain tensor ops); every token teacher-forced
 
-Each serving path (3-4, 5, 7, 8, 9 and 11) runs with the kernels' launch
-counts set to 0 just before it and read just after; each kernel of the path
-must have launched there.
+Each serving path (3-4, 5, 7, 8, 9, 11, 12 solo and 12 concurrent) runs with
+the kernels' launch counts set to 0 just before it and read just after;
+each kernel of the path must have launched there.
 
 Prints JSON lines (kernels, decode_timing, flash_timing, ssd_timing,
 kernel_checks, requests, ssm_requests, gelu_requests, dense_requests,
-breakdown, memory), then the card's name and power limit, then ``{"ok":
+deepseek_requests, deepseek_kernel_timing, breakdown, memory), then the
+card's name and power limit, then ``{"ok":
 true, "device": {...}}`` as the last line.  Exits non-zero, printing no
 result, without a CUDA device or without the rest of the repository.
 Imports nothing of JAX.
@@ -177,6 +194,27 @@ GELU_LAYERS, GELU_PROMPT, GELU_NEW = 2, 64, 16
 DENSE_PROMPT, DENSE_NEW, DENSE_MAX_SEQ = 512, 32, 576
 DENSE_MARGIN, DENSE_MIN_EXACT = SSM_MARGIN, SSM_MIN_EXACT
 
+# the deepseek phase: deepseek-v2-lite-16b at full width (d 2048, 16 MLA
+# heads of nope 128 + rope 64 / v 128, latent 512, 64 experts top-6 of width
+# 1408, 2 shared, vocab 102400) cut to 1 dense + 3 MoE layers; pools of 48
+# (tight: 3 x 64 = 192 experts) and 192 slots (ample: every expert).  Its
+# kernel check times the expert FFN at top-6 over the 48-slot pool; the
+# T 512 call routes into all 48 slots (~64 rows a slot).
+DS_LAYERS, DS_TIGHT, DS_AMPLE = 4, 48, 192
+DS_D, DS_F, DS_K = 2048, 1408, 6
+DS_PROMPT, DS_NEW = 64, 32
+DS_CONC_PROMPT, DS_CONC_REQS = 256, 2
+# expert FFN launches on its path; MLA runs no attention kernel
+DS_PATH = ("cache_moe_gate_up", "cache_moe_down")
+# lossless check: the deep stacks' rule (a margin and a minimum exact share)
+# rather than mixtral's margin alone.  Top-6 of 64 routes each token through
+# its 6th and 7th experts at near-equal gate probabilities; the engine (f32
+# expert combine, 5-token blocks) and the resident reference (bf16 combine
+# of 6 terms, one forward) round the gate input differently, so a near-tie
+# may pick the other expert in one of them, which moves that token's logits
+# by more than mixtral's top-2 of 8 tolerates.
+DS_MARGIN, DS_MIN_EXACT = SSM_MARGIN, SSM_MIN_EXACT
+
 
 def log(msg: str):
     print(msg, file=sys.stderr, flush=True)
@@ -262,39 +300,42 @@ def kernel_device_ms(fn, prefix: str, iters: int = 10) -> float:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_phase(dev, d: int, f: int, gelu: bool = False):
+def kernel_phase(dev, d: int, f: int, gelu: bool = False, k: int = K_TOP,
+                 pool: int = S_POOL, prefill_slots: int = 8, seed: int = 0):
     """The expert-FFN stages against their plain versions at T 1 / 5 / 64 /
     512, bf16 and f32, with a batch-invariance check: swiglu experts
     (gate_up, then down), or with ``gelu`` the gelu experts' route (up_gelu,
-    then down)."""
+    then down).  Each token takes ``k`` slots of a ``pool``-slot pool; the
+    T 512 call (a prefill block) routes into its first ``prefill_slots``."""
     import torch
     from repro_torch.kernels import cache_moe as K
     from repro_torch.kernels import ref as R
     stage1 = "cache_moe_up_gelu" if gelu else "cache_moe_gate_up"
     experts = "gelu" if gelu else "swiglu"
-    gen = torch.Generator(dev).manual_seed(4 if gelu else 0)
+    gen = torch.Generator(dev).manual_seed(seed)
     rows, main = [], {}
     for dt_name, dt in (("bfloat16", torch.bfloat16),
                         ("float32", torch.float32)):
         def w(shape, fan):
             return (torch.randn(shape, generator=gen, device=dev)
                     * fan ** -0.5).to(dt)
-        wg = None if gelu else w((S_POOL, d, f), d)
-        wu = w((S_POOL, d, f), d)
-        wd = w((S_POOL, f, d), f)
+        wg = None if gelu else w((pool, d, f), d)
+        wu = w((pool, d, f), d)
+        wd = w((pool, f, d), f)
         outs = {}
         for T in (1, BLOCK_T, 64, CONC_PROMPT):
             x = torch.randn((T, d), generator=gen, device=dev).to(dt)
-            # T = CONC_PROMPT is the target's prefill block on the concurrent
-            # path: its 8 experts all resident, about 128 rows per slot
-            lo_s, hi_s = (0, 8) if T == CONC_PROMPT else (-1, S_POOL)
-            si = torch.randint(lo_s, hi_s, (T, K_TOP), generator=gen,
+            # T = CONC_PROMPT is a target's prefill block: its experts all
+            # resident (mixtral: its 8, about 128 rows per slot)
+            lo_s, hi_s = (0, prefill_slots) if T == CONC_PROMPT \
+                else (-1, pool)
+            si = torch.randint(lo_s, hi_s, (T, k), generator=gen,
                                device=dev).to(torch.int32)
             si[0, 0] = -1                             # a miss
             if T > 1:
                 si[1, 1] = si[1, 0] = max(int(si[1, 0]), 0)   # a repeat
-            wt = torch.rand((T, K_TOP), generator=gen, device=dev).to(dt)
-            g = K.slot_groups(si, S_POOL)
+            wt = torch.rand((T, k), generator=gen, device=dev).to(dt)
+            g = K.slot_groups(si, pool)
             if gelu:
                 h = K.up_gelu(x, g, wu)
                 h_ref = R.slot_up_gelu_ref(x, g.row_tok, wu, g.grp_slot,
@@ -355,8 +396,8 @@ def kernel_phase(dev, d: int, f: int, gelu: bool = False):
 
 
 def time_kernels(m, d: int, f: int, gelu: bool = False):
-    """Kernel, plain and library times of one call (bf16, k=2, pool of 12:
-    the verify block, T=5, or the concurrent path's prefill block, T=512),
+    """Kernel, plain and library times of one call (bf16, the phase's k and
+    pool: the verify block, T=5, or a prefill block, T=512),
     with the bound from this input's touched slots and rows: gate_up and
     down for swiglu experts, up_gelu (its down stage is the same kernel)
     for gelu experts.  ``device_ms`` is the kernel's own time from the
@@ -758,6 +799,11 @@ def read_launches(path: str, kernels=MOE_PATH):
 
 def serve_phase(name, target, draft, cfg, dcfg, slots, prompts, new_tokens,
                 spy: bool):
+    """Serve ``prompts`` one after another (sd x spmoe).  The engine's
+    counters are reset after the first request (``Engine.reset_stats``), so
+    ``info["steady"]`` holds the runtime's counters over the warm requests
+    alone (each request's own metrics are deltas, which the reset leaves
+    as they are)."""
     import torch
     from repro_torch.core.engine import Engine, EngineConfig, Request
     config = EngineConfig(model=cfg, draft=dcfg, decode="sd",
@@ -788,11 +834,21 @@ def serve_phase(name, target, draft, cfg, dcfg, slots, prompts, new_tokens,
                                  f"{res.finish_reason} after "
                                  f"{len(res.tokens)} tokens")
         results.append(res)
+        if i == 0:
+            eng.reset_stats()
+            if any(rt.counters().values()) or eng.metrics().requests:
+                raise AssertionError(f"{name}: counters after reset_stats")
     if not rt.cache.check_invariants():
         raise AssertionError(f"{name}: cache invariants violated")
     info = {"setup_s": setup_s, "pinned_staging_bytes":
             rt.store.pinned_bytes, "fast_syncs": fast_syncs,
             "counters": rt.counters()}
+    c = info["counters"]
+    info["steady"] = {
+        **c, "requests": eng.metrics().requests,
+        "hit_rate": c["hits"] / max(c["lookups"], 1),
+        "host_syncs_per_verify_block":
+            c["host_syncs"] / max(c["verify_blocks"], 1)}
     return eng, results, info
 
 
@@ -878,15 +934,22 @@ def breakdown(eng, draft, dev):
             "layers": rt.store.num_layers, "block_tokens": BLOCK_T}
 
 
-def concurrent_phase(target, draft, cfg, dcfg, prompts):
-    """Phase 5: ``serve_all`` of the 512-token requests, two at a time, on
+def concurrent_phase(target, draft, cfg, dcfg, prompts, slots: int = 32,
+                     new_tokens: int = CONC_NEW, kernels=MOE_PATH,
+                     name: str = "concurrent", preload: bool = False):
+    """Phase 5: ``serve_all`` of the long-prompt requests, two at a time, on
     an ample cache, with every fused round's host syncs recorded; then one
-    all-hit round held to the solo fast blocks on the same snapshot."""
+    all-hit round held to the solo fast blocks on the same snapshot.  The
+    launch counts are set to 0 just before ``serve_all`` and read just
+    after: each of ``kernels`` must have launched.  With ``preload`` every
+    expert is inserted first, layer by layer (a warm ample cache: a first
+    prefill need not route into every expert of a layer, and a decode token
+    that later does would make its round fall back)."""
     import torch
     from repro_torch.core.engine import Engine, EngineConfig, Request
     config = EngineConfig(model=cfg, draft=dcfg, decode="sd",
-                          offload="spmoe", cache_slots=32, draft_len=4,
-                          max_seq=CONC_PROMPT + CONC_NEW + 32)
+                          offload="spmoe", cache_slots=slots, draft_len=4,
+                          max_seq=prompts[0].shape[1] + new_tokens + 32)
     eng = Engine(config, target, draft)
     rt = eng.runtime
     rounds = []
@@ -900,8 +963,13 @@ def concurrent_phase(target, draft, cfg, dcfg, prompts):
                        "fallbacks": rt.fast_fallbacks - f0})
 
     rt._round_fused = spy
-    reqs = [Request(prompt=p, max_new_tokens=CONC_NEW,
-                    request_id=f"concurrent-{i}")
+    if preload:
+        for l in range(rt.store.num_layers):
+            keys = [(l, e) for e in range(rt.store.num_experts)]
+            rt.cache.insert(keys, rt.store.fetch(keys))
+        rt.cache.wait()
+    reqs = [Request(prompt=p, max_new_tokens=new_tokens,
+                    request_id=f"{name}-{i}")
             for i, p in enumerate(prompts)]
     reset_launches()
     r0, l0 = rt.verify_rounds, rt.round_launches
@@ -909,22 +977,22 @@ def concurrent_phase(target, draft, cfg, dcfg, prompts):
     results = eng.serve_all(reqs, concurrency=2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches("concurrent serving")
+    launches = read_launches(f"{name} serving", kernels)
     rt._round_fused = orig
     for i, res in enumerate(results):
-        if len(res.tokens) != CONC_NEW or res.finish_reason != "length":
-            raise AssertionError(f"concurrent: request {i} ended "
+        if len(res.tokens) != new_tokens or res.finish_reason != "length":
+            raise AssertionError(f"{name}: request {i} ended "
                                  f"{res.finish_reason} after "
                                  f"{len(res.tokens)} tokens")
     if not rounds:
-        raise AssertionError("concurrent: no fused round ran")
+        raise AssertionError(f"{name}: no fused round ran")
     for r in rounds:
         if r["fallbacks"] or r["syncs"] > 2:
-            raise AssertionError(f"concurrent: a fused round on the ample "
+            raise AssertionError(f"{name}: a fused round on the ample "
                                  f"cache fell back or synced more than "
                                  f"twice: {r}")
     if not rt.cache.check_invariants():
-        raise AssertionError("concurrent: cache invariants violated")
+        raise AssertionError(f"{name}: cache invariants violated")
     counters = {"verify_rounds": rt.verify_rounds - r0,
                 "round_launches": rt.round_launches - l0,
                 "fused_rounds": len(rounds),
@@ -932,7 +1000,7 @@ def concurrent_phase(target, draft, cfg, dcfg, prompts):
                 "max_syncs_per_fused_round": max(r["syncs"]
                                                  for r in rounds),
                 "wall_s": wall,
-                "tokens_per_s": CONC_REQS * CONC_NEW / wall}
+                "tokens_per_s": len(prompts) * new_tokens / wall}
     # one all-hit round: fused logits == each session's solo fast block
     sts = [rt.start_session(p.to(rt.device), 8) for p in prompts[:2]]
     gen = torch.Generator().manual_seed(9)
@@ -941,8 +1009,10 @@ def concurrent_phase(target, draft, cfg, dcfg, prompts):
         dim=1) for st in sts]
 
     def caches():
-        return [{"layers": [{n: t.clone() for n, t in c.items()}
-                            for c in st.tcache["layers"]]} for st in sts]
+        return [{s: [{n: t.clone() for n, t in c.items()}
+                     for c in st.tcache[s]]
+                 for s in ("dense_layers", "layers") if s in st.tcache}
+                for st in sts]
 
     solo = [rt._verify_fast(b, st.pos, tc, st.history_dev)
             for b, st, tc in zip(blocks, sts, caches())]
@@ -953,11 +1023,11 @@ def concurrent_phase(target, draft, cfg, dcfg, prompts):
     for st in sts:
         rt.finish_session(st)
     if not bool(ok.all()) or not all(bool(o) for _, o, _, _ in solo):
-        raise AssertionError("concurrent: the snapshot round was not all-hit")
+        raise AssertionError(f"{name}: the snapshot round was not all-hit")
     for j, (lg, _, _, _) in enumerate(solo):
         if not torch.equal(logits[j], lg):
             diff = (logits[j].float() - lg.float()).abs().max().item()
-            raise AssertionError(f"concurrent: session {j}'s fused logits "
+            raise AssertionError(f"{name}: session {j}'s fused logits "
                                  f"differ from its solo fast block (max "
                                  f"{diff})")
     counters["fused_equals_solo_bitwise"] = True
@@ -1319,6 +1389,122 @@ def dense_phase(dev):
     return info
 
 
+def deepseek_phase(dev):
+    """deepseek-v2-lite-16b at full width, 1 dense + 3 MoE layers, bf16,
+    ``attn_impl="kernel"`` (MLA takes no attention kernel under it), target
+    seed 0 with its routed experts on the host, the derived dense MLA draft
+    (4 layers, d_ff 10944) seed 1: the expert FFN against its plain version
+    at top-6 over a 48-slot pool; sd x spmoe with a tight cache (48 slots,
+    two 64-token requests, 32 new tokens each: misses, waves, evictions) and
+    an ample one (192 slots: <= 2 host syncs per fast block; the counters
+    reset after the first request), the launch counts set to 0 just before
+    and read just after; then two 256-token requests two at a time on a
+    cache preloaded with every expert (fused rounds, <= 2 syncs each, one
+    all-hit round equal to the solo blocks bit for bit); then every token
+    teacher-forced through the resident experts."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import derive_draft_config
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              num_layers=DS_LAYERS, attn_impl="kernel")
+    dcfg = derive_draft_config(cfg)
+    if (cfg.d_model, cfg.moe_d_ff, cfg.num_experts_per_tok) != \
+            (DS_D, DS_F, DS_K):
+        raise AssertionError(f"deepseek widths: {cfg}")
+    rows, timing = kernel_phase(dev, DS_D, DS_F, k=DS_K, pool=DS_TIGHT,
+                                prefill_slots=DS_TIGHT, seed=10)
+    log(f"[12] deepseek expert FFN matches its plain version ({len(rows)} "
+        f"checks): {[timing[T]['timing'] for T in timing]}")
+    t0 = time.perf_counter()
+    target = build_model(cfg, dev, seed=0, expert_device="cpu")
+    draft = build_model(dcfg, dev, seed=1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = [torch.randint(0, cfg.vocab_size, (1, DS_PROMPT),
+                             generator=torch.Generator().manual_seed(70 + i))
+               for i in range(4)]
+    reset_launches()
+    eng, tight, tight_info = serve_phase("ds-tight", target, draft, cfg,
+                                         dcfg, DS_TIGHT, prompts[:2], DS_NEW,
+                                         spy=False)
+    tight_tot = check_tight(tight)
+    log(f"[12] deepseek tight cache ok: {tight_tot}")
+    eng.close()
+    del eng
+    gc.collect()
+    eng, ample, ample_info = serve_phase("ds-ample", target, draft, cfg,
+                                         dcfg, DS_AMPLE, prompts[2:], DS_NEW,
+                                         spy=True)
+    solo_launches = read_launches("deepseek solo serving", DS_PATH)
+    ample_tot = check_ample(ample, ample_info)
+    log(f"[12] deepseek ample cache ok: {ample_tot}; steady "
+        f"{ample_info['steady']}; launches {solo_launches}")
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    conc_prompts = [torch.randint(0, cfg.vocab_size, (1, DS_CONC_PROMPT),
+                                  generator=torch.Generator().manual_seed(
+                                      80 + i))
+                    for i in range(DS_CONC_REQS)]
+    conc, conc_info, launches = concurrent_phase(
+        target, draft, cfg, dcfg, conc_prompts, slots=DS_AMPLE,
+        new_tokens=DS_NEW, kernels=DS_PATH, name="ds-concurrent",
+        preload=True)
+    log(f"[12] deepseek concurrent serving ok: {conc_info}; "
+        f"launches {launches}")
+    for path, got in (("solo", solo_launches), ("concurrent", launches)):
+        if got["flash_attention"] or got["decode_attention"]:
+            raise AssertionError(f"deepseek {path}: MLA took an attention "
+                                 f"kernel: {got}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for blk in target.layers:            # the experts resident on the card
+        for n in ("wg", "wu", "wd"):
+            w = getattr(blk.moe, n)
+            setattr(blk.moe, n, torch.nn.Parameter(w.to(dev),
+                                                   requires_grad=False))
+    results = tight + ample + conc
+    loss = lossless_phase(target, [(p, r.tokens) for p, r in
+                                   zip(prompts + conc_prompts, results)],
+                          dev, margin=DS_MARGIN)
+    n_tok = sum(len(r.tokens) for r in results)
+    if loss["exact"] < DS_MIN_EXACT * n_tok:
+        raise AssertionError(f"deepseek: only {loss['exact']} of {n_tok} "
+                             f"tokens are the teacher-forced argmax")
+    info = {
+        "model": cfg.name, "layers": {"dense": cfg.first_dense_layers,
+                                      "moe": cfg.num_moe_layers},
+        "draft_layers": dcfg.num_layers, "draft_d_ff": dcfg.d_ff,
+        "params_resident": sum(t.numel() for n, t in target.named_parameters()
+                               if not n.endswith(("moe.wg", "moe.wu",
+                                                  "moe.wd"))),
+        "params_routed_experts": sum(
+            getattr(b.moe, n).numel() for b in target.layers
+            for n in ("wg", "wu", "wd")),
+        "draft_params": sum(t.numel() for t in draft.parameters()),
+        "model_init_s": init_s,
+        "requests": [{"id": r.request_id, "tokens": len(r.tokens),
+                      "tpot_wall_s": r.metrics.tpot_wall,
+                      "hit_rate": r.metrics.hit_rate,
+                      **{k: r.metrics[k] for k in (
+                          "verify_blocks", "fast_blocks", "fast_fallbacks",
+                          "host_syncs", "on_demand_loads", "prefetched",
+                          "evictions")}} for r in results],
+        "tight": {**tight_tot, "slots": DS_TIGHT,
+                  "pinned_staging_bytes": tight_info["pinned_staging_bytes"]},
+        "ample": {**ample_tot, "slots": DS_AMPLE,
+                  "steady_after_reset": ample_info["steady"]},
+        "concurrent": conc_info, "launches_solo_path": solo_launches,
+        "launches_concurrent_path": launches, "lossless": loss,
+        "min_exact": DS_MIN_EXACT}
+    del target, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info, rows, timing
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1349,7 +1535,7 @@ def main() -> int:
                                num_layers=4, attn_impl="kernel")
     rows, main_k = kernel_phase(dev, cfg.d_model, cfg.moe_d_ff)
     gelu_rows, gelu_k = kernel_phase(dev, cfg.d_model, cfg.moe_d_ff,
-                                     gelu=True)
+                                     gelu=True, seed=4)
     fa_rows, fa_timing = flash_phase(dev)
     dec_rows, dec_timing = decode_phase(dev)
     ssd_rows, ssd_timing = ssd_phase(dev)
@@ -1439,6 +1625,11 @@ def main() -> int:
     dense_info = dense_phase(dev)
     log(f"[11] llama3.2-3b serving ok: {dense_info}")
 
+    # phase 12: deepseek-v2-lite-16b (MLA, a dense layer, shared experts)
+    ds_info, ds_rows, ds_k = deepseek_phase(dev)
+    rows += ds_rows
+    log(f"[12] deepseek-v2-lite-16b serving ok: {ds_info}")
+
     kernels = []
     # the expert FFN at the verify block (T 5) and, one row more per stage,
     # at the concurrent path's 512-token prefill block
@@ -1507,6 +1698,23 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
             "library_device_ms": t["library_device_ms"]})
+    # the expert FFN at deepseek's widths and top-6 (48-slot pool)
+    for T, suffix in ((BLOCK_T, ""), (CONC_PROMPT, f"_t{CONC_PROMPT}")):
+        for name, line in (("cache_moe_gate_up", 28), ("cache_moe_down", 47)):
+            t = ds_k[T]["timing"][name]
+            kernels.append({
+                "name": f"{name}_deepseek{suffix}", "route": "cuda",
+                "source": "src/repro_torch/csrc/cache_moe.cu",
+                "replaces": f"src/repro/kernels/moe_gemm.py:{line}",
+                "launches": ds_info["launches_concurrent_path"][name],
+                "launches_solo_path": ds_info["launches_solo_path"][name],
+                "T": T, "k": DS_K, "pool": DS_TIGHT,
+                "max_abs_err": ds_k[T]["err"][name],
+                "ms": t["ms"], "kernel_ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"decode_timing": dec_timing}))
     print(json.dumps({"flash_timing": {
@@ -1534,12 +1742,18 @@ def main() -> int:
                                       "on_demand_loads", "prefetched",
                                       "evictions")}}
         for r in tight + ample + conc],
-        "tight": tight_tot, "ample": ample_tot, "concurrent": conc_info,
-        "lossless": loss}))
+        "tight": tight_tot, "ample": ample_tot,
+        "ample_steady_after_reset": ample_info["steady"],
+        "concurrent": conc_info, "lossless": loss}))
     print(json.dumps({"ssm_requests": mamba_reqs + zamba_reqs,
                       "mamba2": mamba_info, "zamba2": zamba_info}))
     print(json.dumps({"gelu_requests": gelu_info}))
     print(json.dumps({"dense_requests": dense_info}))
+    print(json.dumps({"deepseek_requests": ds_info}))
+    print(json.dumps({"deepseek_kernel_timing": {
+        "shape": {"d": DS_D, "f": DS_F, "k": DS_K, "pool": DS_TIGHT,
+                  "dtype": "bfloat16"},
+        **{f"T{T}": ds_k[T]["timing"] for T in (BLOCK_T, CONC_PROMPT)}}}))
     print(json.dumps({"breakdown": brk}))
     print(json.dumps({"memory": {
         "device_max_allocated_bytes": torch.cuda.max_memory_allocated(),

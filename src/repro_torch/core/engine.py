@@ -558,6 +558,13 @@ class Engine:
         """Cumulative Metrics across every request this engine served."""
         return dataclasses.replace(self._cum)
 
+    def reset_stats(self):
+        """Zero the cumulative counters (engine + cache + prefetcher) so a
+        warmed engine reports clean steady-state numbers."""
+        self._cum = Metrics(cutoff_layer=self.cutoff_layer)
+        if self.runtime is not None:
+            self.runtime.reset_stats()
+
     def close(self):
         if not self._closed and self.runtime is not None:
             self.runtime.close()

@@ -34,8 +34,11 @@ Verification paths (both run the slot-indexed kernel ``ops.cache_moe``):
   by the same kernel with that wave's slots unmasked.  A block with zero
   misses re-arms the fast path.
 
-Expert weights are never read from the target model on the hot path: both
-paths read them only from the ExpertCache slot pool.
+Both paths run the target's leading dense layers first (``dense_stack``) and
+add each MoE layer's shared experts to its routed sum, per session at the
+solo block's shapes.  Routed expert weights are never read
+from the target model on the hot path: both paths read them only from the
+ExpertCache slot pool.
 
 Host-sync accounting: every blocking device->host readback on the decode
 path goes through ``_readback`` (tests spy on it) and is counted in
@@ -63,6 +66,7 @@ from repro_torch.core.offload import HostExpertStore
 from repro_torch.core.predictor import ExpertPredictor
 from repro_torch.core.prefetcher import Prefetcher
 from repro_torch.kernels import ops
+from repro_torch.models.layers import ffn_forward
 from repro_torch.models.moe import gate_topk
 
 POLICIES = ("spmoe", "adapmoe", "moe-infinity", "on-demand")
@@ -220,9 +224,10 @@ class OffloadEngine:
         verify block ``tokens[i]`` ([1, T_i], ragged) at once, speculating
         that every routed expert is cache-resident.
 
-        Attention, the gate and the head run per session, at the shapes of
-        the solo ``_verify_fast`` (a product over more rows may sum each row
-        in another order).  What is fused is the one batch-invariant step:
+        The dense layers, attention, the gate, the shared experts and the
+        head run per session, at the shapes of the solo ``_verify_fast`` (a
+        product over more rows may sum each row in another order).  What is
+        fused is the one batch-invariant step:
         per MoE layer, ONE ``ops.cache_moe`` call over the concatenated
         [ΣT_i, d] rows.  So on one cache snapshot each session's logits are
         bit-identical to its solo fast block.
@@ -243,7 +248,8 @@ class OffloadEngine:
                  for _ in range(n)]
         acts: List[List[torch.Tensor]] = [[] for _ in range(n)]
         with self.cache.reading() as (bufs, table):
-            xs = [tgt.embed(t) for t in tokens]
+            xs = [tgt.dense_stack(tgt.embed(t), tc, p)
+                  for t, tc, p in zip(tokens, tcaches, pos)]
             for l in range(self.store.num_layers):
                 h2s, slots, ws = [], [], []
                 for i in range(n):
@@ -253,7 +259,7 @@ class OffloadEngine:
                     slot_ids = table[l][ids]               # [T_i, k]; -1 = miss
                     hit = slot_ids >= 0
                     oks[i] = oks[i] & torch.all(hit)
-                    h2s.append(h2.reshape(Ts[i], cfg.d_model))
+                    h2s.append(h2)
                     slots.append(slot_ids)
                     ws.append(torch.where(hit, w, torch.zeros_like(w)))
                     flat = ids.reshape(-1)
@@ -262,16 +268,28 @@ class OffloadEngine:
                         0, flat, torch.ones_like(flat, dtype=torch.int32)) > 0
                     nacts[i] = nacts[i] + activated.sum().float()
                     acts[i].append(activated)
-                y = self._moe_apply(bufs, _cat(h2s), _cat(slots),
-                                    _cat(ws))              # ONE launch
+                y = self._moe_apply(
+                    bufs, _cat([h.reshape(T, cfg.d_model)
+                                for h, T in zip(h2s, Ts)]),
+                    _cat(slots), _cat(ws))                 # ONE launch
                 for i in range(n):
-                    xs[i] = xs[i] + y[offs[i]:offs[i + 1]].reshape(
-                        1, Ts[i], cfg.d_model)
+                    xs[i] = self._add_moe_out(
+                        l, xs[i], h2s[i],
+                        y[offs[i]:offs[i + 1]].reshape(1, Ts[i], cfg.d_model))
             logits = [tgt.logits(x) for x in xs]
         new_hists = [h + torch.stack(a).to(h.dtype)
                      for h, a in zip(histories, acts)]
         return (logits, _cat([o.reshape(1) for o in oks]), new_hists,
                 _cat([a.reshape(1) for a in nacts]))
+
+    def _add_moe_out(self, l: int, x: torch.Tensor, h2: torch.Tensor,
+                     y: torch.Tensor) -> torch.Tensor:
+        """x + (routed sum y + the shared experts on h2): MoE layer ``l``'s
+        residual add, in the reference's order."""
+        if self.cfg.num_shared_experts:
+            y = y + ffn_forward(self.target.layers[l].moe.shared, h2,
+                                "swiglu")
+        return x + y
 
     # ------------------------------------------------------------- verification
     def _ensure_loaded(self, layer: int, ids: np.ndarray
@@ -356,7 +374,7 @@ class OffloadEngine:
         whole block resolved from cache."""
         st = self._st
         cfg, tgt, dev = self.cfg, self.target, self.device
-        x = tgt.embed(tokens)
+        x = tgt.dense_stack(tgt.embed(tokens), tcache, pos)
         T = tokens.shape[1]
         total_misses = 0
         for l in range(self.store.num_layers):
@@ -398,7 +416,7 @@ class OffloadEngine:
                         y = y + self._moe_apply(
                             bufs, xf, host_to_device(wave_lut[ids_np], dev),
                             w)
-            x = x + y.reshape(1, T, cfg.d_model)
+            x = self._add_moe_out(l, x, h2, y.reshape(1, T, cfg.d_model))
         if self.policy != "adapmoe":
             if total_misses == 0:
                 if st.fast_penalty > 0:
@@ -742,10 +760,24 @@ class OffloadEngine:
             "io_errors": self.io_errors,
         }
 
+    def reset_stats(self):
+        """Zero the cumulative counters (engine + cache + prefetcher) so a
+        warmed engine can report clean steady-state numbers."""
+        self.layer_hits = self.layer_lookups = 0
+        self.on_demand_loads = self.host_syncs = 0
+        self.verify_blocks = self.fast_blocks = self.fast_fallbacks = 0
+        self.iterations = self.drafted = self.accepted = 0
+        self.verify_rounds = self.round_launches = 0
+        self.degraded_rounds = self.io_errors = 0
+        self.store.checksum_failures = 0
+        self.cache.reset_stats()
+        self.prefetcher.reset_stats()
+
     def _draft_taps_for_moe(self, taps: Dict[str, torch.Tensor]
                             ) -> torch.Tensor:
-        """Draft layer l's tap predicts target MoE layer l (Table 1 pairs
-        share num_layers)."""
+        """Draft layer l + first_dense_layers predicts target MoE layer l
+        (Table 1 pairs share num_layers; a draft without the target's
+        leading dense layers maps layer to layer)."""
         stack = taps["layers"]
         n = self.store.num_layers
         off = self.cfg.first_dense_layers

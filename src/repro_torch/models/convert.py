@@ -2,8 +2,9 @@
 as from ``jax.tree.map(np.asarray, params)``) into the port's modules.
 
 The reference stacks layers of one structure along leading axes, which are
-unstacked here: ``layers`` and ``tail`` are ``[L, ...]`` and become
-``layers.<l>.<path>`` and ``tail.<t>.<path>``; a hybrid model's
+unstacked here: ``layers``, ``dense_layers`` and ``tail`` are ``[L, ...]``
+and become ``layers.<l>.<path>``, ``dense_layers.<l>.<path>`` and
+``tail.<t>.<path>``; a hybrid model's
 ``mamba_groups`` is ``[G, per, ...]`` and becomes
 ``mamba_groups.<g>.<i>.<path>``.  Any other subtree
 (``shared_attn``, one block whose weights every group reuses) keeps its
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 # top-level subtree -> number of stacked leading axes
-STACKED = {"layers": 1, "tail": 1, "mamba_groups": 2}
+STACKED = {"layers": 1, "dense_layers": 1, "tail": 1, "mamba_groups": 2}
 
 
 def _tensor(a: Any) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Core layers: RMSNorm, RoPE, GQA attention (+ KV cache with sliding-window
-ring), FFN variants.  The port of ``repro/models/layers.py`` (MLA waits).
+ring), MLA attention (compressed latent cache, absorbed decode), FFN
+variants.  The port of ``repro/models/layers.py``.
 
 Functions take their weights as attributes of a module (``p.wq``) in the
 reference's layouts (``wq [d, H, hd]``, ``wo [H, hd, d]``, ``wg [d, f]``) and
@@ -7,7 +8,10 @@ compute in the input's dtype; reductions (softmax, norms) run in f32, as the
 reference does.  Attention is plain tensor ops, as the reference's ``mha`` is
 plain jnp, except under ``attn_impl="kernel"``: there full-sequence attention
 runs the flash-attention kernel and a one-token decode step over a plain
-prefix the flash-decode kernel (``kernels/ops.py``).
+prefix the flash-decode kernel (``kernels/ops.py``).  MLA is plain tensor
+ops under every ``attn_impl``, as in the reference: its q/k heads (nope +
+rope) are wider than its v heads, and its decode attends in the latent
+space, so neither attention kernel computes it.
 """
 from __future__ import annotations
 
@@ -225,6 +229,94 @@ def attention_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
             valid &= pos_map[None, :] > qpos[:, None] - cfg.sliding_window
         out = mha(q, ck, cv, valid[None, None, None], cfg.attn_logit_softcap)
     out = torch.einsum("bshk,hkd->bsd", out, p.wo)
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (deepseek-v2): compressed KV cache + absorbed decode
+# ---------------------------------------------------------------------------
+
+def mla_forward(p, x: torch.Tensor, cfg: ModelConfig,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence MLA (train / prefill), x: [B,S,D]: expand the latent
+    into per-head keys and values and run ``mha`` under the causal mask
+    (scale 1/sqrt(nope + rope)).  Weights: ``wq [d, H, nope + rope]``,
+    ``wdkv [d, r]``, ``wkr [d, rope]``, ``wuk [r, H, nope]``,
+    ``wuv [r, H, v]``, ``wo [H, v, d]``."""
+    B, S, _ = x.shape
+    nope, H = cfg.head_dim, cfg.num_heads
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = torch.einsum("bsd,dr->bsr", x, p.wdkv)                # latent
+    k_rope = apply_rope(torch.einsum("bsd,dk->bsk", x, p.wkr)[:, :, None, :],
+                        positions, cfg.rope_theta)               # [B,S,1,rd]
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p.wuk)
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p.wuv)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, cfg.rope_head_dim)], -1)
+    qf = torch.cat([q_nope, q_rope], -1)
+    out = mha(qf, k, v, causal_mask(S, S, device=x.device))
+    return torch.einsum("bshk,hkd->bsd", out, p.wo)
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                   dtype: torch.dtype, device: torch.device
+                   ) -> Dict[str, torch.Tensor]:
+    """MLA cache ``{"c_kv": [B, S, r], "k_rope": [B, S, rope], "pos_map":
+    [S] int32}`` (-1 = empty slot); slot = position, no ring."""
+    return {"c_kv": torch.zeros((batch, max_seq, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_seq, cfg.rope_head_dim),
+                                  dtype=dtype, device=device),
+            "pos_map": torch.full((max_seq,), -1, dtype=torch.int32,
+                                  device=device)}
+
+
+def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
+               cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Absorbed-matmul MLA decode of a block of Sq >= 1 tokens at positions
+    pos..pos+Sq-1: W_uk is absorbed into the query and W_uv into the
+    context, so attention runs in the latent space (scores ``q_lat c_kv^T +
+    q_rope k_rope^T`` over sqrt(nope + rope), the full-sequence path's
+    scale) and the cache stays compressed.  Validity comes from the cache's
+    pos_map.
+
+    The cache is updated IN PLACE (and returned), as ``attention_decode``
+    does.  A block that runs past the cache's end raises: the reference's
+    ``dynamic_update_slice`` would clamp it onto earlier slots."""
+    B, Sq, _ = x.shape
+    nope, rd = cfg.head_dim, cfg.rope_head_dim
+    S = cache["c_kv"].shape[1]
+    if pos < 0 or pos + Sq > S:
+        raise ValueError(f"MLA decode block at positions [{pos}, {pos + Sq})"
+                         f" does not fit a cache of {S} slots")
+    qpos = pos + torch.arange(Sq, dtype=torch.int32, device=x.device)
+    pp = qpos[None, :].expand(B, Sq)
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)           # [B,Sq,H,nope+rd]
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, pp, cfg.rope_theta)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p.wuk)   # absorb W_uk
+    c_new = torch.einsum("bsd,dr->bsr", x, p.wdkv)
+    kr_new = apply_rope(torch.einsum("bsd,dk->bsk", x, p.wkr)[:, :, None, :],
+                        pp, cfg.rope_theta)[:, :, 0, :]
+    c_kv, k_rope, pos_map = cache["c_kv"], cache["k_rope"], cache["pos_map"]
+    c_kv[:, pos:pos + Sq] = c_new
+    k_rope[:, pos:pos + Sq] = kr_new
+    pos_map[pos:pos + Sq] = qpos
+    scores = (torch.einsum("bshr,btr->bhst", q_lat, c_kv) +
+              torch.einsum("bshk,btk->bhst", q_rope, k_rope)).float()
+    scores = scores / math.sqrt(nope + rd)
+    valid = (pos_map[None, :] <= qpos[:, None]) & (pos_map[None, :] >= 0)
+    scores = torch.where(valid[None, None], scores,
+                         torch.full((), -1e30, dtype=torch.float32,
+                                    device=x.device))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_kv)     # latent context
+    ctx = torch.einsum("bshr,rhk->bshk", ctx_lat, p.wuv)      # absorb W_uv
+    out = torch.einsum("bshk,hkd->bsd", ctx, p.wo)
     return out, cache
 
 

@@ -2,7 +2,9 @@
 ``repro/models/moe.py`` (``moe_grouped``, the training path, waits).
 
 Expert weights are ``[E, d, f]`` / ``[E, f, d]``; the gate is ``[d, E]`` in
-f32.
+f32.  Shared experts (deepseek) are one swiglu FFN ``p.shared`` of width
+``num_shared_experts * moe_d_ff`` that every token runs, added to the routed
+sum.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import ffn_forward
 
 
 def gate_topk(gate_w: torch.Tensor, x: torch.Tensor, k: int
@@ -72,9 +75,10 @@ def moe_global(p, x: torch.Tensor, cfg: ModelConfig
         lo = hi
     y = torch.zeros((T, d), dtype=ys.dtype, device=x.device).index_add_(
         0, tok, ys * weights.reshape(-1)[order][:, None])
+    y = y.reshape(B, S, d)
     if cfg.num_shared_experts:
-        raise NotImplementedError("shared experts are not ported yet")
-    return y.reshape(B, S, d).to(x.dtype), aux
+        y = y + ffn_forward(p.shared, x, "swiglu")
+    return y.to(x.dtype), aux
 
 
 def moe_ref(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -91,5 +95,8 @@ def moe_ref(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         wsel = torch.sum(torch.where(idf == e, wf, torch.zeros_like(wf)),
                          dim=1)
         out = out + ye * wsel[:, None]
-    return out.reshape(B, S, d).to(x.dtype)
+    y = out.reshape(B, S, d)
+    if cfg.num_shared_experts:
+        y = y + ffn_forward(p.shared, x, "swiglu")
+    return y.to(x.dtype)
 

@@ -1,16 +1,21 @@
 """Decoder-only LM for the dense, moe, ssm and hybrid families (the port of
-``repro/models/transformer.py``; MLA and leading dense layers wait).
+``repro/models/transformer.py``).
 
 The model is an ``nn.Module`` that owns its weights.  Parameter names follow
 the reference's param-tree paths with the stacked layer axes unstacked:
 ``wte``, ``head``, ``ln_f``, ``layers.<l>.ln1``, ``layers.<l>.attn.wq``,
-``layers.<l>.moe.gate``, ``layers.<l>.moe.wg``, ``layers.<l>.ffn.wg``,
+``layers.<l>.moe.gate``, ``layers.<l>.moe.wg``, ``layers.<l>.moe.shared.wg``,
+``layers.<l>.ffn.wg``, ``dense_layers.<l>.ffn.wg``,
 ``layers.<l>.mamba.in_proj`` ... (``models/convert.py`` loads a reference
-param tree into them).
+param tree into them).  With ``use_mla`` every block's ``attn`` is
+multi-head latent attention (``wq, wdkv, wkr, wuk, wuv, wo``).
 
 Layouts (the reference's ``_stacks``):
 
-* dense / moe / ssm: ``layers`` in order (every block ``mamba`` for ssm);
+* dense / ssm: ``layers`` in order (every block ``mamba`` for ssm);
+* moe: ``first_dense_layers`` dense-FFN blocks (``dense_layers.<l>``), then
+  the MoE blocks (``layers.<l>``): ``layers[l]`` is always the l-th MoE
+  layer, the one the offload runtime's host store and predictor index;
 * hybrid (zamba2-style): G = num_layers // attn_every groups, each
   ``attn_every - 1`` mamba blocks (``mamba_groups.<g>.<i>``) and then the
   one ``shared_attn`` block, whose weights every group reuses with a KV
@@ -23,14 +28,15 @@ Three modes share one block function:
 * ``prefill``      full sequence, fills the KV caches
 * ``decode_step``  a block of Sq >= 1 tokens against the caches; optionally
                    returns each layer's gate input (the SP-MoE predictor's
-                   taps)
+                   taps), per stack
 
-Caches mirror the layout: per-block caches listed under ``layers``, or
-under ``mamba_groups`` [G][per], ``shared_attn`` [G] and ``tail`` for a
-hybrid.  An attention block's is ``{"k", "v", "pos_map"}``, a mamba block's
-``{"ssm", "conv"}``.  They are updated in place.  The top-level dict also
-holds ``written``, a host int: positions [0, written) have all been written.
-A decode step that starts past it leaves positions no block wrote (a draft
+Caches mirror the layout: per-block caches listed under ``dense_layers`` and
+``layers``, or under ``mamba_groups`` [G][per], ``shared_attn`` [G] and
+``tail`` for a hybrid.  An attention block's is ``{"k", "v", "pos_map"}``
+(MLA: ``{"c_kv", "k_rope", "pos_map"}``), a mamba block's ``{"ssm",
+"conv"}``.  They are updated in place.  The top-level dict also holds
+``written``, a host int: positions [0, written) have all been written.  A
+decode step that starts past it leaves positions no block wrote (a draft
 whose last token was accepted without being fed), and from then on its
 one-token steps take the masked attention route (``attention_decode``).
 """
@@ -61,6 +67,25 @@ class Attention(nn.Module):
         self.wo = L.param(L.dense_init(gen, (H, hd, d), dtype, device))
 
 
+class MLA(nn.Module):
+    """Multi-head latent attention (deepseek-v2, no q compression): ``wq
+    [d, H, nope + rope]``, ``wdkv [d, r]``, ``wkr [d, rope]``, ``wuk [r, H,
+    nope]``, ``wuv [r, H, v]``, ``wo [H, v, d]`` (the reference's
+    ``init_mla``)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, gen):
+        super().__init__()
+        d, H = cfg.d_model, cfg.num_heads
+        nope, rd, vd, r = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim, \
+            cfg.kv_lora_rank
+        self.wq = L.param(L.dense_init(gen, (d, H, nope + rd), dtype, device))
+        self.wdkv = L.param(L.dense_init(gen, (d, r), dtype, device))
+        self.wkr = L.param(L.dense_init(gen, (d, rd), dtype, device))
+        self.wuk = L.param(L.dense_init(gen, (r, H, nope), dtype, device))
+        self.wuv = L.param(L.dense_init(gen, (r, H, vd), dtype, device))
+        self.wo = L.param(L.dense_init(gen, (H, vd, d), dtype, device))
+
+
 class FFN(nn.Module):
     def __init__(self, d: int, f: int, activation: str, dtype, device, gen):
         super().__init__()
@@ -71,18 +96,18 @@ class FFN(nn.Module):
 
 
 class MoE(nn.Module):
-    """Gate ``[d, E]`` (f32, on the compute device) and the routed experts
-    ``wg/wu [E, d, f]``, ``wd [E, f, d]``.  The experts are drawn on the
-    compute device one at a time, with the fan-in of one expert (the
-    reference draws the stacked ``[E, ...]`` tensor, whose first axis it
-    takes as the fan-in), and then moved to ``expert_device`` (the host, for
-    a model whose experts the offload runtime serves from its cache)."""
+    """Gate ``[d, E]`` (f32, on the compute device), the routed experts
+    ``wg/wu [E, d, f]``, ``wd [E, f, d]`` and, with shared experts, one
+    swiglu FFN ``shared`` of width ``num_shared_experts * f`` on the compute
+    device.  The routed experts are drawn on the compute device one at a
+    time, with the fan-in of one expert (the reference draws the stacked
+    ``[E, ...]`` tensor, whose first axis it takes as the fan-in), and then
+    moved to ``expert_device`` (the host, for a model whose experts the
+    offload runtime serves from its cache)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device, gen, expert_device):
         super().__init__()
         d, E, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
-        if cfg.num_shared_experts:
-            raise NotImplementedError("shared experts are not ported yet")
         self.gate = L.param(L.dense_init(gen, (d, E), torch.float32,
                                          device))
         names = ("wg", "wu", "wd") if cfg.ffn_activation == "swiglu" \
@@ -92,6 +117,9 @@ class MoE(nn.Module):
             w = torch.stack([L.dense_init(gen, shape[1:], dtype, device)
                              for _ in range(E)]).to(expert_device)
             setattr(self, n, L.param(w))
+        if cfg.num_shared_experts:
+            self.shared = FFN(d, cfg.num_shared_experts * f, "swiglu", dtype,
+                              device, gen)
 
 
 class Block(nn.Module):
@@ -106,7 +134,8 @@ class Block(nn.Module):
             return
         self.ln2 = L.param(torch.ones(cfg.d_model, dtype=dtype,
                                       device=device))
-        self.attn = Attention(cfg, dtype, device, gen)
+        self.attn = MLA(cfg, dtype, device, gen) if cfg.use_mla \
+            else Attention(cfg, dtype, device, gen)
         if kind == "moe":
             self.moe = MoE(cfg, dtype, device, gen, expert_device)
         else:
@@ -115,9 +144,9 @@ class Block(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """Families: dense, moe (mixtral-style: every layer MoE), ssm (every
-    layer mamba) and hybrid (mamba groups around one shared attention
-    block).
+    """Families: dense, moe (leading dense-FFN layers, then MoE layers),
+    ssm (every layer mamba) and hybrid (mamba groups around one shared
+    attention block); GQA or MLA attention.
 
     ``device`` defaults to the card and raises without one (pass
     ``device="cpu"`` to run on the CPU).  Weights are drawn from
@@ -129,11 +158,10 @@ class DecoderLM(nn.Module):
                  seed: int = 0, generator: Optional[torch.Generator] = None,
                  expert_device: DeviceLike = None):
         super().__init__()
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
-                or cfg.use_mla or cfg.first_dense_layers:
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
-                f"{cfg.name}: only dense, mixtral-style moe, ssm and hybrid "
-                f"models are ported yet")
+                f"{cfg.name}: only dense, moe, ssm and hybrid models are "
+                f"ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
@@ -160,9 +188,11 @@ class DecoderLM(nn.Module):
             self.shared_attn = Block("dense", cfg, dt, dev, gen,
                                      expert_device)
             self.tail = blocks("mamba", tail)
+        elif cfg.is_moe:
+            self.dense_layers = blocks("dense", cfg.first_dense_layers)
+            self.layers = blocks("moe", cfg.num_moe_layers)
         else:
-            kind = "mamba" if cfg.family == "ssm" else \
-                "moe" if cfg.is_moe else "dense"
+            kind = "mamba" if cfg.family == "ssm" else "dense"
             self.layers = blocks(kind, cfg.num_layers)
 
     def hybrid_layout(self) -> Tuple[int, int, int]:
@@ -182,21 +212,38 @@ class DecoderLM(nn.Module):
             return torch.einsum("bsd,vd->bsv", xf, self.wte)
         return torch.einsum("bsd,dv->bsv", xf, self.head)
 
+    def _attn_decode(self, blk: "Block", h: torch.Tensor, cache_l: Dict,
+                     pos: int, contiguous: bool) -> torch.Tensor:
+        if self.cfg.use_mla:
+            return L.mla_decode(blk.attn, h, cache_l, pos, self.cfg)[0]
+        return L.attention_decode(blk.attn, h, cache_l, pos, self.cfg,
+                                  contiguous=contiguous)[0]
+
     def attn_half(self, l: int, x: torch.Tensor, cache_l: Dict, pos: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Decode-mode attention half of layer ``l``: -> (x + attn, h2 =
+        """Decode-mode attention half of MoE layer ``l``: -> (x + attn, h2 =
         the FFN / gate input).  Writes the layer's KV cache in place."""
         blk = self.layers[l]
         h = L.rms_norm(x, blk.ln1, self.cfg.norm_eps)
         # the offload runtime's target blocks cover every position in turn
-        a, _ = L.attention_decode(blk.attn, h, cache_l, pos, self.cfg,
-                                  contiguous=True)
-        x = x + a
+        x = x + self._attn_decode(blk, h, cache_l, pos, contiguous=True)
         return x, L.rms_norm(x, blk.ln2, self.cfg.norm_eps)
+
+    def dense_stack(self, x: torch.Tensor, cache: Cache, pos: int
+                    ) -> torch.Tensor:
+        """The leading dense-FFN layers in decode mode over ``cache``'s
+        ``dense_layers`` (the offload runtime's target blocks, before its MoE
+        layers; x unchanged without them)."""
+        if not self.cfg.first_dense_layers:
+            return x
+        for blk, cl in zip(self.dense_layers, cache["dense_layers"]):
+            x = self._block(blk, x, "decode", cl, pos, contiguous=True)[0]
+        return x
 
     def drop_experts(self):
         """Free the routed expert tensors (an offload runtime serves them
-        from its own host store); the parameter names stay."""
+        from its own host store); the parameter names stay, and so do the
+        dense FFNs and the shared experts."""
         for blk in self.layers:
             if blk.kind == "moe":
                 for n in ("wg", "wu", "wd"):
@@ -208,6 +255,8 @@ class DecoderLM(nn.Module):
         cfg, dt, dev = self.cfg, self.dtype, self.device
 
         def kv():
+            if cfg.use_mla:
+                return L.init_mla_cache(cfg, batch, max_seq, dt, dev)
             return L.init_kv_cache(cfg, batch, max_seq, dt, dev)
 
         def ssm(n: int):
@@ -221,23 +270,31 @@ class DecoderLM(nn.Module):
                     "tail": ssm(tail), "written": 0}
         if cfg.family == "ssm":
             return {"layers": ssm(cfg.num_layers), "written": 0}
+        if cfg.is_moe:
+            return {"dense_layers": [kv() for _ in self.dense_layers],
+                    "layers": [kv() for _ in self.layers], "written": 0}
         return {"layers": [kv() for _ in range(cfg.num_layers)],
                 "written": 0}
 
     def _sites(self, cache: Optional[Cache]):
-        """(block, its cache or None) in the order the model applies them."""
+        """(stack name, block, its cache or None) in the order the model
+        applies them."""
         if self.cfg.family != "hybrid":
-            for l, blk in enumerate(self.layers):
-                yield blk, cache["layers"][l] if cache is not None else None
+            stacks = ("dense_layers", "layers") if self.cfg.is_moe \
+                else ("layers",)
+            for name in stacks:
+                for l, blk in enumerate(getattr(self, name)):
+                    yield name, blk, (cache[name][l] if cache is not None
+                                      else None)
             return
         for g, group in enumerate(self.mamba_groups):
             for i, blk in enumerate(group):
-                yield blk, (cache["mamba_groups"][g][i] if cache is not None
-                            else None)
-            yield self.shared_attn, (cache["shared_attn"][g]
-                                     if cache is not None else None)
+                yield "mamba_groups", blk, (cache["mamba_groups"][g][i]
+                                            if cache is not None else None)
+            yield "shared_attn", self.shared_attn, (
+                cache["shared_attn"][g] if cache is not None else None)
         for t, blk in enumerate(self.tail):
-            yield blk, cache["tail"][t] if cache is not None else None
+            yield "tail", blk, cache["tail"][t] if cache is not None else None
 
     # -- block ------------------------------------------------------------------
     def _block(self, blk: Block, x: torch.Tensor, mode: str,
@@ -260,10 +317,10 @@ class DecoderLM(nn.Module):
             x = x + y
             return x, aux, x
         if mode == "decode":
-            a, _ = L.attention_decode(blk.attn, h, cache_l, pos, cfg,
-                                      contiguous=contiguous)
+            a = self._attn_decode(blk, h, cache_l, pos, contiguous)
         else:
-            a = L.attention_forward(blk.attn, h, cfg)
+            a = L.mla_forward(blk.attn, h, cfg) if cfg.use_mla \
+                else L.attention_forward(blk.attn, h, cfg)
             if mode == "prefill":
                 _attn_prefill_cache(blk.attn, h, cfg, cache_l)
         x = x + a
@@ -276,18 +333,18 @@ class DecoderLM(nn.Module):
 
     def _run(self, x: torch.Tensor, mode: str, cache: Optional[Cache],
              pos: int, collect_taps: bool = False, contiguous: bool = False):
-        """-> (x, aux, taps); taps are collected for ``layers`` only (the
-        reference collects none for hybrid models)."""
+        """-> (x, aux, taps); taps are collected per stack, ``dense_layers``
+        and ``layers`` (the reference collects none for hybrid models)."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        taps: List[torch.Tensor] = []
-        for blk, cl in self._sites(cache):
+        taps: Dict[str, List[torch.Tensor]] = {}
+        for name, blk, cl in self._sites(cache):
             x, aux, tap = self._block(blk, x, mode, cl, pos, contiguous)
             aux_total = aux_total + aux
             if collect_taps:
-                taps.append(tap)
+                taps.setdefault(name, []).append(tap)
         if not collect_taps or self.cfg.family == "hybrid":
             return x, aux_total, {}
-        return x, aux_total, {"layers": torch.stack(taps)}
+        return x, aux_total, {n: torch.stack(t) for n, t in taps.items()}
 
     # -- public API -----------------------------------------------------------
     def forward(self, tokens: torch.Tensor
@@ -311,7 +368,8 @@ class DecoderLM(nn.Module):
                     collect_taps: bool = False):
         """tokens: [B,Sq] at positions pos..pos+Sq-1 (Sq>1 = speculative
         verification block) -> (logits [B,Sq,V], cache, taps).  taps is
-        ``{"layers": [L, B, Sq, d]}`` when collected, else {}."""
+        ``{"layers": [L, B, Sq, d]}`` when collected (and ``"dense_layers"``
+        for an MoE model with leading dense layers), else {}."""
         written = cache.get("written", 0)
         contiguous = pos <= written
         x, _, taps = self._run(self.embed(tokens), "decode", cache, pos,
@@ -322,10 +380,19 @@ class DecoderLM(nn.Module):
 
 
 def _attn_prefill_cache(p, h: torch.Tensor, cfg: ModelConfig, cache: Dict):
-    """Recompute k/v for the prompt and write them into the cache (in
-    place), ring-rolled so slot (pos % W) matches decode-side indexing."""
+    """Recompute k/v (MLA: the latent and the roped key) for the prompt and
+    write them into the cache (in place), ring-rolled so slot (pos % W)
+    matches decode-side indexing."""
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)[None, :]
+    if cfg.use_mla:
+        cache["c_kv"][:, :S] = torch.einsum("bsd,dr->bsr", h, p.wdkv)
+        cache["k_rope"][:, :S] = L.apply_rope(
+            torch.einsum("bsd,dk->bsk", h, p.wkr)[:, :, None, :], positions,
+            cfg.rope_theta)[:, :, 0, :]
+        cache["pos_map"][:S] = torch.arange(S, dtype=torch.int32,
+                                            device=h.device)
+        return
     k = L.apply_rope(torch.einsum("bsd,dhk->bshk", h, p.wk), positions,
                      cfg.rope_theta)
     v = torch.einsum("bsd,dhk->bshk", h, p.wv)

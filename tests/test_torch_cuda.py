@@ -1,6 +1,7 @@
 """PyTorch port on a card: the hand-written CUDA kernels (expert FFN with
-swiglu and gelu experts, flash attention, flash-decode, SSD scan) against
-their plain versions, the offload engine serving through them, solo and in
+swiglu and gelu experts, also at deepseek-v2-lite-16b's widths and top-6,
+flash attention, flash-decode, SSD scan) against their plain versions, the
+offload engine serving through them (mixtral and deepseek), solo and in
 fused cross-session rounds, a dense target served greedy and speculatively
 through flash-decode, and the SSD families' models on the card against
 themselves on the CPU.  Every test is
@@ -162,6 +163,46 @@ def test_ffn_bodies_match_plain_and_are_batch_invariant(cuda, rows, S, d, f,
         assert (a.float() - b.float()).abs().max().item() <= tol * scale
     full = K.cache_moe(x, si, w, wu, wd, wg)
     for t in range(rows):
+        one = K.cache_moe(x[t:t + 1], si[t:t + 1], w[t:t + 1], wu, wd, wg)
+        assert torch.equal(one, full[t:t + 1])
+
+
+@pytest.mark.parametrize("T", [1, 5, 64, 512])
+@pytest.mark.parametrize("S", [48, 192])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_ffn_at_deepseek_widths_top6(cuda, T, S, dtype, tol):
+    """deepseek-v2-lite-16b's experts (d 2048, f 1408: 22 tiles of 64
+    columns) at top-6 over pools of 48 and 192 slots: T 5 is a verify block
+    (30 rows, the small block shape), T 64 and 512 take the large one.
+    Each token routes to 6 distinct slots, token 0's first choice a miss.
+    Both stages and ``cache_moe`` against their plain versions (tolerance
+    relative to the output's scale, as above), and each row of the call
+    bit-identical to the same token alone (batch invariance)."""
+    d, f, k = 2048, 1408, 6
+    gen = torch.Generator(cuda).manual_seed(T + S)
+    wg, wu = [(torch.randn((S, d, f), generator=gen, device=cuda)
+               * d ** -0.5).to(dtype) for _ in range(2)]
+    wd = (torch.randn((S, f, d), generator=gen, device=cuda)
+          * f ** -0.5).to(dtype)
+    x = torch.randn((T, d), generator=gen, device=cuda).to(dtype)
+    si = torch.rand((T, S), generator=gen, device=cuda).argsort(dim=1)[
+        :, :k].to(torch.int32).contiguous()
+    si[0, 0] = -1
+    w = torch.rand((T, k), generator=gen, device=cuda).to(dtype)
+    g = K.slot_groups(si, S)
+    h = K.gate_up(x, g, wg, wu)
+    h_ref = R.slot_gate_up_ref(x, g.row_tok, wg, wu, g.grp_slot,
+                               g.grp_start, g.grp_count)
+    y = K.down(h, g, wd)
+    y_ref = R.slot_down_ref(h, wd, g.grp_slot, g.grp_start, g.grp_count)
+    full = K.cache_moe(x, si, w, wu, wd, wg)
+    want = R.cache_moe_ref(x, si, w, wu, wd, wg)
+    for a, b in ((h, h_ref), (y, y_ref), (full, want)):
+        assert torch.isfinite(a).all()
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+    for t in range(T):
         one = K.cache_moe(x[t:t + 1], si[t:t + 1], w[t:t + 1], wu, wd, wg)
         assert torch.equal(one, full[t:t + 1])
 
@@ -330,6 +371,81 @@ def test_engine_on_the_card_matches_its_greedy(cuda, slots):
         assert eng.runtime.cache.check_invariants()
     assert res.tokens == ref
     assert K.gate_up.launches > before
+
+
+@pytest.mark.parametrize("slots", [6, 16])
+def test_deepseek_engine_on_the_card_matches_its_greedy(cuda, slots):
+    """Reduced deepseek-v2-lite-16b in f32 (a leading dense layer, MLA, a
+    shared expert) served sd x spmoe through the CUDA kernel with a tight
+    and an ample cache emits the port's greedy tokens; MLA launches no
+    attention kernel, under ``attn_impl="kernel"`` too."""
+    cfg = dataclasses.replace(
+        get_config("deepseek-v2-lite-16b").reduced(dtype="float32",
+                                                   num_layers=3),
+        attn_impl="kernel")
+    dcfg = derive_draft_config(cfg)
+    target = build_model(cfg, cuda, seed=0)
+    draft = build_model(dcfg, cuda, seed=1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 6),
+                           generator=torch.Generator().manual_seed(2))
+    ref = greedy_generate(target, prompt.to(cuda), 16, 64).tolist()
+    before = (K.gate_up.launches, K.down.launches,
+              FA.flash_attention.launches, DA.decode_attention.launches)
+    with Engine(EngineConfig(model=cfg, draft=dcfg, decode="sd",
+                             offload="spmoe", cache_slots=slots,
+                             draft_len=3, max_seq=64),
+                target, draft) as eng:
+        res = eng.submit(Request(prompt=prompt, max_new_tokens=16))
+        assert eng.runtime.cache.check_invariants()
+    assert res.tokens == ref
+    after = (K.gate_up.launches, K.down.launches,
+             FA.flash_attention.launches, DA.decode_attention.launches)
+    assert after[0] > before[0] and after[1] > before[1]
+    assert after[2:] == before[2:]
+
+
+def test_deepseek_fused_round_equals_solo_blocks_on_the_card(cuda):
+    """One all-hit fused round of reduced deepseek in bf16 (the dense layer
+    and the shared expert per session) gives each session the logits of
+    its solo fast block on the same cache snapshot, bit for bit."""
+    cfg = get_config("deepseek-v2-lite-16b").reduced(dtype="bfloat16",
+                                                     num_layers=3)
+    dcfg = derive_draft_config(cfg)
+    target = build_model(cfg, cuda, seed=0)
+    draft = build_model(dcfg, cuda, seed=1)
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=gen)
+               for n in (6, 9)]
+    slots = cfg.num_moe_layers * cfg.num_experts
+    with Engine(EngineConfig(model=cfg, draft=dcfg, decode="sd",
+                             offload="spmoe", cache_slots=slots,
+                             draft_len=3, max_seq=64), target, draft) as eng:
+        rt = eng.runtime
+        every = [(l, e) for l in range(rt.store.num_layers)
+                 for e in range(rt.store.num_experts)]
+        rt.cache.insert(every, rt.store.fetch(every))
+        sts = [rt.start_session(p.to(cuda), 8) for p in prompts]
+        blocks = [torch.cat([st.cur, torch.randint(
+            0, cfg.vocab_size, (1, n), generator=gen).to(cuda)], dim=1)
+            for st, n in zip(sts, (4, 2))]
+
+        def caches():
+            return [{s: [{n: t.clone() for n, t in c.items()}
+                         for c in st.tcache[s]]
+                     for s in ("dense_layers", "layers")} for st in sts]
+
+        solo = [rt._verify_fast(b, st.pos, tc, st.history_dev)
+                for b, st, tc in zip(blocks, sts, caches())]
+        logits, ok, _, _ = rt._verify_fast_batched(
+            blocks, [st.pos for st in sts], caches(),
+            [st.history_dev for st in sts])
+        torch.cuda.synchronize()
+        for st in sts:
+            rt.finish_session(st)
+    assert bool(ok.all())
+    for j, (lg, ok1, _, _) in enumerate(solo):
+        assert bool(ok1)
+        assert torch.equal(logits[j], lg)
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,window", [
