@@ -20,8 +20,12 @@ speculative, every one-token step through flash-decode, and
 deepseek-v2-lite-16b (MLA, one leading dense layer, shared experts, 64
 experts top-6) at full width cut to 1 dense + 3 MoE layers (its 26 MoE
 layers' 1664 routed experts would be 28.8 GB on the host, plus pinned
-staging), sd x spmoe with its derived dense MLA draft, through the
-expert-FFN kernels at top-6.
+staging), sd x spmoe with its derived dense MLA draft and with its MoE
+self-draft, through the expert-FFN kernels at top-6, and phi-3.5-moe (16
+experts top-2 of width 6400) at full width cut to 4 layers with its MoE
+draft phi-mini-moe (experts of width 960, resident on the card), whose
+every draft step runs its MoE layers through the expert-FFN kernels with
+no host sync.
 
 Phases (each raises on failure):
   1. device line; build the CUDA kernels from ``src/repro_torch/csrc``
@@ -86,15 +90,33 @@ Phases (each raises on failure):
      reset after the first request); two 256-token requests two at a time
      on a cache preloaded with every expert (fused rounds, <= 2 syncs each,
      one all-hit round equal to the solo blocks bit for bit); no attention
-     kernel launches (MLA is plain tensor ops); every token teacher-forced
+     kernel launches (MLA is plain tensor ops); one request with the MoE
+     self-draft (the target's architecture, seed 1, its experts on the
+     card) on a preloaded 192-slot cache, every drafted token through the
+     draft's MoE layers on the kernel; every token teacher-forced
+ 13. phi-3.5-moe (d 4096, 32 / 8 heads x 128, vocab 32064, 16 experts
+     top-2 of width 6400; 4 layers, bf16, ``attn_impl="kernel"``) with its
+     MoE draft phi-mini-moe (16 experts of width 960, 4 layers, resident):
+     the expert FFN against its plain version at the target's widths (a
+     16-slot pool, timed at T 5) and the draft's (its 16 experts, timed at
+     T 1 and T 512), bf16 and f32, batch invariance; sd x spmoe with a
+     tight cache (16 slots for 64 experts) and an ample one (64 slots: <= 2
+     host syncs per fast block, counters reset after the first request),
+     every drafted token through the draft's MoE layers on the kernel; one
+     MoE draft decode step under CUDA sync debugging against the derived
+     dense draft's of the same depth (no more syncs; one gate_up and one
+     down launch per MoE layer), both drafting stages timed; every token
+     teacher-forced
 
-Each serving path (3-4, 5, 7, 8, 9, 11, 12 solo and 12 concurrent) runs with
-the kernels' launch counts set to 0 just before it and read just after;
-each kernel of the path must have launched there.
+Each serving path (3-4, 5, 7, 8, 9, 11, 12 solo, 12 concurrent, 12
+self-draft and 13 solo) runs with the kernels' launch counts set to 0 just
+before it and read just after; each kernel of the path must have launched
+there.
 
 Prints JSON lines (kernels, decode_timing, flash_timing, ssd_timing,
 kernel_checks, requests, ssm_requests, gelu_requests, dense_requests,
-deepseek_requests, deepseek_kernel_timing, breakdown, memory), then the
+deepseek_requests, deepseek_kernel_timing, phi_requests, phi_kernel_timing,
+breakdown, memory), then the
 card's name and power limit, then ``{"ok":
 true, "device": {...}}`` as the last line.  Exits non-zero, printing no
 result, without a CUDA device or without the rest of the repository.
@@ -102,6 +124,7 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -214,6 +237,28 @@ DS_PATH = ("cache_moe_gate_up", "cache_moe_down")
 # may pick the other expert in one of them, which moves that token's logits
 # by more than mixtral's top-2 of 8 tolerates.
 DS_MARGIN, DS_MIN_EXACT = SSM_MARGIN, SSM_MIN_EXACT
+DS_SELF_PROMPT, DS_SELF_SEED = 64, 90    # the MoE self-draft's request
+
+# the phi phase: phi-3.5-moe at full width (d 4096, 32 / 8 heads x 128,
+# vocab 32064, 16 experts top-2 of width 6400) with its MoE draft
+# phi-mini-moe (16 experts top-2 of width 960, resident on the card), both
+# cut to 4 layers, the depth that keeps the Table 1 pair layer for layer:
+# the target's 64 routed experts are 10.1 GB of bf16 on the host (at full
+# depth 80.5 GB).  Pools of 16 (tight) and 64 slots (ample: every expert).
+# The expert FFN is checked and timed at the target's verify block (T 5,
+# a 16-slot pool) and at the draft's step (T 1) and prefill (T 512) over
+# its 16 resident experts.
+PHI_LAYERS, PHI_TIGHT, PHI_AMPLE = 4, 16, 64
+PHI_D, PHI_F, PHI_DRAFT_F, PHI_E, PHI_K = 4096, 6400, 960, 16, 2
+PHI_PROMPT, PHI_NEW = 64, 32
+# lossless check: the deep stacks' rule, as for deepseek.  Top-2 of 16
+# routes many tokens through a second and third expert of near-equal gate
+# probability; the engine (f32 expert combine, 5-token blocks) and the
+# resident reference (``moe_global``: bf16 combine, one forward through
+# flash) round the gate input differently, so a near-tie may pick the other
+# expert in one of them, which moves that token's logits by more than
+# mixtral's margin.
+PHI_MARGIN, PHI_MIN_EXACT = SSM_MARGIN, SSM_MIN_EXACT
 
 
 def log(msg: str):
@@ -241,28 +286,42 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return a.elapsed_time(b) / iters
 
 
-def traced(fn, iters: int = 50):
-    """Device time per call of ``fn`` in ms, the summed durations of the
-    kernels and copies ``torch.profiler`` saw over ``iters`` warm calls
-    (unlike ``cuda_ms``, not set by the host's issue time), and the device
-    activities per call."""
+def device_spans(fn, iters: int, keep=None, tries: int = 5):
+    """Durations (us) of the device activities ``torch.profiler`` saw over
+    ``iters`` warm calls of ``fn``, those whose names ``keep`` accepts where
+    it is given.  A window can come back without them (seen right after a
+    plain version's thousands of launches, and once in the phi draft's
+    expert-FFN timing): it is traced again, after a pause, before failing."""
+    import time
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # a window can come back empty (seen once, right after the plain
-    # version's thousands of launches): try it again before failing
-    for _ in range(3):
+    for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start
-                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+        seen = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        spans = [e.time_range.end - e.time_range.start for e in seen
+                 if keep is None or keep(e.name)]
         if spans:
-            break
-    else:
+            return spans
+        log(f"the profiler saw none of the device activity sought (window "
+            f"{attempt + 1} of {tries}; {len(seen)} other activities, "
+            f"{sorted({e.name[:60] for e in seen})[:3]}); tracing again")
+        time.sleep(0.5)
+    return []
+
+
+def traced(fn, iters: int = 50):
+    """Device time per call of ``fn`` in ms, the summed durations of the
+    kernels and copies ``torch.profiler`` saw over ``iters`` warm calls
+    (unlike ``cuda_ms``, not set by the host's issue time), and the device
+    activities per call."""
+    spans = device_spans(fn, iters)
+    if not spans:
         raise AssertionError("the profiler saw no device activity")
     # the profiler may drop an event or two of a long window: count whole
     # activities per call, and time them by the mean of those it kept
@@ -278,19 +337,9 @@ def kernel_device_ms(fn, prefix: str, iters: int = 10) -> float:
     """Device time per call of ``fn``'s kernels whose names start with
     ``prefix`` (one kernel of several that a call launches), from
     ``torch.profiler``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and
-             e.name.split("<")[0].split("::")[-1].split("(")[0]
-             .removeprefix("void ").startswith(prefix)]
+    spans = device_spans(
+        fn, iters, lambda name: name.split("<")[0].split("::")[-1]
+        .split("(")[0].removeprefix("void ").startswith(prefix))
     if not spans:
         raise AssertionError(f"the profiler saw no {prefix} kernel")
     return sum(spans) / len(spans) / 1e3          # one such kernel a call
@@ -301,12 +350,14 @@ def kernel_device_ms(fn, prefix: str, iters: int = 10) -> float:
 # ---------------------------------------------------------------------------
 
 def kernel_phase(dev, d: int, f: int, gelu: bool = False, k: int = K_TOP,
-                 pool: int = S_POOL, prefill_slots: int = 8, seed: int = 0):
+                 pool: int = S_POOL, prefill_slots: int = 8, seed: int = 0,
+                 timed=(BLOCK_T, CONC_PROMPT)):
     """The expert-FFN stages against their plain versions at T 1 / 5 / 64 /
     512, bf16 and f32, with a batch-invariance check: swiglu experts
     (gate_up, then down), or with ``gelu`` the gelu experts' route (up_gelu,
     then down).  Each token takes ``k`` slots of a ``pool``-slot pool; the
-    T 512 call (a prefill block) routes into its first ``prefill_slots``."""
+    T 512 call (a prefill block) routes into its first ``prefill_slots``.
+    The bf16 calls at the row counts ``timed`` are timed."""
     import torch
     from repro_torch.kernels import cache_moe as K
     from repro_torch.kernels import ref as R
@@ -331,7 +382,8 @@ def kernel_phase(dev, d: int, f: int, gelu: bool = False, k: int = K_TOP,
                 else (-1, pool)
             si = torch.randint(lo_s, hi_s, (T, k), generator=gen,
                                device=dev).to(torch.int32)
-            si[0, 0] = -1                             # a miss
+            if T > 1 or 1 not in timed:   # a timed T 1 is a draft step
+                si[0, 0] = -1                         # a miss
             if T > 1:
                 si[1, 1] = si[1, 0] = max(int(si[1, 0]), 0)   # a repeat
             wt = torch.rand((T, k), generator=gen, device=dev).to(dt)
@@ -366,7 +418,7 @@ def kernel_phase(dev, d: int, f: int, gelu: bool = False, k: int = K_TOP,
                                          f"T={T}: max abs err {err} vs "
                                          f"scale {scale}")
             outs[T] = (x, si, wt, full)
-            if dt_name == "bfloat16" and T in (BLOCK_T, CONC_PROMPT):
+            if dt_name == "bfloat16" and T in timed:
                 main[T] = dict(x=x, si=si, wt=wt, g=g, h=h, wg=wg, wu=wu,
                                wd=wd,
                                err={stage1: rows[-3]["max_abs_err"],
@@ -385,7 +437,7 @@ def kernel_phase(dev, d: int, f: int, gelu: bool = False, k: int = K_TOP,
             rows.append({"check": "batch_invariance", "experts": experts,
                          "dtype": dt_name, "T": T, "ok": True})
         if dt_name == "bfloat16":
-            for T in (BLOCK_T, CONC_PROMPT):
+            for T in timed:
                 main[T]["timing"] = time_kernels(main[T], d, f, gelu)
                 for name in ("x", "si", "wt", "g", "h", "wg", "wu", "wd"):
                     del main[T][name]
@@ -964,10 +1016,7 @@ def concurrent_phase(target, draft, cfg, dcfg, prompts, slots: int = 32,
 
     rt._round_fused = spy
     if preload:
-        for l in range(rt.store.num_layers):
-            keys = [(l, e) for e in range(rt.store.num_experts)]
-            rt.cache.insert(keys, rt.store.fetch(keys))
-        rt.cache.wait()
+        preload_every_expert(rt)
     reqs = [Request(prompt=p, max_new_tokens=new_tokens,
                     request_id=f"{name}-{i}")
             for i, p in enumerate(prompts)]
@@ -1033,6 +1082,15 @@ def concurrent_phase(target, draft, cfg, dcfg, prompts, slots: int = 32,
     counters["fused_equals_solo_bitwise"] = True
     eng.close()
     return results, counters, launches
+
+
+def preload_every_expert(rt):
+    """Insert every expert into the runtime's cache, layer by layer (a warm
+    ample cache)."""
+    for l in range(rt.store.num_layers):
+        keys = [(l, e) for e in range(rt.store.num_experts)]
+        rt.cache.insert(keys, rt.store.fetch(keys))
+    rt.cache.wait()
 
 
 def teacher_force(target, seq):
@@ -1454,7 +1512,23 @@ def deepseek_phase(dev):
         preload=True)
     log(f"[12] deepseek concurrent serving ok: {conc_info}; "
         f"launches {launches}")
-    for path, got in (("solo", solo_launches), ("concurrent", launches)):
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the reference's pairing: the target's architecture as its own draft
+    # (seed 1, its 3.3 GB of routed experts resident on the card), one
+    # request on a cache preloaded with every expert; each draft step runs
+    # the expert FFN at top-6 of 64, T 1
+    sdraft = build_model(cfg, dev, seed=1)
+    self_prompt = torch.randint(0, cfg.vocab_size, (1, DS_SELF_PROMPT),
+                                generator=torch.Generator().manual_seed(
+                                    DS_SELF_SEED))
+    self_res, self_info = moe_draft_request(
+        "ds-self-draft", target, sdraft, cfg, cfg, DS_AMPLE, self_prompt,
+        DS_NEW, DS_PATH)
+    log(f"[12] deepseek MoE self-draft ok: {self_info}")
+    del sdraft
+    for path, got in (("solo", solo_launches), ("concurrent", launches),
+                      ("self-draft", self_info["launches"])):
         if got["flash_attention"] or got["decode_attention"]:
             raise AssertionError(f"deepseek {path}: MLA took an attention "
                                  f"kernel: {got}")
@@ -1465,9 +1539,10 @@ def deepseek_phase(dev):
             w = getattr(blk.moe, n)
             setattr(blk.moe, n, torch.nn.Parameter(w.to(dev),
                                                    requires_grad=False))
-    results = tight + ample + conc
+    results = tight + ample + conc + [self_res]
     loss = lossless_phase(target, [(p, r.tokens) for p, r in
-                                   zip(prompts + conc_prompts, results)],
+                                   zip(prompts + conc_prompts + [self_prompt],
+                                       results)],
                           dev, margin=DS_MARGIN)
     n_tok = sum(len(r.tokens) for r in results)
     if loss["exact"] < DS_MIN_EXACT * n_tok:
@@ -1497,12 +1572,262 @@ def deepseek_phase(dev):
         "ample": {**ample_tot, "slots": DS_AMPLE,
                   "steady_after_reset": ample_info["steady"]},
         "concurrent": conc_info, "launches_solo_path": solo_launches,
-        "launches_concurrent_path": launches, "lossless": loss,
-        "min_exact": DS_MIN_EXACT}
+        "launches_concurrent_path": launches, "self_draft": self_info,
+        "lossless": loss, "min_exact": DS_MIN_EXACT}
     del target, draft
     gc.collect()
     torch.cuda.empty_cache()
     return info, rows, timing
+
+
+@contextlib.contextmanager
+def counting_moe_global():
+    """Count ``moe_global`` calls (a resident MoE model's layers: here an
+    MoE draft's) while the block runs; each is one gate_up and one down
+    launch."""
+    from repro_torch.models import moe as MOE
+    orig, calls = MOE.moe_global, [0]
+
+    def counted(p, x, cfg):
+        calls[0] += 1
+        return orig(p, x, cfg)
+
+    MOE.moe_global = counted
+    try:
+        yield calls
+    finally:
+        MOE.moe_global = orig
+
+
+def check_draft_launches(name, results, calls: int, dcfg):
+    """Every drafted token ran the draft's MoE layers through the kernel."""
+    drafted = sum(r.metrics.drafted for r in results)
+    if drafted <= 0 or calls < drafted * dcfg.num_moe_layers:
+        raise AssertionError(f"{name}: {calls} MoE draft layer calls for "
+                             f"{drafted} drafted tokens")
+    return {"drafted": drafted, "draft_moe_calls": calls}
+
+
+def moe_draft_request(name, target, draft, cfg, dcfg, slots, prompt,
+                      new_tokens, kernels):
+    """One sd x spmoe request with an MoE draft on a cache preloaded with
+    every expert, the launch counts set to 0 just before and read just
+    after; each of ``kernels`` must have launched, and each drafted token
+    through every MoE layer of the draft."""
+    import torch
+    from repro_torch.core.engine import Engine, EngineConfig, Request
+    eng = Engine(EngineConfig(model=cfg, draft=dcfg, decode="sd",
+                              offload="spmoe", cache_slots=slots,
+                              draft_len=4, max_seq=256), target, draft)
+    rt = eng.runtime
+    preload_every_expert(rt)
+    with counting_moe_global() as calls:
+        reset_launches()
+        res = eng.submit(Request(prompt=prompt, max_new_tokens=new_tokens,
+                                 request_id=f"{name}-0"))
+        torch.cuda.synchronize()
+        launches = read_launches(name, kernels)
+    if len(res.tokens) != new_tokens or res.finish_reason != "length":
+        raise AssertionError(f"{name}: the request ended "
+                             f"{res.finish_reason} after {len(res.tokens)} "
+                             f"tokens")
+    info = {"launches": launches,
+            **check_draft_launches(name, [res], calls[0], dcfg),
+            "tpot_wall_s": res.metrics.tpot_wall,
+            "hit_rate": res.metrics.hit_rate,
+            **{k: res.metrics[k] for k in ("verify_blocks", "fast_blocks",
+                                           "fast_fallbacks", "host_syncs",
+                                           "on_demand_loads")}}
+    eng.close()
+    return res, info
+
+
+def sync_warnings(fn):
+    """The synchronizing operations ``fn`` runs, as CUDA sync debugging
+    (``"warn"``) reports them: each warns "called a synchronizing CUDA
+    operation" (the mode's notice that it is a prototype is not one)."""
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message) for w in caught
+            if "synchronizing CUDA operation" in str(w.message)]
+
+
+def draft_step_check(moe_draft, dense_draft, vocab: int, dev):
+    """The MoE draft's decode step against a dense draft's of the same
+    depth, each after a 100-token prefill: one warm step under CUDA sync
+    debugging (``sync_warnings``), whose expert-FFN
+    launches must be one gate_up and one down per MoE layer (none for the
+    dense draft), and the drafting stage of one verify block
+    (``BLOCK_T - 1`` steps, as ``breakdown`` times mixtral's) timed.  The
+    MoE step may make no more syncs than the dense one; a readback of
+    ``.item()`` first shows that the debugging sees a sync."""
+    import torch
+    from repro_torch.kernels import cache_moe as K
+    control = sync_warnings(lambda: torch.ones(1, device=dev).sum().item())
+    if not control:
+        raise AssertionError("sync debugging missed the readback of .item()")
+    prompt = torch.randint(0, vocab, (1, 100), generator=torch.Generator(
+        ).manual_seed(110)).to(dev)
+    tok = prompt[:, -1:]
+    out = {}
+    for name, m in (("moe", moe_draft), ("dense", dense_draft)):
+        _, cache = m.prefill(prompt, 256)
+        m.decode_step(cache, tok, 100, collect_taps=True)        # warm
+        torch.cuda.synchronize()
+        g0, d0 = K.gate_up.launches, K.down.launches
+        syncs = sync_warnings(lambda: m.decode_step(cache, tok, 101,
+                                                    collect_taps=True))
+        launches = [K.gate_up.launches - g0, K.down.launches - d0]
+        stage_ms = cuda_ms(lambda: [m.decode_step(cache, tok, 102 + i,
+                                                  collect_taps=True)
+                                    for i in range(BLOCK_T - 1)])
+        want = [m.cfg.num_moe_layers] * 2 if m.cfg.is_moe else [0, 0]
+        if launches != want:
+            raise AssertionError(f"{name} draft step: expert-FFN launches "
+                                 f"{launches}, expected {want}")
+        out[name] = {"layers": m.cfg.num_layers, "syncs": len(syncs),
+                     "sync_messages": sorted(set(syncs))[:3],
+                     "expert_ffn_launches": launches,
+                     "drafting_stage_ms": stage_ms,
+                     "drafting_steps": BLOCK_T - 1}
+    if out["moe"]["syncs"] > out["dense"]["syncs"]:
+        raise AssertionError(f"the MoE draft step syncs more than the "
+                             f"dense one: {out}")
+    out["control_item_syncs"] = len(control)
+    return out
+
+
+def phi_phase(dev):
+    """phi-3.5-moe at full width with its MoE draft phi-mini-moe, both cut
+    to 4 layers, bf16, ``attn_impl="kernel"``, target seed 0 with its routed
+    experts on the host, draft seed 1 with its experts on the card: the
+    expert FFN against its plain version at the target's widths (f 6400,
+    16-slot pool, timed at T 5) and the draft's (f 960, its 16 experts,
+    timed at T 1 and T 512); sd x spmoe with a tight cache (16 slots, two
+    64-token requests, 32 new tokens each) and an ample one (64 slots:
+    <= 2 host syncs per fast block; counters reset after the first
+    request), the launch counts set to 0 just before and read just after,
+    every drafted token through the draft's MoE layers on the kernel; one
+    MoE draft step against the derived dense draft's (no more syncs); then
+    every token teacher-forced through the resident experts."""
+    import torch
+    from repro_torch.configs.registry import get_config, get_draft_config
+    from repro_torch.core.engine import derive_draft_config
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_config("phi-3.5-moe"),
+                              num_layers=PHI_LAYERS, attn_impl="kernel")
+    dcfg = dataclasses.replace(get_draft_config("phi-3.5-moe"),
+                               num_layers=PHI_LAYERS, attn_impl="kernel")
+    widths = (cfg.d_model, cfg.moe_d_ff, dcfg.moe_d_ff, cfg.num_experts,
+              dcfg.num_experts, cfg.num_experts_per_tok, dcfg.family)
+    if widths != (PHI_D, PHI_F, PHI_DRAFT_F, PHI_E, PHI_E, PHI_K, "moe"):
+        raise AssertionError(f"phi widths: {widths}")
+    rows, timing = kernel_phase(dev, PHI_D, PHI_F, pool=PHI_E,
+                                prefill_slots=PHI_E, seed=20,
+                                timed=(BLOCK_T,))
+    drows, dtiming = kernel_phase(dev, PHI_D, PHI_DRAFT_F, pool=PHI_E,
+                                  prefill_slots=PHI_E, seed=21,
+                                  timed=(1, CONC_PROMPT))
+    log(f"[13] phi expert FFN matches its plain version "
+        f"({len(rows) + len(drows)} checks): target "
+        f"{timing[BLOCK_T]['timing']}; draft "
+        f"{[dtiming[T]['timing'] for T in dtiming]}")
+    t0 = time.perf_counter()
+    target = build_model(cfg, dev, seed=0, expert_device="cpu")
+    draft = build_model(dcfg, dev, seed=1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = [torch.randint(0, cfg.vocab_size, (1, PHI_PROMPT),
+                             generator=torch.Generator().manual_seed(100 + i))
+               for i in range(4)]
+    with counting_moe_global() as calls:
+        reset_launches()
+        eng, tight, tight_info = serve_phase("phi-tight", target, draft,
+                                             cfg, dcfg, PHI_TIGHT,
+                                             prompts[:2], PHI_NEW, spy=False)
+        tight_tot = check_tight(tight)
+        log(f"[13] phi tight cache ok: {tight_tot}")
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng, ample, ample_info = serve_phase("phi-ample", target, draft,
+                                             cfg, dcfg, PHI_AMPLE,
+                                             prompts[2:], PHI_NEW, spy=True)
+        launches = read_launches("phi solo serving")
+        draft_calls = calls[0]
+    ample_tot = check_ample(ample, ample_info)
+    drafts = check_draft_launches("phi solo serving", tight + ample,
+                                  draft_calls, dcfg)
+    log(f"[13] phi ample cache ok: {ample_tot}; steady "
+        f"{ample_info['steady']}; launches {launches}; {drafts}")
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = build_model(derive_draft_config(cfg), dev, seed=2)
+    steps = draft_step_check(draft, dense, cfg.vocab_size, dev)
+    log(f"[13] phi draft step: {steps}")
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    for blk in target.layers:            # the experts resident on the card
+        for n in ("wg", "wu", "wd"):
+            w = getattr(blk.moe, n)
+            setattr(blk.moe, n, torch.nn.Parameter(w.to(dev),
+                                                   requires_grad=False))
+    results = tight + ample
+    loss = lossless_phase(target, [(p, r.tokens) for p, r in
+                                   zip(prompts, results)],
+                          dev, margin=PHI_MARGIN)
+    n_tok = sum(len(r.tokens) for r in results)
+    if loss["exact"] < PHI_MIN_EXACT * n_tok:
+        raise AssertionError(f"phi: only {loss['exact']} of {n_tok} tokens "
+                             f"are the teacher-forced argmax")
+    info = {
+        "model": cfg.name, "draft": dcfg.name, "layers": cfg.num_layers,
+        "draft_layers": dcfg.num_layers,
+        "params_resident": sum(t.numel() for n, t in target.named_parameters()
+                               if not n.endswith(("moe.wg", "moe.wu",
+                                                  "moe.wd"))),
+        "params_routed_experts": sum(
+            getattr(b.moe, n).numel() for b in target.layers
+            for n in ("wg", "wu", "wd")),
+        "draft_params": sum(t.numel() for t in draft.parameters()),
+        "draft_params_routed_experts": sum(
+            getattr(b.moe, n).numel() for b in draft.layers
+            for n in ("wg", "wu", "wd")),
+        "model_init_s": init_s,
+        "requests": [{"id": r.request_id, "tokens": len(r.tokens),
+                      "tpot_wall_s": r.metrics.tpot_wall,
+                      "hit_rate": r.metrics.hit_rate,
+                      **{k: r.metrics[k] for k in (
+                          "verify_blocks", "fast_blocks", "fast_fallbacks",
+                          "host_syncs", "on_demand_loads", "prefetched",
+                          "evictions", "drafted")}} for r in results],
+        "tight": {**tight_tot, "slots": PHI_TIGHT,
+                  "pinned_staging_bytes": tight_info["pinned_staging_bytes"]},
+        "ample": {**ample_tot, "slots": PHI_AMPLE,
+                  "pinned_staging_bytes": ample_info["pinned_staging_bytes"],
+                  "steady_after_reset": ample_info["steady"]},
+        "launches_solo_path": launches, "draft_launches": drafts,
+        "draft_step": steps, "lossless": loss, "min_exact": PHI_MIN_EXACT,
+        "host_max_rss_bytes":
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
+    del target, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info, rows + drows, timing, dtiming
 
 
 def main() -> int:
@@ -1630,6 +1955,11 @@ def main() -> int:
     rows += ds_rows
     log(f"[12] deepseek-v2-lite-16b serving ok: {ds_info}")
 
+    # phase 13: phi-3.5-moe with its MoE draft phi-mini-moe
+    phi_info, phi_rows, phi_k, phi_dk = phi_phase(dev)
+    rows += phi_rows
+    log(f"[13] phi-3.5-moe serving ok: {phi_info}")
+
     kernels = []
     # the expert FFN at the verify block (T 5) and, one row more per stage,
     # at the concurrent path's 512-token prefill block
@@ -1715,6 +2045,31 @@ def main() -> int:
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "device_ms": t["device_ms"],
                 "library_device_ms": t["library_device_ms"]})
+    # the expert FFN at phi-3.5-moe's widths (T 5, 16-slot pool) and at
+    # phi-mini-moe's, its MoE draft's (T 1 and T 512 over its 16 experts);
+    # launches: the phi solo path's, and of those the draft's
+    for T, tm, suffix, draft_row in (
+            (BLOCK_T, phi_k, "_phi", False),
+            (1, phi_dk, "_phi_draft", True),
+            (CONC_PROMPT, phi_dk, f"_phi_draft_t{CONC_PROMPT}", True)):
+        for name, line in (("cache_moe_gate_up", 28), ("cache_moe_down", 47)):
+            t = tm[T]["timing"][name]
+            kernels.append({
+                "name": name + suffix, "route": "cuda",
+                "source": "src/repro_torch/csrc/cache_moe.cu",
+                "replaces": f"src/repro/kernels/moe_gemm.py:{line}",
+                "launches": phi_info["launches_solo_path"][name],
+                "launches_draft": phi_info["draft_launches"][
+                    "draft_moe_calls"],
+                "row": "draft" if draft_row else "target",
+                "T": T, "k": PHI_K, "pool": PHI_E,
+                "f": PHI_DRAFT_F if draft_row else PHI_F,
+                "max_abs_err": tm[T]["err"][name],
+                "ms": t["ms"], "kernel_ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"decode_timing": dec_timing}))
     print(json.dumps({"flash_timing": {
@@ -1754,6 +2109,12 @@ def main() -> int:
         "shape": {"d": DS_D, "f": DS_F, "k": DS_K, "pool": DS_TIGHT,
                   "dtype": "bfloat16"},
         **{f"T{T}": ds_k[T]["timing"] for T in (BLOCK_T, CONC_PROMPT)}}}))
+    print(json.dumps({"phi_requests": phi_info}))
+    print(json.dumps({"phi_kernel_timing": {
+        "shape": {"d": PHI_D, "k": PHI_K, "pool": PHI_E, "dtype": "bfloat16"},
+        f"target_f{PHI_F}_T{BLOCK_T}": phi_k[BLOCK_T]["timing"],
+        **{f"draft_f{PHI_DRAFT_F}_T{T}": phi_dk[T]["timing"]
+           for T in (1, CONC_PROMPT)}}}))
     print(json.dumps({"breakdown": brk}))
     print(json.dumps({"memory": {
         "device_max_allocated_bytes": torch.cuda.max_memory_allocated(),

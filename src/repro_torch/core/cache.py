@@ -40,6 +40,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
+
 ExpertKey = Tuple[int, int]   # (layer, expert)
 
 
@@ -53,16 +55,17 @@ def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class ExpertCache:
-    """LRU cache of expert weights in device memory.  Thread-safe: the
-    prefetch worker and the decode loop both mutate it."""
+    """LRU cache of expert weights in device memory (the card unless
+    ``device="cpu"``; it raises without one).  Thread-safe: the prefetch
+    worker and the decode loop both mutate it."""
 
     def __init__(self, num_slots: int, buffer_shapes: Dict[str, tuple],
                  dtype: torch.dtype = torch.bfloat16,
                  table_shape: Optional[Tuple[int, int]] = None,
-                 chaos=None, device: torch.device = torch.device("cpu")):
+                 chaos=None, device: DeviceLike = None):
         self.num_slots = num_slots
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         # optional fault injector (core/chaos.py): inserts may raise an
         # injected transient error BEFORE any bookkeeping mutates

@@ -430,8 +430,11 @@ class Engine:
     ``target`` / ``draft`` are the port's models (``models/transformer.py``);
     when omitted they are built from ``seed`` / ``draft_seed`` on
     ``device`` (default: the card).  With an offload policy, a target built
-    here keeps its routed experts in host memory only.  ``close()`` (or use
-    as a context manager) stops the prefetch worker."""
+    here keeps its routed experts in host memory only; a target handed in
+    keeps them as they are (so a caller may hand the target in as its own
+    draft), and the runtime never reads them.  A draft keeps its experts on
+    the device.  ``close()`` (or use as a context manager) stops the
+    prefetch worker."""
 
     def __init__(self, config: EngineConfig, target=None, draft=None, *,
                  seed: int = 0, draft_seed: int = 1,

@@ -38,7 +38,10 @@ Both paths run the target's leading dense layers first (``dense_stack``) and
 add each MoE layer's shared experts to its routed sum, per session at the
 solo block's shapes.  Routed expert weights are never read
 from the target model on the hot path: both paths read them only from the
-ExpertCache slot pool.
+ExpertCache slot pool.  A draft that is itself an MoE (phi-mini-moe,
+deepseek's self-draft) keeps its own experts resident on the device and
+runs them through ``moe_global``'s expert-FFN kernel, with no host sync, so
+its drafting step reads back one token, as a dense draft's does.
 
 Host-sync accounting: every blocking device->host readback on the decode
 path goes through ``_readback`` (tests spy on it) and is counted in
@@ -775,9 +778,12 @@ class OffloadEngine:
 
     def _draft_taps_for_moe(self, taps: Dict[str, torch.Tensor]
                             ) -> torch.Tensor:
-        """Draft layer l + first_dense_layers predicts target MoE layer l
-        (Table 1 pairs share num_layers; a draft without the target's
-        leading dense layers maps layer to layer)."""
+        """The draft's taps of target MoE layers 0..n-1, as the reference
+        maps them.  A dense draft of the target's depth holds every layer
+        in ``layers``: its layer l + first_dense_layers predicts MoE layer
+        l.  An MoE draft with its own ``dense_layers`` (deepseek's
+        self-draft) holds only its MoE layers there, and a shallower draft
+        has fewer: layer l predicts MoE layer l."""
         stack = taps["layers"]
         n = self.store.num_layers
         off = self.cfg.first_dense_layers

@@ -10,10 +10,12 @@ targets (``--arch mamba2-780m``, ``--arch zamba2-7b``) decode greedy only,
 their default: their mamba layers step one token at a time, so they cannot
 verify a draft block.  A dense target (``--arch llama3.2-3b``) serves with
 ``--offload none`` (its default) under ``--decode greedy`` or ``sd`` /
-``sd-adaptive`` with the derived half-depth draft.  deepseek-v2-lite-16b
-(``--arch deepseek-v2-lite-16b``: MLA, a leading dense layer, shared
-experts) serves like mixtral, with its derived dense MLA draft.  Every arch
-is served reduced.  The legacy single-axis
+``sd-adaptive`` with the derived half-depth draft.  phi-3.5-moe
+(``--arch phi-3.5-moe``) serves like mixtral with its MoE draft
+phi-mini-moe, and deepseek-v2-lite-16b (``--arch deepseek-v2-lite-16b``:
+MLA, a leading dense layer, shared experts) with its MoE self-draft; an MoE
+draft keeps its experts on the device and runs them through the expert-FFN
+kernel.  Every arch is served reduced.  The legacy single-axis
 ``--policy`` flag is kept as a deprecated alias (``sd-only`` ->
 ``--decode sd --offload none``, ``spmoe`` -> ``--decode sd --offload
 spmoe``, ...).
@@ -49,6 +51,10 @@ wall-clock budget (``finish_reason="deadline"`` when it expires).
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch mamba2-780m --decode greedy --tokens 8
 
+    # phi-3.5-moe, reduced, sd x spmoe with its MoE draft, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch phi-3.5-moe --tokens 8 --cache-slots 12
+
     # deepseek-v2-lite-16b, reduced, sd x spmoe on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch deepseek-v2-lite-16b --tokens 8 --cache-slots 12
@@ -82,13 +88,15 @@ LEGACY_POLICY = {
 
 
 def reduced_pair(arch: str):
-    """The reduced target and its draft: the registered Table 1 draft, or
-    the derived one (``derive_draft_config``) where none is registered or
-    the registered draft is the target itself (deepseek-v2-lite-16b: an MoE
-    self-draft is not served yet)."""
+    """The reduced target and its draft, paired as the reference's launcher
+    pairs them: the registered Table 1 draft, reduced (mixtral's dense
+    draft, phi-3.5-moe's MoE phi-mini-moe, and deepseek-v2-lite-16b's MoE
+    self-draft: the registered draft is the unreduced target, whose name
+    differs from the reduced one's), or the derived one
+    (``derive_draft_config``) where none is registered."""
     cfg = get_config(arch).reduced(dtype="float32")
     draft = get_draft_config(arch)
-    if draft is not None and draft.name != get_config(arch).name:
+    if draft is not None and draft.name != cfg.name:
         dcfg = draft.reduced(dtype="float32")
     else:
         dcfg = derive_draft_config(cfg)

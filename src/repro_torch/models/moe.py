@@ -1,5 +1,7 @@
 """MoE FFN block: top-k gating and the drop-free decode routing.  The port of
 ``repro/models/moe.py`` (``moe_grouped``, the training path, waits).
+``moe_global`` runs the routed experts through the expert-FFN kernel, so an
+MoE draft's steps and a resident MoE target's steps make no host sync.
 
 Expert weights are ``[E, d, f]`` / ``[E, f, d]``; the gate is ``[d, E]`` in
 f32.  Shared experts (deepseek) are one swiglu FFN ``p.shared`` of width
@@ -14,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import cache_moe as K
 from repro_torch.models.layers import ffn_forward
 
 
@@ -51,30 +54,32 @@ def _expert_ffn(p, e: int, x: torch.Tensor, activation: str) -> torch.Tensor:
 
 def moe_global(p, x: torch.Tensor, cfg: ModelConfig
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Decode path: drop-free sorted routing, one product per routed expert.
-    x: [B, S, d] -> (y, aux).  The combine runs in the expert dtype, as the
-    reference's does (its engine's cache_moe combines in f32).  Reads the
-    group sizes on the host: this resident-weights path is not the offload
-    runtime's hot path."""
+    """Decode path: drop-free sorted routing through the slot-indexed expert
+    FFN (``kernels/cache_moe.py``) over the layer's own ``[E, d, f]``
+    stacks, expert id = slot id.  x: [B, S, d] -> (y, aux).
+
+    Nothing here reads the device from the host: the grouping is
+    ``slot_groups`` (fixed shapes) and on a CUDA tensor the two stages are
+    the hand-written kernels (on the CPU, their plain versions).  The
+    combine is the reference's, in the expert dtype: each routed row times
+    its gate weight, added into zeros in each token's ascending expert order
+    (the order of the reference's sorted scatter-add); ``cache_moe``, the
+    offload runtime's, combines in f32 instead."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S
-    xf = x.reshape(T, d)
+    xf = x.reshape(T, d).contiguous()
     weights, ids, _, aux = gate_topk(p.gate, xf, k)
-    flat = ids.reshape(-1)
-    order = torch.sort(flat, stable=True).indices
-    tok = order // k
-    xs = xf[tok]
-    sizes = torch.bincount(flat, minlength=E).tolist()
-    ys = torch.zeros((T * k, d), dtype=x.dtype, device=x.device)
-    lo = 0
-    for e in range(E):
-        hi = lo + sizes[e]
-        if hi > lo:
-            ys[lo:hi] = _expert_ffn(p, e, xs[lo:hi], cfg.ffn_activation)
-        lo = hi
-    y = torch.zeros((T, d), dtype=ys.dtype, device=x.device).index_add_(
-        0, tok, ys * weights.reshape(-1)[order][:, None])
+    g = K.slot_groups(ids, E)
+    h = K.gate_up(xf, g, p.wg, p.wu) if cfg.ffn_activation == "swiglu" \
+        else K.up_gelu(xf, g, p.wu)
+    ys = K.down(h, g, p.wd)                    # [T·k, d], rows by expert
+    wf = weights.reshape(-1)
+    ys = ys * torch.empty_like(wf).scatter_(0, g.inv, wf)[:, None]
+    rows = torch.sort(g.inv.reshape(T, k), dim=1).values
+    y = torch.zeros((T, d), dtype=ys.dtype, device=x.device)
+    for c in range(k):
+        y = y + ys[rows[:, c]]
     y = y.reshape(B, S, d)
     if cfg.num_shared_experts:
         y = y + ffn_forward(p.shared, x, "swiglu")

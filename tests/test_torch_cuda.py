@@ -1,7 +1,9 @@
 """PyTorch port on a card: the hand-written CUDA kernels (expert FFN with
-swiglu and gelu experts, also at deepseek-v2-lite-16b's widths and top-6,
-flash attention, flash-decode, SSD scan) against their plain versions, the
-offload engine serving through them (mixtral and deepseek), solo and in
+swiglu and gelu experts, also at deepseek-v2-lite-16b's widths and top-6
+and at phi-3.5-moe's and phi-mini-moe's, flash attention, flash-decode, SSD
+scan) against their plain versions, ``moe_global`` through the expert-FFN
+kernel with no host sync, the offload engine serving through them (mixtral,
+deepseek, and phi with its MoE draft), solo and in
 fused cross-session rounds, a dense target served greedy and speculatively
 through flash-decode, and the SSD families' models on the card against
 themselves on the CPU.  Every test is
@@ -205,6 +207,108 @@ def test_ffn_at_deepseek_widths_top6(cuda, T, S, dtype, tol):
     for t in range(T):
         one = K.cache_moe(x[t:t + 1], si[t:t + 1], w[t:t + 1], wu, wd, wg)
         assert torch.equal(one, full[t:t + 1])
+
+
+@pytest.mark.parametrize("T", [1, 5, 512])
+@pytest.mark.parametrize("f", [6400, 960])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_ffn_at_phi_widths(cuda, T, f, dtype, tol):
+    """phi-3.5-moe's experts (d 4096, f 6400) and phi-mini-moe's (f 960:
+    15 tiles of 64 columns, 7.5 of 128) at top-2 over a 16-slot pool: T 1
+    is a draft step, T 5 a verify block (the small block shape), T 512 a
+    prefill block (the large one).  Both stages and ``cache_moe`` against
+    their plain versions (tolerance relative to the output's scale, as
+    above), and each row of the call bit-identical to the same token alone
+    (batch invariance)."""
+    S, d, k = 16, 4096, 2
+    gen = torch.Generator(cuda).manual_seed(T + f)
+    wg, wu = [(torch.randn((S, d, f), generator=gen, device=cuda)
+               * d ** -0.5).to(dtype) for _ in range(2)]
+    wd = (torch.randn((S, f, d), generator=gen, device=cuda)
+          * f ** -0.5).to(dtype)
+    x = torch.randn((T, d), generator=gen, device=cuda).to(dtype)
+    si = torch.rand((T, S), generator=gen, device=cuda).argsort(dim=1)[
+        :, :k].to(torch.int32).contiguous()
+    if T > 1:
+        si[0, 0] = -1
+    w = torch.rand((T, k), generator=gen, device=cuda).to(dtype)
+    g = K.slot_groups(si, S)
+    h = K.gate_up(x, g, wg, wu)
+    h_ref = R.slot_gate_up_ref(x, g.row_tok, wg, wu, g.grp_slot,
+                               g.grp_start, g.grp_count)
+    y = K.down(h, g, wd)
+    y_ref = R.slot_down_ref(h, wd, g.grp_slot, g.grp_start, g.grp_count)
+    full = K.cache_moe(x, si, w, wu, wd, wg)
+    want = R.cache_moe_ref(x, si, w, wu, wd, wg)
+    for a, b in ((h, h_ref), (y, y_ref), (full, want)):
+        assert torch.isfinite(a).all()
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+    for t in range(T):
+        one = K.cache_moe(x[t:t + 1], si[t:t + 1], w[t:t + 1], wu, wd, wg)
+        assert torch.equal(one, full[t:t + 1])
+
+
+@pytest.mark.parametrize("T", [1, 5])
+def test_moe_global_on_the_card_makes_no_host_sync(cuda, T):
+    """An MoE layer at phi-mini-moe's widths (d 4096, 16 experts top-2 of
+    width 960), bf16: ``moe_global`` over T tokens (a draft step, a verify
+    block) runs with CUDA sync debugging set to raise, so any device->host
+    readback fails the test; each stage launches once, and the result holds
+    ``moe_ref`` (relative to its scale: 2e-2, the bf16 tolerance above)."""
+    from repro_torch.configs.registry import get_draft_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.transformer import MoE
+    cfg = get_draft_config("phi-3.5-moe")
+    gen = torch.Generator(cuda).manual_seed(3)
+    p = MoE(cfg, torch.bfloat16, cuda, gen, cuda)
+    x = torch.randn((1, T, cfg.d_model), generator=gen, device=cuda
+                    ).to(torch.bfloat16)
+    MOE.moe_global(p, x, cfg)                  # builds and loads the kernels
+    torch.cuda.synchronize()
+    before = (K.gate_up.launches, K.down.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, _ = MOE.moe_global(p, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (K.gate_up.launches, K.down.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = MOE.moe_ref(p, x, cfg)
+    scale = want.float().abs().max().item()
+    assert torch.isfinite(y).all()
+    assert (y.float() - want.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("slots", [6, 32])
+def test_phi_engine_on_the_card_matches_its_greedy(cuda, slots):
+    """Reduced phi-3.5-moe in f32 with its MoE draft (the launcher's
+    ``reduced_pair``), ``attn_impl="kernel"``, served sd x spmoe with a
+    tight and an ample cache: the port's greedy tokens; every draft step
+    runs the draft's MoE layers through the expert-FFN kernel (at least one
+    gate_up launch per draft layer per drafted token) and its attention
+    through flash-decode."""
+    from repro_torch.launch.serve import reduced_pair
+    cfg, dcfg = (dataclasses.replace(c, attn_impl="kernel")
+                 for c in reduced_pair("phi-3.5-moe"))
+    target = build_model(cfg, cuda, seed=0)
+    draft = build_model(dcfg, cuda, seed=1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 6),
+                           generator=torch.Generator().manual_seed(2))
+    ref = greedy_generate(target, prompt.to(cuda), 16, 64).tolist()
+    before = (K.gate_up.launches, DA.decode_attention.launches)
+    with Engine(EngineConfig(model=cfg, draft=dcfg, decode="sd",
+                             offload="spmoe", cache_slots=slots,
+                             draft_len=3, max_seq=64),
+                target, draft) as eng:
+        res = eng.submit(Request(prompt=prompt, max_new_tokens=16))
+        assert eng.runtime.cache.check_invariants()
+    assert res.tokens == ref
+    assert res.metrics.drafted > 0
+    assert K.gate_up.launches - before[0] >= \
+        res.metrics.drafted * dcfg.num_layers
+    assert DA.decode_attention.launches > before[1]
 
 
 def test_ffn_refuses_bf16_rows_it_cannot_copy(cuda):

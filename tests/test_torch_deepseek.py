@@ -15,8 +15,10 @@ shared expert in every MoE layer.
   path never reads the resident routed experts; the host store and the
   predictor hold the MoE layers only; draft layer l + 1 predicts MoE layer
   l; ``Engine.reset_stats`` leaves the reference's counters;
-* the launcher serves the reduced pair (the dense MLA draft derived from
-  the target).
+* the MoE self-draft (the reference's pairing): its taps hold its MoE
+  layers only and map layer to layer; sd x spmoe against the JAX engine's
+  tokens and counters;
+* the launcher serves the reference's reduced pair (the MoE self-draft).
 
 Reduced deepseek in f32 (``reduced(dtype="float32", num_layers=3)``: 1 dense
 + 2 MoE layers, 8 experts top-2, 1 shared, MLA H 4 / latent 32) with the
@@ -38,6 +40,7 @@ from repro.core.engine import Engine as JaxEngine
 from repro.core.engine import EngineConfig as JaxEngineConfig
 from repro.core.engine import Request as JaxRequest
 from repro.core.engine import derive_draft_config as jax_derive
+from repro.launch import serve as jax_launcher
 from repro.models import moe as JMOE
 from repro.models.registry import build_model as jax_build
 from repro_torch.configs.registry import get_config
@@ -431,10 +434,51 @@ def test_reset_stats_leaves_the_reference_counters(ds):
         assert cum[k] == want_cum[k], k
 
 
+def test_moe_self_draft_serves_as_the_reference_does(ds):
+    """The reference's pairing: the target's own architecture as its draft
+    (an MoE draft with a dense layer and shared experts, weights from key
+    1).  Its taps hold only its MoE layers, and MoE layer l predicts target
+    MoE layer l; sd x spmoe emits the JAX engine's tokens and the port's
+    greedy, and the runtime's counters equal the reference's under
+    synchronous prefetch."""
+    jcfg, cfg = ds["jcfg"], ds["cfg"]
+    jsp = jax_build(jcfg).init(jax.random.PRNGKey(1))
+    self_draft = load_jax_params(build_model(cfg, "cpu"),
+                                 jax.tree.map(np.asarray, jsp))
+    assert self_draft.layers[0].moe.wu.numel() > 0
+    common = dict(decode="sd", offload="spmoe", cache_slots=9, draft_len=3,
+                  max_seq=MAX_SEQ, prefetch_mode="vanilla")
+    with JaxEngine(JaxEngineConfig(model=jcfg, draft=jcfg, **common),
+                   ds["jtp"], jsp) as jeng:
+        want = jeng.submit(JaxRequest(prompt=jnp.asarray(ds["prompts"][0]),
+                                      max_new_tokens=TOK)).tokens
+        want_counters = dict(jeng.runtime.counters())
+    with Engine(EngineConfig(model=cfg, draft=cfg, **common), ds["target"],
+                self_draft) as eng:
+        prompt = torch.from_numpy(ds["prompts"][0])
+        _, dc = self_draft.prefill(prompt, MAX_SEQ)
+        _, _, taps = self_draft.decode_step(dc, prompt[:, :1], 6,
+                                            collect_taps=True)
+        stack = eng.runtime._draft_taps_for_moe(taps)
+        got = eng.submit(_req(ds))
+        got_counters = eng.runtime.counters()
+    assert set(taps) == {"dense_layers", "layers"}
+    assert taps["layers"].shape[0] == cfg.num_moe_layers
+    assert torch.equal(stack, taps["layers"])
+    assert got.tokens == want == ds["refs"][0]
+    assert got_counters == want_counters
+    assert got.metrics.drafted > 0 and got.metrics.prefetched > 0
+
+
 def test_launcher_serves_the_reduced_pair(capsys, monkeypatch):
+    """The reference's pair: the reduced target and, as its draft, the
+    reduced registered draft, which is the target itself (the MoE
+    self-draft)."""
     cfg, dcfg = launcher.reduced_pair(ARCH)
     assert cfg.is_moe and cfg.use_mla and cfg.first_dense_layers == 1
-    assert dcfg.name == cfg.name + "-draft" and not dcfg.is_moe
+    for got, want in zip((cfg, dcfg), jax_launcher.reduced_pair(ARCH)):
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dcfg == cfg and dcfg.is_moe and dcfg.num_shared_experts == 1
     monkeypatch.setattr(sys, "argv", [
         "serve", "--device", "cpu", "--arch", ARCH, "--tokens", "4",
         "--requests", "2", "--cache-slots", "12"])

@@ -209,7 +209,7 @@ def test_cache_consistent_under_concurrent_prefetch(ms):
     store = HostExpertStore(ms["cfg"], ms["target"])
     L, E = store.num_layers, store.num_experts
     cache = ExpertCache(6, store.buffer_shapes(), torch.float32,
-                        table_shape=(L, E))
+                        table_shape=(L, E), device="cpu")
     pf = Prefetcher(store, cache, mode="worker", batched=True)
     stop = threading.Event()
     errs = []

@@ -79,6 +79,18 @@ def test_entry_points_raise_without_a_card(no_card, monkeypatch):
         serve.main()
 
 
+def test_expert_cache_and_phi_default_to_the_card(no_card, monkeypatch):
+    from repro_torch.core.cache import ExpertCache
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ExpertCache(2, {"wu": (4, 4)}, torch.float32)
+    cache = ExpertCache(2, {"wu": (4, 4)}, torch.float32, device="cpu")
+    assert cache.bufs["wu"].device.type == "cpu"
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", "phi-3.5-moe"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main()
+
+
 def test_entry_points_run_on_the_cpu_when_asked(no_card):
     cfg = _tiny()
     with Engine(EngineConfig(model=cfg, offload="spmoe", decode="sd",
