@@ -49,7 +49,11 @@ Phases (each raises on failure):
   3. solo serving with a tight cache (12 slots): misses, prefetches,
      evictions
   4. solo serving with an ample cache (32 slots): the fast path, <=2 host
-     syncs per fast block; then a timed breakdown of one fast verify block
+     syncs per fast block; then a timed breakdown of one fast verify block,
+     and that block and the drafting stage as the engine serves them, a
+     captured step replayed (``core/graphs.py``), against their eager
+     bodies: bit for bit, event ms, and in one traced call its span on the
+     device, busy ms, kernels and idle share
   5. concurrent serving (``Engine.serve_all``, 4 requests of 512-token
      prompts, 2 at a time, ample cache): fused rounds, <=2 host syncs per
      round, and one all-hit round's logits equal to each session's solo fast
@@ -78,8 +82,9 @@ Phases (each raises on failure):
      through ``Engine.submit``: a 512-token prompt greedy x none (one
      flash-decode launch per layer per target step) and one sd x none with
      the derived 14-layer draft (one per layer per draft step), 32 new
-     tokens each; one warm greedy decode step timed alone and traced; every
-     token teacher-forced
+     tokens each; one warm greedy decode step timed alone and traced; the
+     greedy step and the sd x none iteration replayed against their eager
+     bodies (as in phase 4); every token teacher-forced
  12. deepseek-v2-lite-16b (d 2048, 16 MLA heads, latent 512, 64 experts
      top-6 of width 1408, 2 shared, vocab 102400; 1 dense + 3 MoE layers,
      bf16, ``attn_impl="kernel"``): the expert FFN against its plain
@@ -93,7 +98,9 @@ Phases (each raises on failure):
      kernel launches (MLA is plain tensor ops); one request with the MoE
      self-draft (the target's architecture, seed 1, its experts on the
      card) on a preloaded 192-slot cache, every drafted token through the
-     draft's MoE layers on the kernel; every token teacher-forced
+     draft's MoE layers on the kernel; the ample engine's fast verify block
+     and the self-draft's drafting stage replayed against their eager
+     bodies (as in phase 4); every token teacher-forced
  13. phi-3.5-moe (d 4096, 32 / 8 heads x 128, vocab 32064, 16 experts
      top-2 of width 6400; 4 layers, bf16, ``attn_impl="kernel"``) with its
      MoE draft phi-mini-moe (16 experts of width 960, 4 layers, resident):
@@ -105,18 +112,34 @@ Phases (each raises on failure):
      every drafted token through the draft's MoE layers on the kernel; one
      MoE draft decode step under CUDA sync debugging against the derived
      dense draft's of the same depth (no more syncs; one gate_up and one
-     down launch per MoE layer), both drafting stages timed; every token
-     teacher-forced
+     down launch per MoE layer), both drafting stages timed; the fast
+     verify block and the MoE drafting stage replayed against their eager
+     bodies (as in phase 4); every token teacher-forced
 
-Each serving path (3-4, 5, 7, 8, 9, 11, 12 solo, 12 concurrent, 12
-self-draft and 13 solo) runs with the kernels' launch counts set to 0 just
-before it and read just after; each kernel of the path must have launched
-there.
+Every serving engine runs with ``EngineConfig.precompile`` on: its fast
+verify blocks of the ladder length, its draft steps, and (offload none) its
+greedy steps and sd iterations are replays of captured steps.  A replay
+calls no kernel wrapper, so the wrappers count only the launches they make
+(eager calls, a build's warm-up); a capture launches nothing.
+
+Each serving path (3-4, 5, 7, 8, 9, 11 greedy, 11 sd, 12 solo, 12
+concurrent, 12 self-draft and 13 solo) runs with the kernels' launch counts
+set to 0 and a ``torch.profiler`` trace of the device started just before
+it, both read just after: a kernel's launches on the path are the calls
+whose kernels the device ran in the trace (replays included), beside the
+wrappers' own counts.  The SSD paths (8, 9) capture nothing and go
+untraced: there every launch is its wrapper's own.  Each kernel of the path must have launched through
+its wrapper and run on the device, and every counted launch must have run.
+Where a path has an MoE draft (12 self-draft, 13), a marker kernel before
+and after each draft step tells the draft's expert-FFN kernels apart in the
+trace: every drafted token must have run each MoE layer of the draft.
 
 Prints JSON lines (kernels, decode_timing, flash_timing, ssd_timing,
 kernel_checks, requests, ssm_requests, gelu_requests, dense_requests,
 deepseek_requests, deepseek_kernel_timing, phi_requests, phi_kernel_timing,
-breakdown, memory), then the
+breakdown, graphs (every eager-against-replay measure, each engine's builds,
+capture seconds and private pool bytes, the concurrent engines' fused
+rounds among them), memory), then the
 card's name and power limit, then ``{"ok":
 true, "device": {...}}`` as the last line.  Exits non-zero, printing no
 result, without a CUDA device or without the rest of the repository.
@@ -124,10 +147,10 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import gc
 import json
+import re
 import resource
 import subprocess
 import sys
@@ -261,8 +284,12 @@ PHI_PROMPT, PHI_NEW = 64, 32
 PHI_MARGIN, PHI_MIN_EXACT = SSM_MARGIN, SSM_MIN_EXACT
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str):
-    print(msg, file=sys.stderr, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", file=sys.stderr,
+          flush=True)
 
 
 def smi_line() -> str:
@@ -818,44 +845,140 @@ MOE_PATH = ("cache_moe_gate_up", "cache_moe_down", "flash_attention",
             "decode_attention")
 
 
-def reset_launches():
+def host_launches():
+    """Each counted wrapper's own count: the calls that launched its kernel
+    (eager calls and a build's warm-up; a call inside a capture launches
+    nothing and a replay calls no wrapper)."""
+    from repro_torch.kernels import cache_moe as K
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    return {"cache_moe_gate_up": K.gate_up.launches,
+            "cache_moe_up_gelu": K.up_gelu.launches,
+            "cache_moe_down": K.down.launches,
+            "flash_attention": FA.flash_attention.launches,
+            "decode_attention": DA.decode_attention.launches,
+            "ssd_scan": SSD.ssd_scan.launches}
+
+
+_PATH = {}                      # the device trace of the path being driven
+
+
+def reset_launches(trace: bool = True):
+    """Just before a main path: set every wrapper's count to 0 and start
+    tracing the device (``torch.profiler``, CUDA activity).  A path that
+    captures nothing (the SSD families' eager steps) goes untraced with
+    ``trace=False``: there every launch is its wrapper's own."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.kernels import cache_moe as K
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as SSD
+    if _PATH:
+        raise AssertionError("a path trace is already open")
     K.gate_up.launches = K.up_gelu.launches = K.down.launches = 0
     ops.cache_moe.launches = 0
     FA.flash_attention.launches = DA.decode_attention.launches = 0
     SSD.ssd_scan.launches = 0
+    _PATH["prof"] = profile(activities=[ProfilerActivity.CUDA]) \
+        if trace else None
+    if trace:
+        _PATH["prof"].start()
+        time.sleep(EDGE_S)
 
 
 def read_launches(path: str, kernels=MOE_PATH):
-    """The launch counts of a serving path; each of its kernels must have
-    run."""
-    from repro_torch.kernels import cache_moe as K
-    from repro_torch.kernels import decode_attention as DA
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ssd_scan as SSD
-    got = {"cache_moe_gate_up": K.gate_up.launches,
-           "cache_moe_up_gelu": K.up_gelu.launches,
-           "cache_moe_down": K.down.launches,
-           "flash_attention": FA.flash_attention.launches,
-           "decode_attention": DA.decode_attention.launches,
-           "ssd_scan": SSD.ssd_scan.launches}
-    for name in kernels:
-        if got[name] <= 0:
-            raise AssertionError(f"{name} was never launched on the "
-                                 f"{path} path")
-    return got
+    """Just after a main path: stop its trace and count, per wrapper, the
+    calls whose kernels the device ran in it (``KERNEL_NAMES``): the
+    wrappers' own launches and every replay of a captured step that holds
+    them (untraced, the wrappers' own counts).  Those counts are returned
+    by name; the wrappers' own counts under ``"host"``; the calls run
+    between the markers of ``mark_draft_steps`` under ``"draft"``, with
+    the markers seen under ``"draft_marks"``.  Each of ``kernels`` must
+    have launched through its wrapper and run on the device, and every
+    launch a wrapper counted must have run."""
+    import torch
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    prof = _PATH.pop("prof")
+    host = host_launches()
+    ran = dict(host)
+    draft = dict.fromkeys(KERNEL_NAMES, 0)
+    marks, seen, names = 0, 0, set()
+    if prof is not None:
+        time.sleep(EDGE_S)
+        t0 = time.perf_counter()
+        prof.stop()
+        ours = []                 # (start, name) of the port's and markers
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != DeviceType.CUDA:
+                continue
+            seen += 1
+            name = e.name()
+            if OURS.search(name):
+                ours.append((e.start_ns(), name))
+            elif len(names) < 8:
+                names.add(name[:80])
+        ours.sort()
+        log(f"{path}: the trace's {seen} device activities read in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ran = dict.fromkeys(KERNEL_NAMES, 0)
+        inside = False
+        for _, name in ours:
+            if MARK.search(name):
+                inside, marks = not inside, marks + 1
+                continue
+            for k, (pattern, _) in KERNEL_NAMES.items():
+                if pattern.search(name):
+                    ran[k] += 1
+                    draft[k] += inside
+                    break
+        for k, (_, per_call) in KERNEL_NAMES.items():
+            if ran[k] % per_call or draft[k] % per_call:
+                raise AssertionError(f"{path}: {ran[k]} {k} kernels, not "
+                                     f"{per_call} a call")
+            ran[k] //= per_call
+            draft[k] //= per_call
+    for k in kernels:
+        if host[k] <= 0 or ran[k] <= 0:
+            raise AssertionError(
+                f"{k} was never launched on the {path} path (its wrapper "
+                f"{host[k]}, the device {ran[k]}; the trace held {seen} "
+                f"activities, among them {sorted(names)})")
+    for k in KERNEL_NAMES:
+        if ran[k] < host[k]:
+            raise AssertionError(f"{path}: {k} launched {host[k]} times, "
+                                 f"the device ran {ran[k]}")
+    return {**ran, "host": host, "draft": draft, "draft_marks": marks}
+
+
+def mark_draft_steps(rt, calls: list):
+    """Put a marker kernel (``torch.cuda._sleep``, ``MARK``) on the stream
+    before and after each of the runtime's draft steps, so that a path's
+    trace tells the draft's kernels apart (``read_launches``); each step
+    appends to ``calls``.  ``del rt._draft_step`` takes the markers away."""
+    import torch
+    step = rt._draft_step
+
+    def marked(*a):
+        calls.append(1)
+        torch.cuda._sleep(1)
+        out = step(*a)
+        torch.cuda._sleep(1)
+        return out
+    rt._draft_step = marked
+
 
 def serve_phase(name, target, draft, cfg, dcfg, slots, prompts, new_tokens,
-                spy: bool):
+                spy: bool, draft_calls=None):
     """Serve ``prompts`` one after another (sd x spmoe).  The engine's
     counters are reset after the first request (``Engine.reset_stats``), so
     ``info["steady"]`` holds the runtime's counters over the warm requests
     alone (each request's own metrics are deltas, which the reset leaves
-    as they are)."""
+    as they are).  With ``draft_calls`` (a list) the draft steps are
+    marked (``mark_draft_steps``) while the prompts are served."""
     import torch
     from repro_torch.core.engine import Engine, EngineConfig, Request
     config = EngineConfig(model=cfg, draft=dcfg, decode="sd",
@@ -865,6 +988,8 @@ def serve_phase(name, target, draft, cfg, dcfg, slots, prompts, new_tokens,
     eng = Engine(config, target, draft)
     rt = eng.runtime
     setup_s = time.perf_counter() - t0
+    if draft_calls is not None:
+        mark_draft_steps(rt, draft_calls)
     fast_syncs = []
     if spy:
         orig = rt.session_turn
@@ -892,6 +1017,8 @@ def serve_phase(name, target, draft, cfg, dcfg, slots, prompts, new_tokens,
                 raise AssertionError(f"{name}: counters after reset_stats")
     if not rt.cache.check_invariants():
         raise AssertionError(f"{name}: cache invariants violated")
+    if draft_calls is not None:
+        del rt._draft_step
     info = {"setup_s": setup_s, "pinned_staging_bytes":
             rt.store.pinned_bytes, "fast_syncs": fast_syncs,
             "counters": rt.counters()}
@@ -930,6 +1057,137 @@ def check_ample(results, info):
             "max_syncs_per_fast_block": max(info["fast_syncs"])}
 
 
+def clone_tree(tree):
+    """A deep copy of a cache or taps tree (dicts, lists, tensors)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(v) for v in tree]
+    return tree.clone() if hasattr(tree, "clone") else tree
+
+
+def tree_equal(a, b) -> bool:
+    """Bit-equal trees of tensors (and host values)."""
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(tree_equal(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def replay_ab(eager, replay, focus):
+    """A step's eager body against its captured step (``core/graphs.py``)
+    on the same inputs, in turns (eager, replay, replay, eager): event ms
+    per call (``cuda_ms``) and one traced call's span, kernels, device busy
+    ms and idle share (``device_profile``) each time.  Each traced eager
+    call must run the ``focus`` kernels its wrappers launched; each traced
+    replay the same number, none of them through a wrapper."""
+    name = focus[0]
+    keys = ("event_ms", "traced_span_ms", "kernels", f"{name}_kernels",
+            f"{name}_host_kernels", "device_busy_ms", "idle_share")
+    runs = {"eager": [], "replay": []}
+    for side in ("eager", "replay", "replay", "eager"):
+        fn = eager if side == "eager" else replay
+        prof = device_profile(fn, cuda_ms(fn), focus)
+        runs[side].append({k: prof[k] for k in keys})
+    want = runs["eager"][0][f"{name}_kernels"]
+    for side, rs in runs.items():
+        for r in rs:
+            host = r[f"{name}_host_kernels"]
+            if r[f"{name}_kernels"] != want or \
+                    host != (want if side == "eager" else 0):
+                raise AssertionError(
+                    f"{side}: {r[f'{name}_kernels']} {name} kernels ran, "
+                    f"{host} launched through their wrappers; the eager "
+                    f"body ran {want}")
+    return runs
+
+
+def graph_summary(gs):
+    """An engine's captured steps: builds and runs per kind, the builds'
+    seconds (warm-up and capture), each private pool's device bytes."""
+    pools = gs.pool_bytes()
+    return {"builds": dict(gs.builds), "runs": dict(gs.runs),
+            "capture_s": gs.capture_s,
+            "pool_bytes": {str(k): v for k, v in pools.items()},
+            "pool_bytes_total": sum(pools.values())}
+
+
+def verify_replay_ab(rt, seed: int):
+    """The fast verify block (``BLOCK_T`` tokens, a ladder length) of a
+    session at position 100 on the runtime's warm cache: its replay
+    against the eager body on a copy of the session's state, bit for bit,
+    then the two timed in turns (``replay_ab``)."""
+    import torch
+    cfg, dev = rt.cfg, rt.device
+    if BLOCK_T not in rt._ladder():
+        raise AssertionError(f"block of {BLOCK_T} off the ladder "
+                             f"{rt._ladder()}")
+    gen = torch.Generator().manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 100), generator=gen)
+    st = rt.start_session(prompt.to(dev), 8)
+    block = torch.cat([st.cur, torch.randint(
+        0, cfg.vocab_size, (1, BLOCK_T - 1), generator=gen).to(dev)], dim=1)
+    tc, hist = clone_tree(st.tcache), st.history_dev.clone()
+    b0 = sum(rt.graphs.builds.values())
+
+    def eager():
+        lg, ok, hists, nact = rt._fast_body([block], [st.pos], [tc], [hist])
+        return lg[0], ok[0], hists[0], nact[0]
+
+    def replay():
+        return rt._verify_fast(block, st.pos, st.slot)
+    want = eager()
+    r0 = rt.graphs.runs["fast"]
+    got = replay()
+    torch.cuda.synchronize()
+    if rt.graphs.runs["fast"] != r0 + 1:
+        raise AssertionError("the fast verify block did not replay")
+    if not tree_equal(list(got), list(want)) or \
+            not tree_equal(st.tcache, tc):
+        raise AssertionError("the fast verify block's replay differs from "
+                             "its eager body")
+    ab = replay_ab(eager, replay, FOCUS_FFN)
+    rt.finish_session(st)
+    return {"block_tokens": BLOCK_T, "position": 100,
+            "all_hit": bool(got[1]), "bit_equal": True,
+            "builds_during": sum(rt.graphs.builds.values()) - b0, **ab}
+
+
+def draft_stage_ab(rt, prompt):
+    """The drafting stage of one verify block (``BLOCK_T - 1`` draft steps
+    with taps after ``prompt``'s prefill): ``draft.decode_step`` on a copy
+    of the session's draft cache against ``_draft_step`` (a replay per
+    step, next token included), one step held bit for bit first."""
+    import torch
+    st = rt.start_session(prompt.to(rt.device), 8)
+    d, tok, pos = rt.draft, st.cur, st.pos
+    dc = clone_tree(st.dcache)
+    lg, _, taps = d.decode_step(dc, tok, pos, collect_taps=True)
+    nxt, gtaps = rt._draft_step(st, tok, pos)
+    torch.cuda.synchronize()
+    if not torch.equal(nxt, torch.argmax(lg[:, -1], dim=-1)[:, None]) or \
+            not tree_equal(gtaps, taps) or not tree_equal(st.dcache, dc):
+        raise AssertionError("the draft step's replay differs from its "
+                             "eager body")
+    steps = range(BLOCK_T - 1)
+    ab = replay_ab(
+        lambda: [d.decode_step(dc, tok, pos + i, collect_taps=True)
+                 for i in steps],
+        lambda: [rt._draft_step(st, tok, pos + i) for i in steps],
+        FOCUS_FFN if d.cfg.is_moe else FOCUS_DECODE)
+    syncs = sync_warnings(lambda: rt._draft_step(st, tok, pos))
+    rt.finish_session(st)
+    return {"steps": BLOCK_T - 1, "draft": d.cfg.name,
+            "draft_layers": d.cfg.num_layers, "bit_equal": True,
+            "replay_step_syncs": len(syncs), **ab}
+
+
 def breakdown(eng, draft, dev):
     """Where one full-width fast verify block spends its time (warm ample
     cache, block of 5 tokens): the whole block, its expert FFN share, and
@@ -943,7 +1201,8 @@ def breakdown(eng, draft, dev):
                           generator=torch.Generator().manual_seed(7)
                           ).to(dev)
     hist = torch.zeros((rt.store.num_layers, cfg.num_experts), device=dev)
-    block_ms = cuda_ms(lambda: rt._verify_fast(block, 100, tcache, hist))
+    block_ms = cuda_ms(lambda: rt._fast_body([block], [100], [tcache],
+                                             [hist]))
     # the same block's expert FFN calls alone, with the routing it produced
     calls, touched = [], []
     with rt.cache.reading() as (bufs, table):
@@ -976,6 +1235,13 @@ def breakdown(eng, draft, dev):
     draft_ms = cuda_ms(lambda: [draft.decode_step(dcache, tok, 100 + i,
                                                   collect_taps=True)
                                 for i in range(BLOCK_T - 1)])
+    # the same two stages as the engine serves them: captured and replayed
+    preload_every_expert(rt)
+    graphs = {"verify_block": verify_replay_ab(rt, 7),
+              "drafting_stage": draft_stage_ab(rt, torch.randint(
+                  0, cfg.vocab_size, (1, 100),
+                  generator=torch.Generator().manual_seed(8))),
+              "engine": graph_summary(eng.graphs)}
     return {"fast_verify_block_ms": block_ms,
             "expert_ffn_ms": moe_ms,
             "expert_ffn_host_issue_ms": host_ms,
@@ -983,7 +1249,8 @@ def breakdown(eng, draft, dev):
             "experts_touched_per_layer": touched,
             "rest_of_block_ms": block_ms - moe_ms,
             "drafting_stage_ms": draft_ms,
-            "layers": rt.store.num_layers, "block_tokens": BLOCK_T}
+            "layers": rt.store.num_layers, "block_tokens": BLOCK_T,
+            "graphs": graphs}
 
 
 def concurrent_phase(target, draft, cfg, dcfg, prompts, slots: int = 32,
@@ -1063,9 +1330,10 @@ def concurrent_phase(target, draft, cfg, dcfg, prompts, slots: int = 32,
                  for s in ("dense_layers", "layers") if s in st.tcache}
                 for st in sts]
 
-    solo = [rt._verify_fast(b, st.pos, tc, st.history_dev)
+    solo = [[o[0] for o in rt._fast_body([b], [st.pos], [tc],
+                                         [st.history_dev])]
             for b, st, tc in zip(blocks, sts, caches())]
-    logits, ok, _, _ = rt._verify_fast_batched(
+    logits, ok, _, _ = rt._fast_body(
         blocks, [st.pos for st in sts], caches(),
         [st.history_dev for st in sts])
     torch.cuda.synchronize()
@@ -1080,6 +1348,7 @@ def concurrent_phase(target, draft, cfg, dcfg, prompts, slots: int = 32,
                                  f"differ from its solo fast block (max "
                                  f"{diff})")
     counters["fused_equals_solo_bitwise"] = True
+    counters["graphs"] = graph_summary(eng.graphs)
     eng.close()
     return results, counters, launches
 
@@ -1142,53 +1411,117 @@ def lossless_phase(target, prompts_by_req, dev, forward=teacher_force,
 
 # every kernel of csrc/ssd_scan.cu (ssd_state_mma / _fma, ssd_state_pass,
 # ssd_scan_mma / _fma)
-FOCUS_SSD = ("ssd", r"\bssd_(state|scan)_(mma|fma|pass)\b")
-FOCUS_DECODE = ("decode", r"\bdecode_(mma|fma)<")
+SSD_NAMES = r"\bssd_(state|scan)_(mma|fma|pass)\b"
+DECODE_NAMES = r"\bdecode_(mma|fma)<"
 
 
-def device_profile(fn, ms: float, focus=FOCUS_SSD):
-    """One warm call of ``fn`` traced with ``torch.profiler``: the kernels
-    the device ran (those of one of the port's kernels, ``focus`` = (name,
-    pattern of its kernel names), counted apart), the time it was busy
-    (union of the kernels' intervals), and the share of ``ms``, the call's
-    untraced event time, in which it was idle.  None where the profiler saw
-    no device activity."""
-    import re
-    import torch
+def ffn_names(act: int) -> str:
+    """csrc/cache_moe.cu's kernels of one epilogue (0 down, 1 swiglu
+    gate_up, 2 up_gelu): ``slot_ffn<T, act>`` (f32) and
+    ``slot_ffn_tc<act, ...>`` (bf16), as the profiler demangles them."""
+    return (rf"\bslot_ffn<[^,<>]+, (\(int\))?{act}>"
+            rf"|\bslot_ffn_tc<(\(int\))?{act},")
+
+
+# each counted wrapper's device kernels by name, and how many a call runs
+KERNEL_NAMES = {
+    "cache_moe_gate_up": (re.compile(ffn_names(1)), 1),
+    "cache_moe_up_gelu": (re.compile(ffn_names(2)), 1),
+    "cache_moe_down": (re.compile(ffn_names(0)), 1),
+    "flash_attention": (re.compile(r"\bflash_fwd(_wgmma)?<"), 1),
+    "decode_attention": (re.compile(DECODE_NAMES), 1),
+    "ssd_scan": (re.compile(SSD_NAMES), SSD_KERNELS_PER_CALL)}
+# the marker kernel of torch.cuda._sleep (ATen's spin_kernel)
+MARK = re.compile(r"\bspin_kernel\b")
+OURS = re.compile("|".join(p.pattern for p, _ in KERNEL_NAMES.values()) +
+                  "|" + MARK.pattern)
+# host seconds at each end of a trace with no device work: without them
+# the profiler dropped a window's last kernels (seen after a long trace)
+EDGE_S = 0.05
+# a traced call's focus: (name, pattern of its kernels' names, the wrappers
+# that launch them)
+FOCUS_SSD = ("ssd", SSD_NAMES, ("ssd_scan",))
+FOCUS_DECODE = ("decode", DECODE_NAMES, ("decode_attention",))
+FOCUS_FFN = ("expert_ffn", r"\bslot_ffn",
+             ("cache_moe_gate_up", "cache_moe_up_gelu", "cache_moe_down"))
+
+
+def cuda_events(prof):
+    """(name, start ns, end ns) of every device activity of a finished
+    trace, in order of start."""
     from torch.autograd import DeviceType
+    return sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA),
+                  key=lambda e: e[1])
+
+
+def host_kernels(wrappers) -> int:
+    """The device kernels that ``wrappers``' own launches so far make."""
+    got = host_launches()
+    return sum(got[w] * KERNEL_NAMES[w][1] for w in wrappers)
+
+
+def device_profile(fn, ms: float, focus=FOCUS_SSD, tries: int = 5):
+    """One warm call of ``fn`` traced with ``torch.profiler``, with a CUDA
+    event recorded on the stream before it and one after: the kernels the
+    device ran (those of one of the port's kernels, ``focus``, counted
+    apart, beside the kernels that its wrappers launched in the call), the
+    time the device was busy (union of the kernels' and copies'
+    intervals), the call's span on the device (the two events' elapsed
+    time: from the device reaching the call to its last work, the host's
+    issue time included) and the share of that span in which the device
+    was idle, all from that one call.  ``ms``, the mean event time of
+    untraced calls, stands beside them as ``event_ms``.  A trace that comes
+    back empty is taken again, after a pause, before failing."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
+    name, pattern, wrappers = focus
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    name, pattern = focus
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    for attempt in range(tries):
+        h0 = host_kernels(wrappers)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(EDGE_S)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            time.sleep(EDGE_S)
+        host = host_kernels(wrappers) - h0
+        events = cuda_events(prof)
+        if events:
+            break
+        log(f"the profiler saw no device activity of a traced call (window "
+            f"{attempt + 1} of {tries}); tracing again")
+        time.sleep(0.5)
+    else:
+        raise AssertionError("the profiler saw no device activity of a "
+                             "traced call")
     spans = {name: [], "rest": [], "copy": []}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        kind = "copy" if e.name.startswith(("Memcpy", "Memset")) else \
-            name if re.search(pattern, e.name) else "rest"
-        spans[kind].append((e.time_range.start, e.time_range.end))
+    for n, t0, t1 in events:
+        kind = "copy" if n.startswith(("Memcpy", "Memset")) else \
+            name if re.search(pattern, n) else "rest"
+        spans[kind].append((t0, t1))
 
     def busy_ms(iv):
-        total, end = 0.0, float("-inf")
-        for a, b in sorted(iv):
-            if b > end:
-                total += b - max(a, end)
-                end = b
-        return total / 1e3
+        total, end = 0, float("-inf")
+        for t0, t1 in sorted(iv):
+            if t1 > end:
+                total += t1 - max(t0, end)
+                end = t1
+        return total / 1e6
 
-    every = spans[name] + spans["rest"] + spans["copy"]
-    if not every:
-        return None
-    busy = busy_ms(every)
+    busy = busy_ms(spans[name] + spans["rest"] + spans["copy"])
+    span = a.elapsed_time(b)
     return {"kernels": len(spans[name]) + len(spans["rest"]),
-            f"{name}_kernels": len(spans[name]), "copies": len(spans["copy"]),
+            f"{name}_kernels": len(spans[name]),
+            f"{name}_host_kernels": host, "copies": len(spans["copy"]),
             "device_busy_ms": busy, f"{name}_busy_ms": busy_ms(spans[name]),
-            "rest_busy_ms": busy_ms(spans["rest"]),
-            "event_ms": ms, "idle_share": max(0.0, 1 - busy / ms)}
+            "rest_busy_ms": busy_ms(spans["rest"]), "event_ms": ms,
+            "traced_span_ms": span, "idle_share": 1 - busy / span}
 
 
 def mamba_layers(cfg) -> int:
@@ -1217,7 +1550,7 @@ def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int,
     max_seq = max(p.shape[1] for p in prompts) + new_tokens + 8
     eng = Engine(EngineConfig(model=cfg, decode="greedy", offload="none",
                               max_seq=max_seq), target)
-    reset_launches()
+    reset_launches(trace=False)
     t0 = time.perf_counter()
     results = [eng.submit(Request(prompt=p, max_new_tokens=new_tokens,
                                   request_id=f"{name}-{i}"))
@@ -1244,10 +1577,10 @@ def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int,
                                   prefill_ms)
     # the profiler's focus must see every kernel of every SSD call
     want_traced = mamba_layers(cfg) * SSD_KERNELS_PER_CALL
-    if prefill_prof is None or prefill_prof["ssd_kernels"] != want_traced:
+    if prefill_prof["ssd_kernels"] != want_traced:
         raise AssertionError(f"{name}: the traced prefill holds "
-                             f"{prefill_prof and prefill_prof['ssd_kernels']}"
-                             f" SSD kernels, expected {want_traced}")
+                             f"{prefill_prof['ssd_kernels']} SSD kernels, "
+                             f"expected {want_traced}")
     step_prof = device_profile(
         lambda: target.decode_step(cache, tok, p0.shape[1]), step_ms)
     loss = lossless_phase(target, [(p, r.tokens) for p, r in
@@ -1269,6 +1602,7 @@ def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int,
             "decode_step_ms": step_ms, "prefill_profile": prefill_prof,
             "decode_step_profile": step_prof,
             "launches": launches["ssd_scan"],
+            "host_launches": launches["host"]["ssd_scan"],
             "attn_impl": cfg.attn_impl,
             "kernel_launches": {k: launches[k] for k in kernels},
             "lossless": loss}
@@ -1381,28 +1715,44 @@ def dense_phase(dev):
                                   request_id="dense-greedy"))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    after_greedy = read_launches("dense greedy",
-                                 ("flash_attention", "decode_attention"))
+    g_launches = read_launches("dense greedy",
+                               ("flash_attention", "decode_attention"))
+    reset_launches()
+    t1s = time.perf_counter()
     res_s = sd.submit(Request(prompt=prompts[1], max_new_tokens=DENSE_NEW,
                               request_id="dense-sd"))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = read_launches("dense", ("flash_attention", "decode_attention"))
+    s_launches = read_launches("dense sd",
+                               ("flash_attention", "decode_attention"))
+    launches = {k: g_launches[k] + s_launches[k] for k in KERNEL_NAMES}
+    launches["host"] = {k: g_launches["host"][k] + s_launches["host"][k]
+                        for k in KERNEL_NAMES}
     for res in (res_g, res_s):
         if len(res.tokens) != DENSE_NEW or res.finish_reason != "length":
             raise AssertionError(f"{res.request_id}: ended "
                                  f"{res.finish_reason} after "
                                  f"{len(res.tokens)} tokens")
-    # one launch per layer per one-token step: the target's steps (greedy)
-    # and the draft's (sd; a step after a draft block accepted whole skips
-    # a position and takes the masked route)
-    g_dec = after_greedy["decode_attention"]
-    s_dec = launches["decode_attention"] - g_dec
-    if g_dec != cfg.num_layers * (DENSE_NEW - 1):
+    # one kernel per layer per one-token step, as the traces count them:
+    # the target's steps (greedy) and the draft's (sd; a step after a draft
+    # block accepted whole skips a position and takes the masked route).
+    # Every step is a replay of a captured step, which runs the kernels
+    # without their wrappers; each build's eager warm-up runs them once
+    # more, through the wrappers
+    g_dec = g_launches["decode_attention"]
+    s_dec = s_launches["decode_attention"]
+    g_steps = DENSE_NEW - 1 + greedy.graphs.builds["greedy"]
+    if g_dec != cfg.num_layers * g_steps:
         raise AssertionError(f"greedy: {g_dec} flash-decode launches, "
-                             f"expected {cfg.num_layers * (DENSE_NEW - 1)}")
+                             f"expected {cfg.num_layers * g_steps}")
+    g_replayed = g_dec - g_launches["host"]["decode_attention"]
+    if g_replayed != cfg.num_layers * (DENSE_NEW - 1):
+        raise AssertionError(f"greedy: the replays ran {g_replayed} "
+                             f"flash-decode kernels, not one per layer per "
+                             f"step")
     drafted = res_s.metrics.drafted
-    if not 0 < s_dec <= dcfg.num_layers * drafted or s_dec % dcfg.num_layers:
+    s_steps = drafted + 4 * sd.graphs.builds["sd"]
+    if not 0 < s_dec <= dcfg.num_layers * s_steps or s_dec % dcfg.num_layers:
         raise AssertionError(f"sd: {s_dec} flash-decode launches for "
                              f"{drafted} draft steps of {dcfg.num_layers} "
                              f"layers")
@@ -1418,6 +1768,7 @@ def dense_phase(dev):
     step_prof = device_profile(
         lambda: target.decode_step(cache, tok, DENSE_PROMPT), step_ms,
         FOCUS_DECODE)
+    graphs = dense_replay_ab(target, draft, greedy, sd, prompts)
     greedy.close()
     sd.close()
     loss = lossless_phase(target, [(p, r.tokens) for p, r in
@@ -1434,17 +1785,75 @@ def dense_phase(dev):
             "model_init_s": init_s,
             "greedy": {"wall_s": t1 - t0, "tpot_wall_s":
                        res_g.metrics.tpot_wall,
-                       "decode_attention_launches": g_dec},
-            "sd": {"wall_s": t2 - t1, "tpot_wall_s": res_s.metrics.tpot_wall,
+                       "decode_attention_launches": g_dec,
+                       "decode_attention_replayed": g_replayed,
+                       "host_launches": g_launches["host"]},
+            "sd": {"wall_s": t2 - t1s, "tpot_wall_s": res_s.metrics.tpot_wall,
                    "iterations": res_s.metrics.iterations,
                    "drafted": drafted, "accepted": res_s.metrics.accepted,
-                   "decode_attention_launches": s_dec},
+                   "decode_attention_launches": s_dec,
+                   "host_launches": s_launches["host"]},
             "launches": launches, "decode_step_ms": step_ms,
-            "decode_step_profile": step_prof, "lossless": loss}
+            "decode_step_profile": step_prof, "graphs": graphs,
+            "lossless": loss}
     del greedy, sd, target, draft, cache
     gc.collect()
     torch.cuda.empty_cache()
     return info
+
+
+def dense_replay_ab(target, draft, greedy, sd, prompts):
+    """llama3.2-3b's greedy step and sd x none iteration (draft_len 4) at
+    position 512 as the engines serve them (a pool slot's caches, the
+    captured step) against the eager step on copies of the caches: bit for
+    bit, then timed in turns (``replay_ab``)."""
+    import torch
+    from repro_torch.core import sd as S
+    dev = target.device
+    out = {}
+    slot = greedy._pool.take()
+    p0 = prompts[0].to(dev)
+    _, cache = target.prefill(p0, DENSE_MAX_SEQ, cache=slot.tcache)
+    tok = p0[:, -1:]
+    step = S.make_greedy_step(target, greedy.graphs)
+    ref = clone_tree(cache)
+    want = S.make_greedy_step(target)(ref, tok, DENSE_PROMPT)
+    got = step(cache, tok, DENSE_PROMPT, slot)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want) or not tree_equal(cache, ref):
+        raise AssertionError("the greedy step's replay differs from its "
+                             "eager body")
+    out["greedy_step"] = {"position": DENSE_PROMPT, "bit_equal": True,
+                          **replay_ab(lambda: S.make_greedy_step(target)(
+                              ref, tok, DENSE_PROMPT),
+                              lambda: step(cache, tok, DENSE_PROMPT, slot),
+                              FOCUS_DECODE)}
+    greedy._pool.give(slot)
+    slot = sd._pool.take()
+    p1 = prompts[1].to(dev)
+    _, tc = target.prefill(p1, DENSE_MAX_SEQ, cache=slot.tcache)
+    _, dc = draft.prefill(p1, DENSE_MAX_SEQ, cache=slot.dcache)
+    cur = p1[:, -1:]
+    step = S.make_sd_step(draft, target, 4, sd.graphs)
+    eager = S.make_sd_step(draft, target, 4)
+    tcc, dcc = clone_tree(tc), clone_tree(dc)
+    want = eager(dcc, tcc, cur, DENSE_PROMPT)
+    got = step(dc, tc, cur, DENSE_PROMPT, slot)
+    if got.tokens != want.tokens or not tree_equal(tc, tcc) \
+            or not tree_equal(dc, dcc):
+        raise AssertionError("the sd iteration's replay differs from its "
+                             "eager body")
+    out["sd_iteration"] = {"position": DENSE_PROMPT, "draft_len": 4,
+                           "bit_equal": True,
+                           **replay_ab(lambda: eager(dcc, tcc, cur,
+                                                     DENSE_PROMPT),
+                                       lambda: step(dc, tc, cur,
+                                                    DENSE_PROMPT, slot),
+                                       FOCUS_DECODE)}
+    sd._pool.give(slot)
+    out["greedy_engine"] = graph_summary(greedy.graphs)
+    out["sd_engine"] = graph_summary(sd.graphs)
+    return out
 
 
 def deepseek_phase(dev):
@@ -1498,6 +1907,10 @@ def deepseek_phase(dev):
     ample_tot = check_ample(ample, ample_info)
     log(f"[12] deepseek ample cache ok: {ample_tot}; steady "
         f"{ample_info['steady']}; launches {solo_launches}")
+    preload_every_expert(eng.runtime)
+    ds_graphs = {"verify_block": verify_replay_ab(eng.runtime, 103),
+                 "engine": graph_summary(eng.graphs)}
+    log(f"[12] deepseek eager against replay: {ds_graphs}")
     eng.close()
     del eng
     gc.collect()
@@ -1573,39 +1986,30 @@ def deepseek_phase(dev):
                   "steady_after_reset": ample_info["steady"]},
         "concurrent": conc_info, "launches_solo_path": solo_launches,
         "launches_concurrent_path": launches, "self_draft": self_info,
-        "lossless": loss, "min_exact": DS_MIN_EXACT}
+        "graphs": ds_graphs, "lossless": loss, "min_exact": DS_MIN_EXACT}
     del target, draft
     gc.collect()
     torch.cuda.empty_cache()
     return info, rows, timing
 
 
-@contextlib.contextmanager
-def counting_moe_global():
-    """Count ``moe_global`` calls (a resident MoE model's layers: here an
-    MoE draft's) while the block runs; each is one gate_up and one down
-    launch."""
-    from repro_torch.models import moe as MOE
-    orig, calls = MOE.moe_global, [0]
-
-    def counted(p, x, cfg):
-        calls[0] += 1
-        return orig(p, x, cfg)
-
-    MOE.moe_global = counted
-    try:
-        yield calls
-    finally:
-        MOE.moe_global = orig
-
-
-def check_draft_launches(name, results, calls: int, dcfg):
-    """Every drafted token ran the draft's MoE layers through the kernel."""
+def check_draft_launches(name, results, launches, dcfg, steps: int):
+    """Every drafted token ran the draft's MoE layers through the kernel:
+    the expert-FFN calls whose kernels the device ran between the markers
+    of the path's ``steps`` draft steps (``mark_draft_steps``), as the
+    path's trace counts them (``read_launches``)."""
     drafted = sum(r.metrics.drafted for r in results)
+    got = launches["draft"]
+    calls = min(got["cache_moe_gate_up"], got["cache_moe_down"])
+    if launches["draft_marks"] != 2 * steps:
+        raise AssertionError(f"{name}: {launches['draft_marks']} markers "
+                             f"for {steps} draft steps")
     if drafted <= 0 or calls < drafted * dcfg.num_moe_layers:
-        raise AssertionError(f"{name}: {calls} MoE draft layer calls for "
-                             f"{drafted} drafted tokens")
-    return {"drafted": drafted, "draft_moe_calls": calls}
+        raise AssertionError(f"{name}: {calls} MoE draft layer launches "
+                             f"for {drafted} drafted tokens")
+    return {"drafted": drafted, "draft_steps": steps,
+            "draft_moe_calls": got["cache_moe_gate_up"],
+            "draft_down_calls": got["cache_moe_down"]}
 
 
 def moe_draft_request(name, target, draft, cfg, dcfg, slots, prompt,
@@ -1621,23 +2025,28 @@ def moe_draft_request(name, target, draft, cfg, dcfg, slots, prompt,
                               draft_len=4, max_seq=256), target, draft)
     rt = eng.runtime
     preload_every_expert(rt)
-    with counting_moe_global() as calls:
-        reset_launches()
-        res = eng.submit(Request(prompt=prompt, max_new_tokens=new_tokens,
-                                 request_id=f"{name}-0"))
-        torch.cuda.synchronize()
-        launches = read_launches(name, kernels)
+    steps = []
+    mark_draft_steps(rt, steps)
+    reset_launches()
+    res = eng.submit(Request(prompt=prompt, max_new_tokens=new_tokens,
+                             request_id=f"{name}-0"))
+    torch.cuda.synchronize()
+    launches = read_launches(name, kernels)
+    del rt._draft_step
     if len(res.tokens) != new_tokens or res.finish_reason != "length":
         raise AssertionError(f"{name}: the request ended "
                              f"{res.finish_reason} after {len(res.tokens)} "
                              f"tokens")
     info = {"launches": launches,
-            **check_draft_launches(name, [res], calls[0], dcfg),
+            **check_draft_launches(name, [res], launches, dcfg,
+                                   len(steps)),
             "tpot_wall_s": res.metrics.tpot_wall,
             "hit_rate": res.metrics.hit_rate,
             **{k: res.metrics[k] for k in ("verify_blocks", "fast_blocks",
                                            "fast_fallbacks", "host_syncs",
                                            "on_demand_loads")}}
+    info["graphs"] = {"drafting_stage": draft_stage_ab(rt, prompt),
+                      "engine": graph_summary(eng.graphs)}
     eng.close()
     return res, info
 
@@ -1750,27 +2159,33 @@ def phi_phase(dev):
     prompts = [torch.randint(0, cfg.vocab_size, (1, PHI_PROMPT),
                              generator=torch.Generator().manual_seed(100 + i))
                for i in range(4)]
-    with counting_moe_global() as calls:
-        reset_launches()
-        eng, tight, tight_info = serve_phase("phi-tight", target, draft,
-                                             cfg, dcfg, PHI_TIGHT,
-                                             prompts[:2], PHI_NEW, spy=False)
-        tight_tot = check_tight(tight)
-        log(f"[13] phi tight cache ok: {tight_tot}")
-        eng.close()
-        del eng
-        gc.collect()
-        torch.cuda.empty_cache()
-        eng, ample, ample_info = serve_phase("phi-ample", target, draft,
-                                             cfg, dcfg, PHI_AMPLE,
-                                             prompts[2:], PHI_NEW, spy=True)
-        launches = read_launches("phi solo serving")
-        draft_calls = calls[0]
+    reset_launches()
+    steps = []
+    eng, tight, tight_info = serve_phase("phi-tight", target, draft, cfg,
+                                         dcfg, PHI_TIGHT, prompts[:2],
+                                         PHI_NEW, spy=False,
+                                         draft_calls=steps)
+    tight_tot = check_tight(tight)
+    log(f"[13] phi tight cache ok: {tight_tot}")
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, ample, ample_info = serve_phase("phi-ample", target, draft, cfg,
+                                         dcfg, PHI_AMPLE, prompts[2:],
+                                         PHI_NEW, spy=True, draft_calls=steps)
+    launches = read_launches("phi solo serving")
     ample_tot = check_ample(ample, ample_info)
     drafts = check_draft_launches("phi solo serving", tight + ample,
-                                  draft_calls, dcfg)
+                                  launches, dcfg, len(steps))
     log(f"[13] phi ample cache ok: {ample_tot}; steady "
         f"{ample_info['steady']}; launches {launches}; {drafts}")
+    preload_every_expert(eng.runtime)
+    phi_graphs = {"verify_block": verify_replay_ab(eng.runtime, 101),
+                  "moe_drafting_stage": draft_stage_ab(eng.runtime,
+                                                       prompts[0]),
+                  "engine": graph_summary(eng.graphs)}
+    log(f"[13] phi eager against replay: {phi_graphs}")
     eng.close()
     del eng
     gc.collect()
@@ -1821,7 +2236,8 @@ def phi_phase(dev):
                   "pinned_staging_bytes": ample_info["pinned_staging_bytes"],
                   "steady_after_reset": ample_info["steady"]},
         "launches_solo_path": launches, "draft_launches": drafts,
-        "draft_step": steps, "lossless": loss, "min_exact": PHI_MIN_EXACT,
+        "draft_step": steps, "graphs": phi_graphs, "lossless": loss,
+        "min_exact": PHI_MIN_EXACT,
         "host_max_rss_bytes":
             resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
     del target, draft
@@ -1960,6 +2376,18 @@ def main() -> int:
     rows += phi_rows
     log(f"[13] phi-3.5-moe serving ok: {phi_info}")
 
+    # the eager-against-replay measures, printed on their own line
+    graphs_mixtral = {**brk.pop("graphs"),
+                      "concurrent_engine": conc_info.pop("graphs")}
+    graphs_ds = {**ds_info.pop("graphs"),
+                 "concurrent_engine": ds_info["concurrent"].pop("graphs"),
+                 "self_drafting_stage": ds_info["self_draft"]["graphs"].pop(
+                     "drafting_stage"),
+                 "self_draft_engine": ds_info["self_draft"].pop("graphs")[
+                     "engine"]}
+    graphs_phi = phi_info.pop("graphs")
+    graphs_dense = dense_info.pop("graphs")
+
     kernels = []
     # the expert FFN at the verify block (T 5) and, one row more per stage,
     # at the concurrent path's 512-token prefill block
@@ -1971,6 +2399,7 @@ def main() -> int:
                 "source": "src/repro_torch/csrc/cache_moe.cu",
                 "replaces": f"src/repro/kernels/moe_gemm.py:{line}",
                 "launches": launches[name],
+                "launches_host": launches["host"][name],
                 "launches_solo_path": solo_launches[name], "T": T,
                 "max_abs_err": main_k[T]["err"][name],
                 "ms": t["ms"], "kernel_ms": t["ms"],
@@ -1984,6 +2413,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:27",
         "launches": launches["flash_attention"],
+        "launches_host": launches["host"]["flash_attention"],
         "launches_solo_path": solo_launches["flash_attention"],
         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -1996,6 +2426,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:26",
         "launches": mamba_info["launches"],
+        "launches_host": mamba_info["host_launches"],
         "launches_zamba2_path": zamba_info["launches"],
         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -2008,6 +2439,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:26",
         "launches": dense_info["launches"]["decode_attention"],
+        "launches_host": dense_info["launches"]["host"]["decode_attention"],
         "launches_concurrent_path": launches["decode_attention"],
         "launches_solo_path": solo_launches["decode_attention"],
         "launches_gelu_path": gelu_info["launches"]["decode_attention"],
@@ -2023,6 +2455,8 @@ def main() -> int:
             "source": "src/repro_torch/csrc/cache_moe.cu",
             "replaces": "src/repro/kernels/cache_moe.py:120",
             "launches": gelu_info["launches"]["cache_moe_up_gelu"], "T": T,
+            "launches_host": gelu_info["launches"]["host"][
+                "cache_moe_up_gelu"],
             "max_abs_err": gelu_k[T]["err"]["cache_moe_up_gelu"],
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2037,6 +2471,8 @@ def main() -> int:
                 "source": "src/repro_torch/csrc/cache_moe.cu",
                 "replaces": f"src/repro/kernels/moe_gemm.py:{line}",
                 "launches": ds_info["launches_concurrent_path"][name],
+                "launches_host": ds_info["launches_concurrent_path"]["host"][
+                    name],
                 "launches_solo_path": ds_info["launches_solo_path"][name],
                 "T": T, "k": DS_K, "pool": DS_TIGHT,
                 "max_abs_err": ds_k[T]["err"][name],
@@ -2059,8 +2495,10 @@ def main() -> int:
                 "source": "src/repro_torch/csrc/cache_moe.cu",
                 "replaces": f"src/repro/kernels/moe_gemm.py:{line}",
                 "launches": phi_info["launches_solo_path"][name],
+                "launches_host": phi_info["launches_solo_path"]["host"][name],
                 "launches_draft": phi_info["draft_launches"][
-                    "draft_moe_calls"],
+                    "draft_moe_calls" if name == "cache_moe_gate_up"
+                    else "draft_down_calls"],
                 "row": "draft" if draft_row else "target",
                 "T": T, "k": PHI_K, "pool": PHI_E,
                 "f": PHI_DRAFT_F if draft_row else PHI_F,
@@ -2116,6 +2554,16 @@ def main() -> int:
         **{f"draft_f{PHI_DRAFT_F}_T{T}": phi_dk[T]["timing"]
            for T in (1, CONC_PROMPT)}}}))
     print(json.dumps({"breakdown": brk}))
+    print(json.dumps({"graphs": {
+        "launch_counting": "a path's launches are the calls whose kernels "
+                           "the device ran in that path's torch.profiler "
+                           "trace (replays included; the SSD paths, all "
+                           "eager, untraced); launches_host are "
+                           "the wrappers' own counts (eager calls and "
+                           "builds' warm-ups; a capture launches nothing, "
+                           "a replay calls no wrapper)",
+        "mixtral-8x7b": graphs_mixtral, "deepseek-v2-lite-16b": graphs_ds,
+        "phi-3.5-moe": graphs_phi, "llama3.2-3b": graphs_dense}}))
     print(json.dumps({"memory": {
         "device_max_allocated_bytes": torch.cuda.max_memory_allocated(),
         "pinned_staging_bytes": {"tight": tight_info["pinned_staging_bytes"],

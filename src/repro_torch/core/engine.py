@@ -21,6 +21,12 @@ A long-lived :class:`Engine` serves a stream of :class:`Request` objects
 against one warm expert cache and prefetcher; each finished request returns
 a :class:`GenerationResult` with a per-request :class:`Metrics` snapshot.
 The engine runs on the card unless it is given ``device="cpu"``.
+
+Decode steps run as captured steps (``core/graphs.py``; CUDA graphs on the
+card) over per-session state from a pool that outlives requests: the
+offload runtime's verify blocks and draft steps, and for offload none of
+an attention-family target the greedy step and the SD iteration.  The SSD
+families (ssm, hybrid) decode eagerly.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sd as S
 from repro_torch.core.chaos import ChaosConfig, ExpertLoadError
 from repro_torch.core.cutoff import HardwareProfile
+from repro_torch.core.graphs import GraphSet, SessionPool
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -92,6 +99,10 @@ class EngineConfig:
     profile: Optional[HardwareProfile] = None
     # session
     max_seq: int = 512
+    # build the offload runtime's fast verify step of every ladder length
+    # at init (core/graphs.py: CUDA graphs on the card, static-buffer
+    # bodies on the CPU); without it each is built on its first use
+    precompile: bool = True
     # resilience plane (see core/chaos.py + the Prefetcher docstring)
     chaos: Optional[ChaosConfig] = None
     prefetch_retries: int = 3           # per-task transient-I/O retry budget
@@ -455,11 +466,19 @@ class Engine:
             self.draft = build_model(self.draft_cfg, self.device,
                                      seed=draft_seed)
         self.runtime = None             # OffloadEngine when offload != none
+        # offload none: captured steps and their pool (attention families)
+        self.graphs: Optional[GraphSet] = None
+        self._pool: Optional[SessionPool] = None
         if offload:
             from repro_torch.core.runtime import OffloadEngine
             self.runtime = OffloadEngine(config, self.target, self.draft)
             if own_target:              # the store now holds the experts
                 self.target.drop_experts()
+            self.graphs = self.runtime.graphs
+        elif config.model.family in ("dense", "moe"):
+            self.graphs = GraphSet(self.device)
+            self._pool = SessionPool(self.target, self.draft,
+                                     config.max_seq)
         self._cum = Metrics(cutoff_layer=self.cutoff_layer)
         self.last_result: Optional[GenerationResult] = None
         self.last_batch: List[GenerationResult] = []
@@ -587,20 +606,21 @@ class Engine:
 
     def _chunk_stream(self, prompt, max_new_tokens, sstats):
         """The committed-chunk generator for engines without an offload
-        runtime (offload == none)."""
+        runtime (offload == none); it holds a pool slot while it runs."""
         cfg = self.config
+        kw = dict(stats=sstats, graphs=self.graphs, pool=self._pool)
         if cfg.decode == DecodePolicy.GREEDY.value:
             return S.greedy_stream(self.target, prompt, max_new_tokens,
-                                   cfg.max_seq, stats=sstats)
+                                   cfg.max_seq, **kw)
         if cfg.decode == DecodePolicy.SD.value:
             return S.sd_stream(self.draft, self.target, prompt,
                                max_new_tokens, cfg.draft_len, cfg.max_seq,
-                               stats=sstats)
+                               **kw)
         return S.sd_adaptive_stream(self.draft, self.target, prompt,
                                     max_new_tokens, cfg.max_seq,
                                     min_len=cfg.min_draft_len,
                                     max_len=cfg.max_draft_len,
-                                    ewma=cfg.draft_ewma, stats=sstats)
+                                    ewma=cfg.draft_ewma, **kw)
 
     def _counters(self) -> Dict[str, int]:
         return self.runtime.counters() if self.runtime is not None else {}

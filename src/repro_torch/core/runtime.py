@@ -43,6 +43,21 @@ deepseek's self-draft) keeps its own experts resident on the device and
 runs them through ``moe_global``'s expert-FFN kernel, with no host sync, so
 its drafting step reads back one token, as a dense draft's does.
 
+Captured steps (``core/graphs.py``, the port of the reference's jitted
+``_verify_fast`` / ``_verify_fast_batched`` / ``_draft_step``).  Every
+session holds a slot of a ``SessionPool`` (its KV caches, draft cache and
+history) from ``start_session`` to ``finish_session``.  The fast verify
+block of a ladder length (``_ladder``) runs as a captured step keyed by
+(slot, T), a fused round by the tuple of its sessions' (slot, T) in slot
+order, a draft step by (slot, route); the fused keys are built on first
+use and never freed, so their number grows with the distinct rounds served
+(at most one per subset of slots and choice of ladder lengths);
+``EngineConfig.precompile`` builds slot 0's whole
+ladder at init, as ``_precompile_fast`` pre-traces it.  A fast block of
+another length (an all-hit prefill) runs the eager body and is counted in
+``eager_fast_blocks``.  The replays keep the pool's reader wait and its
+release event outside the capture (``ExpertCache.reading``).
+
 Host-sync accounting: every blocking device->host readback on the decode
 path goes through ``_readback`` (tests spy on it) and is counted in
 ``host_syncs``.  The drafting stage's token and prediction readbacks, and
@@ -65,12 +80,14 @@ from repro_torch.core.chaos import ChaosInjector, ExpertLoadError
 from repro_torch.core.cutoff import solve_cutoff
 from repro_torch.core.engine import (RUNTIME_COUNTER_KEYS, DecodePolicy,
                                      EngineConfig)
+from repro_torch.core.graphs import GraphSet, SessionPool, SessionSlot
 from repro_torch.core.offload import HostExpertStore
 from repro_torch.core.predictor import ExpertPredictor
 from repro_torch.core.prefetcher import Prefetcher
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ffn_forward
 from repro_torch.models.moe import gate_topk
+from repro_torch.models.transformer import reset_cache
 
 POLICIES = ("spmoe", "adapmoe", "moe-infinity", "on-demand")
 
@@ -85,10 +102,12 @@ class DecodeState:
     """Everything one in-flight request mutates while decoding: KV and
     draft caches, position, the draft-length controller, request-level
     MoE-Infinity history, fast-path arming and the device-side fast-hit
-    accumulator.  The engine keeps the shared runtime (cache, prefetcher)
-    and cumulative counters."""
+    accumulator.  The caches and the history are those of ``slot``, the
+    session's pool slot while it runs.  The engine keeps the shared
+    runtime (cache, prefetcher) and cumulative counters."""
     max_new: int
     tcache: Any
+    slot: Optional[SessionSlot] = None
     dcache: Any = None
     cur: Optional[torch.Tensor] = None
     pos: int = 0
@@ -189,6 +208,38 @@ class OffloadEngine:
         # last observed arming of the shared cache: seeds new sessions
         self._fast_hint = False
         self._st: Optional[DecodeState] = None   # state bound to this turn
+        # captured steps and the per-session state they read
+        self.graphs = GraphSet(self.device)
+        self.pool = SessionPool(self.target, self.draft, self.max_seq,
+                                self._hist_shape)
+        self.eager_fast_blocks = 0       # fast blocks of a length off _ladder
+        if config.precompile:
+            self._precompile_fast()
+
+    def _ladder(self) -> Tuple[int, ...]:
+        """The verify block lengths a decode turn makes: draft_len + 1, the
+        adaptive controller's min..max + 1, or 1 for greedy."""
+        cfg = self.config
+        if self.decode == DecodePolicy.SD_ADAPTIVE.value:
+            return tuple(range(cfg.min_draft_len + 1, cfg.max_draft_len + 2))
+        return (self.draft_len + 1,)
+
+    def _precompile_fast(self):
+        """Build the fast verify step of every ladder length for pool slot
+        0 (the reference pre-traces ``_verify_fast`` for one
+        session-shaped cache), so that no armed fast block captures while
+        it serves.  Nothing inserts yet, so every routed expert misses and
+        the warm-up's cache writes are undone by the next prefill."""
+        slot = self.pool.take()
+        try:
+            for T in self._ladder():
+                tokens = torch.zeros((1, T), dtype=torch.int64,
+                                     device=self.device)
+                key, body = self._fast_step([slot], [tokens], [0])
+                with self.cache.reading():
+                    self.graphs.build(key, body, [tokens, 0])
+        finally:
+            self.pool.give(slot)
 
     # ------------------------------------------------------------------ sync
     def _readback(self, x: torch.Tensor) -> np.ndarray:
@@ -210,22 +261,76 @@ class OffloadEngine:
                                      self.cfg.num_experts_per_tok)
         return w, ids, probs
 
-    def _verify_fast(self, tokens: torch.Tensor, pos: int, tcache,
-                     history: torch.Tensor):
-        """The whole verify block, speculating that every routed expert is
-        cache-resident: a round of one session (``_verify_fast_batched``).
-        Returns (logits, all_hit, new_history, n_active); nothing here syncs
-        with the host."""
+    def _verify_fast(self, tokens: torch.Tensor, pos: int,
+                     slot: SessionSlot):
+        """The whole verify block over ``slot``'s cache and history,
+        speculating that every routed expert is cache-resident: a round of
+        one session (``_verify_fast_batched``).  Returns (logits, all_hit,
+        new_history, n_active); nothing here syncs with the host."""
         logits, ok, hists, nact = self._verify_fast_batched(
-            [tokens], [pos], [tcache], [history])
+            [tokens], [pos], [slot])
         return logits[0], ok[0], hists[0], nact[0]
 
     def _verify_fast_batched(self, tokens: List[torch.Tensor],
-                             pos: List[int], tcaches: List[Any],
-                             histories: List[torch.Tensor]):
-        """A whole scheduling round on the fast path: every ready session's
+                             pos: List[int], slots: List[SessionSlot]):
+        """A whole scheduling round on the fast path over the sessions' pool
+        slots (their caches and histories), as the captured step of its
+        key.  The step takes the sessions in slot order, so the order in
+        which a round lists them builds nothing new; the outputs come back
+        in the round's order.  A solo block of a length off ``_ladder``
+        runs ``_fast_body`` eagerly and is counted in
+        ``eager_fast_blocks``.  The outputs of a captured step are valid
+        until its key's next run."""
+        with self.cache.reading():
+            if len(slots) == 1 and tokens[0].shape[1] not in self._ladder():
+                self.eager_fast_blocks += 1
+                return self._fast_body(tokens, pos, [slots[0].tcache],
+                                       [slots[0].history])
+            order = sorted(range(len(slots)), key=lambda i: slots[i].index)
+            toks = [tokens[i] for i in order]
+            ps = [pos[i] for i in order]
+            key, body = self._fast_step([slots[i] for i in order], toks, ps)
+            logits, ok, hists, nact = self.graphs.run(key, body, *toks, *ps)
+            if order == sorted(order):
+                return logits, ok, hists, nact
+            back = [0] * len(order)             # back[i]: session i's row
+            for j, i in enumerate(order):
+                back[i] = j
+            return ([logits[j] for j in back],
+                    torch.stack([ok[j] for j in back]),
+                    [hists[j] for j in back],
+                    torch.stack([nact[j] for j in back]))
+
+    def _fast_step(self, slots: List[SessionSlot],
+                   tokens: List[torch.Tensor], pos: List[int]):
+        """(key, body) of the captured fast step over ``slots``: the body
+        takes the blocks and their positions (0-d int32 on the device) and
+        runs ``_fast_body`` over the slots' caches and histories.  The key
+        holds each session's (slot, T, flash-decode route); the route and
+        an MLA block's fit are the host's, checked here at every run."""
+        routes = tuple(
+            (s.index, int(t.shape[1]),
+             self.target.decode_route(s.tcache, p, int(t.shape[1]), True)[1])
+            for s, t, p in zip(slots, tokens, pos))
+        key = ("fused" if len(slots) > 1 else "fast",) + routes
+        n = len(slots)
+        host_pos = list(pos)
+        tcaches = [s.tcache for s in slots]
+        hists = [s.history for s in slots]
+
+        def body(*ins):
+            return self._fast_body(list(ins[:n]), host_pos, tcaches, hists,
+                                   list(ins[n:]))
+        return key, body
+
+    def _fast_body(self, tokens: List[torch.Tensor], pos: List[int],
+                   tcaches: List[Any], histories: List[torch.Tensor],
+                   pos_dev: Optional[List[torch.Tensor]] = None):
+        """The fast path's device work for a round: every ready session's
         verify block ``tokens[i]`` ([1, T_i], ragged) at once, speculating
-        that every routed expert is cache-resident.
+        that every routed expert is cache-resident.  ``pos_dev``: the
+        positions as 0-d int32 device tensors (a captured step's); without
+        it the host ints are.
 
         The dense layers, attention, the gate, the shared experts and the
         head run per session, at the shapes of the solo ``_verify_fast`` (a
@@ -250,36 +355,38 @@ class OffloadEngine:
         nacts = [torch.zeros((), dtype=torch.float32, device=self.device)
                  for _ in range(n)]
         acts: List[List[torch.Tensor]] = [[] for _ in range(n)]
-        with self.cache.reading() as (bufs, table):
-            xs = [tgt.dense_stack(tgt.embed(t), tc, p)
-                  for t, tc, p in zip(tokens, tcaches, pos)]
-            for l in range(self.store.num_layers):
-                h2s, slots, ws = [], [], []
-                for i in range(n):
-                    xs[i], h2 = tgt.attn_half(l, xs[i], tcaches[i]["layers"][l],
-                                              pos[i])
-                    w, ids, _ = self._gate(l, h2)
-                    slot_ids = table[l][ids]               # [T_i, k]; -1 = miss
-                    hit = slot_ids >= 0
-                    oks[i] = oks[i] & torch.all(hit)
-                    h2s.append(h2)
-                    slots.append(slot_ids)
-                    ws.append(torch.where(hit, w, torch.zeros_like(w)))
-                    flat = ids.reshape(-1)
-                    activated = torch.zeros(E, dtype=torch.int32,
-                                            device=self.device).index_add_(
-                        0, flat, torch.ones_like(flat, dtype=torch.int32)) > 0
-                    nacts[i] = nacts[i] + activated.sum().float()
-                    acts[i].append(activated)
-                y = self._moe_apply(
-                    bufs, _cat([h.reshape(T, cfg.d_model)
-                                for h, T in zip(h2s, Ts)]),
-                    _cat(slots), _cat(ws))                 # ONE launch
-                for i in range(n):
-                    xs[i] = self._add_moe_out(
-                        l, xs[i], h2s[i],
-                        y[offs[i]:offs[i + 1]].reshape(1, Ts[i], cfg.d_model))
-            logits = [tgt.logits(x) for x in xs]
+        pds = pos_dev if pos_dev is not None else [None] * n
+        bufs, table = self.cache.bufs, self.cache.table_dev
+        xs = [tgt.dense_stack(tgt.embed(t), tc, p, pd)
+              for t, tc, p, pd in zip(tokens, tcaches, pos, pds)]
+        for l in range(self.store.num_layers):
+            h2s, slots, ws = [], [], []
+            for i in range(n):
+                xs[i], h2 = tgt.attn_half(l, xs[i],
+                                          tcaches[i]["layers"][l], pos[i],
+                                          pds[i])
+                w, ids, _ = self._gate(l, h2)
+                slot_ids = table[l][ids]           # [T_i, k]; -1 = miss
+                hit = slot_ids >= 0
+                oks[i] = oks[i] & torch.all(hit)
+                h2s.append(h2)
+                slots.append(slot_ids)
+                ws.append(torch.where(hit, w, torch.zeros_like(w)))
+                flat = ids.reshape(-1)
+                activated = torch.zeros(E, dtype=torch.int32,
+                                        device=self.device).index_add_(
+                    0, flat, torch.ones_like(flat, dtype=torch.int32)) > 0
+                nacts[i] = nacts[i] + activated.sum().float()
+                acts[i].append(activated)
+            y = self._moe_apply(
+                bufs, _cat([h.reshape(T, cfg.d_model)
+                            for h, T in zip(h2s, Ts)]),
+                _cat(slots), _cat(ws))                     # ONE launch
+            for i in range(n):
+                xs[i] = self._add_moe_out(
+                    l, xs[i], h2s[i],
+                    y[offs[i]:offs[i + 1]].reshape(1, Ts[i], cfg.d_model))
+        logits = [tgt.logits(x) for x in xs]
         new_hists = [h + torch.stack(a).to(h.dtype)
                      for h, a in zip(histories, acts)]
         return (logits, _cat([o.reshape(1) for o in oks]), new_hists,
@@ -357,10 +464,10 @@ class OffloadEngine:
         st = self._st
         self.verify_blocks += 1
         if st.fast_ok and self.policy != "adapmoe":
-            logits, ok, nhist, nact = self._verify_fast(
-                tokens, pos, tcache, st.history_dev)
+            logits, ok, nhist, nact = self._verify_fast(tokens, pos,
+                                                        st.slot)
             if bool(self._readback(ok)):          # sync 1 of ≤2 per block
-                st.history_dev = nhist
+                st.history_dev.copy_(nhist)
                 st.fast_active_dev = st.fast_active_dev + nact
                 st.fast_blocks += 1
                 self.fast_blocks += 1
@@ -433,28 +540,39 @@ class OffloadEngine:
     # ------------------------------------------------------------ session API
     def start_session(self, prompt: torch.Tensor, max_new_tokens: int
                       ) -> DecodeState:
-        """Admit one request: allocate its decode state and run the prefill
-        verify block through the cache-aware path (its expert loads warm
-        the shared cache)."""
+        """Admit one request: take a pool slot for its decode state (reset
+        by the prefills) and run the prefill verify block through the
+        cache-aware path (its expert loads warm the shared cache).  The
+        slot goes back in ``finish_session``, or here if the prefill
+        raises."""
         if prompt.shape[0] != 1:
             raise ValueError("requests are batch-1")
         st = DecodeState(
-            max_new=max_new_tokens,
-            tcache=self.target.init_cache(1, self.max_seq),
+            max_new=max_new_tokens, tcache=None,
             n=self.draft_len,                     # 0 for greedy decode
-            history_dev=torch.zeros(self._hist_shape, dtype=torch.float32,
-                                    device=self.device),
             fast_active_dev=torch.zeros((), dtype=torch.float32,
                                         device=self.device),
             fast_ok=self._fast_hint and self.policy != "adapmoe")
         if max_new_tokens <= 0:
             st.finished = True
             return st
-        self._st = st
-        if st.n > 0:
-            _, st.dcache = self.draft.prefill(prompt, self.max_seq)
-        logits, st.tcache = self._verify_block(prompt, 0, st.tcache)
-        st.cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        st.slot = self.pool.take()
+        try:
+            st.tcache = st.slot.tcache
+            reset_cache(st.tcache)
+            st.history_dev = st.slot.history
+            st.history_dev.zero_()
+            self._st = st
+            if st.n > 0:
+                _, st.dcache = self.draft.prefill(prompt, self.max_seq,
+                                                  cache=st.slot.dcache)
+            logits, st.tcache = self._verify_block(prompt, 0, st.tcache)
+            st.cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        except BaseException:
+            self.pool.give(st.slot)
+            st.slot = None
+            st.finished = True
+            raise
         st.pos = prompt.shape[1]
         st.emitted_total = 1
         st.pending = [int(st.cur[0, 0])]
@@ -495,9 +613,8 @@ class OffloadEngine:
         toks: List[torch.Tensor] = []
         tok = st.cur
         for i in range(st.n):
-            lg, st.dcache, taps = self.draft.decode_step(
-                st.dcache, tok, st.pos + i, collect_taps=True)
-            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+            tok, taps = self._draft_step(st, tok, st.pos + i)
+            tok = tok.clone()          # the step's output is its next input
             toks.append(tok)
             drafts.append(int(tok[0, 0]))
             if self.policy == "spmoe" and self.cutoff >= 0:
@@ -509,6 +626,23 @@ class OffloadEngine:
                         self._prefetch(st, miss)
         block = torch.cat([st.cur] + toks, dim=1)
         return drafts, block
+
+    def _draft_step(self, st: DecodeState, tok: torch.Tensor, pos: int
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One draft decode step with taps (the reference's ``_draft_step``
+        jit) as the captured step keyed by (slot, flash-decode route) over
+        the slot's draft cache: -> (next token [1, 1], taps), valid until
+        the next draft step of the slot."""
+        d, dcache = self.draft, st.slot.dcache
+        contiguous, flash = d.decode_route(dcache, pos, 1)
+
+        def body(t, p):
+            lg, taps = d.decode_body(dcache, t, pos, contiguous, True, p)
+            return torch.argmax(lg[:, -1], dim=-1)[:, None], taps
+        out = self.graphs.run(("draft", st.slot.index, flash), body, tok,
+                              pos)
+        d.note_written(dcache, pos, 1, contiguous)
+        return out
 
     def _turn_commit(self, st: DecodeState, drafts: List[int],
                      greedy: np.ndarray) -> List[int]:
@@ -634,8 +768,7 @@ class OffloadEngine:
         self.round_launches += 1
         t0 = time.perf_counter()
         logits, ok_vec, new_hists, nact_vec = self._verify_fast_batched(
-            blocks, [st.pos for st in sts], [st.tcache for st in sts],
-            [st.history_dev for st in sts])
+            blocks, [st.pos for st in sts], [st.slot for st in sts])
         ok = self._readback(ok_vec)                          # round sync 1
         greedy = self._readback(torch.cat(
             [torch.argmax(lg, dim=-1) for lg in logits], dim=1))[0]  # sync 2
@@ -652,7 +785,7 @@ class OffloadEngine:
             self._st = st
             self.verify_blocks += 1
             if bool(ok[j]):
-                st.history_dev = new_hists[j]
+                st.history_dev.copy_(new_hists[j])
                 st.fast_active_dev = st.fast_active_dev + nact_vec[j]
                 st.fast_blocks += 1
                 self.fast_blocks += 1
@@ -687,13 +820,18 @@ class OffloadEngine:
             st.inflight.append(task)
 
     def finish_session(self, st: DecodeState):
-        """Retire a session (idempotent): fold its device-side fast-hit
-        accumulator into the lookup/hit counters (one metrics-plane
-        readback, not counted) and wait out its own prefetch tasks."""
+        """Retire a session (idempotent): give its pool slot back, fold its
+        device-side fast-hit accumulator into the lookup/hit counters (one
+        metrics-plane readback, not counted) and wait out its own prefetch
+        tasks.  Every way a session ends comes here (``Engine`` finishes
+        a session of every finish reason through it)."""
         if st.committed:
             return
         st.committed = True
         st.finished = True
+        if st.slot is not None:
+            self.pool.give(st.slot)
+            st.slot = None
         if st.fast_blocks:
             fast_active = int(st.fast_active_dev.item())
             self.layer_lookups += fast_active

@@ -18,7 +18,8 @@ outside the kernel (as the reference keeps it outside Pallas).
 Each wrapper takes the kernel's plain version (``kernels/ref.py``) only when
 its input lies on the CPU; on a CUDA tensor it launches the kernel or raises.
 ``gate_up.launches`` / ``up_gelu.launches`` / ``down.launches`` count the
-launches.
+launches; a call inside a CUDA graph capture records its kernel into the
+graph and launches nothing, so it does not count.
 """
 from __future__ import annotations
 
@@ -170,7 +171,8 @@ def gate_up(x: torch.Tensor, g: SlotGroups, wg: torch.Tensor,
         d, f, wg.shape[0], g.row_tok.shape[0], g.grp_slot.shape[0],
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise(lib, "cache_moe_gate_up", rc)
-    gate_up.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        gate_up.launches += 1
     return h
 
 
@@ -199,7 +201,8 @@ def up_gelu(x: torch.Tensor, g: SlotGroups, wu: torch.Tensor) -> torch.Tensor:
         g.row_tok.shape[0], g.grp_slot.shape[0],
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise(lib, "cache_moe_up_gelu", rc)
-    up_gelu.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        up_gelu.launches += 1
     return h
 
 
@@ -227,7 +230,8 @@ def down(h: torch.Tensor, g: SlotGroups, wd: torch.Tensor) -> torch.Tensor:
         g.row_tok.shape[0], g.grp_slot.shape[0],
         torch.cuda.current_stream(h.device).cuda_stream)
     _raise(lib, "cache_moe_down", rc)
-    down.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        down.launches += 1
     return y
 
 

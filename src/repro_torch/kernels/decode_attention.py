@@ -11,7 +11,7 @@ on a CPU tensor it runs the plain version ``ref.decode_attention_ref``.  The
 call allocates its output only, and its launch shape depends on S and the
 widths alone, so a CUDA graph can capture it and replay it with ``lengths``
 changed in place.  ``decode_attention.launches`` counts the calls that
-launched the kernel.
+launched the kernel (not those inside a capture, which launch nothing).
 
 What the kernel takes: float32 or bfloat16, D in ``HEAD_DIMS`` (112 is
 zamba2-7b's, 192 nemotron-4-340b's), H a multiple of Hkv with at most 48 q
@@ -124,7 +124,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc:
         msg = lib.decode_attention_error_string(rc).decode()
         raise RuntimeError(f"decode_attention launch failed: {msg} ({rc})")
-    decode_attention.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        decode_attention.launches += 1
     return out
 
 

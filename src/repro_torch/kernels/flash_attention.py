@@ -12,7 +12,8 @@ D 192; f32: 64 x 64 tiles on FMA; the kernel tiles itself, the blocks only
 fix the precondition), on a CPU tensor it runs the plain version
 ``ref.flash_attention_ref`` with the reference's blocks.  A launch or a
 tensor-map encode that fails raises.  ``flash_attention.launches`` counts
-the launches.
+the launches (not a call inside a CUDA graph capture, which launches
+nothing).
 """
 from __future__ import annotations
 
@@ -108,7 +109,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({rc})")
-    flash_attention.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        flash_attention.launches += 1
     return out
 
 

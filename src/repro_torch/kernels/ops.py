@@ -27,10 +27,12 @@ def cache_moe(x: torch.Tensor, slot_ids: torch.Tensor, weights: torch.Tensor,
               wg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Slot-indexed grouped expert FFN over ExpertCache slot buffers
     (SP-MoE verification hot path).  slot_ids < 0 contribute zero.
-    ``cache_moe.launches`` counts the calls that launched the kernels."""
+    ``cache_moe.launches`` counts the calls that launched the kernels (not
+    those inside a CUDA graph capture, which launch nothing)."""
     if x.device.type == "cuda":
         y = K.cache_moe(x, slot_ids, weights, wu, wd, wg)
-        cache_moe.launches += 1
+        if not torch.cuda.is_current_stream_capturing():
+            cache_moe.launches += 1
         return y
     return R.cache_moe_ref(x, slot_ids, weights, wu, wd, wg)
 

@@ -7,7 +7,8 @@ returns: (y [b, s, h, p] in x's dtype, final state [b, h, p, n] f32).  On a
 CPU tensor it runs ``ref.ssd_ref``; on a CUDA tensor it launches the
 hand-written kernel ``csrc/ssd_scan.cu`` (three device kernels: each chunk's
 end state, the carry from chunk to chunk, y) or raises.
-``ssd_scan.launches`` counts the calls that launched it.
+``ssd_scan.launches`` counts the calls that launched it (not those inside a
+CUDA graph capture, which launch nothing).
 """
 from __future__ import annotations
 
@@ -103,7 +104,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if rc:
         msg = lib.ssd_scan_error_string(rc).decode()
         raise RuntimeError(f"ssd_scan launch failed: {msg} ({rc})")
-    ssd_scan.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        ssd_scan.launches += 1
     return y, state
 
 

@@ -158,6 +158,13 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
 SWA_RING_MARGIN = 16
 
 
+def _positions(pos: int, pos_dev: Optional[torch.Tensor], Sq: int,
+               device: torch.device) -> torch.Tensor:
+    """The block's positions [Sq] int32, from ``pos_dev`` where given."""
+    base = pos if pos_dev is None else pos_dev
+    return base + torch.arange(Sq, dtype=torch.int32, device=device)
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
                   dtype: torch.dtype, device: torch.device
                   ) -> Dict[str, torch.Tensor]:
@@ -173,8 +180,19 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
                                   device=device)}
 
 
+def decode_kernel_route(cfg: ModelConfig, Sq: int, pos: int,
+                        contiguous: bool) -> bool:
+    """Whether ``attention_decode`` of a block of ``Sq`` tokens at ``pos``
+    takes the flash-decode kernel (see its docstring): a host decision
+    from Python values alone, which a captured step keys on."""
+    return cfg.attn_impl == "kernel" and not cfg.use_mla and Sq == 1 \
+        and contiguous and cfg.attn_logit_softcap is None \
+        and (cfg.sliding_window is None or pos < cfg.sliding_window)
+
+
 def attention_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                     pos: int, cfg: ModelConfig, contiguous: bool = False
+                     pos: int, cfg: ModelConfig, contiguous: bool = False,
+                     pos_dev: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Decode a block of Sq >= 1 tokens at absolute positions pos..pos+Sq-1
     (Sq > 1 = speculative-verification block).  x: [B,Sq,D]; pos: int.
@@ -199,13 +217,18 @@ def attention_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     The route is decided from Python values alone (no host sync).  Every
     other block (verify blocks, a wrapped or windowed ring, a softcap,
     ``"xla"``, a hole) runs ``mha`` under the pos_map mask, as the
-    reference does."""
+    reference does.
+
+    ``pos_dev`` (a 0-d int32 tensor on x's device holding ``pos``), when
+    given, is where every position that reaches the device comes from (the
+    query positions, the ring slots, flash-decode's lengths), so a captured
+    step replays at any position; the host int still picks the route."""
     B, Sq, _ = x.shape
     S = cache["k"].shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)
     k = torch.einsum("bsd,dhk->bshk", x, p.wk)
     v = torch.einsum("bsd,dhk->bshk", x, p.wv)
-    qpos = pos + torch.arange(Sq, dtype=torch.int32, device=x.device)
+    qpos = _positions(pos, pos_dev, Sq, x.device)
     pp = qpos[None, :].expand(B, Sq)
     q = apply_rope(q, pp, cfg.rope_theta)
     k = apply_rope(k, pp, cfg.rope_theta)
@@ -215,11 +238,8 @@ def attention_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     ck[:, slots] = k
     cv[:, slots] = v
     pos_map[slots] = qpos
-    if cfg.attn_impl == "kernel" and Sq == 1 and contiguous \
-            and cfg.attn_logit_softcap is None \
-            and (cfg.sliding_window is None or pos < cfg.sliding_window):
-        lengths = torch.full((B,), pos + 1, dtype=torch.int32,
-                             device=x.device)
+    if decode_kernel_route(cfg, Sq, pos, contiguous):
+        lengths = (qpos + 1).expand(B).contiguous()
         out = ops.decode_attention(q[:, 0], ck, cv, lengths)[:, None]
     else:
         # mask [1,1,1,Sq,S]: slot valid for query i iff it holds a position
@@ -274,8 +294,16 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int,
                                   device=device)}
 
 
+def mla_check_fits(pos: int, Sq: int, S: int):
+    """An MLA decode block must lie inside the cache: the reference's
+    ``dynamic_update_slice`` would clamp it onto earlier slots."""
+    if pos < 0 or pos + Sq > S:
+        raise ValueError(f"MLA decode block at positions [{pos}, {pos + Sq})"
+                         f" does not fit a cache of {S} slots")
+
+
 def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
-               cfg: ModelConfig
+               cfg: ModelConfig, pos_dev: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Absorbed-matmul MLA decode of a block of Sq >= 1 tokens at positions
     pos..pos+Sq-1: W_uk is absorbed into the query and W_uv into the
@@ -286,14 +314,14 @@ def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
 
     The cache is updated IN PLACE (and returned), as ``attention_decode``
     does.  A block that runs past the cache's end raises: the reference's
-    ``dynamic_update_slice`` would clamp it onto earlier slots."""
+    ``dynamic_update_slice`` would clamp it onto earlier slots.  With
+    ``pos_dev`` every position on the device derives from it, as in
+    ``attention_decode``; the check reads the host int."""
     B, Sq, _ = x.shape
     nope, rd = cfg.head_dim, cfg.rope_head_dim
     S = cache["c_kv"].shape[1]
-    if pos < 0 or pos + Sq > S:
-        raise ValueError(f"MLA decode block at positions [{pos}, {pos + Sq})"
-                         f" does not fit a cache of {S} slots")
-    qpos = pos + torch.arange(Sq, dtype=torch.int32, device=x.device)
+    mla_check_fits(pos, Sq, S)
+    qpos = _positions(pos, pos_dev, Sq, x.device)
     pp = qpos[None, :].expand(B, Sq)
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)           # [B,Sq,H,nope+rd]
     q_nope, q_rope = q[..., :nope], q[..., nope:]
@@ -303,9 +331,10 @@ def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
     kr_new = apply_rope(torch.einsum("bsd,dk->bsk", x, p.wkr)[:, :, None, :],
                         pp, cfg.rope_theta)[:, :, 0, :]
     c_kv, k_rope, pos_map = cache["c_kv"], cache["k_rope"], cache["pos_map"]
-    c_kv[:, pos:pos + Sq] = c_new
-    k_rope[:, pos:pos + Sq] = kr_new
-    pos_map[pos:pos + Sq] = qpos
+    slots = qpos.long()
+    c_kv[:, slots] = c_new
+    k_rope[:, slots] = kr_new
+    pos_map[slots] = qpos
     scores = (torch.einsum("bshr,btr->bhst", q_lat, c_kv) +
               torch.einsum("bshk,btk->bhst", q_rope, k_rope)).float()
     scores = scores / math.sqrt(nope + rd)

@@ -213,31 +213,36 @@ class DecoderLM(nn.Module):
         return torch.einsum("bsd,dv->bsv", xf, self.head)
 
     def _attn_decode(self, blk: "Block", h: torch.Tensor, cache_l: Dict,
-                     pos: int, contiguous: bool) -> torch.Tensor:
+                     pos: int, contiguous: bool,
+                     pos_dev: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.cfg.use_mla:
-            return L.mla_decode(blk.attn, h, cache_l, pos, self.cfg)[0]
+            return L.mla_decode(blk.attn, h, cache_l, pos, self.cfg,
+                                pos_dev=pos_dev)[0]
         return L.attention_decode(blk.attn, h, cache_l, pos, self.cfg,
-                                  contiguous=contiguous)[0]
+                                  contiguous=contiguous, pos_dev=pos_dev)[0]
 
-    def attn_half(self, l: int, x: torch.Tensor, cache_l: Dict, pos: int
+    def attn_half(self, l: int, x: torch.Tensor, cache_l: Dict, pos: int,
+                  pos_dev: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Decode-mode attention half of MoE layer ``l``: -> (x + attn, h2 =
-        the FFN / gate input).  Writes the layer's KV cache in place."""
+        the FFN / gate input).  Writes the layer's KV cache in place.
+        ``pos_dev``: ``pos`` as a 0-d int32 device tensor, the source of
+        every position on the device (``attention_decode``)."""
         blk = self.layers[l]
         h = L.rms_norm(x, blk.ln1, self.cfg.norm_eps)
         # the offload runtime's target blocks cover every position in turn
-        x = x + self._attn_decode(blk, h, cache_l, pos, contiguous=True)
+        x = x + self._attn_decode(blk, h, cache_l, pos, True, pos_dev)
         return x, L.rms_norm(x, blk.ln2, self.cfg.norm_eps)
 
-    def dense_stack(self, x: torch.Tensor, cache: Cache, pos: int
-                    ) -> torch.Tensor:
+    def dense_stack(self, x: torch.Tensor, cache: Cache, pos: int,
+                    pos_dev: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The leading dense-FFN layers in decode mode over ``cache``'s
         ``dense_layers`` (the offload runtime's target blocks, before its MoE
         layers; x unchanged without them)."""
         if not self.cfg.first_dense_layers:
             return x
         for blk, cl in zip(self.dense_layers, cache["dense_layers"]):
-            x = self._block(blk, x, "decode", cl, pos, contiguous=True)[0]
+            x = self._block(blk, x, "decode", cl, pos, True, pos_dev)[0]
         return x
 
     def drop_experts(self):
@@ -298,7 +303,8 @@ class DecoderLM(nn.Module):
 
     # -- block ------------------------------------------------------------------
     def _block(self, blk: Block, x: torch.Tensor, mode: str,
-               cache_l: Optional[Dict], pos: int, contiguous: bool = False
+               cache_l: Optional[Dict], pos: int, contiguous: bool = False,
+               pos_dev: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """-> (x_out, aux_loss, gate_input_tap); a mamba block's tap is its
         output, as in the reference.  ``contiguous``: every position before
@@ -317,7 +323,7 @@ class DecoderLM(nn.Module):
             x = x + y
             return x, aux, x
         if mode == "decode":
-            a = self._attn_decode(blk, h, cache_l, pos, contiguous)
+            a = self._attn_decode(blk, h, cache_l, pos, contiguous, pos_dev)
         else:
             a = L.mla_forward(blk.attn, h, cfg) if cfg.use_mla \
                 else L.attention_forward(blk.attn, h, cfg)
@@ -332,13 +338,15 @@ class DecoderLM(nn.Module):
         return x + y, aux, h2
 
     def _run(self, x: torch.Tensor, mode: str, cache: Optional[Cache],
-             pos: int, collect_taps: bool = False, contiguous: bool = False):
+             pos: int, collect_taps: bool = False, contiguous: bool = False,
+             pos_dev: Optional[torch.Tensor] = None):
         """-> (x, aux, taps); taps are collected per stack, ``dense_layers``
         and ``layers`` (the reference collects none for hybrid models)."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         taps: Dict[str, List[torch.Tensor]] = {}
         for name, blk, cl in self._sites(cache):
-            x, aux, tap = self._block(blk, x, mode, cl, pos, contiguous)
+            x, aux, tap = self._block(blk, x, mode, cl, pos, contiguous,
+                                      pos_dev)
             aux_total = aux_total + aux
             if collect_taps:
                 taps.setdefault(name, []).append(tap)
@@ -355,28 +363,84 @@ class DecoderLM(nn.Module):
         x, aux, _ = self._run(self.embed(tokens), "train", None, 0)
         return self.logits(x), aux
 
-    def prefill(self, tokens: torch.Tensor, max_seq: int
-                ) -> Tuple[torch.Tensor, Cache]:
+    def prefill(self, tokens: torch.Tensor, max_seq: int,
+                cache: Optional[Cache] = None) -> Tuple[torch.Tensor, Cache]:
         """Fill caches with a prompt; return (last-position logits [B,V],
-        cache)."""
-        cache = self.init_cache(tokens.shape[0], max_seq)
+        cache).  ``cache``: one of this model's caches to fill in place
+        (``reset_cache`` first, so it holds what a new one would), whose
+        addresses a captured decode step keeps; else a new one."""
+        if cache is None:
+            cache = self.init_cache(tokens.shape[0], max_seq)
+        else:
+            reset_cache(cache)
         x, _, _ = self._run(self.embed(tokens), "prefill", cache, 0)
         cache["written"] = tokens.shape[1]
         return self.logits(x[:, -1:])[:, 0], cache
 
+    def decode_route(self, cache: Cache, pos: int, Sq: int,
+                     contiguous: Optional[bool] = None) -> Tuple[bool, bool]:
+        """The host's part of a decode step of ``Sq`` tokens at ``pos``:
+        (contiguous: every earlier position is in the cache, from its
+        ``written`` unless the caller vouches for it; flash: the attention
+        layers take the flash-decode kernel).  They decide which device
+        work the step runs, so a captured step keys on them.  Raises where
+        the step would (an MLA block past the cache's end)."""
+        if self.cfg.use_mla:
+            kv = (cache.get("dense_layers") or cache["layers"])[0]
+            L.mla_check_fits(pos, Sq, kv["c_kv"].shape[1])
+        if contiguous is None:
+            contiguous = pos <= cache.get("written", 0)
+        return contiguous, L.decode_kernel_route(self.cfg, Sq, pos,
+                                                 contiguous)
+
+    def decode_body(self, cache: Cache, tokens: torch.Tensor, pos: int,
+                    contiguous: bool, collect_taps: bool = False,
+                    pos_dev: Optional[torch.Tensor] = None):
+        """The device work of ``decode_step``: -> (logits, taps); leaves
+        ``written`` to ``note_written``."""
+        x, _, taps = self._run(self.embed(tokens), "decode", cache, pos,
+                               collect_taps, contiguous, pos_dev)
+        return self.logits(x), taps
+
+    @staticmethod
+    def note_written(cache: Cache, pos: int, Sq: int, contiguous: bool):
+        """A contiguous block extends the written prefix to pos + Sq."""
+        if contiguous:
+            cache["written"] = max(cache.get("written", 0), pos + Sq)
+
     def decode_step(self, cache: Cache, tokens: torch.Tensor, pos: int,
-                    collect_taps: bool = False):
+                    collect_taps: bool = False,
+                    pos_dev: Optional[torch.Tensor] = None):
         """tokens: [B,Sq] at positions pos..pos+Sq-1 (Sq>1 = speculative
         verification block) -> (logits [B,Sq,V], cache, taps).  taps is
         ``{"layers": [L, B, Sq, d]}`` when collected (and ``"dense_layers"``
-        for an MoE model with leading dense layers), else {}."""
-        written = cache.get("written", 0)
-        contiguous = pos <= written
-        x, _, taps = self._run(self.embed(tokens), "decode", cache, pos,
-                               collect_taps, contiguous)
-        if contiguous:
-            cache["written"] = max(written, pos + tokens.shape[1])
-        return self.logits(x), cache, taps
+        for an MoE model with leading dense layers), else {}.  ``pos_dev``
+        (``pos`` as a 0-d int32 device tensor): the device's positions
+        come from it, bit for bit the same result."""
+        contiguous, _ = self.decode_route(cache, pos, tokens.shape[1])
+        logits, taps = self.decode_body(cache, tokens, pos, contiguous,
+                                        collect_taps, pos_dev)
+        self.note_written(cache, pos, tokens.shape[1], contiguous)
+        return logits, cache, taps
+
+
+def reset_cache(cache: Cache):
+    """Return a cache to what ``init_cache`` made, in place: every tensor
+    zero, every ``pos_map`` -1, nothing written."""
+    def walk(node):
+        if isinstance(node, dict):
+            for name, t in node.items():
+                if name == "pos_map":
+                    t.fill_(-1)
+                elif isinstance(t, torch.Tensor):
+                    t.zero_()
+                else:
+                    walk(t)
+        elif isinstance(node, list):
+            for n in node:
+                walk(n)
+    walk(cache)
+    cache["written"] = 0
 
 
 def _attn_prefill_cache(p, h: torch.Tensor, cfg: ModelConfig, cache: Dict):

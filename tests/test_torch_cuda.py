@@ -5,8 +5,9 @@ scan) against their plain versions, ``moe_global`` through the expert-FFN
 kernel with no host sync, the offload engine serving through them (mixtral,
 deepseek, and phi with its MoE draft), solo and in
 fused cross-session rounds, a dense target served greedy and speculatively
-through flash-decode, and the SSD families' models on the card against
-themselves on the CPU.  Every test is
+through flash-decode, the SSD families' models on the card against
+themselves on the CPU, and captured steps (a replay's kernels in a trace, a
+capture that fails).  Every test is
 marked ``cuda`` and skips without a card (the kernels have no CPU mode).
 This file imports nothing of JAX, so it also runs where JAX is not
 installed:
@@ -15,7 +16,9 @@ installed:
 """
 import dataclasses
 import math
+import re
 import sys
+import time
 
 import pytest
 import torch
@@ -33,6 +36,25 @@ from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.models.registry import build_model
 
 pytestmark = pytest.mark.cuda
+
+
+def _traced(fn, pattern: str):
+    """``fn()`` under a ``torch.profiler`` trace of the device: (its result,
+    the device kernels whose names match ``pattern``).  A replayed CUDA
+    graph runs its kernels without calling their wrappers, so a trace is
+    where they are counted.  The window is padded on the host at both ends:
+    the profiler drops a kernel that lies at its very edge."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    return out, sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and re.search(pattern, e.name))
 
 
 @pytest.fixture
@@ -287,7 +309,8 @@ def test_phi_engine_on_the_card_matches_its_greedy(cuda, slots):
     ``reduced_pair``), ``attn_impl="kernel"``, served sd x spmoe with a
     tight and an ample cache: the port's greedy tokens; every draft step
     runs the draft's MoE layers through the expert-FFN kernel (at least one
-    gate_up launch per draft layer per drafted token) and its attention
+    gate_up kernel per draft layer per drafted token, counted in a trace of
+    the device, since the draft steps are replays) and its attention
     through flash-decode."""
     from repro_torch.launch.serve import reduced_pair
     cfg, dcfg = (dataclasses.replace(c, attn_impl="kernel")
@@ -297,18 +320,19 @@ def test_phi_engine_on_the_card_matches_its_greedy(cuda, slots):
     prompt = torch.randint(0, cfg.vocab_size, (1, 6),
                            generator=torch.Generator().manual_seed(2))
     ref = greedy_generate(target, prompt.to(cuda), 16, 64).tolist()
-    before = (K.gate_up.launches, DA.decode_attention.launches)
+    before = DA.decode_attention.launches
     with Engine(EngineConfig(model=cfg, draft=dcfg, decode="sd",
                              offload="spmoe", cache_slots=slots,
                              draft_len=3, max_seq=64),
                 target, draft) as eng:
-        res = eng.submit(Request(prompt=prompt, max_new_tokens=16))
+        res, gate_ups = _traced(
+            lambda: eng.submit(Request(prompt=prompt, max_new_tokens=16)),
+            r"\bslot_ffn(<[^,<>]+, 1>|_tc<1,)")
         assert eng.runtime.cache.check_invariants()
     assert res.tokens == ref
     assert res.metrics.drafted > 0
-    assert K.gate_up.launches - before[0] >= \
-        res.metrics.drafted * dcfg.num_layers
-    assert DA.decode_attention.launches > before[1]
+    assert gate_ups >= res.metrics.drafted * dcfg.num_layers
+    assert DA.decode_attention.launches > before
 
 
 def test_ffn_refuses_bf16_rows_it_cannot_copy(cuda):
@@ -538,9 +562,10 @@ def test_deepseek_fused_round_equals_solo_blocks_on_the_card(cuda):
                          for c in st.tcache[s]]
                      for s in ("dense_layers", "layers")} for st in sts]
 
-        solo = [rt._verify_fast(b, st.pos, tc, st.history_dev)
+        solo = [[o[0] for o in rt._fast_body([b], [st.pos], [tc],
+                                             [st.history_dev])]
                 for b, st, tc in zip(blocks, sts, caches())]
-        logits, ok, _, _ = rt._verify_fast_batched(
+        logits, ok, _, _ = rt._fast_body(
             blocks, [st.pos for st in sts], caches(),
             [st.history_dev for st in sts])
         torch.cuda.synchronize()
@@ -625,9 +650,10 @@ def test_fused_round_logits_equal_solo_fast_blocks_on_the_card(cuda):
                                 for c in st.tcache["layers"]]}
                     for st in sts]
 
-        solo = [rt._verify_fast(b, st.pos, tc, st.history_dev)
+        solo = [[o[0] for o in rt._fast_body([b], [st.pos], [tc],
+                                             [st.history_dev])]
                 for b, st, tc in zip(blocks, sts, caches())]
-        logits, ok, _, _ = rt._verify_fast_batched(
+        logits, ok, _, _ = rt._fast_body(
             blocks, [st.pos for st in sts], caches(),
             [st.history_dev for st in sts])
         torch.cuda.synchronize()
@@ -803,3 +829,43 @@ def test_launcher_serves_mamba2_on_the_card(cuda, capsys, monkeypatch):
     assert "[req-0] finish=length" in lines
     assert ops.ssd.launches - before == \
         get_config("mamba2-780m").reduced().num_layers
+
+
+def test_graph_set_replays_flash_decode_on_the_card(cuda):
+    """A captured step (``core/graphs.py``) replays flash-decode with its
+    length input copied in: each replay equals the plain version at that
+    length.  The wrapper counts the build's eager warm-up alone (a call
+    inside the capture launches nothing, a replay calls no wrapper), and a
+    profiler trace sees one flash-decode kernel per replay besides it."""
+    from repro_torch.core.graphs import GraphSet
+    gen = torch.Generator(cuda).manual_seed(5)
+    q = torch.randn((1, 8, 64), generator=gen, device=cuda)
+    k = torch.randn((1, 96, 2, 64), generator=gen, device=cuda)
+    v = torch.randn((1, 96, 2, 64), generator=gen, device=cuda)
+    gs = GraphSet(cuda)
+    n0 = DA.decode_attention.launches
+
+    def run():
+        for length in (5, 77, 96):
+            got = gs.run(("decode",), lambda n: ops.decode_attention(
+                q, k, v, n.reshape(1)), length)
+            want = R.decode_attention_ref(q, k, v, torch.tensor(
+                [length], dtype=torch.int32, device=cuda))
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    _, traced = _traced(run, r"\bdecode_(mma|fma)<")
+    assert DA.decode_attention.launches - n0 == 1
+    assert traced == 1 + 3
+    assert gs.builds == {"decode": 1} and gs.runs == {"decode": 3}
+
+
+def test_a_capture_that_fails_raises_on_the_card(cuda):
+    """A body that reads a value back to the host cannot be captured: the
+    build raises, keeps no step, and nothing runs it eagerly instead."""
+    from repro_torch.core.graphs import GraphSet
+    gs = GraphSet(cuda)
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError):
+        gs.run(("sync",), lambda t: t * t.sum().item(), x)
+    assert ("sync",) not in gs and not gs.builds and not gs.runs
+    torch.cuda.synchronize()
+    assert torch.ones(2, device=cuda).sum().item() == 2

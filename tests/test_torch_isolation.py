@@ -36,7 +36,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core.engine, "
-            "repro_torch.core.runtime, repro_torch.launch.serve, "
+            "repro_torch.core.runtime, repro_torch.core.graphs, "
+            "repro_torch.launch.serve, "
             "repro_torch.models.mamba, repro_torch.kernels.ssd_scan, "
             "repro_torch.kernels.decode_attention, "
             "repro_torch.kernels.cache_moe; "

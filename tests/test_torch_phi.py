@@ -288,9 +288,10 @@ def test_fused_round_is_bit_identical_to_solo_blocks(ph):
                          for c in st.tcache[s]]
                      for s in ("dense_layers", "layers")} for st in sts]
 
-        solo = [rt._verify_fast(b, st.pos, tc, st.history_dev)
+        solo = [[o[0] for o in rt._fast_body([b], [st.pos], [tc],
+                                             [st.history_dev])]
                 for b, st, tc in zip(blocks, sts, caches())]
-        logits, ok, hists, nact = rt._verify_fast_batched(
+        logits, ok, hists, nact = rt._fast_body(
             blocks, [st.pos for st in sts], caches(),
             [st.history_dev for st in sts])
         for st in sts:

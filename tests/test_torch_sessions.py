@@ -155,8 +155,8 @@ def test_batched_rounds_give_each_session_its_solo_tokens(ms):
 
 def test_fused_round_logits_equal_solo_fast_blocks(ms):
     """On one cache snapshot, each session's logits (and all-hit flag,
-    history, activation count) from ``_verify_fast_batched`` equal its solo
-    ``_verify_fast`` bit for bit."""
+    history, activation count) from the fast round's body (``_fast_body``
+    over every session) equal its solo block's bit for bit."""
     with _engine(ms) as eng:
         rt = eng.runtime
         _warm(eng, ms)
@@ -171,9 +171,10 @@ def test_fused_round_logits_equal_solo_fast_blocks(ms):
             return [{"layers": [{n: t.clone() for n, t in c.items()}
                                 for c in st.tcache["layers"]]} for st in sts]
 
-        solo = [rt._verify_fast(b, st.pos, tc, st.history_dev)
+        solo = [[o[0] for o in rt._fast_body([b], [st.pos], [tc],
+                                             [st.history_dev])]
                 for b, st, tc in zip(blocks, sts, caches())]
-        logits, ok, hists, nact = rt._verify_fast_batched(
+        logits, ok, hists, nact = rt._fast_body(
             blocks, [st.pos for st in sts], caches(),
             [st.history_dev for st in sts])
         for st in sts:
