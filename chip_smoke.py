@@ -22,10 +22,14 @@ experts top-6) at full width cut to 1 dense + 3 MoE layers (its 26 MoE
 layers' 1664 routed experts would be 28.8 GB on the host, plus pinned
 staging), sd x spmoe with its derived dense MLA draft and with its MoE
 self-draft, through the expert-FFN kernels at top-6, and phi-3.5-moe (16
-experts top-2 of width 6400) at full width cut to 4 layers with its MoE
+experts top-2 of width 6400) at full width cut to 2 layers with its MoE
 draft phi-mini-moe (experts of width 960, resident on the card), whose
 every draft step runs its MoE layers through the expert-FFN kernels with
-no host sync.
+no host sync; the tight mixtral engine under seeded I/O faults; and the
+other dense targets at full width (granite-20b at full depth,
+command-r-35b and nemotron-4-340b cut in depth), greedy and speculative,
+through flash and flash-decode at their head shapes (48 / 1 x 128, 64 / 8
+x 128, 96 / 8 x 192).
 
 Phases (each raises on failure):
   1. device line; build the CUDA kernels from ``src/repro_torch/csrc``
@@ -37,11 +41,13 @@ Phases (each raises on failure):
      with the 4096 window (32 / 8 heads), and S 512 at 24 / 8 heads (the
      llama3.2-3b draft's widths), and at S 512 at the other head shapes of
      the registered configs (32 / 32 x 112, zamba2-7b; 96 / 8 x 192,
-     nemotron-4-340b; 48 / 1 x 128, granite-20b; and 384 with a 100 window
-     at 96 / 8 x 192), each timed shape one device kernel per
+     nemotron-4-340b; 48 / 1 x 128, granite-20b; 64 / 8 x 128,
+     command-r-35b; and 384 with a 100 window at 96 / 8 x 192), each timed
+     shape one device kernel per
      call; flash-decode at the llama3.2-3b and mixtral-draft
-     widths and those three, lengths 1 / 77 / 512 / 543 / 4096 in caches of
-     576 and 4112, and three rows of mixed lengths each equal to its one-row
+     widths and those four, lengths 1 / 77 / 512 / 543 / 4096 in caches of
+     576 and 4112 (timed at 543 of 576 at every width a served request
+     steps at), and three rows of mixed lengths each equal to its one-row
      call bit for bit; the SSD scan at the mamba2 widths at S 77 / 300 / 512 / 2048 and
      the zamba2 widths at S 512 and 300, 300 padded to 384, y and final
      state, timed (event and device time, its three device kernels per
@@ -58,7 +64,18 @@ Phases (each raises on failure):
      prompts, 2 at a time, ample cache): fused rounds, <=2 host syncs per
      round, and one all-hit round's logits equal to each session's solo fast
      block on the same cache snapshot, bit for bit
-  6. lossless check: every emitted token of phases 3-5 against the
+  5b. the tight engine (12 slots) under seeded faults (fetch errors at
+     0.1, staged payloads corrupted at 0.05, latency spikes at 0.05): the
+     staging check first (back-to-back fetch + insert of 12 experts in
+     batches of 2 on one thread, more batches than the store's two pinned
+     staging buffers, no sync between; every slot must equal its store
+     row), then two 64-token requests of 32 new tokens (the requests'
+     metrics must show prefetch retries and checksum failures, and no
+     io_error), then one concurrent round of a warm request (the first
+     prompt again) and a cold one whose own ``store.fetch`` raises: its
+     prefill must miss, it ends ``io_error``, and the warm one ends
+     ``length`` with its full stream
+  6. lossless check: every emitted token of phases 3-5b against the
      resident-expert model run teacher-forced over the stream (argmax, or
      within a stated margin)
   7. gelu experts: mixtral-8x7b widths with ``ffn_activation="gelu"`` (a
@@ -102,12 +119,12 @@ Phases (each raises on failure):
      and the self-draft's drafting stage replayed against their eager
      bodies (as in phase 4); every token teacher-forced
  13. phi-3.5-moe (d 4096, 32 / 8 heads x 128, vocab 32064, 16 experts
-     top-2 of width 6400; 4 layers, bf16, ``attn_impl="kernel"``) with its
-     MoE draft phi-mini-moe (16 experts of width 960, 4 layers, resident):
+     top-2 of width 6400; 2 layers, bf16, ``attn_impl="kernel"``) with its
+     MoE draft phi-mini-moe (16 experts of width 960, 2 layers, resident):
      the expert FFN against its plain version at the target's widths (a
      16-slot pool, timed at T 5) and the draft's (its 16 experts, timed at
      T 1 and T 512), bf16 and f32, batch invariance; sd x spmoe with a
-     tight cache (16 slots for 64 experts) and an ample one (64 slots: <= 2
+     tight cache (8 slots for 32 experts) and an ample one (32 slots: <= 2
      host syncs per fast block, counters reset after the first request),
      every drafted token through the draft's MoE layers on the kernel; one
      MoE draft decode step under CUDA sync debugging against the derived
@@ -115,6 +132,25 @@ Phases (each raises on failure):
      down launch per MoE layer), both drafting stages timed; the fast
      verify block and the MoE drafting stage replayed against their eager
      bodies (as in phase 4); every token teacher-forced
+ 14-16. granite-20b (52 layers, d 6144, 48 / 1 heads x 128, gelu d_ff
+     24576, vocab 49152; full depth, a 26-layer draft), command-r-35b (d
+     8192, 64 / 8 x 128, swiglu d_ff 22528, vocab 256000, tied embeddings;
+     8 / 4 layers) and nemotron-4-340b (d 18432, 96 / 8 x 192, relu2 d_ff
+     73728, vocab 256000; 2 / 2 layers) as phase 11: a 512-token prompt
+     greedy x none and one sd x none with the derived draft, 32 new tokens
+     each; flash once per layer per prefill and flash-decode once per
+     layer per one-token step, every call at the model's head shape; one
+     warm decode step timed; the greedy step and sd iteration replayed
+     against their eager bodies; every token teacher-forced; each prints
+     its TPOT (the requests served again untraced, the same tokens),
+     decode step ms, its own device memory peak and its seconds
+
+Phases 5b and 14-16 run first, right after the build, each in a child
+process of this script (``--phase chaos``, ``--phase dense <arch>``) that
+prints its result as one JSON line: it has the card's whole memory
+(nemotron-4-340b's two models need 70 GB) and a profiler of its own (in
+one process, a trace after the chaos phase's once saw no device activity
+in five windows running).
 
 Every serving engine runs with ``EngineConfig.precompile`` on: its fast
 verify blocks of the ladder length, its draft steps, and (offload none) its
@@ -122,8 +158,8 @@ greedy steps and sd iterations are replays of captured steps.  A replay
 calls no kernel wrapper, so the wrappers count only the launches they make
 (eager calls, a build's warm-up); a capture launches nothing.
 
-Each serving path (3-4, 5, 7, 8, 9, 11 greedy, 11 sd, 12 solo, 12
-concurrent, 12 self-draft and 13 solo) runs with the kernels' launch counts
+Each serving path (3-4, 5, 5b, 7, 8, 9, 11 greedy, 11 sd, 12 solo, 12
+concurrent, 12 self-draft, 13 solo and 14-16 greedy and sd) runs with the kernels' launch counts
 set to 0 and a ``torch.profiler`` trace of the device started just before
 it, both read just after: a kernel's launches on the path are the calls
 whose kernels the device ran in the trace (replays included), beside the
@@ -136,7 +172,7 @@ trace: every drafted token must have run each MoE layer of the draft.
 
 Prints JSON lines (kernels, decode_timing, flash_timing, ssd_timing,
 kernel_checks, requests, ssm_requests, gelu_requests, dense_requests,
-deepseek_requests, deepseek_kernel_timing, phi_requests, phi_kernel_timing,
+dense_targets, chaos_requests, deepseek_requests, deepseek_kernel_timing, phi_requests, phi_kernel_timing,
 breakdown, graphs (every eager-against-replay measure, each engine's builds,
 capture seconds and private pool bytes, the concurrent engines' fused
 rounds among them), memory), then the
@@ -147,6 +183,7 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -181,17 +218,23 @@ LLAMA_HEADS = 24                      # llama3.2-3b (and its draft): 24 / 8
 FA_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # the other head shapes of the registered configs: (model, q heads, kv
 # heads, head dim); zamba2-7b's shared block serves under attn_impl="kernel"
-# in phase 9, nemotron-4-340b and granite-20b are the reference's configs
-# the port has yet to register (at D 192 the bf16 kernel takes 64-key tiles,
-# which moves where p rounds by at most one bf16 step)
+# in phase 9, the three dense targets in phases 14-16 (at D 192 the bf16
+# kernel takes 64-key tiles, which moves where p rounds by at most one bf16
+# step)
 FA_SHAPES = (("zamba2-7b", 32, 32, 112), ("nemotron-4-340b", 96, 8, 192),
-             ("granite-20b", 48, 1, 128))
+             ("granite-20b", 48, 1, 128), ("command-r-35b", 64, 8, 128))
 # lossless check: the engine (5-token verify blocks, f32 expert combine) and
 # the resident reference (one teacher-forced forward, bf16 combine) round
 # the bf16 residual stream at different places; a token that is not the
 # reference's argmax must be within this many logits of it.
 MARGIN = 0.25
 CONC_PROMPT, CONC_NEW, CONC_REQS = 512, 32, 4     # phase 5
+# phase 5b: the tight engine under seeded faults (fetch errors, staged
+# payloads corrupted, latency spikes), two requests of CHAOS_NEW tokens,
+# then the io_error round's two of CHAOS_IO_NEW
+CHAOS_SLOTS, CHAOS_NEW, CHAOS_IO_NEW = 12, 32, 8
+CHAOS = {"seed": 7, "fetch_error_rate": 0.1, "corrupt_rate": 0.05,
+         "spike_rate": 0.05}
 # SSD scan: (model, heads, head dim p, state n, sequence lengths); a length
 # past 128 that 128 does not divide is padded at the end with dt = 0, as
 # mamba_forward pads it.  Tolerance of y relative to its max |value|: f32
@@ -225,7 +268,9 @@ SSM_MARGIN, SSM_MIN_EXACT = 0.5, 0.8
 # bf16 (as the reference's decode_attention_ref) and the kernel p only.
 DECODE_WIDTHS = (("llama3.2-3b", 24, 8, 128),
                  ("mistral-7b-draft", 32, 8, 128), *FA_SHAPES)
-DECODE_CACHES = ((576, (543, 1, 77), ("llama3.2-3b", "zamba2-7b")),
+DECODE_CACHES = ((576, (543, 1, 77), ("llama3.2-3b", "zamba2-7b",
+                                      "nemotron-4-340b", "granite-20b",
+                                      "command-r-35b")),
                  (4112, (4096, 1, 512), ("mistral-7b-draft",)))
 DECODE_LENGTHS = (1, 77, 512, 543, 4096)
 DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -239,6 +284,17 @@ GELU_LAYERS, GELU_PROMPT, GELU_NEW = 2, 64, 16
 # places through 28 layers: the deep stacks' rule of the SSD phases.
 DENSE_PROMPT, DENSE_NEW, DENSE_MAX_SEQ = 512, 32, 576
 DENSE_MARGIN, DENSE_MIN_EXACT = SSM_MARGIN, SSM_MIN_EXACT
+# phases 14-16: the other dense targets at full width, each with its
+# derived half-depth draft, as deep as one card holds both in bf16 (and a
+# draw's f32 temporary): (arch, target layers (None: full depth), prompt
+# seed).  granite-20b at full depth, 52 / 26 layers of 0.76 GB: 40.6 +
+# 20.9 GB.  command-r-35b cut to 8 / 4 layers of 1.41 GB beside its tied
+# 4.2 GB embedding: 15.5 + 9.8 GB (full depth, 40 / 20, would be 60.6 +
+# 32.5).  nemotron-4-340b cut to 2 / 2 layers of 6.9 GB beside a 9.4 GB
+# embedding and a 9.4 GB head in each model: 32.7 + 32.7 GB.
+DENSE_TARGETS = (("granite-20b", None, 61), ("command-r-35b", 8, 62),
+                 ("nemotron-4-340b", 2, 63))
+CHILD_TIMEOUT_S = 400                # a phase run in a child process
 
 # the deepseek phase: deepseek-v2-lite-16b at full width (d 2048, 16 MLA
 # heads of nope 128 + rope 64 / v 128, latent 512, 64 experts top-6 of width
@@ -265,13 +321,14 @@ DS_SELF_PROMPT, DS_SELF_SEED = 64, 90    # the MoE self-draft's request
 # the phi phase: phi-3.5-moe at full width (d 4096, 32 / 8 heads x 128,
 # vocab 32064, 16 experts top-2 of width 6400) with its MoE draft
 # phi-mini-moe (16 experts top-2 of width 960, resident on the card), both
-# cut to 4 layers, the depth that keeps the Table 1 pair layer for layer:
-# the target's 64 routed experts are 10.1 GB of bf16 on the host (at full
-# depth 80.5 GB).  Pools of 16 (tight) and 64 slots (ample: every expert).
+# cut to 2 layers (4 until the script's later phases needed its time), a
+# depth that keeps the Table 1 pair layer for layer: the target's 32 routed
+# experts are 5.0 GB of bf16 on the host (at full depth 80.5 GB).  Pools of
+# 8 (tight) and 32 slots (ample: every expert).
 # The expert FFN is checked and timed at the target's verify block (T 5,
 # a 16-slot pool) and at the draft's step (T 1) and prefill (T 512) over
 # its 16 resident experts.
-PHI_LAYERS, PHI_TIGHT, PHI_AMPLE = 4, 16, 64
+PHI_LAYERS, PHI_TIGHT, PHI_AMPLE = 2, 8, 32
 PHI_D, PHI_F, PHI_DRAFT_F, PHI_E, PHI_K = 4096, 6400, 960, 16, 2
 PHI_PROMPT, PHI_NEW = 64, 32
 # lossless check: the deep stacks' rule, as for deepseek.  Top-2 of 16
@@ -290,6 +347,22 @@ T_START = time.perf_counter()
 def log(msg: str):
     print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", file=sys.stderr,
           flush=True)
+
+
+_PEAK = [0]                     # the script's device memory peak so far
+
+
+def reset_peak():
+    """Start a phase's own peak of device memory
+    (``torch.cuda.max_memory_allocated``), keeping the script's."""
+    import torch
+    _PEAK[0] = max(_PEAK[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+
+
+def script_peak() -> int:
+    import torch
+    return max(_PEAK[0], torch.cuda.max_memory_allocated())
 
 
 def smi_line() -> str:
@@ -317,8 +390,9 @@ def device_spans(fn, iters: int, keep=None, tries: int = 5):
     """Durations (us) of the device activities ``torch.profiler`` saw over
     ``iters`` warm calls of ``fn``, those whose names ``keep`` accepts where
     it is given.  A window can come back without them (seen right after a
-    plain version's thousands of launches, and once in the phi draft's
-    expert-FFN timing): it is traced again, after a pause, before failing."""
+    plain version's thousands of launches, and in the phi expert-FFN
+    timing): it is traced again, after a pause that doubles each time,
+    before failing."""
     import time
     import torch
     from torch.autograd import DeviceType
@@ -338,7 +412,7 @@ def device_spans(fn, iters: int, keep=None, tries: int = 5):
         log(f"the profiler saw none of the device activity sought (window "
             f"{attempt + 1} of {tries}; {len(seen)} other activities, "
             f"{sorted({e.name[:60] for e in seen})[:3]}); tracing again")
-        time.sleep(0.5)
+        time.sleep(0.5 * 2 ** attempt)
     return []
 
 
@@ -1353,6 +1427,199 @@ def concurrent_phase(target, draft, cfg, dcfg, prompts, slots: int = 32,
     return results, counters, launches
 
 
+def staging_check(store, dev, slots: int = 12, per_batch: int = 2):
+    """The staging race, on the card: back-to-back ``fetch`` + ``insert``
+    on this thread into a fresh cache of ``slots`` slots, in batches of
+    ``per_batch`` experts (more batches than the store's staging buffers,
+    so batch i + 2 refills batch i's pinned buffer while its copies may
+    still be queued on the copy stream), with no sync between them; then
+    every slot must equal its store row."""
+    import torch
+    from repro_torch.core import offload
+    from repro_torch.core.cache import ExpertCache
+    keys = [(l, e) for l in range(store.num_layers)
+            for e in range(store.num_experts)][:slots]
+    batches = [keys[i:i + per_batch] for i in range(0, len(keys), per_batch)]
+    if len(batches) <= offload._NUM_STAGING:
+        raise AssertionError("the staging check needs more batches than "
+                             "staging buffers")
+    cache = ExpertCache(slots, store.buffer_shapes(), torch.bfloat16,
+                        table_shape=(store.num_layers, store.num_experts),
+                        device=dev)
+    t0 = time.perf_counter()
+    for b in batches:
+        cache.insert(b, store.fetch(b))
+    issue_s = time.perf_counter() - t0
+    cache.wait()
+    total_s = time.perf_counter() - t0
+    if not cache.check_invariants():
+        raise AssertionError("staging check: cache invariants violated")
+    for (l, e), slot in cache.table.items():
+        for n in store.names:
+            if not torch.equal(cache.bufs[n][slot].cpu(),
+                               store.expert(n, l, e)):
+                raise AssertionError(f"staging check: slot {slot} holds "
+                                     f"another {n} than expert ({l}, {e})")
+    nbytes = sum(cache.bufs[n][0].numel() * cache.bufs[n].element_size()
+                 for n in store.names) * len(keys)
+    del cache
+    torch.cuda.empty_cache()
+    return {"batches": len(batches), "experts": len(keys),
+            "staging_buffers": offload._NUM_STAGING, "bytes": nbytes,
+            "issue_s": issue_s, "landed_s": total_s, "rows_equal": True}
+
+
+def checksum_timing(store, reps: int = 3):
+    """Host ms to checksum one staged expert as ``fetch_verified`` does (a
+    CRC32 of each 16 MiB piece, the pieces on a thread pool) against one
+    CRC32 pass over the same bytes on this thread; best of ``reps``."""
+    import zlib
+
+    from repro_torch.core import offload
+    arrays = store.fetch([(0, 0)])
+    row = [arrays[n][0] for n in store.names]
+
+    def serial():
+        c = 0
+        for t in row:
+            c = zlib.crc32(offload._bytes(t), c)
+        return c
+
+    out = {}
+    for name, fn in (("pieces_on_a_pool", lambda: offload._checksum(row)),
+                     ("one_pass_one_thread", serial)):
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        out[name] = best * 1e3
+    out["bytes"] = sum(t.numel() * t.element_size() for t in row)
+    return out
+
+
+def chaos_phase(target, draft, cfg, dcfg, prompts, dev):
+    """Phase 5b: the tight engine (12 slots, sd x spmoe) under seeded
+    faults (``CHAOS``): first the staging check on its store (faults
+    suppressed), then two requests served one after another with the
+    launch counts from 0 (retries and checksum quarantine must have
+    absorbed faults, none ending a request), then one concurrent round of
+    a warm request (prompt 0 again) and a cold one whose own
+    ``store.fetch`` raises: its prefill must miss, it ends ``io_error``,
+    and the warm one ends ``length`` with its full stream (held to the
+    teacher-forced model in phase 6: in bf16 it may part from its solo
+    stream at a near tie, as the slow path sums hit and loaded experts in
+    an order that depends on the cache).  Returns the
+    (prompt, result) pairs for the lossless check and the phase's
+    measures."""
+    import threading
+
+    import torch
+    from repro_torch.core.chaos import ChaosConfig
+    from repro_torch.core.engine import Engine, EngineConfig, Request
+    t_phase = time.perf_counter()
+    config = EngineConfig(model=cfg, draft=dcfg, decode="sd",
+                          offload="spmoe", cache_slots=CHAOS_SLOTS,
+                          draft_len=4, max_seq=256,
+                          chaos=ChaosConfig(**CHAOS))
+    eng = Engine(config, target, draft)
+    rt = eng.runtime
+    with rt.chaos.calm():
+        staging = staging_check(rt.store, dev)
+        checksum_ms = checksum_timing(rt.store)
+    log(f"[5b] staging check: {staging}; one expert's checksum "
+        f"{checksum_ms}")
+    reset_launches()
+    results = []
+    for i, p in enumerate(prompts):
+        res = eng.submit(Request(prompt=p, max_new_tokens=CHAOS_NEW,
+                                 request_id=f"chaos-{i}"))
+        torch.cuda.synchronize()
+        if len(res.tokens) != CHAOS_NEW or res.finish_reason != "length":
+            raise AssertionError(f"chaos: request {i} ended "
+                                 f"{res.finish_reason} after "
+                                 f"{len(res.tokens)} tokens")
+        results.append(res)
+    launches = read_launches("chaos serving")
+    tot = {k: sum(r.metrics[k] for r in results)
+           for k in ("prefetch_retries", "prefetch_errors",
+                     "checksum_failures", "worker_restarts",
+                     "degraded_rounds", "io_errors", "on_demand_loads",
+                     "prefetched")}
+    if tot["prefetch_retries"] <= 0 or tot["checksum_failures"] <= 0 \
+            or tot["io_errors"]:
+        raise AssertionError(f"chaos: the requests' metrics {tot}")
+    injected = dict(rt.chaos.injected)
+    counters = rt.counters()
+    # the io_error round: only the cold session's own loads fail
+    cold_prompt = torch.randint(0, cfg.vocab_size, prompts[0].shape,
+                                generator=torch.Generator().manual_seed(30))
+    decode_thread = threading.get_ident()
+    orig_fetch, orig_start = rt.store.fetch, rt.start_session
+    cold = {"on": False}
+    failed = []
+
+    def start(prompt, n):
+        cold["on"] = torch.equal(prompt.cpu(), cold_prompt)
+        try:
+            return orig_start(prompt, n)
+        finally:
+            cold["on"] = False
+
+    def down(keys):
+        if cold["on"] and threading.get_ident() == decode_thread:
+            failed.append(not any(rt.cache.contains(k) for k in keys))
+            raise OSError("host store unreachable")
+        return orig_fetch(keys)
+
+    rt.start_session, rt.store.fetch = start, down
+    try:
+        pair = eng.serve_all([Request(prompt=prompts[0],
+                                      max_new_tokens=CHAOS_IO_NEW,
+                                      request_id="chaos-warm"),
+                              Request(prompt=cold_prompt,
+                                      max_new_tokens=CHAOS_IO_NEW,
+                                      request_id="chaos-cold")],
+                             concurrency=2)
+    finally:
+        rt.store.fetch = orig_fetch
+        del rt.start_session
+    torch.cuda.synchronize()
+    warm, cold_res = pair
+    if not failed or not all(failed):
+        raise AssertionError(f"chaos: the cold session's failing fetches "
+                             f"{failed} were not all misses")
+    if cold_res.finish_reason != "io_error":
+        raise AssertionError(f"chaos: the cold session ended "
+                             f"{cold_res.finish_reason}")
+    if warm.finish_reason != "length" or len(warm.tokens) != CHAOS_IO_NEW:
+        raise AssertionError(f"chaos: the warm batchmate ended "
+                             f"{warm.finish_reason} after "
+                             f"{len(warm.tokens)} tokens")
+    if not rt.cache.check_invariants():
+        raise AssertionError("chaos: cache invariants violated")
+    eng.close()
+    del eng, rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    info = {"slots": CHAOS_SLOTS, "chaos": CHAOS, "requests_metrics": tot,
+            "tpot_wall_s": [r.metrics.tpot_wall for r in results],
+            "injected": injected, "runtime_counters": counters,
+            "launches": launches, "staging": staging,
+            "io_error_round": {"cold_failed_fetches": len(failed),
+                               "cold_finish": cold_res.finish_reason,
+                               "cold_tokens": len(cold_res.tokens),
+                               "warm_finish": warm.finish_reason,
+                               "warm_tokens": len(warm.tokens),
+                               "warm_is_a_prefix_of_its_solo_stream":
+                                   warm.tokens == results[0].tokens[
+                                       :CHAOS_IO_NEW]},
+            "checksum_ms": checksum_ms,
+            "phase_s": time.perf_counter() - t_phase}
+    return [(p, r) for p, r in zip(prompts, results)] + \
+        [(prompts[0], warm)], info
+
+
 def preload_every_expert(rt):
     """Insert every expert into the runtime's cache, layer by layer (a warm
     ample cache)."""
@@ -1679,28 +1946,67 @@ def gelu_phase(dev):
     return info
 
 
-def dense_phase(dev):
-    """llama3.2-3b at full width and full depth (28 layers, d 3072, 24 / 8
-    heads x 128, d_ff 8192, vocab 128256, tied embeddings, bf16,
-    ``attn_impl="kernel"``), random weights from seeds 0 / 1: one 512-token
-    request greedy x none (every target step through flash-decode) and one
-    sd x none with the derived 14-layer draft (every draft step through
-    it), through ``Engine.submit``, the launch counts set to 0 just before
-    and read just after; then one warm greedy decode step timed alone and
-    traced, and every token teacher-forced."""
+@contextlib.contextmanager
+def attention_shapes():
+    """Record the (kernel, q heads, kv heads, head dim) of every call of
+    the attention wrappers through ``ops`` (the models' route to them):
+    a served request's eager calls and its captured steps' warm-ups, whose
+    kernels the replays run again."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    seen = set()
+
+    def flash(q, k, v, **kw):
+        seen.add(("flash_attention", q.shape[2], k.shape[2], q.shape[3]))
+        return FA.flash_attention(q, k, v, **kw)
+
+    def decode(q, k, v, lengths):
+        seen.add(("decode_attention", q.shape[1], k.shape[2], q.shape[2]))
+        return DA.decode_attention(q, k, v, lengths)
+    ops.flash_attention, ops.decode_attention = flash, decode
+    try:
+        yield seen
+    finally:
+        ops.flash_attention = FA.flash_attention
+        ops.decode_attention = DA.decode_attention
+
+
+def dense_phase(dev, arch: str = "llama3.2-3b", layers=None,
+                seed: int = 60):
+    """A dense target at full width (``layers`` cuts its depth; llama3.2-3b
+    at full depth: 28 layers, d 3072, 24 / 8 heads x 128, d_ff 8192, vocab
+    128256, tied embeddings), bf16, ``attn_impl="kernel"``, random weights
+    from seeds 0 / 1 on the card: one 512-token request greedy x none
+    (every target step through flash-decode) and one sd x none with the
+    derived half-depth draft (every draft step through it), through
+    ``Engine.submit``, the launch counts set to 0 just before and read just
+    after, every attention call at the model's head shape, and both served
+    again untraced (the TPOT as served; the same tokens); then one warm
+    greedy decode step timed alone and traced, the greedy step and the sd
+    iteration replayed against their eager bodies, and every token
+    teacher-forced.  Returns the phase's seconds and its own peak of
+    device memory with the rest."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.core.engine import (Engine, EngineConfig, Request,
                                          derive_draft_config)
     from repro_torch.models.registry import build_model
-    cfg = dataclasses.replace(get_config("llama3.2-3b"), attn_impl="kernel")
+    cfg = dataclasses.replace(get_config(arch), attn_impl="kernel")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     dcfg = derive_draft_config(cfg)
-    t0 = time.perf_counter()
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_peak()
+    at_start = torch.cuda.memory_allocated()
+    t_phase = t0 = time.perf_counter()
     target = build_model(cfg, dev, seed=0)
     draft = build_model(dcfg, dev, seed=1)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    gen = torch.Generator().manual_seed(60)
+    gen = torch.Generator().manual_seed(seed)
     prompts = [torch.randint(0, cfg.vocab_size, (1, DENSE_PROMPT),
                              generator=gen) for _ in range(2)]
     greedy = Engine(EngineConfig(model=cfg, decode="greedy",
@@ -1708,23 +2014,39 @@ def dense_phase(dev):
     sd = Engine(EngineConfig(model=cfg, draft=dcfg, decode="sd",
                              draft_len=4, max_seq=DENSE_MAX_SEQ),
                 target, draft)
-    reset_launches()
-    t0 = time.perf_counter()
-    res_g = greedy.submit(Request(prompt=prompts[0],
+    with attention_shapes() as shapes:
+        reset_launches()
+        t0 = time.perf_counter()
+        res_g = greedy.submit(Request(prompt=prompts[0],
+                                      max_new_tokens=DENSE_NEW,
+                                      request_id=f"{arch}-greedy"))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g_launches = read_launches(f"{arch} greedy",
+                                   ("flash_attention", "decode_attention"))
+        reset_launches()
+        t1s = time.perf_counter()
+        res_s = sd.submit(Request(prompt=prompts[1],
                                   max_new_tokens=DENSE_NEW,
-                                  request_id="dense-greedy"))
+                                  request_id=f"{arch}-sd"))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        s_launches = read_launches(f"{arch} sd",
+                                   ("flash_attention", "decode_attention"))
+    # the same two requests again, untraced: TPOT as served (traced, a
+    # replay runs 1.8-4.9x slower), and the same tokens
+    again = [eng.submit(Request(prompt=p, max_new_tokens=DENSE_NEW))
+             for eng, p in ((greedy, prompts[0]), (sd, prompts[1]))]
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    g_launches = read_launches("dense greedy",
-                               ("flash_attention", "decode_attention"))
-    reset_launches()
-    t1s = time.perf_counter()
-    res_s = sd.submit(Request(prompt=prompts[1], max_new_tokens=DENSE_NEW,
-                              request_id="dense-sd"))
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    s_launches = read_launches("dense sd",
-                               ("flash_attention", "decode_attention"))
+    for res, rerun in zip((res_g, res_s), again):
+        if rerun.tokens != res.tokens:
+            raise AssertionError(f"{res.request_id}: served again, "
+                                 f"{rerun.tokens} and not {res.tokens}")
+    want_shapes = {(k, *heads) for k in ("flash_attention",
+                                         "decode_attention")}
+    if shapes != want_shapes:
+        raise AssertionError(f"{arch}: attention ran at {sorted(shapes)}, "
+                             f"not {sorted(want_shapes)}")
     launches = {k: g_launches[k] + s_launches[k] for k in KERNEL_NAMES}
     launches["host"] = {k: g_launches["host"][k] + s_launches["host"][k]
                         for k in KERNEL_NAMES}
@@ -1743,22 +2065,23 @@ def dense_phase(dev):
     s_dec = s_launches["decode_attention"]
     g_steps = DENSE_NEW - 1 + greedy.graphs.builds["greedy"]
     if g_dec != cfg.num_layers * g_steps:
-        raise AssertionError(f"greedy: {g_dec} flash-decode launches, "
-                             f"expected {cfg.num_layers * g_steps}")
+        raise AssertionError(f"{arch} greedy: {g_dec} flash-decode "
+                             f"launches, expected "
+                             f"{cfg.num_layers * g_steps}")
     g_replayed = g_dec - g_launches["host"]["decode_attention"]
     if g_replayed != cfg.num_layers * (DENSE_NEW - 1):
-        raise AssertionError(f"greedy: the replays ran {g_replayed} "
+        raise AssertionError(f"{arch} greedy: the replays ran {g_replayed} "
                              f"flash-decode kernels, not one per layer per "
                              f"step")
     drafted = res_s.metrics.drafted
     s_steps = drafted + 4 * sd.graphs.builds["sd"]
     if not 0 < s_dec <= dcfg.num_layers * s_steps or s_dec % dcfg.num_layers:
-        raise AssertionError(f"sd: {s_dec} flash-decode launches for "
+        raise AssertionError(f"{arch} sd: {s_dec} flash-decode launches for "
                              f"{drafted} draft steps of {dcfg.num_layers} "
                              f"layers")
     want_flash = 2 * cfg.num_layers + dcfg.num_layers
     if launches["flash_attention"] != want_flash:
-        raise AssertionError(f"dense: {launches['flash_attention']} flash "
+        raise AssertionError(f"{arch}: {launches['flash_attention']} flash "
                              f"launches, expected {want_flash} (the two "
                              f"target prefills and the draft's)")
     p0 = prompts[0].to(dev)
@@ -1768,6 +2091,7 @@ def dense_phase(dev):
     step_prof = device_profile(
         lambda: target.decode_step(cache, tok, DENSE_PROMPT), step_ms,
         FOCUS_DECODE)
+    del cache
     graphs = dense_replay_ab(target, draft, greedy, sd, prompts)
     greedy.close()
     sd.close()
@@ -1775,28 +2099,36 @@ def dense_phase(dev):
                                    zip(prompts, (res_g, res_s))], dev,
                           margin=DENSE_MARGIN)
     if loss["exact"] < DENSE_MIN_EXACT * 2 * DENSE_NEW:
-        raise AssertionError(f"dense: only {loss['exact']} of "
+        raise AssertionError(f"{arch}: only {loss['exact']} of "
                              f"{2 * DENSE_NEW} tokens are the teacher-forced "
                              f"argmax")
+    torch.cuda.synchronize()
     info = {"model": cfg.name, "layers": cfg.num_layers,
             "draft_layers": dcfg.num_layers,
+            "heads": {"H": heads[0], "Hkv": heads[1], "D": heads[2]},
+            "attention_calls": sorted(shapes),
             "params": sum(t.numel() for t in target.parameters()),
             "draft_params": sum(t.numel() for t in draft.parameters()),
             "model_init_s": init_s,
             "greedy": {"wall_s": t1 - t0, "tpot_wall_s":
                        res_g.metrics.tpot_wall,
+                       "tpot_wall_s_untraced": again[0].metrics.tpot_wall,
                        "decode_attention_launches": g_dec,
                        "decode_attention_replayed": g_replayed,
                        "host_launches": g_launches["host"]},
             "sd": {"wall_s": t2 - t1s, "tpot_wall_s": res_s.metrics.tpot_wall,
+                   "tpot_wall_s_untraced": again[1].metrics.tpot_wall,
                    "iterations": res_s.metrics.iterations,
                    "drafted": drafted, "accepted": res_s.metrics.accepted,
                    "decode_attention_launches": s_dec,
                    "host_launches": s_launches["host"]},
             "launches": launches, "decode_step_ms": step_ms,
             "decode_step_profile": step_prof, "graphs": graphs,
-            "lossless": loss}
-    del greedy, sd, target, draft, cache
+            "lossless": loss,
+            "device_allocated_at_start_bytes": at_start,
+            "device_max_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "phase_s": time.perf_counter() - t_phase}
+    del greedy, sd, target, draft
     gc.collect()
     torch.cuda.empty_cache()
     return info
@@ -2118,12 +2450,12 @@ def draft_step_check(moe_draft, dense_draft, vocab: int, dev):
 
 def phi_phase(dev):
     """phi-3.5-moe at full width with its MoE draft phi-mini-moe, both cut
-    to 4 layers, bf16, ``attn_impl="kernel"``, target seed 0 with its routed
-    experts on the host, draft seed 1 with its experts on the card: the
+    to ``PHI_LAYERS`` layers, bf16, ``attn_impl="kernel"``, target seed 0
+    with its routed experts on the host, draft seed 1 with its experts on the card: the
     expert FFN against its plain version at the target's widths (f 6400,
     16-slot pool, timed at T 5) and the draft's (f 960, its 16 experts,
-    timed at T 1 and T 512); sd x spmoe with a tight cache (16 slots, two
-    64-token requests, 32 new tokens each) and an ample one (64 slots:
+    timed at T 1 and T 512); sd x spmoe with a tight cache (8 slots, two
+    64-token requests, 32 new tokens each) and an ample one (32 slots:
     <= 2 host syncs per fast block; counters reset after the first
     request), the launch counts set to 0 just before and read just after,
     every drafted token through the draft's MoE layers on the kernel; one
@@ -2246,14 +2578,90 @@ def phi_phase(dev):
     return info, rows + drows, timing, dtiming
 
 
+def mixtral_pair(dev):
+    """mixtral-8x7b at full width cut to 4 layers (its experts on the
+    host) and its dense mistral-7b draft, 4 layers, both under
+    ``attn_impl="kernel"``, random weights from seeds 0 / 1."""
+    from repro_torch.configs.registry import get_config, get_draft_config
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=4,
+                              attn_impl="kernel")
+    dcfg = dataclasses.replace(get_draft_config("mixtral-8x7b"),
+                               num_layers=4, attn_impl="kernel")
+    target = build_model(cfg, dev, seed=0, expert_device="cpu")
+    draft = build_model(dcfg, dev, seed=1)
+    return cfg, dcfg, target, draft
+
+
+def chaos_child(dev) -> dict:
+    """Phase 5b on its own: the mixtral pair, ``chaos_phase``, then every
+    token it emitted teacher-forced with the target's experts on the card
+    (the rule of phase 6)."""
+    import torch
+    cfg, dcfg, target, draft = mixtral_pair(dev)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, 64),
+                             generator=torch.Generator().manual_seed(31 + i))
+               for i in range(2)]
+    pairs, info = chaos_phase(target, draft, cfg, dcfg, prompts, dev)
+    for blk in target.layers:
+        for n in ("wg", "wu", "wd"):
+            w = getattr(blk.moe, n)
+            setattr(blk.moe, n, torch.nn.Parameter(w.to(dev),
+                                                   requires_grad=False))
+    info["lossless"] = lossless_phase(
+        target, [(p, r.tokens) for p, r in pairs], dev)
+    return info
+
+
+def run_child(phase: str, *args) -> dict:
+    """Run one phase in a child process of this script (``--phase``): its
+    log lines go to this stderr, its result is the last line of its
+    stdout.  Fails when the child fails."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--phase", phase, *args], stdout=subprocess.PIPE,
+                         text=True, timeout=CHILD_TIMEOUT_S)
+    if out.returncode != 0:
+        raise AssertionError(f"phase {phase} {args} failed (exit "
+                             f"{out.returncode})")
+    info = json.loads(out.stdout.strip().splitlines()[-1])
+    info["process_s"] = time.perf_counter() - t0
+    return info
+
+
+def child_main(phase: str, *args) -> int:
+    """A phase in a process of its own: the chaos phase, or one dense
+    target (``dense <arch>``); prints its result as one JSON line."""
+    import torch
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device")
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    if phase == "chaos":
+        info = chaos_child(dev)
+    elif phase == "dense":
+        arch, layers, seed = next(t for t in DENSE_TARGETS
+                                  if t[0] == args[0])
+        info = dense_phase(dev, arch, layers, seed)
+    else:
+        raise ValueError(f"no phase {phase!r}")
+    info["process_peaks"] = {
+        "device_max_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "host_max_rss_bytes":
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
+    print(json.dumps(info))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
         return 2
-    from repro_torch.configs.registry import get_config, get_draft_config
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build
-    from repro_torch.models.registry import build_model
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -2270,12 +2678,25 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"    {name}: {line.strip()}")
 
-    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=4,
-                              attn_impl="kernel")
-    dcfg = dataclasses.replace(get_draft_config("mixtral-8x7b"),
-                               num_layers=4, attn_impl="kernel")
-    rows, main_k = kernel_phase(dev, cfg.d_model, cfg.moe_d_ff)
-    gelu_rows, gelu_k = kernel_phase(dev, cfg.d_model, cfg.moe_d_ff,
+    # phases 5b and 14-16 first, each in a child process of its own (this
+    # one has made no CUDA context yet): the card's whole memory for
+    # nemotron-4-340b, and a profiler of their own for their traces
+    chaos_info = run_child("chaos")
+    log(f"[5b] chaos serving ok in {chaos_info['phase_s']:.1f} s")
+    dense_targets = {}
+    for i, (arch, _, _) in enumerate(DENSE_TARGETS):
+        d = dense_targets[arch] = run_child("dense", arch)
+        log(f"[{14 + i}] {arch} ({d['layers']} / {d['draft_layers']} "
+            f"layers) serving ok in {d['phase_s']:.1f} s: TPOT greedy "
+            f"{d['greedy']['tpot_wall_s_untraced'] * 1e3:.2f} / sd "
+            f"{d['sd']['tpot_wall_s_untraced'] * 1e3:.2f} ms (untraced), "
+            f"decode step "
+            f"{d['decode_step_ms']:.3f} ms, peak "
+            f"{d['device_max_allocated_bytes'] / 2**30:.1f} GiB")
+
+    mixtral = get_config("mixtral-8x7b")
+    rows, main_k = kernel_phase(dev, mixtral.d_model, mixtral.moe_d_ff)
+    gelu_rows, gelu_k = kernel_phase(dev, mixtral.d_model, mixtral.moe_d_ff,
                                      gelu=True, seed=4)
     fa_rows, fa_timing = flash_phase(dev)
     dec_rows, dec_timing = decode_phase(dev)
@@ -2285,8 +2706,7 @@ def main() -> int:
         f"flash {fa_timing}; decode {dec_timing}; ssd {ssd_timing}")
 
     t0 = time.perf_counter()
-    target = build_model(cfg, dev, seed=0, expert_device="cpu")
-    draft = build_model(dcfg, dev, seed=1)
+    cfg, dcfg, target, draft = mixtral_pair(dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     log(f"[3] models built in {init_s:.1f} s")
@@ -2325,6 +2745,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[5] concurrent serving ok: {conc_info}; launches {launches}")
+
 
     # phase 6: the same target with its experts resident on the card
     for blk in target.layers:
@@ -2376,6 +2797,7 @@ def main() -> int:
     rows += phi_rows
     log(f"[13] phi-3.5-moe serving ok: {phi_info}")
 
+
     # the eager-against-replay measures, printed on their own line
     graphs_mixtral = {**brk.pop("graphs"),
                       "concurrent_engine": conc_info.pop("graphs")}
@@ -2387,6 +2809,7 @@ def main() -> int:
                      "engine"]}
     graphs_phi = phi_info.pop("graphs")
     graphs_dense = dense_info.pop("graphs")
+    graphs_targets = {a: d.pop("graphs") for a, d in dense_targets.items()}
 
     kernels = []
     # the expert FFN at the verify block (T 5) and, one row more per stage,
@@ -2415,6 +2838,8 @@ def main() -> int:
         "launches": launches["flash_attention"],
         "launches_host": launches["host"]["flash_attention"],
         "launches_solo_path": solo_launches["flash_attention"],
+        "launches_dense_paths": {a: d["launches"]["flash_attention"]
+                                 for a, d in dense_targets.items()},
         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -2443,6 +2868,8 @@ def main() -> int:
         "launches_concurrent_path": launches["decode_attention"],
         "launches_solo_path": solo_launches["decode_attention"],
         "launches_gelu_path": gelu_info["launches"]["decode_attention"],
+        "launches_dense_paths": {a: d["launches"]["decode_attention"]
+                                 for a, d in dense_targets.items()},
         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -2542,6 +2969,8 @@ def main() -> int:
                       "mamba2": mamba_info, "zamba2": zamba_info}))
     print(json.dumps({"gelu_requests": gelu_info}))
     print(json.dumps({"dense_requests": dense_info}))
+    print(json.dumps({"dense_targets": dense_targets}))
+    print(json.dumps({"chaos_requests": chaos_info}))
     print(json.dumps({"deepseek_requests": ds_info}))
     print(json.dumps({"deepseek_kernel_timing": {
         "shape": {"d": DS_D, "f": DS_F, "k": DS_K, "pool": DS_TIGHT,
@@ -2563,9 +2992,13 @@ def main() -> int:
                            "builds' warm-ups; a capture launches nothing, "
                            "a replay calls no wrapper)",
         "mixtral-8x7b": graphs_mixtral, "deepseek-v2-lite-16b": graphs_ds,
-        "phi-3.5-moe": graphs_phi, "llama3.2-3b": graphs_dense}}))
+        "phi-3.5-moe": graphs_phi, "llama3.2-3b": graphs_dense,
+        **graphs_targets}}))
     print(json.dumps({"memory": {
-        "device_max_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "device_max_allocated_bytes": script_peak(),
+        "child_processes": {
+            name: info["process_peaks"] for name, info in (
+                ("chaos", chaos_info), *dense_targets.items())},
         "pinned_staging_bytes": {"tight": tight_info["pinned_staging_bytes"],
                                  "ample": ample_info["pinned_staging_bytes"]},
         "host_max_rss_bytes":
@@ -2582,4 +3015,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase"]:
+        sys.exit(child_main(*sys.argv[2:]))
     sys.exit(main())

@@ -4,7 +4,11 @@ draft phi-mini-moe (Table 1); deepseek-v2-lite-16b (MLA, one leading dense
 layer, shared experts), whose Table 1 draft is the same architecture (an
 MoE self-draft); llama3.2-3b, a dense target with tied embeddings served
 with all weights resident, greedy or speculatively with the derived
-half-depth draft (it has no published draft pairing); and the SSD families:
+half-depth draft (it has no published draft pairing), and the other dense
+targets of the reference's assigned pool, served the same way:
+command-r-35b (swiglu, tied embeddings, vocab 256000), granite-20b (MQA,
+a two-matrix gelu FFN) and nemotron-4-340b (head dim 192, a squared-ReLU
+FFN); and the SSD families:
 mamba2-780m (ssm) and zamba2-7b (hybrid), served greedy with all weights
 resident.  An MoE draft keeps its experts resident on the device; only the
 target's are offloaded."""
@@ -12,8 +16,9 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-from repro_torch.configs import (deepseek_v2_lite_16b, llama3_2_3b,
-                                 mamba2_780m, mixtral_8x7b, phi_3_5_moe,
+from repro_torch.configs import (command_r_35b, deepseek_v2_lite_16b,
+                                 granite_20b, llama3_2_3b, mamba2_780m,
+                                 mixtral_8x7b, nemotron_4_340b, phi_3_5_moe,
                                  zamba2_7b)
 from repro_torch.configs.base import ModelConfig
 
@@ -22,6 +27,9 @@ ARCHS: Dict[str, ModelConfig] = {
     "phi-3.5-moe": phi_3_5_moe.CONFIG,
     "deepseek-v2-lite-16b": deepseek_v2_lite_16b.CONFIG,
     "llama3.2-3b": llama3_2_3b.CONFIG,
+    "command-r-35b": command_r_35b.CONFIG,
+    "granite-20b": granite_20b.CONFIG,
+    "nemotron-4-340b": nemotron_4_340b.CONFIG,
     "mamba2-780m": mamba2_780m.CONFIG,
     "zamba2-7b": zamba2_7b.CONFIG,
 }

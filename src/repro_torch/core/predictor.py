@@ -1,16 +1,21 @@
 """Cross-model expert predictor (paper §3.2, Algorithm 1).  The port of
-``repro/core/predictor.py`` (the Observation-I analytics stay with the
-reference).
+``repro/core/predictor.py``.
 
 During drafting, the draft model's layer-``l`` gate input (post-attention,
 pre-FFN hidden state) is fed through the *target* model's layer-``l`` gating
 network; the top-k scored experts are the predicted critical experts for the
 upcoming verification of that layer.
+
+Also provides the entropy analytics behind Observation I (Figure 2c): the
+entropy of the predicted activation distribution under the random /
+coarse-grained (MoE-Infinity) / gating-based strategies, numpy copies of
+the reference's.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -38,3 +43,36 @@ class ExpertPredictor:
         ids = torch.topk(probs, self.k, dim=-1).indices.reshape(-1).tolist()
         uniq = list(dict.fromkeys(ids))
         return [(layer, e) for e in uniq[: self.k]]
+
+
+# ---------------------------------------------------------------------------
+# Observation I analytics (Figure 2)
+# ---------------------------------------------------------------------------
+
+def entropy(p: np.ndarray, axis: int = -1) -> np.ndarray:
+    p = np.clip(p, 1e-12, 1.0)
+    p = p / p.sum(axis=axis, keepdims=True)
+    return -(p * np.log2(p)).sum(axis=axis)
+
+
+def strategy_entropies(gate_probs: np.ndarray, history_counts: np.ndarray
+                       ) -> Dict[str, float]:
+    """gate_probs: [T, E] actual per-token gate distributions;
+    history_counts: [E] historical activation counts (MoE-Infinity proxy).
+
+    Returns mean entropy of the three prediction strategies of Fig. 2c.
+    """
+    T, E = gate_probs.shape
+    rand = np.full((E,), 1.0 / E)
+    hist = history_counts / max(history_counts.sum(), 1e-9)
+    return {
+        "random": float(entropy(rand)),
+        "coarse_grained": float(entropy(hist)),
+        "gating_based": float(entropy(gate_probs).mean()),
+    }
+
+
+def activation_overlap(ids_a: np.ndarray, ids_b: np.ndarray) -> float:
+    """Fraction of overlap between two tokens' expert sets (Fig. 2b)."""
+    a, b = set(ids_a.tolist()), set(ids_b.tolist())
+    return len(a & b) / max(len(a | b), 1)

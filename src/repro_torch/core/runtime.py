@@ -431,11 +431,14 @@ class OffloadEngine:
             return "failed"
         return "degraded"
 
-    def _load_wave(self, wave: List[ExpertKey], st: DecodeState) -> List[int]:
+    def _load_wave(self, wave: List[ExpertKey], st: DecodeState, use):
         """Decode-critical on-demand load of one miss wave under a bounded
         retry budget; the final attempt runs with injected faults
-        suppressed.  A real fault that survives every retry raises
-        :class:`ExpertLoadError` (``finish_reason="io_error"``)."""
+        suppressed.  Returns ``use(slots)``, called under the cache lock
+        right after the insert: no other thread's insert (the prefetch
+        worker's) can evict the wave before ``use`` has dispatched the
+        kernels that read it.  A real fault that survives every retry
+        raises :class:`ExpertLoadError` (``finish_reason="io_error"``)."""
         attempts = self.config.io_retries + 1
         verify = self.prefetcher.verify
         last: Optional[BaseException] = None
@@ -446,8 +449,9 @@ class OffloadEngine:
                 with calm:
                     arrays = self.store.fetch_verified(wave) if verify \
                         else self.store.fetch(wave)
-                    return self.cache.insert(wave, arrays, mark_used=True,
-                                             stats=st.io)
+                    with self.cache.lock:
+                        return use(self.cache.insert(
+                            wave, arrays, mark_used=True, stats=st.io))
             except OSError as e:           # ChaosError/PayloadCorruption too
                 last = e
                 if a < attempts - 1:
@@ -501,16 +505,25 @@ class OffloadEngine:
                 _, miss = self.cache.lookup(nxt, touch=False)
                 if miss:
                     self._prefetch(st, miss)         # vanilla mode: blocking
-            hits, misses = self._ensure_loaded(l, ids_np)
-            total_misses += len(misses)
-            # cached-first compute: hit experts' slots unmasked, others -1
-            slot_lut = np.full((cfg.num_experts,), -1, np.int32)
-            for (_, e), s in hits.items():
-                slot_lut[e] = s
             xf = h2.reshape(T, cfg.d_model)
-            with self.cache.reading() as (bufs, _):
-                y = self._moe_apply(bufs, xf,
-                                    host_to_device(slot_lut[ids_np], dev), w)
+
+            def apply(keys, slots):
+                """The share of the experts in ``slots`` (the rest masked
+                to -1), dispatched under the cache lock that the caller
+                holds since it learnt the slots."""
+                lut = np.full((cfg.num_experts,), -1, np.int32)
+                for (_, e), s in zip(keys, slots):
+                    lut[e] = s
+                with self.cache.reading() as (bufs, _):
+                    return self._moe_apply(
+                        bufs, xf, host_to_device(lut[ids_np], dev), w)
+
+            # cached-first compute: the lookup and the hits' compute under
+            # one hold of the lock, so no insert evicts a hit in between
+            with self.cache.lock:
+                hits, misses = self._ensure_loaded(l, ids_np)
+                y = apply(list(hits), list(hits.values()))
+            total_misses += len(misses)
             if misses:
                 # on-demand batched loads in cache-capacity-bounded waves;
                 # each wave's share is computed before the next streams in
@@ -518,14 +531,8 @@ class OffloadEngine:
                 wave_size = max(1, self.cache.num_slots)
                 for w0 in range(0, len(misses), wave_size):
                     wave = misses[w0:w0 + wave_size]
-                    slots = self._load_wave(wave, st)
-                    wave_lut = np.full((cfg.num_experts,), -1, np.int32)
-                    for key, s in zip(wave, slots):
-                        wave_lut[key[1]] = s
-                    with self.cache.reading() as (bufs, _):
-                        y = y + self._moe_apply(
-                            bufs, xf, host_to_device(wave_lut[ids_np], dev),
-                            w)
+                    y = y + self._load_wave(
+                        wave, st, lambda slots: apply(wave, slots))
             x = self._add_moe_out(l, x, h2, y.reshape(1, T, cfg.d_model))
         if self.policy != "adapmoe":
             if total_misses == 0:

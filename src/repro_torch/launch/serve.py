@@ -8,7 +8,8 @@ spmoe | adapmoe | moe-infinity | on-demand).  Any combination is valid and
 lossless; offload policies require an MoE target, and the ssm / hybrid
 targets (``--arch mamba2-780m``, ``--arch zamba2-7b``) decode greedy only,
 their default: their mamba layers step one token at a time, so they cannot
-verify a draft block.  A dense target (``--arch llama3.2-3b``) serves with
+verify a draft block.  A dense target (``--arch llama3.2-3b``,
+``command-r-35b``, ``granite-20b`` or ``nemotron-4-340b``) serves with
 ``--offload none`` (its default) under ``--decode greedy`` or ``sd`` /
 ``sd-adaptive`` with the derived half-depth draft.  phi-3.5-moe
 (``--arch phi-3.5-moe``) serves like mixtral with its MoE draft
@@ -62,6 +63,10 @@ wall-clock budget (``finish_reason="deadline"`` when it expires).
     # llama3.2-3b, reduced, sd x none with its derived half-depth draft
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         --decode sd --tokens 16
+
+    # granite-20b (MQA, gelu FFN), reduced, greedy, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch granite-20b --decode greedy --tokens 8
 """
 from __future__ import annotations
 

@@ -38,12 +38,14 @@ def param(t: torch.Tensor) -> nn.Parameter:
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
                device: torch.device, scale: float = 1.0) -> torch.Tensor:
     """N(0, (scale / sqrt(fan_in))²) drawn in f32 on ``device``, then cast
-    (fan_in = shape[0], as the reference's ``_dense_init``)."""
+    (fan_in = shape[0], as the reference's ``_dense_init``).  Scaled in
+    place, so a draw holds one f32 temporary, not two: for
+    nemotron-4-340b's embedding (256000 x 18432) that is 18.9 GB."""
     fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
     std = scale / math.sqrt(fan_in)
     t = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=device)
-    return (t * std).to(dtype)
+    return t.mul_(std).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float

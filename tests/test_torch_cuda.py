@@ -4,8 +4,9 @@ and at phi-3.5-moe's and phi-mini-moe's, flash attention, flash-decode, SSD
 scan) against their plain versions, ``moe_global`` through the expert-FFN
 kernel with no host sync, the offload engine serving through them (mixtral,
 deepseek, and phi with its MoE draft), solo and in
-fused cross-session rounds, a dense target served greedy and speculatively
-through flash-decode, the SSD families' models on the card against
+fused cross-session rounds and under seeded I/O faults, back-to-back
+staging through pinned buffers, the dense targets served greedy and
+speculatively through flash-decode, the SSD families' models on the card against
 themselves on the CPU, and captured steps (a replay's kernels in a trace, a
 capture that fails).  Every test is
 marked ``cuda`` and skips without a card (the kernels have no CPU mode).
@@ -42,13 +43,17 @@ def _traced(fn, pattern: str):
     """``fn()`` under a ``torch.profiler`` trace of the device: (its result,
     the device kernels whose names match ``pattern``).  A replayed CUDA
     graph runs its kernels without calling their wrappers, so a trace is
-    where they are counted.  The window is padded on the host at both ends:
-    the profiler drops a kernel that lies at its very edge."""
+    where they are counted.  The window is padded on the host at both ends,
+    and a throwaway kernel runs first in it: the profiler drops a kernel
+    that lies at its very edge, and has dropped the first kernel of a
+    window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(0.05)
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         out = fn()
         torch.cuda.synchronize()
         time.sleep(0.05)
@@ -476,6 +481,97 @@ def test_dense_engine_on_the_card_matches_its_greedy(cuda, decode):
     assert res.tokens == ref
     launches = DA.decode_attention.launches - before
     assert launches > 0 and launches % layers == 0
+
+
+@pytest.mark.parametrize("arch", ["command-r-35b", "granite-20b",
+                                  "nemotron-4-340b"])
+@pytest.mark.parametrize("decode", ["greedy", "sd"])
+def test_other_dense_targets_on_the_card_match_their_greedy(cuda, arch,
+                                                            decode):
+    """The same for the other dense targets, reduced (command-r's tied
+    embeddings, granite's one kv head and gelu FFN, nemotron's relu2 FFN):
+    flash-decode launches once per layer per one-token step."""
+    cfg = dataclasses.replace(get_config(arch).reduced(dtype="float32"),
+                              attn_impl="kernel")
+    target = build_model(cfg, cuda, seed=0)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 12),
+                           generator=torch.Generator().manual_seed(2))
+    ref = greedy_generate(target, prompt.to(cuda), 16, 64).tolist()
+    before = DA.decode_attention.launches
+    with Engine(EngineConfig(model=cfg, decode=decode, draft_len=3,
+                             max_seq=64), target, seed=0, draft_seed=1,
+                device=cuda) as eng:
+        res = eng.submit(Request(prompt=prompt, max_new_tokens=16))
+        layers = (eng.draft or target).cfg.num_layers
+    assert res.tokens == ref
+    launches = DA.decode_attention.launches - before
+    assert launches > 0 and launches % layers == 0
+
+
+def test_back_to_back_fetch_insert_lands_every_row_on_the_card(cuda):
+    """Pinned staging and a copy stream: back-to-back ``fetch`` + ``insert``
+    on one thread over more batches than the store has staging buffers,
+    with no sync between them (batch i + 2 refills batch i's buffer while
+    its copies may still be queued), then every slot equals its store row.
+    Experts of 25 MB (d 1024, f 4096, bf16) keep each batch's copies long
+    enough for a refill to overtake them were ``fetch`` not to wait."""
+    from repro_torch.core import offload
+    from repro_torch.core.cache import ExpertCache
+    from repro_torch.core.offload import HostExpertStore
+    cfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(),
+                              d_model=1024, moe_d_ff=4096, d_ff=4096)
+    model = build_model(cfg, cuda, seed=0, expert_device="cpu")
+    store = HostExpertStore(cfg, model, pin=True)
+    keys = [(l, e) for l in range(store.num_layers)
+            for e in range(store.num_experts)]
+    for per_batch in (2, 3):
+        batches = [keys[i:i + per_batch]
+                   for i in range(0, len(keys), per_batch)]
+        assert len(batches) > offload._NUM_STAGING
+        cache = ExpertCache(len(keys), store.buffer_shapes(), torch.bfloat16,
+                            table_shape=(store.num_layers,
+                                         store.num_experts), device=cuda)
+        for b in batches:
+            cache.insert(b, store.fetch(b))
+        cache.wait()
+        assert cache.check_invariants()
+        for (l, e), slot in cache.table.items():
+            for n in store.names:
+                assert torch.equal(cache.bufs[n][slot].cpu(),
+                                   store.expert(n, l, e)), (per_batch, n, l,
+                                                            e)
+    assert store.pinned_bytes > 0
+
+
+def test_chaos_serving_on_the_card_matches_its_greedy(cuda):
+    """sd x spmoe under seeded faults (fetch errors, payload corruption,
+    latency spikes) with pinned staging on the card: retries and checksum
+    quarantine absorb every fault, and the tokens are the port's greedy."""
+    from repro_torch.core.chaos import ChaosConfig
+    cfg = get_config("mixtral-8x7b").reduced(dtype="float32")
+    dcfg = derive_draft_config(cfg)
+    target = build_model(cfg, cuda, seed=0)
+    draft = build_model(dcfg, cuda, seed=1)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, 6),
+                             generator=torch.Generator().manual_seed(2 + i))
+               for i in range(2)]
+    refs = [greedy_generate(target, p.to(cuda), 16, 64).tolist()
+            for p in prompts]
+    chaos = ChaosConfig(seed=7, fetch_error_rate=0.2, corrupt_rate=0.1,
+                        spike_rate=0.05, spike_s=0.001)
+    with Engine(EngineConfig(model=cfg, draft=dcfg, decode="sd",
+                             offload="spmoe", cache_slots=8, draft_len=3,
+                             max_seq=64, chaos=chaos,
+                             retry_backoff_s=0.001), target, draft) as eng:
+        res = eng.serve_all([Request(prompt=p, max_new_tokens=16)
+                             for p in prompts], concurrency=2)
+        c = eng.runtime.counters()
+        inj = eng.runtime.chaos.injected
+        assert eng.runtime.cache.check_invariants()
+    assert [r.tokens for r in res] == refs
+    assert inj["fetch_errors"] > 0 and inj["corruptions"] > 0
+    assert c["checksum_failures"] >= inj["corruptions"]
+    assert c["io_errors"] == 0
 
 
 @pytest.mark.parametrize("slots", [6, 32])

@@ -8,7 +8,7 @@ shared expert in every MoE layer.
 * ``DecoderLM``: prefill, then decode blocks of 5 / 1 / 3 tokens (logits,
   the taps of both stacks, every cache) and the full-sequence forward;
 * serving: sd x spmoe emits the JAX engine's tokens; every {greedy, sd,
-  sd-adaptive} x {none, spmoe, on-demand} combination emits the port's own
+  sd-adaptive} x offload combination (all five policies) emits the port's own
   ``greedy_generate``; a fast verify block syncs at most twice; an all-hit
   fused round is bit-identical to each session's solo block; concurrent
   serving emits the greedy tokens with <= 2 syncs per fused round; the hot
@@ -52,6 +52,8 @@ from repro_torch.launch import serve as launcher
 from repro_torch.models import moe as MOE
 from repro_torch.models.convert import load_jax_params, params_from_jax
 from repro_torch.models.registry import build_model
+
+torch.set_num_threads(1)  # pytest -n: several processes share the cores
 
 ARCH = "deepseek-v2-lite-16b"
 ATOL = 1e-4
@@ -233,7 +235,8 @@ def test_sd_spmoe_matches_jax_engine_tokens(ds):
     assert got.metrics.on_demand_loads > 0 and got.metrics.evictions > 0
 
 
-@pytest.mark.parametrize("offload", ["none", "spmoe", "on-demand"])
+@pytest.mark.parametrize("offload", ["none", "spmoe", "on-demand",
+                                     "adapmoe", "moe-infinity"])
 @pytest.mark.parametrize("decode", DECODE_POLICIES)
 def test_lossless_against_the_ports_greedy(ds, decode, offload):
     with _engine(ds, decode=decode, offload=offload,

@@ -3,8 +3,9 @@ the JAX reference's weights (through ``params_from_jax``).
 
 * one sd × spmoe run emits the JAX engine's tokens, and its stream holds
   against both packages' teacher-forced forward;
-* every {greedy, sd, sd-adaptive} × {none, spmoe, on-demand} combination
-  emits the port's own greedy reference token for token;
+* every {greedy, sd, sd-adaptive} × {none, spmoe, on-demand, adapmoe,
+  moe-infinity} combination emits the port's own greedy reference token
+  for token;
 * the fast verify path syncs with the host at most twice per block;
 * the cache's page table, LRU and device mirror stay consistent under a
   tight cache and under concurrent prefetching;
@@ -34,6 +35,8 @@ from repro_torch.core.prefetcher import Prefetcher
 from repro_torch.core.sd import greedy_generate
 from repro_torch.models.convert import load_jax_params
 from repro_torch.models.registry import build_model
+
+torch.set_num_threads(1)  # pytest -n: several processes share the cores
 
 TOK = 12
 
@@ -114,7 +117,8 @@ def test_sd_spmoe_stream_teacher_forced_against_jax(ms):
     assert (np.asarray(got.tokens) == jl.argmax(-1))[clear].all()
 
 
-@pytest.mark.parametrize("offload", ["none", "spmoe", "on-demand"])
+@pytest.mark.parametrize("offload", ["none", "spmoe", "on-demand",
+                                     "adapmoe", "moe-infinity"])
 @pytest.mark.parametrize("decode", ["greedy", "sd", "sd-adaptive"])
 def test_lossless_against_the_ports_greedy(ms, decode, offload):
     with _engine(ms, decode=decode, offload=offload, max_draft_len=5) as eng:

@@ -40,6 +40,8 @@ from repro_torch.kernels import ref as R
 from repro_torch.models.convert import load_jax_params
 from repro_torch.models.registry import build_model
 
+torch.set_num_threads(1)  # pytest -n: several processes share the cores
+
 
 def _tol(dtype):
     return 2e-2 if dtype == "bfloat16" else 2e-5

@@ -43,6 +43,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.convert import load_jax_params
 from repro_torch.models.registry import build_model
 
+torch.set_num_threads(1)  # pytest -n: several processes share the cores
+
 TOK = 10
 MAX_SEQ = 64
 PARITY_ATOL = 1e-4
@@ -359,12 +361,15 @@ def test_offload_none_streams_through_static_steps(ms, decode):
 # the static verify block against the reference's _verify_fast
 # ---------------------------------------------------------------------------
 
-def test_static_verify_block_matches_reference_verify_fast(ms):
-    """Both engines offload on demand: no prefetch worker moves the caches
-    while the prefill and the block run (the verify block itself is the
-    same under every offload policy)."""
+@pytest.mark.parametrize("offload", ["on-demand", "spmoe"])
+def test_static_verify_block_matches_reference_verify_fast(ms, offload):
+    """The verify block is the same under every offload policy: on demand
+    (no prefetch worker moves the caches while the prefill and the block
+    run) and spmoe.  The reference's preload waits after each insert: its
+    ``HostExpertStore.fetch`` refills a staging buffer two fetches later
+    whether or not the device copy out of it has run."""
     config = JaxEngineConfig(model=ms["jcfg"], draft=ms["jdcfg"],
-                             decode="sd", offload="on-demand", draft_len=3,
+                             decode="sd", offload=offload, draft_len=3,
                              max_seq=MAX_SEQ, prefetch_mode="vanilla",
                              cache_slots=ms["cfg"].num_moe_layers *
                              ms["cfg"].num_experts)
@@ -376,12 +381,13 @@ def test_static_verify_block_matches_reference_verify_fast(ms):
         for l in range(jrt.store.num_layers):
             keys = [(l, e) for e in range(jrt.store.num_experts)]
             jrt.cache.insert(keys, jrt.store.fetch(keys))
+            jrt.cache.wait()
         jst = jrt.start_session(jnp.asarray(prompt), 8)
         bufs, table = jrt.cache.snapshot()
         jl, jok, _, jh, jn = jrt._verify_fast(
             bufs, table, jst.history_dev, jnp.asarray(block, jnp.int32),
             jst.pos, jst.tcache)
-    with _engine(ms, offload="on-demand", prefetch_mode="vanilla") as eng:
+    with _engine(ms, offload=offload, prefetch_mode="vanilla") as eng:
         rt = eng.runtime
         _preload(rt)
         st = rt.start_session(torch.from_numpy(prompt), 8)

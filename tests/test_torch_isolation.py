@@ -1,4 +1,5 @@
-"""PyTorch port, isolation: the port imports neither JAX nor anything of the
+"""PyTorch port, isolation: the port (its package, ``chip_smoke.py`` and
+the ``examples/*_torch.py``) imports neither JAX nor anything of the
 reference package, and its entry points run on the card unless the caller
 asks for the CPU (without a card they raise)."""
 import ast
@@ -14,8 +15,12 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.core.engine import Engine, EngineConfig, Request
 
+torch.set_num_threads(1)  # pytest -n: several processes share the cores
+
 PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+EXAMPLES = sorted((Path(__file__).resolve().parents[1] / "examples")
+                  .glob("*_torch.py"))
 
 
 def _imports(path: Path):
@@ -26,7 +31,8 @@ def _imports(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [SMOKE],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [SMOKE] +
+                         EXAMPLES,
                          ids=lambda p: str(p.relative_to(PORT.parents[1])))
 def test_no_jax_or_reference_imports(path):
     for mod in _imports(path):

@@ -17,6 +17,8 @@ from repro_torch.kernels import cache_moe as K
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
 
+torch.set_num_threads(1)  # pytest -n: several processes share the cores
+
 ATOL = 1e-5
 
 

@@ -19,6 +19,8 @@ from repro_torch.configs.registry import get_config
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 
+torch.set_num_threads(1)  # pytest -n: several processes share the cores
+
 ATOL = 1e-5
 
 

@@ -29,6 +29,8 @@ from repro_torch.models import mamba as M
 from repro_torch.models.convert import load_jax_params, params_from_jax
 from repro_torch.models.registry import build_model
 
+torch.set_num_threads(1)  # pytest -n: several processes share the cores
+
 ATOL = 1e-4
 ARCHS = ["mamba2-780m", "zamba2-7b"]
 # reduced configs: each arch as ``reduced`` cuts it, a zamba2 whose 7

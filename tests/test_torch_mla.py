@@ -29,6 +29,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.convert import load_jax_params
 from repro_torch.models.registry import build_model
 
+torch.set_num_threads(1)  # pytest -n: several processes share the cores
+
 ATOL = 1e-5
 LOGIT_ATOL = 1e-4
 MAX_SEQ = 24

@@ -20,6 +20,8 @@ from repro_torch.core.engine import derive_draft_config
 from repro_torch.models.convert import load_jax_params, params_from_jax
 from repro_torch.models.registry import build_model
 
+torch.set_num_threads(1)  # pytest -n: several processes share the cores
+
 ATOL = 1e-4
 
 

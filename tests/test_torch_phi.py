@@ -51,6 +51,8 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.convert import load_jax_params, params_from_jax
 from repro_torch.models.registry import build_model
 
+torch.set_num_threads(1)  # pytest -n: several processes share the cores
+
 ARCH = "phi-3.5-moe"
 ATOL = 1e-4
 MOE_ATOL = 1e-5

@@ -5,8 +5,8 @@
 prefill runs the flash-attention route.
 
 Asserted: the slice as a whole emits the JAX engine's ``serve_all`` tokens;
-every decode x {none, spmoe, on-demand} combination emits the port's greedy
-tokens under concurrency; batched rounds give each session the tokens of
+every decode x offload combination (all five policies) emits the port's
+greedy tokens under concurrency; batched rounds give each session the tokens of
 serving it alone, and on one cache snapshot its solo fast block's logits bit
 for bit; a session that misses falls back alone; ≤2 host syncs and one
 ``cache_moe`` call per MoE layer per all-hit round; stop tokens, admission
@@ -40,6 +40,8 @@ from repro_torch.kernels import ref as R
 from repro_torch.launch import serve as launcher
 from repro_torch.models.convert import load_jax_params
 from repro_torch.models.registry import build_model
+
+torch.set_num_threads(1)  # pytest -n: several processes share the cores
 
 TOK = 10
 PLENS = (4, 6, 9)            # ragged prompts, hence ragged prefill blocks
@@ -115,7 +117,8 @@ def test_serve_all_matches_jax_serve_all(ms):
         assert g.tokens == ref
 
 
-@pytest.mark.parametrize("offload", ["none", "spmoe", "on-demand"])
+@pytest.mark.parametrize("offload", ["none", "spmoe", "on-demand",
+                                     "adapmoe", "moe-infinity"])
 @pytest.mark.parametrize("decode", DECODE_POLICIES)
 def test_serve_all_emits_the_ports_greedy(ms, decode, offload):
     """A tight cache keeps the offload policies under miss and eviction

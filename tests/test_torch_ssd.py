@@ -20,6 +20,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
 from repro_torch.kernels import ssd_scan as SSD
 
+torch.set_num_threads(1)  # pytest -n: several processes share the cores
+
 TOL = dict(atol=1e-4, rtol=1e-3)
 jax_ssd_ref = jax.jit(JR.ssd_ref, static_argnums=5)
 jax_ssd_decode_ref = jax.jit(JR.ssd_decode_ref)
