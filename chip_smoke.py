@@ -29,7 +29,11 @@ no host sync; the tight mixtral engine under seeded I/O faults; and the
 other dense targets at full width (granite-20b at full depth,
 command-r-35b and nemotron-4-340b cut in depth), greedy and speculative,
 through flash and flash-decode at their head shapes (48 / 1 x 128, 64 / 8
-x 128, 96 / 8 x 192).
+x 128, 96 / 8 x 192).  Then training (``launch/train.py::Trainer``):
+mixtral-8x7b at full width cut to 2 layers and llava-next-mistral-7b at
+full width cut to 2 layers, bf16, through the MoE capacity route
+``moe_grouped``; no kernel is on the training path, as in the reference
+(it trains through none of its Pallas kernels).
 
 Phases (each raises on failure):
   1. device line; build the CUDA kernels from ``src/repro_torch/csrc``
@@ -145,9 +149,33 @@ Phases (each raises on failure):
      its TPOT (the requests served again untraced, the same tokens),
      decode step ms, its own device memory peak and its seconds
 
-Phases 5b and 14-16 run first, right after the build, each in a child
-process of this script (``--phase chaos``, ``--phase dense <arch>``) that
-prints its result as one JSON line: it has the card's whole memory
+ 17. training, in a child process (``--phase train``): ``ops.moe_gemm``
+     (the dense-layout expert FFN, the expert-FFN kernel's two stages)
+     against its plain version at mixtral's widths, 8 experts x C 64, bf16
+     (timed) and f32; then mixtral-8x7b (2 layers, 3.16 B parameters),
+     bf16, B 4 x S 1024 from the port's data pipeline in 2 microbatches,
+     remat full: one forward and backward with every parameter's gradient
+     finite and nonzero; 8 AdamW steps (lr 3e-4) whose losses are finite
+     and whose last 3 average below the first, ``moe_grouped`` run in every
+     MoE layer (forward and remat recompute of each microbatch); 3 steps
+     of AdamW8bit with int8 gradient compression on a fresh trainer (finite
+     losses); llava-next-mistral-7b (2 layers, 576 patch embeddings + 448
+     text tokens, B 2) for 3 AdamW steps, its logits over the text only;
+     printed: losses, grad_norm and lr per step, the median step time
+     after step 1 (CUDA events), tokens/s, the step's matmul FLOPs against
+     989 TFLOP/s and each optimizer's device memory peak.  Then one f32 step
+     of a reduced mixtral on the card against the CPU (loss and every
+     gradient within 1e-4 relative); a train step under
+     ``attn_impl="kernel"`` raising (flash attention has no backward); and
+     the restart drill: ``examples/train_lm_torch.py`` at its tiny default
+     (a failure at step 100, the restart from its checkpoint), and 10 steps
+     straight against 5 + restart + 5, bit for bit under
+     ``torch.use_deterministic_algorithms(True)``
+
+Phases 5b, 14-16 and 17 run first, right after the build, each in a child
+process of this script (``--phase chaos``, ``--phase dense <arch>``,
+``--phase train``) that prints its result as one JSON line: it has the
+card's whole memory
 (nemotron-4-340b's two models need 70 GB) and a profiler of its own (in
 one process, a trace after the chaos phase's once saw no device activity
 in five windows running).
@@ -172,7 +200,7 @@ trace: every drafted token must have run each MoE layer of the draft.
 
 Prints JSON lines (kernels, decode_timing, flash_timing, ssd_timing,
 kernel_checks, requests, ssm_requests, gelu_requests, dense_requests,
-dense_targets, chaos_requests, deepseek_requests, deepseek_kernel_timing, phi_requests, phi_kernel_timing,
+dense_targets, chaos_requests, train, deepseek_requests, deepseek_kernel_timing, phi_requests, phi_kernel_timing,
 breakdown, graphs (every eager-against-replay measure, each engine's builds,
 capture seconds and private pool bytes, the concurrent engines' fused
 rounds among them), memory), then the
@@ -187,6 +215,8 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
+import os
 import re
 import resource
 import subprocess
@@ -295,6 +325,23 @@ DENSE_MARGIN, DENSE_MIN_EXACT = SSM_MARGIN, SSM_MIN_EXACT
 DENSE_TARGETS = (("granite-20b", None, 61), ("command-r-35b", 8, 62),
                  ("nemotron-4-340b", 2, 63))
 CHILD_TIMEOUT_S = 400                # a phase run in a child process
+
+# phase 17, training (``launch/train.py::Trainer``): mixtral-8x7b at full
+# width (d 4096, 32 / 8 heads x 128, 8 experts top-2 of width 14336, vocab
+# 32000) cut to 2 layers, 3.16 B parameters: bf16, remat full, B 4 x S 1024
+# in 2 microbatches from the port's pipeline (S 1024 > 8: every MoE layer
+# takes moe_grouped's capacity route, C 320), AdamW for 8 steps at lr 3e-4
+# (2 warmup steps, cosine to the 8th), then AdamW8bit with int8 gradient
+# compression for 3 on a fresh trainer; llava-next-mistral-7b at full
+# width, 2 layers: 576 patch embeddings + 448 text tokens, B 2, AdamW, 3
+# steps.  The card's f32 step against the CPU's (reduced mixtral): loss
+# and every gradient within TRAIN_CPU_RTOL of the CPU's largest magnitude.
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_MICRO = 2, 4, 1024, 2
+TRAIN_STEPS, TRAIN_8BIT_STEPS, TRAIN_LR, TRAIN_WARMUP = 8, 3, 3e-4, 2
+VLM_B, VLM_S, VLM_STEPS = 2, 1024, 3
+TRAIN_CPU_RTOL = 1e-4
+MOE_GEMM_C = 64                      # ops.moe_gemm rows per expert
+PEAK_BF16_FLOPS = 989e12             # H100 SXM, dense bf16
 
 # the deepseek phase: deepseek-v2-lite-16b at full width (d 2048, 16 MLA
 # heads of nope 128 + rope 64 / v 128, latent 512, 64 experts top-6 of width
@@ -1630,7 +1677,8 @@ def preload_every_expert(rt):
 
 
 def teacher_force(target, seq):
-    """Logits of one causal forward over seq [1, S].  Under
+    """Logits of one causal full-sequence pass over seq [1, S], every MoE
+    layer drop-free as the engine routes it (``DecoderLM.score``).  Under
     ``attn_impl="kernel"`` a length past 128 must be a multiple of 128 (the
     reference's flash precondition), so the sequence is padded at its end:
     causal attention and per-token routing keep the padding out of every
@@ -1641,8 +1689,7 @@ def teacher_force(target, seq):
     if pad:
         seq = torch.cat([seq, torch.zeros((1, pad), dtype=seq.dtype,
                                           device=seq.device)], dim=1)
-    logits, _ = target.forward(seq)
-    return logits[:, :S]
+    return target.score(seq)[:, :S]
 
 
 def lossless_phase(target, prompts_by_req, dev, forward=teacher_force,
@@ -2578,6 +2625,451 @@ def phi_phase(dev):
     return info, rows + drows, timing, dtiming
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training (launch/train.py) on the card, in a child process
+# ---------------------------------------------------------------------------
+
+def train_matmul_flops(cfg, B: int, S: int, C: int) -> dict:
+    """Matmul FLOPs of one train step of the MoE ``cfg`` on B x S tokens,
+    from the
+    shapes: per block the q/k/v/o projections, the attention scores and
+    their values over all S x S pairs (``mha`` computes every pair, then
+    masks), the gate and the experts' products over their E x C capacity
+    rows (``moe_grouped``); the head outside the blocks.  ``model``: the
+    forward and its backward (twice the forward); ``executed``: also the
+    blocks' forward again, recomputed by remat."""
+    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    tok = B * S
+    proj = 2 * tok * d * hd * (2 * H + 2 * Hkv)
+    attn = 2 * 2 * B * S * S * H * hd
+    ffn = 2 * tok * d * cfg.num_experts + \
+        2 * 3 * B * cfg.num_experts * C * d * cfg.moe_d_ff
+    blocks = cfg.num_layers * (proj + attn + ffn)
+    head = 2 * tok * d * cfg.vocab_size
+    return {"model": 3 * (blocks + head),
+            "executed": 4 * blocks + 3 * head}
+
+
+def moe_gemm_check(dev) -> dict:
+    """``ops.moe_gemm``, the dense-layout entry point (the expert-FFN
+    kernel's two stages, expert e as slot e, its C rows one group), against
+    its plain version at mixtral's widths, 8 experts x C 64, bf16 and f32;
+    bf16 timed against the plain version (``ref.moe_gemm_ref``, three
+    ``einsum``s)."""
+    import torch
+    from repro_torch.kernels import cache_moe as K
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+    E, C, d, f = 8, MOE_GEMM_C, 4096, 14336
+    gen = torch.Generator(dev).manual_seed(11)
+    out = {"E": E, "C": C, "d": d, "f": f}
+    for dt_name, dt in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        def w(shape, fan):
+            return (torch.randn(shape, generator=gen, device=dev)
+                    * fan ** -0.5).to(dt)
+        xg = w((E, C, d), 1)
+        wg, wu, wd = w((E, d, f), d), w((E, d, f), d), w((E, f, d), f)
+        valid = torch.rand((E, C), generator=gen, device=dev) < 0.75
+        n0 = (ops.moe_gemm.launches, K.gate_up.launches, K.down.launches)
+        got = ops.moe_gemm(xg, wg, wu, wd, valid)
+        n1 = (ops.moe_gemm.launches, K.gate_up.launches, K.down.launches)
+        if n1 != tuple(n + 1 for n in n0):
+            raise AssertionError(f"moe_gemm launches {n0} -> {n1}")
+        want = R.moe_gemm_ref(xg, wg, wu, wd, valid)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        if not (torch.isfinite(got).all().item()
+                and err <= TOL[dt_name] * scale
+                and not got[~valid].any().item()):
+            raise AssertionError(f"moe_gemm {dt_name}: max abs err {err} "
+                                 f"vs scale {scale}")
+        row = {"max_abs_err": err, "max_rel_err": err / scale,
+               "tol_rel": TOL[dt_name]}
+        if dt == torch.bfloat16:
+            row["ms"] = cuda_ms(lambda: ops.moe_gemm(xg, wg, wu, wd, valid))
+            row["plain_ms"] = cuda_ms(
+                lambda: R.moe_gemm_ref(xg, wg, wu, wd, valid))
+        out[dt_name] = row
+        del xg, wg, wu, wd, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def full_grad_check(tr, batch) -> dict:
+    """One forward and backward of the trainer's loss on one microbatch:
+    every parameter's gradient finite and nonzero (the step reads every
+    parameter; a kernel that cut a gradient would leave zeros).  Reports
+    the routed experts whose gradient is 0 (an expert no token of the
+    microbatch chose is read by no product that counts)."""
+    import torch
+    from repro_torch.models.train import make_loss_fn
+    params = dict(tr.model.named_parameters())
+    loss, _ = make_loss_fn(tr.model, tr.cfg)(batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    bad, zero, idle = [], [], []
+    for (n, p), g in zip(params.items(), grads):
+        if not torch.isfinite(g).all().item():
+            bad.append(n)
+        elif not g.any().item():
+            zero.append(n)
+        elif n.endswith(("moe.wg", "moe.wu", "moe.wd")):
+            idle += [f"{n}[{e}]" for e in range(g.shape[0])
+                     if not g[e].any().item()]
+    if bad or zero:
+        raise AssertionError(f"gradients: non-finite {bad}, zero {zero}")
+    return {"params": len(params), "loss": float(loss.detach()),
+            "finite_nonzero": True, "experts_without_gradient": idle}
+
+
+def count_grouped(fn):
+    """Run ``fn()`` with a spy on ``moe.moe_grouped``: -> (fn's result,
+    its calls by the id of the MoE layer it ran)."""
+    from repro_torch.models import moe as MOE
+    orig, seen = MOE.moe_grouped, {}
+
+    def spy(p, x, cfg):
+        seen[id(p)] = seen.get(id(p), 0) + 1
+        return orig(p, x, cfg)
+    MOE.moe_grouped = spy
+    try:
+        out = fn()
+    finally:
+        MOE.moe_grouped = orig
+    return out, seen
+
+
+def train_run(tr, steps: int, check_layers: bool = False) -> dict:
+    """``tr.train(steps)`` with the device memory peak reset just before:
+    losses, grad_norm and lr per step (read after the run), the median
+    step time after step 1 (CUDA events), tokens/s and the peak."""
+    import statistics
+    import torch
+    torch.cuda.synchronize()
+    reset_peak()
+    t0 = time.perf_counter()
+    if check_layers:       # train() builds the model the calls ran in
+        (_, losses), seen = count_grouped(
+            lambda: tr.train(steps, log_every=0))
+        calls = [seen.get(id(blk.moe), 0) for blk in tr.model.layers]
+    else:
+        _, losses = tr.train(steps, log_every=0)
+        calls = None
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(tr.step_ms[1:])
+    tokens = tr.shape.global_batch * tr.shape.seq_len
+    out = {"losses": losses,
+           "grad_norm": [float(m["grad_norm"]) for m in tr.metrics],
+           "lr": [m["lr"] for m in tr.metrics],
+           "step_ms": tr.step_ms, "median_step_ms_after_first": med,
+           "tokens_per_step": tokens,
+           "tokens_per_s": tokens / (med / 1e3),
+           "device_max_allocated_bytes": peak, "wall_s": wall}
+    if calls is not None:
+        out["moe_grouped_calls_per_layer"] = calls
+    if not all(math.isfinite(x) for x in losses + out["grad_norm"]):
+        raise AssertionError(f"non-finite loss or grad norm: {out}")
+    return out
+
+
+MATMUL_NAMES = re.compile(r"gemm|nvjet|cutlass|xmma|wgmma", re.I)
+
+
+def train_breakdown(tr, batch) -> dict:
+    """Where a train step's time goes, on a fresh state of ``tr``: one
+    warm step traced with ``torch.profiler`` (its span between CUDA
+    events, the device's busy ms and idle share, the matmul kernels' ms
+    (cuBLAS / CUTLASS names) and the rest's, by name); and, untraced, one
+    microbatch's forward and backward, and one optimizer update."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.train import make_loss_fn
+    state = tr.init_state()
+    params = state["params"]
+
+    def step():
+        return tr.step_fn(params, state["opt"], batch)
+    step()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        step()
+        ev[1].record()
+        torch.cuda.synchronize()
+    span = ev[0].elapsed_time(ev[1])
+    kern = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(t for _, t in kern)
+    mm = sum(t for n, t in kern if MATMUL_NAMES.search(n))
+    other = {}
+    for n, t in kern:
+        if not MATMUL_NAMES.search(n):
+            key = n.split("<")[0].split("(")[0][:80]
+            other[key] = other.get(key, 0.0) + t
+    mb = {k: v[:TRAIN_B // TRAIN_MICRO] for k, v in batch.items()}
+    loss_fn = make_loss_fn(tr.model, tr.cfg)
+
+    def fb():
+        loss, _ = loss_fn(mb)
+        return torch.autograd.grad(loss, list(params.values()))
+    fb_ms = cuda_ms(fb, iters=3)
+    grads = {n: g.to(torch.bfloat16) for n, g in zip(params, fb())}
+    opt_ms = cuda_ms(lambda: tr.opt.update(dict(grads), state["opt"],
+                                           params), iters=3)
+    return {"traced_span_ms": span, "busy_ms": busy,
+            "idle_share": 1 - busy / span, "matmul_ms": mm,
+            "other_ms": busy - mm, "kernels": len(kern),
+            "other_top": dict(sorted(other.items(), key=lambda kv: -kv[1])
+                              [:8]),
+            "microbatch_forward_backward_ms": fb_ms,
+            "optimizer_update_ms": opt_ms}
+
+
+def train_restart_drill(dev) -> dict:
+    """The restart drill on the card: ``examples/train_lm_torch.py``'s
+    ``main`` at its tiny default (200 steps, a failure at step 100, a
+    restart from the step-100 checkpoint); then a tiny trainer's 10 steps
+    straight against 5 + restart + 5 under
+    ``torch.use_deterministic_algorithms(True)``: the parameters and the
+    moments bit for bit."""
+    import importlib.util
+    import tempfile
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import Trainer
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_torch", ROOT / "examples" / "train_lm_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        ex = example.main(["--device", str(dev)])
+    if ex["resumed_from"] != 100 or len(ex["losses"]) != 100 or \
+            not all(math.isfinite(x) for x in ex["losses"]):
+        raise AssertionError(f"train_lm_torch restart: {ex}")
+    example_s = time.perf_counter() - t0
+    cfg = get_config("mixtral-8x7b").reduced(sliding_window=None)
+    shape, run = ShapeConfig("drill", 64, 8, "train"), RunConfig(
+        microbatch=2, learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            straight, la = Trainer(cfg, shape, run, device=dev).train(
+                10, log_every=0)
+            Trainer(cfg, shape, run, device=dev, ckpt_dir=d).train(
+                5, ckpt_every=5, log_every=0)
+            resumed, lb = Trainer(cfg, shape, run, device=dev,
+                                  ckpt_dir=d).train(10, log_every=0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = lb == la[5:] and all(
+        torch.equal(p, resumed["params"][n])
+        for n, p in straight["params"].items()) and all(
+        torch.equal(m, resumed["opt"].m[n])
+        for n, m in straight["opt"].m.items())
+    if not same:
+        raise AssertionError("10 steps straight differ from 5 + restart + "
+                             "5 under deterministic algorithms")
+    return {"example": {"failed_at": ex["failed_at"],
+                        "resumed_from": ex["resumed_from"],
+                        "final_loss": ex["losses"][-1],
+                        "first_resumed_loss": ex["losses"][0],
+                        "seconds": example_s},
+            "straight_vs_restart": {"steps": 10, "restart_at": 5,
+                                    "deterministic_algorithms": True,
+                                    "bit_equal": True,
+                                    "final_loss": la[-1]}}
+
+
+def card_vs_cpu(dev) -> dict:
+    """One train step's loss and gradients (reduced mixtral, f32, B 4 x S
+    32: the capacity route) on the card against the CPU's, from the same
+    weights and batch: the largest relative error of the loss and of each
+    gradient (to the CPU gradient's largest magnitude)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.train import make_loss_fn
+    cfg = get_config("mixtral-8x7b").reduced(dtype="float32")
+    toks = torch.randint(0, cfg.vocab_size, (4, 33),
+                         generator=torch.Generator().manual_seed(5))
+    res = {}
+    for where in ("cpu", dev):
+        m = build_model(cfg, "cpu", seed=0).to(where)
+        for p in m.parameters():
+            p.requires_grad_(True)
+        batch = {"tokens": toks[:, :-1].to(where),
+                 "labels": toks[:, 1:].to(where)}
+        loss, _ = make_loss_fn(m, cfg)(batch)
+        names = [n for n, _ in m.named_parameters()]
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        res[str(where)] = (float(loss.detach()), {n: g.cpu() for n, g in
+                                         zip(names, grads)})
+    (lc, gc_), (lg, gg) = res["cpu"], res[str(dev)]
+    errs = {n: float((gg[n] - g).abs().max()) / max(float(g.abs().max()),
+                                                    1e-30)
+            for n, g in gc_.items()}
+    out = {"loss_rel_err": abs(lg - lc) / abs(lc),
+           "grad_max_rel_err": max(errs.values()),
+           "grad_worst": max(errs, key=errs.get),
+           "grad_rel_err": errs, "tol_rel": TRAIN_CPU_RTOL}
+    if out["loss_rel_err"] > TRAIN_CPU_RTOL or \
+            out["grad_max_rel_err"] > TRAIN_CPU_RTOL:
+        raise AssertionError(f"the card's train step differs from the "
+                             f"CPU's: {out}")
+    return out
+
+
+def guard_on_card(dev) -> dict:
+    """A train step under ``attn_impl="kernel"`` raises naming flash
+    attention (the kernel has no backward), and leaves the weights as they
+    were."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.train import make_train_step
+    from repro_torch.optim.optimizer import make_optimizer, warmup_cosine
+    cfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(
+        dtype="bfloat16"), attn_impl="kernel")
+    m = build_model(cfg, dev, seed=0)
+    for p in m.parameters():
+        p.requires_grad_(True)
+    opt = make_optimizer("adamw", warmup_cosine(1e-3, 1, 10))
+    params = dict(m.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), device=dev)
+    step = make_train_step(m, cfg, RunConfig(), opt)
+    try:
+        step(params, opt.init(params), {"tokens": toks[:, :-1],
+                                        "labels": toks[:, 1:]})
+    except RuntimeError as e:
+        if "flash_attention" not in str(e):
+            raise
+        msg = str(e)
+    else:
+        raise AssertionError("a train step under attn_impl='kernel' ran")
+    if not all(torch.equal(p.detach(), before[n]) for n, p in params.items()):
+        raise AssertionError("the refused step changed the weights")
+    return {"raised": True, "message": msg}
+
+
+def train_child(dev) -> dict:
+    """Phase 17 on its own (see the module docstring)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models.moe import capacity
+    t0 = time.perf_counter()
+    info = {"moe_gemm": moe_gemm_check(dev)}
+    log(f"[17] moe_gemm ok: {info['moe_gemm']}")
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                              num_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+    run = RunConfig(microbatch=TRAIN_MICRO, learning_rate=TRAIN_LR,
+                    warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    flops = train_matmul_flops(cfg, TRAIN_B, TRAIN_S,
+                               capacity(cfg, TRAIN_S))
+    tr = Trainer(cfg, shape, run, device=dev)
+    tr.init_state()
+    pipe = make_pipeline(cfg, shape)
+    try:
+        first = next(pipe)
+    finally:
+        pipe.close()
+    mb = {k: torch.from_numpy(v[:TRAIN_B // TRAIN_MICRO]).to(dev)
+          for k, v in first.items()}
+    grads = full_grad_check(tr, mb)
+    del mb
+    log(f"[17] every gradient finite and nonzero: {grads}")
+    adamw = train_run(tr, TRAIN_STEPS, check_layers=True)
+    per_call = TRAIN_STEPS * TRAIN_MICRO * 2     # forward + remat recompute
+    if adamw["moe_grouped_calls_per_layer"] != [per_call] * TRAIN_LAYERS:
+        raise AssertionError(f"moe_grouped per layer: "
+                             f"{adamw['moe_grouped_calls_per_layer']}, "
+                             f"expected {per_call} each")
+    if not sum(adamw["losses"][-3:]) / 3 < adamw["losses"][0]:
+        raise AssertionError(f"AdamW losses did not fall: {adamw['losses']}")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+    adamw["breakdown"] = train_breakdown(tr, batch)
+    del batch
+    log(f"[17] a step's breakdown: {adamw['breakdown']}")
+    sec = adamw["median_step_ms_after_first"] / 1e3
+    adamw["matmul_tflop_per_step"] = {k: v / 1e12 for k, v in flops.items()}
+    adamw["matmul_share_of_989_tflops"] = {
+        k: v / sec / PEAK_BF16_FLOPS for k, v in flops.items()}
+    log(f"[17] mixtral-8x7b AdamW: losses {adamw['losses']}, median step "
+        f"{adamw['median_step_ms_after_first']:.1f} ms, "
+        f"{adamw['tokens_per_s']:.0f} tokens/s, peak "
+        f"{adamw['device_max_allocated_bytes'] / 2**30:.1f} GiB")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tr8 = Trainer(cfg, shape, dataclasses.replace(run, optimizer="adamw8bit"),
+                  device=dev, grad_compress=True)
+    adamw8 = train_run(tr8, TRAIN_8BIT_STEPS)
+    log(f"[17] mixtral-8x7b AdamW8bit + grad_compress: losses "
+        f"{adamw8['losses']}, peak "
+        f"{adamw8['device_max_allocated_bytes'] / 2**30:.1f} GiB")
+    del tr8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    vcfg = dataclasses.replace(get_config("llava-next-mistral-7b"),
+                               num_layers=TRAIN_LAYERS)
+    vshape = ShapeConfig("train", VLM_S, VLM_B, "train")
+    vtr = Trainer(vcfg, vshape, dataclasses.replace(
+        run, microbatch=0, total_steps=VLM_STEPS), device=dev)
+    vlm = train_run(vtr, VLM_STEPS)
+    pipe = make_pipeline(vcfg, vshape)
+    try:
+        vb = {k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
+    finally:
+        pipe.close()
+    with torch.no_grad():
+        logits, _ = vtr.model.forward(vb["tokens"],
+                                      patch_embeds=vb["patch_embeds"])
+    text = VLM_S - vcfg.num_patches
+    if tuple(logits.shape) != (VLM_B, text, vcfg.vocab_size) or \
+            tuple(vb["patch_embeds"].shape[1:2]) != (vcfg.num_patches,):
+        raise AssertionError(f"vlm logits {tuple(logits.shape)}")
+    vlm.update({"patches": vcfg.num_patches, "text_tokens": text,
+                "logits_shape": list(logits.shape)})
+    log(f"[17] llava-next-mistral-7b: losses {vlm['losses']}")
+    del vtr, logits, vb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    info.update({
+        "mixtral-8x7b": {"layers": TRAIN_LAYERS, "batch": TRAIN_B,
+                         "seq": TRAIN_S, "microbatch": TRAIN_MICRO,
+                         "remat": cfg.remat_policy, "dtype": cfg.dtype,
+                         "learning_rate": TRAIN_LR,
+                         "warmup_steps": TRAIN_WARMUP,
+                         "capacity": capacity(cfg, TRAIN_S),
+                         "first_backward": grads,
+                         "adamw": adamw, "adamw8bit_grad_compress": adamw8},
+        "llava-next-mistral-7b": {"layers": TRAIN_LAYERS, **vlm},
+        "card_vs_cpu": card_vs_cpu(dev),
+        "guard": guard_on_card(dev),
+        "restart": train_restart_drill(dev)})
+    log(f"[17] card vs CPU {info['card_vs_cpu']}; restart "
+        f"{info['restart']}")
+    info["phase_s"] = time.perf_counter() - t0
+    return info
+
+
 def mixtral_pair(dev):
     """mixtral-8x7b at full width cut to 4 layers (its experts on the
     host) and its dense mistral-7b draft, 4 layers, both under
@@ -2630,8 +3122,10 @@ def run_child(phase: str, *args) -> dict:
 
 
 def child_main(phase: str, *args) -> int:
-    """A phase in a process of its own: the chaos phase, or one dense
-    target (``dense <arch>``); prints its result as one JSON line."""
+    """A phase in a process of its own: the chaos phase, one dense target
+    (``dense <arch>``) or training; prints its result as one JSON line."""
+    if phase == "train":   # cuBLAS's workspace for deterministic algorithms
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -2645,10 +3139,12 @@ def child_main(phase: str, *args) -> int:
         arch, layers, seed = next(t for t in DENSE_TARGETS
                                   if t[0] == args[0])
         info = dense_phase(dev, arch, layers, seed)
+    elif phase == "train":
+        info = train_child(dev)
     else:
         raise ValueError(f"no phase {phase!r}")
     info["process_peaks"] = {
-        "device_max_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "device_max_allocated_bytes": script_peak(),
         "host_max_rss_bytes":
             resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
     print(json.dumps(info))
@@ -2693,6 +3189,8 @@ def main() -> int:
             f"decode step "
             f"{d['decode_step_ms']:.3f} ms, peak "
             f"{d['device_max_allocated_bytes'] / 2**30:.1f} GiB")
+    train_info = run_child("train")
+    log(f"[17] training ok in {train_info['phase_s']:.1f} s")
 
     mixtral = get_config("mixtral-8x7b")
     rows, main_k = kernel_phase(dev, mixtral.d_model, mixtral.moe_d_ff)
@@ -2971,6 +3469,7 @@ def main() -> int:
     print(json.dumps({"dense_requests": dense_info}))
     print(json.dumps({"dense_targets": dense_targets}))
     print(json.dumps({"chaos_requests": chaos_info}))
+    print(json.dumps({"train": train_info}))
     print(json.dumps({"deepseek_requests": ds_info}))
     print(json.dumps({"deepseek_kernel_timing": {
         "shape": {"d": DS_D, "f": DS_F, "k": DS_K, "pool": DS_TIGHT,
@@ -2998,7 +3497,8 @@ def main() -> int:
         "device_max_allocated_bytes": script_peak(),
         "child_processes": {
             name: info["process_peaks"] for name, info in (
-                ("chaos", chaos_info), *dense_targets.items())},
+                ("chaos", chaos_info), *dense_targets.items(),
+                ("train", train_info))},
         "pinned_staging_bytes": {"tight": tight_info["pinned_staging_bytes"],
                                  "ample": ample_info["pinned_staging_bytes"]},
         "host_max_rss_bytes":

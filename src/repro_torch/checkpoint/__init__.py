@@ -1,0 +1,1 @@
+"""Checkpointing of the PyTorch port (mirrors ``repro.checkpoint``)."""

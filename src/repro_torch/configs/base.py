@@ -1,8 +1,10 @@
-"""Model configuration: one frozen dataclass per architecture.
+"""Model, shape and run configuration: frozen dataclasses.
 
-The port's own copy of the reference package's ``ModelConfig`` (field for
-field, so a config built on either side describes the same model).  Served
-architectures live in their own modules under ``repro_torch.configs``;
+The port's own copy of the reference package's ``configs/base.py``:
+``ModelConfig``, ``ShapeConfig``, ``SHAPES``, ``shape_applicable`` and
+``RunConfig``, field for field, so a config built on either side describes
+the same model, cell and run.  Nothing is trimmed.  Architectures live in
+their own modules under ``repro_torch.configs``;
 ``repro_torch.configs.registry`` maps ``--arch`` ids to them.
 """
 from __future__ import annotations
@@ -166,3 +168,50 @@ class ModelConfig:
         small["name"] = self.name + "-reduced"
         return replace(self, **small)
 
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES = {s.name: s for s in ALL_SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(runs?, reason).  long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "full-attention arch: 500k decode cache is quadratic-history; skipped per assignment"
+    return True, ""
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Distribution / training knobs resolved per (arch, shape, mesh)."""
+    microbatch: int = 0          # 0 -> no grad accumulation (single shot)
+    remat: bool = True
+    seq_shard_activations: bool = True
+    optimizer: str = "adamw"     # adamw | adamw8bit
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    grad_compression: str = "none"   # none | int8_ef
+    label_smoothing: float = 0.0
+    # serving
+    max_decode_len: int = 128
+    draft_len: int = 4

@@ -17,6 +17,7 @@ outside the kernel (as the reference keeps it outside Pallas).
 
 Each wrapper takes the kernel's plain version (``kernels/ref.py``) only when
 its input lies on the CPU; on a CUDA tensor it launches the kernel or raises.
+Under autograd every wrapper raises, on the CPU too (``kernels/guard.py``).
 ``gate_up.launches`` / ``up_gelu.launches`` / ``down.launches`` count the
 launches; a call inside a CUDA graph capture records its kernel into the
 graph and launches nothing, so it does not count.
@@ -30,6 +31,7 @@ import torch
 
 from repro_torch.kernels import ref as R
 from repro_torch.kernels._build import load_library
+from repro_torch.kernels.guard import refuse_autograd
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
@@ -151,6 +153,7 @@ def gate_up(x: torch.Tensor, g: SlotGroups, wg: torch.Tensor,
             wu: torch.Tensor) -> torch.Tensor:
     """Stage 1: h [T·k, f], h[p] = silu(x[row] @ wg[s]) * (x[row] @ wu[s])
     for each sorted row p of each group (rows of no group are 0)."""
+    refuse_autograd("cache_moe_gate_up", x, wg, wu)
     if x.device.type == "cpu":
         return R.slot_gate_up_ref(x, g.row_tok, wg, wu, g.grp_slot,
                                   g.grp_start, g.grp_count)
@@ -182,6 +185,7 @@ gate_up.launches = 0
 def up_gelu(x: torch.Tensor, g: SlotGroups, wu: torch.Tensor) -> torch.Tensor:
     """Stage 1 of gelu experts: h [T·k, f], h[p] = gelu_tanh(x[row] @ wu[s])
     for each sorted row p of each group (rows of no group are 0)."""
+    refuse_autograd("cache_moe_up_gelu", x, wu)
     if x.device.type == "cpu":
         return R.slot_up_gelu_ref(x, g.row_tok, wu, g.grp_slot, g.grp_start,
                                   g.grp_count)
@@ -212,6 +216,7 @@ up_gelu.launches = 0
 def down(h: torch.Tensor, g: SlotGroups, wd: torch.Tensor) -> torch.Tensor:
     """Stage 2: y [T·k, d], y[p] = h[p] @ wd[s] for each sorted row p of
     each group (rows of no group are 0), in h's dtype."""
+    refuse_autograd("cache_moe_down", h, wd)
     if h.device.type == "cpu":
         return R.slot_down_ref(h, wd, g.grp_slot, g.grp_start, g.grp_count)
     _check_call(h, g, wd)

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.kernels import ref as R
 from repro_torch.kernels._build import load_library
+from repro_torch.kernels.guard import refuse_autograd
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
@@ -106,7 +107,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """q: [B, H, D]; k/v: [B, S, Hkv, D]; lengths: [B] int -> [B, H, D] in
-    q's dtype.  q head h reads kv head h // (H // Hkv)."""
+    q's dtype.  q head h reads kv head h // (H // Hkv).  Raises under
+    autograd (``kernels/guard.py``)."""
+    refuse_autograd("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return R.decode_attention_ref(q, k, v, lengths)
     _check(q, k, v, lengths)

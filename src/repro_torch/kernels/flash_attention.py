@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.kernels import ref as R
 from repro_torch.kernels._build import load_library
+from repro_torch.kernels.guard import refuse_autograd
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
@@ -88,7 +89,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: int = 128, block_k: int = 128) -> torch.Tensor:
     """q: [B, Sq, H, D]; k/v: [B, Skv, Hkv, D] -> [B, Sq, H, D] in q's
     dtype.  q head h reads kv head h // (H // Hkv); query i sits at
-    absolute position i + Skv - Sq."""
+    absolute position i + Skv - Sq.  Raises under autograd
+    (``kernels/guard.py``): train with ``attn_impl="xla"``, as the
+    reference does."""
+    refuse_autograd("flash_attention", q, k, v,
+                    note='; train with attn_impl="xla"')
     R.flash_blocks(q.shape[1], k.shape[1], block_q, block_k)
     if q.device.type == "cpu":
         return R.flash_attention_ref(q, k, v, causal=causal, window=window,

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.kernels import ref as R
 from repro_torch.kernels._build import load_library
+from repro_torch.kernels.guard import refuse_autograd
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 128
@@ -82,7 +83,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x: [b,s,h,p]; dt: [b,s,h]; A: [h]; B, C: [b,s,n] -> (y [b,s,h,p],
     final_state [b,h,p,n] f32), from a zero initial state.  s must be a
     multiple of ``chunk``; padded steps with dt = 0 leave the state
-    unchanged."""
+    unchanged.  Raises under autograd (``kernels/guard.py``): SSD-family
+    training is not ported yet."""
+    refuse_autograd("ssd_scan", x, dt, A, B, C,
+                    note="; SSD-family (ssm / hybrid) training is not "
+                         "ported yet")
     if x.device.type == "cpu":
         return R.ssd_ref(x, dt, A, B, C, chunk)
     _check(x, dt, A, B, C, chunk)

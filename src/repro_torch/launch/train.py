@@ -1,0 +1,180 @@
+"""Training entry point: data pipeline -> train step -> checkpoint ->
+fault-tolerant supervision.  The port of ``repro/launch/train.py``.
+
+One device: the model, its gradients and the optimizer state live on
+``device`` (the card by default; without one it raises, pass
+``device="cpu"`` to train on the CPU).  The reference's mesh and parameter
+shardings belong to distribution, which is not ported yet.  A step reads
+one value back to the host, the loss, as the reference's
+``float(metrics["loss"])`` does.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \\
+        --reduced --steps 50 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.configs.base import RunConfig, ShapeConfig
+from repro_torch.configs.registry import get_config
+from repro_torch.data.pipeline import make_pipeline
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.registry import build_model
+from repro_torch.models.train import make_train_step
+from repro_torch.optim.grad_compress import init_error_feedback
+from repro_torch.optim.optimizer import make_optimizer, warmup_cosine
+from repro_torch.runtime.fault_tolerance import Heartbeat, StragglerDetector
+
+
+class Trainer:
+    """Trains ``cfg`` on the synthetic pipeline at ``shape``'s batch and
+    length.  Weights are drawn from ``seed`` (``DecoderLM``'s generator)
+    by each ``init_state``; ``train`` also draws its data from it.
+    ``step_ms`` holds each step's time on the card (CUDA events around the
+    step; empty on the CPU), ``step_s`` its host time, which ends in the
+    loss readback, and ``metrics`` its metrics as the step returned them
+    (0-d device tensors, read by no step)."""
+
+    def __init__(self, cfg, shape: ShapeConfig, run: RunConfig,
+                 device: DeviceLike = None, ckpt_dir: Optional[str] = None,
+                 grad_compress: bool = False, seed: int = 0):
+        self.cfg, self.shape, self.run = cfg, shape, run
+        self.device = resolve_device(device)
+        self.seed = seed
+        self.opt = make_optimizer(
+            run.optimizer, warmup_cosine(run.learning_rate, run.warmup_steps,
+                                         run.total_steps),
+            weight_decay=run.weight_decay, grad_clip=run.grad_clip)
+        self.grad_compress = grad_compress
+        self.model = None
+        self.step_fn = None
+        self.ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
+        self.heartbeat = Heartbeat(host_id=0)
+        self.straggler = StragglerDetector()
+        self.step_ms: List[float] = []
+        self.step_s: List[float] = []
+        self.metrics: List[Dict[str, Any]] = []
+
+    def init_state(self, seed: Optional[int] = None) -> Dict[str, Any]:
+        """A fresh model from ``seed`` (default: the trainer's), its
+        parameters requiring grad, and a fresh optimizer state:
+        ``{"params", "opt"}`` (and ``"ef"`` with gradient compression)."""
+        self.model = self.step_fn = None       # free the last one first
+        self.model = build_model(self.cfg, self.device,
+                                 seed=self.seed if seed is None else seed)
+        for p in self.model.parameters():
+            p.requires_grad_(True)
+        self.step_fn = make_train_step(self.model, self.cfg, self.run,
+                                       self.opt,
+                                       grad_compress=self.grad_compress)
+        params = dict(self.model.named_parameters())
+        state: Dict[str, Any] = {"params": params,
+                                 "opt": self.opt.init(params)}
+        if self.grad_compress:
+            state["ef"] = init_error_feedback(params)
+        return state
+
+    def restore_or_init(self, seed: Optional[int] = None):
+        """(start step, state): the latest checkpoint's, copied into a fresh
+        model's parameters, or step 0 and a fresh state."""
+        state = self.init_state(seed)
+        start = 0
+        if self.ckpt is not None:
+            latest = self.ckpt.latest_step()
+            if latest is not None:
+                saved = self.ckpt.restore(latest, state)
+                with torch.no_grad():
+                    for name, p in state["params"].items():
+                        p.copy_(saved["params"][name])
+                state = {**saved, "params": state["params"]}
+                start = latest
+        return start, state
+
+    def train(self, steps: int, ckpt_every: int = 0,
+              seed: Optional[int] = None, fail_at: Optional[int] = None,
+              log_every: int = 10):
+        """Run steps [start, steps) from the latest checkpoint (or 0) ->
+        (state, losses)."""
+        seed = self.seed if seed is None else seed
+        start, state = self.restore_or_init(seed)
+        pipe = make_pipeline(self.cfg, self.shape, seed=seed,
+                             start_step=start)
+        cuda = self.device.type == "cuda"
+        losses = []
+        try:
+            for step in range(start, steps):
+                if fail_at is not None and step == fail_at:
+                    raise RuntimeError(f"injected failure at step {step}")
+                batch = {k: torch.from_numpy(v).to(self.device)
+                         for k, v in next(pipe).items()}
+                t0 = time.perf_counter()
+                if cuda:
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    ev[0].record()
+                if self.grad_compress:
+                    params, opt, ef, metrics = self.step_fn(
+                        state["params"], state["opt"], batch, state["ef"])
+                    state = {"params": params, "opt": opt, "ef": ef}
+                else:
+                    params, opt, metrics = self.step_fn(
+                        state["params"], state["opt"], batch)
+                    state = {"params": params, "opt": opt}
+                if cuda:
+                    ev[1].record()
+                loss = float(metrics["loss"])     # the step's one readback
+                dt = time.perf_counter() - t0
+                if cuda:
+                    self.step_ms.append(ev[0].elapsed_time(ev[1]))
+                self.step_s.append(dt)
+                self.metrics.append(metrics)
+                losses.append(loss)
+                self.heartbeat.beat()
+                self.straggler.observe(0, dt)
+                if ckpt_every and self.ckpt and (step + 1) % ckpt_every == 0:
+                    self.ckpt.save(step + 1, state)
+                if log_every and step % log_every == 0:
+                    print(f"step {step} loss {loss:.4f} "
+                          f"lr {float(metrics['lr']):.2e}", flush=True)
+        finally:
+            pipe.close()
+            if self.ckpt:
+                self.ckpt.wait()
+        return state, losses
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--grad-compress", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card; cpu to train on "
+                         "the CPU)")
+    args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    run = RunConfig(optimizer=args.optimizer, warmup_steps=5,
+                    total_steps=args.steps)
+    tr = Trainer(cfg, shape, run, device=args.device, ckpt_dir=args.ckpt_dir,
+                 grad_compress=args.grad_compress)
+    _, losses = tr.train(args.steps, ckpt_every=args.ckpt_every)
+    print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

@@ -7,7 +7,7 @@ from repro_torch.models.transformer import DecoderLM
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None, **kw) -> DecoderLM:
-    """The decoder LM for ``cfg``: dense, moe, ssm or hybrid
+    """The decoder LM for ``cfg``: dense, moe, ssm, hybrid or vlm
     (encoder-decoder models are not ported yet).  ``kw`` goes to
     :class:`DecoderLM` (seed, generator, expert_device)."""
     if cfg.family == "encdec":

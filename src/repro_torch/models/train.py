@@ -1,0 +1,118 @@
+"""Loss and the train step: microbatched (f32 gradient accumulation),
+optimizer-fused, with optional int8 error-feedback gradient compression.
+The port of ``repro/models/train.py``.
+
+The returned step has the reference's signature, ``step(params, opt_state,
+batch[, ef_state]) -> (params, opt_state[, ef_state], metrics)``, where
+``params`` are the model's own parameters by name (they must require grad)
+and are updated in place; ``metrics`` holds ``loss``, ``ce``, ``aux_loss``
+and ``grad_norm`` as 0-d device tensors and ``lr`` as a float.  A batch is
+a dict of tensors on the model's device: ``tokens`` and ``labels`` [B, S]
+and, for a vlm, ``patch_embeds`` [B, P, d].  Per-layer remat is the
+model's (``cfg.remat``); the reference's pjit shardings do not apply (one
+device).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.optim.grad_compress import compress_with_error_feedback
+
+Tensors = Dict[str, torch.Tensor]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean CE over all positions, f32, with the z-loss regularizer
+    ``z_loss · lse²`` inside the mean (as the reference reports it)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    ce = lse - gold
+    return torch.mean(ce + z_loss * torch.square(lse))
+
+
+def _accumulate(gsum: Tensors, grads: Tensors):
+    """gsum[name] += grads[name] in f32 (the first microbatch's become the
+    sums)."""
+    for name, g in grads.items():
+        if name in gsum:
+            gsum[name].add_(g.float())
+        else:
+            gsum[name] = g.float()
+
+
+def make_loss_fn(model, cfg: ModelConfig):
+    """batch -> (loss, {"ce", "aux_loss"}); loss = ce + router_aux_loss_coef
+    · aux."""
+    if cfg.family == "encdec":
+        raise NotImplementedError("encoder-decoder models are not ported yet")
+
+    def loss_fn(batch: Tensors) -> Tuple[torch.Tensor, Tensors]:
+        if cfg.family == "vlm":
+            logits, aux = model.forward(batch["tokens"],
+                                        patch_embeds=batch["patch_embeds"])
+        else:
+            logits, aux = model.forward(batch["tokens"])
+        ce = cross_entropy(logits, batch["labels"])
+        loss = ce + cfg.router_aux_loss_coef * aux
+        return loss, {"ce": ce, "aux_loss": aux}
+    return loss_fn
+
+
+def make_train_step(model, cfg: ModelConfig, run: RunConfig, optimizer,
+                    grad_compress: bool = False):
+    """The train step of ``model``.
+
+    ``run.microbatch`` > 1 splits the batch into that many microbatches run
+    one after another, their gradients summed in f32, then divided and cast
+    to bf16 whatever the parameter dtype, the loss averaged and ``ce`` /
+    ``aux_loss`` taken from the last microbatch (all as the reference
+    does).  ``grad_compress`` applies int8 error-feedback compression to the
+    gradients before the update."""
+    loss_fn = make_loss_fn(model, cfg)
+
+    def grads_of(loss: torch.Tensor, params: Tensors) -> Tensors:
+        gs = torch.autograd.grad(loss, list(params.values()),
+                                 allow_unused=True)
+        return {n: torch.zeros_like(p) if g is None else g
+                for (n, p), g in zip(params.items(), gs)}
+
+    def compute_grads(params: Tensors, batch: Tensors):
+        n = run.microbatch
+        if n and n > 1:
+            b = batch["tokens"].shape[0]
+            if b % n:
+                raise ValueError(f"batch {b} not divisible by microbatch "
+                                 f"{n}")
+            gsum: Tensors = {}
+            lsum = 0.0
+            for i in range(n):
+                mb = {k: v[i * b // n:(i + 1) * b // n]
+                      for k, v in batch.items()}
+                loss, aux = loss_fn(mb)
+                _accumulate(gsum, grads_of(loss, params))
+                lsum = lsum + loss.detach()
+            grads = {}
+            for name in list(gsum):
+                grads[name] = gsum.pop(name).div_(n).to(torch.bfloat16)
+            return lsum / n, {k: v.detach() for k, v in aux.items()}, grads
+        loss, aux = loss_fn(batch)
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}, \
+            grads_of(loss, params)
+
+    def train_step(params: Tensors, opt_state, batch: Tensors,
+                   ef_state=None):
+        loss, aux, grads = compute_grads(params, batch)
+        if grad_compress:
+            grads, ef_state = compress_with_error_feedback(grads, ef_state)
+        params, opt_state, om = optimizer.update(grads, opt_state, params)
+        metrics = {"loss": loss, **aux, **om}
+        if grad_compress:
+            return params, opt_state, ef_state, metrics
+        return params, opt_state, metrics
+
+    return train_step

@@ -1,5 +1,5 @@
-"""Decoder-only LM for the dense, moe, ssm and hybrid families (the port of
-``repro/models/transformer.py``).
+"""Decoder-only LM for the dense, moe, ssm, hybrid and vlm families (the port
+of ``repro/models/transformer.py``).
 
 The model is an ``nn.Module`` that owns its weights.  Parameter names follow
 the reference's param-tree paths with the stacked layer axes unstacked:
@@ -22,13 +22,24 @@ Layouts (the reference's ``_stacks``):
   cache of its own; then ``num_layers % attn_every`` mamba blocks
   (``tail.<t>``).
 
-Three modes share one block function:
+Four modes share one block function:
 
-* ``forward``      full sequence, no cache -> (logits, aux)
-* ``prefill``      full sequence, fills the KV caches
+* ``forward``      full sequence, no cache -> (logits, aux): the training
+                   mode.  MoE layers route with the reference's rule
+                   (``moe.moe_forward``: capacity routing with drops for
+                   rows longer than 8 tokens), and with ``cfg.remat`` each
+                   block is checkpointed when autograd records it
+* ``score``        full sequence, no cache -> logits, every MoE layer
+                   drop-free as the serving paths route it (what a served
+                   stream is teacher-forced against)
+* ``prefill``      full sequence, fills the KV caches (drop-free)
 * ``decode_step``  a block of Sq >= 1 tokens against the caches; optionally
                    returns each layer's gate input (the SP-MoE predictor's
                    taps), per stack
+
+A vlm model (llava stub) is a dense stack fed ``patch_embeds [B, P, d]``
+ahead of its text embeddings in ``forward`` and ``prefill``; its logits
+cover the text positions only.
 
 Caches mirror the layout: per-block caches listed under ``dense_layers`` and
 ``layers``, or under ``mamba_groups`` [G][per], ``shared_attn`` [G] and
@@ -42,10 +53,13 @@ one-token steps take the masked attention route (``attention_decode``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
@@ -145,8 +159,12 @@ class Block(nn.Module):
 
 class DecoderLM(nn.Module):
     """Families: dense, moe (leading dense-FFN layers, then MoE layers),
-    ssm (every layer mamba) and hybrid (mamba groups around one shared
-    attention block); GQA or MLA attention.
+    ssm (every layer mamba), hybrid (mamba groups around one shared
+    attention block) and vlm (a dense stack fed patch embeddings); GQA or
+    MLA attention.
+
+    Weights are built without gradients (``layers.param``); a trainer
+    turns them on for its own model (``launch/train.py``).
 
     ``device`` defaults to the card and raises without one (pass
     ``device="cpu"`` to run on the CPU).  Weights are drawn from
@@ -158,10 +176,10 @@ class DecoderLM(nn.Module):
                  seed: int = 0, generator: Optional[torch.Generator] = None,
                  expert_device: DeviceLike = None):
         super().__init__()
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
             raise NotImplementedError(
-                f"{cfg.name}: only dense, moe, ssm and hybrid models are "
-                f"ported yet")
+                f"{cfg.name}: only dense, moe, ssm, hybrid and vlm models "
+                f"are ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
@@ -308,7 +326,9 @@ class DecoderLM(nn.Module):
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """-> (x_out, aux_loss, gate_input_tap); a mamba block's tap is its
         output, as in the reference.  ``contiguous``: every position before
-        ``pos`` is in the caches (``attention_decode``)."""
+        ``pos`` is in the caches (``attention_decode``).  MoE layers route
+        with ``moe_forward``'s rule in train mode and drop-free in every
+        other mode (the reference's ``decode=(mode != "train")``)."""
         cfg = self.cfg
         h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -332,7 +352,8 @@ class DecoderLM(nn.Module):
         x = x + a
         h2 = L.rms_norm(x, blk.ln2, cfg.norm_eps)
         if blk.kind == "moe":
-            y, aux = MOE.moe_global(blk.moe, h2, cfg)
+            y, aux = MOE.moe_forward(blk.moe, h2, cfg,
+                                     decode=(mode != "train"))
         else:
             y = L.ffn_forward(blk.ffn, h2, cfg.ffn_activation)
         return x + y, aux, h2
@@ -341,12 +362,21 @@ class DecoderLM(nn.Module):
              pos: int, collect_taps: bool = False, contiguous: bool = False,
              pos_dev: Optional[torch.Tensor] = None):
         """-> (x, aux, taps); taps are collected per stack, ``dense_layers``
-        and ``layers`` (the reference collects none for hybrid models)."""
+        and ``layers`` (the reference collects none for hybrid models).
+        In train mode with ``cfg.remat``, while autograd records, each
+        block is checkpointed (the reference's ``_maybe_remat``)."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         taps: Dict[str, List[torch.Tensor]] = {}
+        remat = mode == "train" and self.cfg.remat and \
+            torch.is_grad_enabled() and not collect_taps
         for name, blk, cl in self._sites(cache):
-            x, aux, tap = self._block(blk, x, mode, cl, pos, contiguous,
-                                      pos_dev)
+            if remat:
+                x, aux = _remat(self._train_block, self.cfg.remat_policy,
+                                blk, x)
+                tap = None
+            else:
+                x, aux, tap = self._block(blk, x, mode, cl, pos, contiguous,
+                                          pos_dev)
             aux_total = aux_total + aux
             if collect_taps:
                 taps.setdefault(name, []).append(tap)
@@ -354,27 +384,60 @@ class DecoderLM(nn.Module):
             return x, aux_total, {}
         return x, aux_total, {n: torch.stack(t) for n, t in taps.items()}
 
+    def _train_block(self, blk: Block, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        y, aux, _ = self._block(blk, x, "train", None, 0)
+        return y, aux
+
+    def _inputs(self, tokens: torch.Tensor,
+                patch_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        """Token embeddings, behind the patch embeddings for a vlm."""
+        x = self.embed(tokens)
+        if patch_embeds is None:
+            return x
+        if self.cfg.family != "vlm":
+            raise ValueError(f"{self.cfg.name}: patch embeddings are for a "
+                             f"vlm model")
+        return torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+
     # -- public API -----------------------------------------------------------
-    def forward(self, tokens: torch.Tensor
+    def forward(self, tokens: torch.Tensor,
+                patch_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward.  tokens: [B,S] -> (logits [B,S,V], aux).
-        MoE layers route drop-free (the reference's train mode uses
-        capacity routing for long sequences; that path waits)."""
-        x, aux, _ = self._run(self.embed(tokens), "train", None, 0)
-        return self.logits(x), aux
+        """Train-mode full-sequence forward.  tokens: [B,S] -> (logits
+        [B,S,V], aux).  A vlm takes ``patch_embeds [B,P,d]`` (required):
+        they go ahead of the text, and the logits cover the text only."""
+        if self.cfg.family == "vlm" and patch_embeds is None:
+            raise ValueError(f"{self.cfg.name}: a vlm forward needs "
+                             f"patch_embeds")
+        x, aux, _ = self._run(self._inputs(tokens, patch_embeds), "train",
+                              None, 0)
+        return self.logits(x[:, x.shape[1] - tokens.shape[1]:]), aux
+
+    def score(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence logits [B,S,V] with every MoE layer drop-free, as
+        the serving paths route it (``forward`` routes as training does):
+        what a served stream is teacher-forced against."""
+        x, _, _ = self._run(self.embed(tokens), "score", None, 0)
+        return self.logits(x)
 
     def prefill(self, tokens: torch.Tensor, max_seq: int,
-                cache: Optional[Cache] = None) -> Tuple[torch.Tensor, Cache]:
+                cache: Optional[Cache] = None,
+                patch_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
         """Fill caches with a prompt; return (last-position logits [B,V],
         cache).  ``cache``: one of this model's caches to fill in place
         (``reset_cache`` first, so it holds what a new one would), whose
-        addresses a captured decode step keeps; else a new one."""
+        addresses a captured decode step keeps; else a new one.  A vlm may
+        put ``patch_embeds [B,P,d]`` ahead of the prompt (they take the
+        cache's first P positions)."""
+        x = self._inputs(tokens, patch_embeds)
         if cache is None:
             cache = self.init_cache(tokens.shape[0], max_seq)
         else:
             reset_cache(cache)
-        x, _, _ = self._run(self.embed(tokens), "prefill", cache, 0)
-        cache["written"] = tokens.shape[1]
+        x, _, _ = self._run(x, "prefill", cache, 0)
+        cache["written"] = x.shape[1]
         return self.logits(x[:, -1:])[:, 0], cache
 
     def decode_route(self, cache: Cache, pos: int, Sq: int,
@@ -422,6 +485,31 @@ class DecoderLM(nn.Module):
                                         collect_taps, pos_dev)
         self.note_written(cache, pos, tokens.shape[1], contiguous)
         return logits, cache, taps
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Selective remat: keep the outputs of products with no batch
+    dimension (``mm``, and ``bmm`` over a batch of one, which is how
+    ``einsum`` computes a projection), recompute the rest: the counterpart
+    of ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``."""
+    if op in _MATMULS or (op is torch.ops.aten.bmm.default
+                          and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str, *args):
+    """``fn(*args)`` checkpointed: recomputed in the backward, with
+    matmul outputs saved under ``policy="selective"``."""
+    if policy == "selective":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_matmuls))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def reset_cache(cache: Cache):

@@ -1,0 +1,230 @@
+"""Optimizers: AdamW (f32 moments) and AdamW8bit (block-quantized int8
+moments with per-block f32 scales), the warmup + cosine schedule and global
+gradient clipping.  The port of ``repro.optim.optimizer``.
+
+Parameters, gradients and moments are dicts of tensors keyed by the
+parameters' names, the moments on the parameters' device.  ``update`` works
+in place, one parameter at a time (so its temporaries are one parameter's
+size), and computes what the reference computes: f32 moments, the bias
+corrections ``1 - b^step``, decoupled weight decay on ``p`` and the learning
+rate at ``step + 1``.  The step count is a 0-d int32 tensor on the host, so
+the learning rate and the bias corrections are host scalars (f32 arithmetic,
+as the reference's) and an update reads nothing back from the device.  The
+reference's sharding remarks do not apply: one device.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterable, NamedTuple, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+Tensors = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# schedule
+# ---------------------------------------------------------------------------
+
+def warmup_cosine(base_lr: float, warmup: int, total: int,
+                  final_frac: float = 0.1) -> Callable[[int], float]:
+    """step -> learning rate: linear warmup, then cosine decay to
+    ``final_frac · base_lr``; f32 arithmetic throughout, as the
+    reference's."""
+    f32 = np.float32
+
+    def lr(step: int) -> float:
+        s = f32(step)
+        if s < warmup:
+            return float(f32(base_lr) * np.minimum(s / f32(max(warmup, 1)),
+                                                   f32(1.0)))
+        prog = np.clip((s - f32(warmup)) / f32(max(total - warmup, 1)),
+                       f32(0.0), f32(1.0))
+        cos = f32(final_frac) + f32((1 - final_frac) * 0.5) * (
+            f32(1.0) + np.cos(f32(np.pi) * prog))
+        return float(f32(base_lr) * cos)
+    return lr
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in f32 (0-d tensor on
+    the tensors' device)."""
+    total = None
+    for x in tensors:
+        sq = torch.sum(torch.square(x.float()))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads: Tensors, max_norm: float
+                        ) -> Tuple[Tensors, torch.Tensor]:
+    """Scale every gradient by min(1, max_norm / norm), in place; -> (grads,
+    norm)."""
+    norm = global_norm(grads.values())
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    for g in grads.values():
+        g.mul_(scale.to(g.dtype))
+    return grads, norm
+
+
+# ---------------------------------------------------------------------------
+# int8 block quantization (shared by AdamW8bit and gradient compression)
+# ---------------------------------------------------------------------------
+
+QBLOCK = 256
+
+
+def quantize_i8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x -> (int8 values [nb, 256], f32 per-block scales [nb, 1]); blocks
+    along the flattened tensor, the last one zero-padded."""
+    flat = x.float().reshape(-1)
+    flat = F.pad(flat, (0, (-flat.numel()) % QBLOCK)).reshape(-1, QBLOCK)
+    scale = torch.amax(torch.abs(flat), dim=1, keepdim=True) / 127.0
+    q = torch.round(flat / torch.clamp(scale, min=1e-20)).to(torch.int8)
+    return q, scale
+
+
+def dequantize_i8(q: torch.Tensor, scale: torch.Tensor, shape,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    flat = (q.float() * scale).reshape(-1)
+    n = int(np.prod(shape))
+    return flat[:n].reshape(shape).to(dtype)
+
+
+def _bias_corrections(b1: float, b2: float, step: int) -> Tuple[float, float]:
+    """1 - b^step for both betas, in f32."""
+    f32 = np.float32
+    return (float(f32(1.0) - f32(b1) ** f32(step)),
+            float(f32(1.0) - f32(b2) ** f32(step)))
+
+
+def _apply(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, b1c: float,
+           b2c: float, eps: float, weight_decay: float, lr: float):
+    """p <- p - lr · ((m / b1c) / (sqrt(v / b2c) + eps) + wd · p), in f32,
+    cast back to p's dtype."""
+    den = torch.sqrt(v / b2c).add_(eps)
+    u = torch.div(m, b1c).div_(den)
+    del den
+    pf = p.float()
+    u.add_(pf, alpha=weight_decay).mul_(lr)
+    if p.dtype == torch.float32:
+        p.sub_(u)
+    else:
+        p.copy_(pf.sub_(u))
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+class AdamState(NamedTuple):
+    step: torch.Tensor          # 0-d int32, on the host
+    m: Tensors
+    v: Tensors
+
+
+@dataclass(frozen=True)
+class AdamW:
+    lr_fn: Callable[[int], float]
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+    def init(self, params: Tensors) -> AdamState:
+        def zeros():
+            return {n: torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device)
+                    for n, p in params.items()}
+        return AdamState(torch.zeros((), dtype=torch.int32), zeros(),
+                         zeros())
+
+    @torch.no_grad()
+    def update(self, grads: Tensors, state: AdamState, params: Tensors):
+        """-> (params, state, {"grad_norm", "lr"}); params, grads and the
+        moments are updated in place."""
+        grads, gnorm = clip_by_global_norm(grads, self.grad_clip)
+        step = int(state.step) + 1
+        lr = self.lr_fn(step)
+        b1c, b2c = _bias_corrections(self.b1, self.b2, step)
+        for name, p in params.items():
+            m, v = state.m[name], state.v[name]
+            gf = grads[name].float()
+            m.mul_(self.b1).add_(gf, alpha=1 - self.b1)
+            v.mul_(self.b2).addcmul_(gf, gf, value=1 - self.b2)
+            del gf
+            _apply(p, m, v, b1c, b2c, self.eps, self.weight_decay, lr)
+        return params, AdamState(torch.tensor(step, dtype=torch.int32),
+                                 state.m, state.v), {
+            "grad_norm": gnorm, "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# AdamW with 8-bit states
+# ---------------------------------------------------------------------------
+
+class Adam8bitState(NamedTuple):
+    step: torch.Tensor          # 0-d int32, on the host
+    m_q: Tensors
+    m_s: Tensors
+    v_q: Tensors
+    v_s: Tensors
+
+
+@dataclass(frozen=True)
+class AdamW8bit:
+    lr_fn: Callable[[int], float]
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+    def init(self, params: Tensors) -> Adam8bitState:
+        qs = {n: quantize_i8(torch.zeros(p.shape, dtype=torch.float32,
+                                         device=p.device))
+              for n, p in params.items()}
+        mq = {n: q for n, (q, _) in qs.items()}
+        ms = {n: s for n, (_, s) in qs.items()}
+        return Adam8bitState(torch.zeros((), dtype=torch.int32), mq, ms,
+                             {n: t.clone() for n, t in mq.items()},
+                             {n: t.clone() for n, t in ms.items()})
+
+    @torch.no_grad()
+    def update(self, grads: Tensors, state: Adam8bitState, params: Tensors):
+        """-> (params, state, {"grad_norm", "lr"}); params, grads and the
+        state's dicts are updated in place (each moment requantized into
+        new tensors that replace the old ones one parameter at a time)."""
+        grads, gnorm = clip_by_global_norm(grads, self.grad_clip)
+        step = int(state.step) + 1
+        lr = self.lr_fn(step)
+        b1c, b2c = _bias_corrections(self.b1, self.b2, step)
+        mq, ms, vq, vs = state.m_q, state.m_s, state.v_q, state.v_s
+        for name, p in params.items():
+            gf = grads[name].float()
+            m = dequantize_i8(mq[name], ms[name], p.shape)
+            v = dequantize_i8(vq[name], vs[name], p.shape)
+            m.mul_(self.b1).add_(gf, alpha=1 - self.b1)
+            v.mul_(self.b2).addcmul_(gf, gf, value=1 - self.b2)
+            del gf
+            v.clamp_(min=0.0)    # the reference's maximum(v2, 0): a no-op,
+            #                      v2 is never negative
+            _apply(p, m, v, b1c, b2c, self.eps, self.weight_decay, lr)
+            mq[name], ms[name] = quantize_i8(m)
+            vq[name], vs[name] = quantize_i8(v)
+        return params, Adam8bitState(torch.tensor(step, dtype=torch.int32),
+                                     mq, ms, vq, vs), {
+            "grad_norm": gnorm, "lr": lr}
+
+
+def make_optimizer(name: str, lr_fn, weight_decay: float = 0.1,
+                   grad_clip: float = 1.0):
+    if name == "adamw":
+        return AdamW(lr_fn, weight_decay=weight_decay, grad_clip=grad_clip)
+    if name == "adamw8bit":
+        return AdamW8bit(lr_fn, weight_decay=weight_decay,
+                         grad_clip=grad_clip)
+    raise ValueError(name)

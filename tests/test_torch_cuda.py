@@ -7,8 +7,9 @@ deepseek, and phi with its MoE draft), solo and in
 fused cross-session rounds and under seeded I/O faults, back-to-back
 staging through pinned buffers, the dense targets served greedy and
 speculatively through flash-decode, the SSD families' models on the card against
-themselves on the CPU, and captured steps (a replay's kernels in a trace, a
-capture that fails).  Every test is
+themselves on the CPU, captured steps (a replay's kernels in a trace, a
+capture that fails), ``ops.moe_gemm`` (the dense-layout entry point) and a
+train step on the card against the CPU.  Every test is
 marked ``cuda`` and skips without a card (the kernels have no CPU mode).
 This file imports nothing of JAX, so it also runs where JAX is not
 installed:
@@ -965,3 +966,59 @@ def test_a_capture_that_fails_raises_on_the_card(cuda):
     assert ("sync",) not in gs and not gs.builds and not gs.runs
     torch.cuda.synchronize()
     assert torch.ones(2, device=cuda).sum().item() == 2
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+def test_moe_gemm_entry_point_matches_its_plain_version_on_the_card(
+        cuda, dtype, atol):
+    """``ops.moe_gemm`` (expert e = slot e, its C rows one group) through
+    the expert-FFN kernel's two stages against ``ref.moe_gemm_ref``."""
+    gen = torch.Generator(cuda).manual_seed(3)
+    E, C, d, f = 4, 64, 256, 512
+    xg = torch.randn((E, C, d), generator=gen, device=cuda).to(dtype)
+    wg, wu = (torch.randn((E, d, f), generator=gen, device=cuda).mul_(
+        d ** -0.5).to(dtype) for _ in range(2))
+    wd = torch.randn((E, f, d), generator=gen, device=cuda).mul_(
+        f ** -0.5).to(dtype)
+    valid = torch.rand((E, C), generator=gen, device=cuda) < 0.7
+    n0 = (ops.moe_gemm.launches, K.gate_up.launches, K.down.launches)
+    got = ops.moe_gemm(xg, wg, wu, wd, valid)
+    want = R.moe_gemm_ref(xg, wg, wu, wd, valid)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert (got[~valid] == 0).all()
+    assert (ops.moe_gemm.launches, K.gate_up.launches, K.down.launches) == \
+        tuple(n + 1 for n in n0)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One train step of a reduced mixtral (f32, S 32: the capacity route)
+    on the card against the same step on the CPU, from the same weights and
+    batch: the loss and every gradient (through the step's own gradient
+    function) within 1e-4 relative."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.train import make_loss_fn
+    cfg = get_config("mixtral-8x7b").reduced(dtype="float32")
+    models = {}
+    for dev in ("cpu", cuda):
+        m = build_model(cfg, "cpu", seed=0).to(dev)
+        for p in m.parameters():
+            p.requires_grad_(True)
+        models[str(dev)] = m
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 33), generator=gen)
+    out = {}
+    for dev, m in models.items():
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        loss, _ = make_loss_fn(m, cfg)(batch)
+        names = [n for n, _ in m.named_parameters()]
+        grads = torch.autograd.grad(loss, [p for _, p in m.named_parameters()])
+        out[dev] = (float(loss.detach()),
+                    {n: g.cpu() for n, g in zip(names, grads)})
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for n, g in gc.items():
+        assert torch.isfinite(gg[n]).all(), n
+        err = float((gg[n] - g).abs().max()) / max(float(g.abs().max()),
+                                                    1e-30)
+        assert err <= 1e-4, (n, err)

@@ -46,7 +46,12 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.serve, "
             "repro_torch.models.mamba, repro_torch.kernels.ssd_scan, "
             "repro_torch.kernels.decode_attention, "
-            "repro_torch.kernels.cache_moe; "
+            "repro_torch.kernels.cache_moe, repro_torch.kernels.guard, "
+            "repro_torch.launch.train, repro_torch.models.train, "
+            "repro_torch.optim.optimizer, repro_torch.optim.grad_compress, "
+            "repro_torch.data.pipeline, "
+            "repro_torch.checkpoint.checkpointer, "
+            "repro_torch.runtime.fault_tolerance; "
             "print('jax' in sys.modules, 'repro' in sys.modules)")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
