@@ -32,8 +32,11 @@ through flash and flash-decode at their head shapes (48 / 1 x 128, 64 / 8
 x 128, 96 / 8 x 192).  Then training (``launch/train.py::Trainer``):
 mixtral-8x7b at full width cut to 2 layers and llava-next-mistral-7b at
 full width cut to 2 layers, bf16, through the MoE capacity route
-``moe_grouped``; no kernel is on the training path, as in the reference
-(it trains through none of its Pallas kernels).
+``moe_grouped``, and the SSD families (mamba2-780m at full depth, zamba2-7b
+at 12 layers) through the plain scan; no kernel is on the training path,
+as in the reference (it trains through none of its Pallas kernels).  Last,
+whisper-medium (encdec) at full width and depth: served through flash and
+flash-decode at 16 / 16 x 64, and trained.
 
 Phases (each raises on failure):
   1. device line; build the CUDA kernels from ``src/repro_torch/csrc``
@@ -55,7 +58,10 @@ Phases (each raises on failure):
      call bit for bit; the SSD scan at the mamba2 widths at S 77 / 300 / 512 / 2048 and
      the zamba2 widths at S 512 and 300, 300 padded to 384, y and final
      state, timed (event and device time, its three device kernels per
-     call) at mamba2 S 512 / 2048 and zamba2 S 512)
+     call) at mamba2 S 512 / 2048 and zamba2 S 512); flash and flash-decode
+     also at whisper-medium's 16 / 16 x 64 (flash at S 128 and 512, timed at
+     both; flash-decode also in a 192-slot cache, lengths 129..192, timed
+     at 192)
   3. solo serving with a tight cache (12 slots): misses, prefetches,
      evictions
   4. solo serving with an ample cache (32 slots): the fast path, <=2 host
@@ -170,11 +176,32 @@ Phases (each raises on failure):
      the restart drill: ``examples/train_lm_torch.py`` at its tiny default
      (a failure at step 100, the restart from its checkpoint), and 10 steps
      straight against 5 + restart + 5, bit for bit under
-     ``torch.use_deterministic_algorithms(True)``
+     ``torch.use_deterministic_algorithms(True)``.  Then the SSD families
+     through ``Trainer``: mamba2-780m at full width and depth (48 layers,
+     0.78 B parameters) and zamba2-7b at full width, 12 layers, bf16, B 4 x
+     S 1024, 6 AdamW steps each (losses finite, the last 3 below the
+     first; step ms, peak), the SSD kernel launched 0 times in training
+     (the train route scans with the plain ``ssd_ref``) and once per mamba
+     layer in a prefill of the trained model; one f32 step of each, reduced,
+     on the card against the CPU
+ 18. whisper-medium, in a child process (``--phase whisper``): 24 encoder
+     + 24 decoder layers at full width (d 1024, 16 / 16 heads x 64, gelu
+     d_ff 4096, vocab 51865, tied), bf16, random weights from seed 0, frames
+     [1, 1500, 1024] from a seeded generator; served under
+     ``attn_impl="kernel"``: encode, prefill of a 128-token prompt, 64
+     greedy one-token steps (the launch counts from 0: flash 24, once per
+     decoder layer; flash-decode 24 per step; every call at 16 / 16 x 64;
+     the encoder and the cross-attention run ``mha``), served again for its
+     times (the same tokens), one step timed and traced, every token
+     teacher-forced (the deep stacks' rule); then 6 AdamW steps under
+     ``"xla"`` through ``make_train_step`` at B 4 x S 448 with a frames
+     batch each step (losses finite and falling; step ms, tokens/s, peak),
+     and one f32 step of the reduced model on the card against the CPU
 
-Phases 5b, 14-16 and 17 run first, right after the build, each in a child
-process of this script (``--phase chaos``, ``--phase dense <arch>``,
-``--phase train``) that prints its result as one JSON line: it has the
+Phases 5b, 14-16, 17 and 18 run first, right after the build, each in a
+child process of this script (``--phase chaos``, ``--phase dense <arch>``,
+``--phase train``, ``--phase whisper``) that prints its result as one JSON
+line: it has the
 card's whole memory
 (nemotron-4-340b's two models need 70 GB) and a profiler of its own (in
 one process, a trace after the chaos phase's once saw no device activity
@@ -187,12 +214,13 @@ calls no kernel wrapper, so the wrappers count only the launches they make
 (eager calls, a build's warm-up); a capture launches nothing.
 
 Each serving path (3-4, 5, 5b, 7, 8, 9, 11 greedy, 11 sd, 12 solo, 12
-concurrent, 12 self-draft, 13 solo and 14-16 greedy and sd) runs with the kernels' launch counts
-set to 0 and a ``torch.profiler`` trace of the device started just before
-it, both read just after: a kernel's launches on the path are the calls
-whose kernels the device ran in the trace (replays included), beside the
-wrappers' own counts.  The SSD paths (8, 9) capture nothing and go
-untraced: there every launch is its wrapper's own.  Each kernel of the path must have launched through
+concurrent, 12 self-draft, 13 solo, 14-16 greedy and sd, 18) runs with the
+kernels' launch counts set to 0 and a ``torch.profiler`` trace of the
+device started just before it, both read just after: a kernel's launches
+on the path are the calls whose kernels the device ran in the trace
+(replays included), beside the wrappers' own counts.  The SSD paths (8,
+9) and whisper's (18) capture nothing and go untraced: there every launch
+is its wrapper's own.  Each kernel of the path must have launched through
 its wrapper and run on the device, and every counted launch must have run.
 Where a path has an MoE draft (12 self-draft, 13), a marker kernel before
 and after each draft step tells the draft's expert-FFN kernels apart in the
@@ -200,7 +228,8 @@ trace: every drafted token must have run each MoE layer of the draft.
 
 Prints JSON lines (kernels, decode_timing, flash_timing, ssd_timing,
 kernel_checks, requests, ssm_requests, gelu_requests, dense_requests,
-dense_targets, chaos_requests, train, deepseek_requests, deepseek_kernel_timing, phi_requests, phi_kernel_timing,
+dense_targets, chaos_requests, train, whisper, deepseek_requests,
+deepseek_kernel_timing, phi_requests, phi_kernel_timing,
 breakdown, graphs (every eager-against-replay measure, each engine's builds,
 capture seconds and private pool bytes, the concurrent engines' fused
 rounds among them), memory), then the
@@ -248,11 +277,14 @@ LLAMA_HEADS = 24                      # llama3.2-3b (and its draft): 24 / 8
 FA_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # the other head shapes of the registered configs: (model, q heads, kv
 # heads, head dim); zamba2-7b's shared block serves under attn_impl="kernel"
-# in phase 9, the three dense targets in phases 14-16 (at D 192 the bf16
-# kernel takes 64-key tiles, which moves where p rounds by at most one bf16
-# step)
+# in phase 9, the three dense targets in phases 14-16, whisper-medium's
+# decoder self-attention in phase 18 (at D 192 the bf16 kernel takes 64-key
+# tiles, which moves where p rounds by at most one bf16 step)
 FA_SHAPES = (("zamba2-7b", 32, 32, 112), ("nemotron-4-340b", 96, 8, 192),
-             ("granite-20b", 48, 1, 128), ("command-r-35b", 64, 8, 128))
+             ("granite-20b", 48, 1, 128), ("command-r-35b", 64, 8, 128),
+             ("whisper-medium", 16, 16, 64))
+# flash at whisper-medium's served prefill too: one 128-key block a layer
+FA_WHISPER = FA_SHAPES[-1]
 # lossless check: the engine (5-token verify blocks, f32 expert combine) and
 # the resident reference (one teacher-forced forward, bf16 combine) round
 # the bf16 residual stream at different places; a token that is not the
@@ -301,7 +333,9 @@ DECODE_WIDTHS = (("llama3.2-3b", 24, 8, 128),
 DECODE_CACHES = ((576, (543, 1, 77), ("llama3.2-3b", "zamba2-7b",
                                       "nemotron-4-340b", "granite-20b",
                                       "command-r-35b")),
-                 (4112, (4096, 1, 512), ("mistral-7b-draft",)))
+                 (4112, (4096, 1, 512), ("mistral-7b-draft",)),
+                 # whisper-medium's served steps: lengths 129..192 of 192
+                 (192, (192, 129, 160), ("whisper-medium",)))
 DECODE_LENGTHS = (1, 77, 512, 543, 4096)
 DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DECODE_RTOL = 1e-2
@@ -326,6 +360,27 @@ DENSE_TARGETS = (("granite-20b", None, 61), ("command-r-35b", 8, 62),
                  ("nemotron-4-340b", 2, 63))
 CHILD_TIMEOUT_S = 400                # a phase run in a child process
 
+# phase 18, whisper-medium (encdec), in a child process (``--phase
+# whisper``): the whole model (24 encoder + 24 decoder layers, d 1024, 16 /
+# 16 heads x 64, gelu d_ff 4096, vocab 51865, tied), bf16, random weights
+# from seed 0, frames [B, 1500, 1024] (the stub frontend's output) from a
+# seeded generator.  Served under attn_impl="kernel": a 128-token prompt
+# (one 128-key flash block a decoder layer), then 64 greedy one-token steps
+# over a 192-slot cache (flash-decode at lengths 129..192); every token
+# teacher-forced under the deep stacks' rule (a margin and a minimum exact
+# share).  Trained under "xla" (flash has no backward): AdamW, B 4 x S 448
+# (whisper's decoder context) from the port's pipeline with a frames batch
+# each step, remat full, at WHISPER_TRAIN_LR: phase 17's 3e-4 diverged on
+# an H100 (losses 20.8, 35.4, 35.2, 47.7, 31.2, 27.6): the tied embedding
+# drawn at scale sqrt(d) starts whisper at loss ~21, and Adam's first
+# steps move every weight by ~lr (whisper's published lr for medium,
+# 2.5e-4, comes with 2048 warmup steps).
+WHISPER_PROMPT, WHISPER_NEW = 128, 64
+WHISPER_MAX_SEQ = WHISPER_PROMPT + WHISPER_NEW
+WHISPER_MARGIN, WHISPER_MIN_EXACT = SSM_MARGIN, SSM_MIN_EXACT
+WHISPER_TRAIN_B, WHISPER_TRAIN_S, WHISPER_TRAIN_STEPS = 4, 448, 6
+WHISPER_TRAIN_LR = 5e-5
+
 # phase 17, training (``launch/train.py::Trainer``): mixtral-8x7b at full
 # width (d 4096, 32 / 8 heads x 128, 8 experts top-2 of width 14336, vocab
 # 32000) cut to 2 layers, 3.16 B parameters: bf16, remat full, B 4 x S 1024
@@ -339,6 +394,12 @@ CHILD_TIMEOUT_S = 400                # a phase run in a child process
 TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_MICRO = 2, 4, 1024, 2
 TRAIN_STEPS, TRAIN_8BIT_STEPS, TRAIN_LR, TRAIN_WARMUP = 8, 3, 3e-4, 2
 VLM_B, VLM_S, VLM_STEPS = 2, 1024, 3
+# the SSD families through Trainer (the train route scans with the plain
+# ssd_ref; the SSD kernel must launch 0 times): mamba2-780m at full width
+# and depth (48 layers), zamba2-7b at full width cut to ZAMBA_LAYERS (as
+# served in phase 9); B 4 x S 1024, AdamW, remat full
+SSD_TRAIN = (("mamba2-780m", None), ("zamba2-7b", ZAMBA_LAYERS))
+SSD_TRAIN_B, SSD_TRAIN_S, SSD_TRAIN_STEPS = 4, 1024, 6
 TRAIN_CPU_RTOL = 1e-4
 MOE_GEMM_C = 64                      # ops.moe_gemm rows per expert
 PEAK_BF16_FLOPS = 989e12             # H100 SXM, dense bf16
@@ -679,10 +740,11 @@ def flash_phase(dev):
     """The flash kernel against its plain version at the widths of the
     mixtral draft's prefill (32 / 8 heads) and the llama3.2-3b draft's (24 /
     8), and at the head shapes of FA_SHAPES (zamba2-7b's D 112, nemotron's
-    D 192, granite's 48 : 1), bf16 and f32; timed (bf16) at S 512 and 2048
-    (32 heads), S 512 (24 heads) and S 512 of each FA_SHAPES model: event
-    time, and device time from the profiler for the kernel, the plain
-    version and SDPA."""
+    D 192, granite's 48 : 1, whisper-medium's 16 / 16 x 64, also at its
+    served prefill's S 128), bf16 and f32; timed (bf16) at S 512 and 2048
+    (32 heads), S 512 (24 heads), S 512 of each FA_SHAPES model and S 128
+    of whisper-medium: event time, and device time from the profiler for
+    the kernel, the plain version and SDPA."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref as R
@@ -700,6 +762,7 @@ def flash_phase(dev):
                                         None)),
             *((512, None, both, (h, hkv, d, m))
               for m, h, hkv, d in FA_SHAPES),
+            (128, None, both, FA_WHISPER[1:] + FA_WHISPER[:1]),
             (384, 100, both, FA_SHAPES[1][1:] + (None,))):
         for dt_name in dtypes:
             dt = getattr(torch, dt_name)
@@ -727,7 +790,8 @@ def flash_phase(dev):
                                      f"row's max abs err is {row_rel} of its "
                                      f"max |out|")
             del diff
-            if dt_name == "bfloat16" and S in (512, 2048) and window is None:
+            if dt_name == "bfloat16" and window is None and (
+                    S in (512, 2048) or model == FA_WHISPER[0]):
                 bound, by = flash_bound(S, window, 2, H, Hkv, D)
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                 kern = lambda: FA.flash_attention(q, k, v)  # noqa: E731
@@ -772,7 +836,8 @@ def decode_phase(dev):
     f32: one row at each length that fits the cache, and three rows of
     mixed lengths whose every row must equal its own one-row call bit for
     bit.  Timed (bf16, one row) at length 543 of 576 (llama3.2-3b,
-    zamba2-7b) and 4096 of 4112 (mixtral draft)."""
+    zamba2-7b, the dense targets), 4096 of 4112 (mixtral draft) and 192 of
+    192 (whisper-medium's last served step)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
@@ -808,7 +873,8 @@ def decode_phase(dev):
                 k, v = [torch.randn((3, S, Hkv, D), generator=gen,
                                     device=dev).to(dt) for _ in range(2)]
                 errs = {}
-                for n in DECODE_LENGTHS:
+                # the timed length is checked alone too
+                for n in sorted(set(DECODE_LENGTHS) | {mixed[0]}):
                     if n <= S:
                         check(model, dt_name, q[:1], k[:1], v[:1], [n])
                         errs[n] = rows[-1]["max_abs_err"]
@@ -1851,9 +1917,9 @@ def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int,
     ``Engine.submit``, with the launch counts set to 0 just before and read
     just after (each of ``kernels`` must have run; the SSD scan once per
     mamba layer per prefill); then the model's prefill and one decode step
-    timed alone, and every emitted token teacher-forced (under
-    ``attn_impl="kernel"`` through ``teacher_force``, which pads the
-    sequence for flash attention)."""
+    timed alone, and every emitted token teacher-forced
+    (``teacher_force``: ``score``, whose mamba layers run the SSD kernel as
+    the prefill does, over the sequence padded for flash attention)."""
     import torch
     from repro_torch.core.engine import Engine, EngineConfig, Request
     from repro_torch.models.registry import build_model
@@ -1899,9 +1965,6 @@ def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int,
         lambda: target.decode_step(cache, tok, p0.shape[1]), step_ms)
     loss = lossless_phase(target, [(p, r.tokens) for p, r in
                                    zip(prompts, results)], dev,
-                          forward=teacher_force
-                          if cfg.attn_impl == "kernel"
-                          else lambda m, seq: m.forward(seq)[0],
                           margin=SSM_MARGIN)
     if loss["exact"] < SSM_MIN_EXACT * len(prompts) * new_tokens:
         raise AssertionError(f"{name}: only {loss['exact']} of "
@@ -2777,21 +2840,13 @@ def train_run(tr, steps: int, check_layers: bool = False) -> dict:
 MATMUL_NAMES = re.compile(r"gemm|nvjet|cutlass|xmma|wgmma", re.I)
 
 
-def train_breakdown(tr, batch) -> dict:
-    """Where a train step's time goes, on a fresh state of ``tr``: one
-    warm step traced with ``torch.profiler`` (its span between CUDA
-    events, the device's busy ms and idle share, the matmul kernels' ms
-    (cuBLAS / CUTLASS names) and the rest's, by name); and, untraced, one
-    microbatch's forward and backward, and one optimizer update."""
+def traced_step(step) -> dict:
+    """One warm call of ``step`` traced with ``torch.profiler``: its span
+    between CUDA events, the device's busy ms and idle share, the matmul
+    kernels' ms (cuBLAS / CUTLASS names) and the rest's, by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models.train import make_loss_fn
-    state = tr.init_state()
-    params = state["params"]
-
-    def step():
-        return tr.step_fn(params, state["opt"], batch)
     step()
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -2810,7 +2865,24 @@ def train_breakdown(tr, batch) -> dict:
         if not MATMUL_NAMES.search(n):
             key = n.split("<")[0].split("(")[0][:80]
             other[key] = other.get(key, 0.0) + t
-    mb = {k: v[:TRAIN_B // TRAIN_MICRO] for k, v in batch.items()}
+    return {"traced_span_ms": span, "busy_ms": busy,
+            "idle_share": 1 - busy / span, "matmul_ms": mm,
+            "other_ms": busy - mm, "kernels": len(kern),
+            "other_top": dict(sorted(other.items(), key=lambda kv: -kv[1])
+                              [:8])}
+
+
+def train_breakdown(tr, batch, rows: int = TRAIN_B // TRAIN_MICRO) -> dict:
+    """Where a train step's time goes, on a fresh state of ``tr``: one
+    warm step traced (``traced_step``); and, untraced, one forward and
+    backward over the batch's first ``rows`` rows (a microbatch), and one
+    optimizer update."""
+    import torch
+    from repro_torch.models.train import make_loss_fn
+    state = tr.init_state()
+    params = state["params"]
+    out = traced_step(lambda: tr.step_fn(params, state["opt"], batch))
+    mb = {k: v[:rows] for k, v in batch.items()}
     loss_fn = make_loss_fn(tr.model, tr.cfg)
 
     def fb():
@@ -2820,11 +2892,7 @@ def train_breakdown(tr, batch) -> dict:
     grads = {n: g.to(torch.bfloat16) for n, g in zip(params, fb())}
     opt_ms = cuda_ms(lambda: tr.opt.update(dict(grads), state["opt"],
                                            params), iters=3)
-    return {"traced_span_ms": span, "busy_ms": busy,
-            "idle_share": 1 - busy / span, "matmul_ms": mm,
-            "other_ms": busy - mm, "kernels": len(kern),
-            "other_top": dict(sorted(other.items(), key=lambda kv: -kv[1])
-                              [:8]),
+    return {**out, "microbatch_rows": rows,
             "microbatch_forward_backward_ms": fb_ms,
             "optimizer_update_ms": opt_ms}
 
@@ -2886,18 +2954,21 @@ def train_restart_drill(dev) -> dict:
                                     "final_loss": la[-1]}}
 
 
-def card_vs_cpu(dev) -> dict:
-    """One train step's loss and gradients (reduced mixtral, f32, B 4 x S
-    32: the capacity route) on the card against the CPU's, from the same
-    weights and batch: the largest relative error of the loss and of each
-    gradient (to the CPU gradient's largest magnitude)."""
+def card_vs_cpu(dev, arch: str = "mixtral-8x7b") -> dict:
+    """One train step's loss and gradients (``arch`` reduced, f32, B 4 x S
+    32: mixtral's capacity route, the SSD families' plain scan, whisper
+    with frames) on the card against the CPU's, from the same weights and
+    batch: the largest relative error of the loss and of each gradient (to
+    the CPU gradient's largest magnitude)."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.registry import build_model
     from repro_torch.models.train import make_loss_fn
-    cfg = get_config("mixtral-8x7b").reduced(dtype="float32")
-    toks = torch.randint(0, cfg.vocab_size, (4, 33),
-                         generator=torch.Generator().manual_seed(5))
+    cfg = get_config(arch).reduced(dtype="float32")
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (4, 33), generator=gen)
+    frames = torch.randn((4, cfg.encoder_seq, cfg.d_model), generator=gen) \
+        if cfg.family == "encdec" else None
     res = {}
     for where in ("cpu", dev):
         m = build_model(cfg, "cpu", seed=0).to(where)
@@ -2905,6 +2976,8 @@ def card_vs_cpu(dev) -> dict:
             p.requires_grad_(True)
         batch = {"tokens": toks[:, :-1].to(where),
                  "labels": toks[:, 1:].to(where)}
+        if frames is not None:
+            batch["frames"] = frames.to(where)
         loss, _ = make_loss_fn(m, cfg)(batch)
         names = [n for n, _ in m.named_parameters()]
         grads = torch.autograd.grad(loss, list(m.parameters()))
@@ -2914,7 +2987,7 @@ def card_vs_cpu(dev) -> dict:
     errs = {n: float((gg[n] - g).abs().max()) / max(float(g.abs().max()),
                                                     1e-30)
             for n, g in gc_.items()}
-    out = {"loss_rel_err": abs(lg - lc) / abs(lc),
+    out = {"arch": arch, "loss_rel_err": abs(lg - lc) / abs(lc),
            "grad_max_rel_err": max(errs.values()),
            "grad_worst": max(errs, key=errs.get),
            "grad_rel_err": errs, "tol_rel": TRAIN_CPU_RTOL}
@@ -3051,6 +3124,8 @@ def train_child(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    ssd = {arch: ssd_train(dev, arch, layers) for arch, layers in SSD_TRAIN}
+
     info.update({
         "mixtral-8x7b": {"layers": TRAIN_LAYERS, "batch": TRAIN_B,
                          "seq": TRAIN_S, "microbatch": TRAIN_MICRO,
@@ -3061,11 +3136,289 @@ def train_child(dev) -> dict:
                          "first_backward": grads,
                          "adamw": adamw, "adamw8bit_grad_compress": adamw8},
         "llava-next-mistral-7b": {"layers": TRAIN_LAYERS, **vlm},
+        **ssd,
         "card_vs_cpu": card_vs_cpu(dev),
+        "card_vs_cpu_ssd": {arch: card_vs_cpu(dev, arch)
+                            for arch, _ in SSD_TRAIN},
         "guard": guard_on_card(dev),
         "restart": train_restart_drill(dev)})
     log(f"[17] card vs CPU {info['card_vs_cpu']}; restart "
         f"{info['restart']}")
+    info["phase_s"] = time.perf_counter() - t0
+    return info
+
+
+def ssd_train(dev, arch: str, layers) -> dict:
+    """``arch`` (an SSD family) at full width, ``layers`` deep (None: full
+    depth), through ``Trainer.train``: SSD_TRAIN_STEPS AdamW steps whose
+    losses are finite and whose last 3 average below the first, with the
+    scan kernel launched 0 times (the train route scans with the plain
+    ``ssd_ref``); then one served prefill of the trained model (no grad)
+    launching it once per mamba layer; then one step's breakdown on a
+    fresh state (``train_breakdown``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch.train import Trainer
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    shape = ShapeConfig("train", SSD_TRAIN_S, SSD_TRAIN_B, "train")
+    run = RunConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                    total_steps=SSD_TRAIN_STEPS)
+    tr = Trainer(cfg, shape, run, device=dev)
+    reset_launches(trace=False)
+    out = train_run(tr, SSD_TRAIN_STEPS)
+    trained = read_launches(f"{arch} training", kernels=())["ssd_scan"]
+    if trained != 0:
+        raise AssertionError(f"{arch}: the SSD kernel launched {trained} "
+                             f"times in training")
+    if not sum(out["losses"][-3:]) / 3 < out["losses"][0]:
+        raise AssertionError(f"{arch} losses did not fall: {out['losses']}")
+    toks = torch.randint(0, cfg.vocab_size, (1, 512), device=dev,
+                         generator=torch.Generator(dev).manual_seed(73))
+    reset_launches(trace=False)
+    with torch.no_grad():
+        tr.model.prefill(toks, 512)
+    served = read_launches(f"{arch} prefill after training",
+                           ("ssd_scan",))["ssd_scan"]
+    if served != mamba_layers(cfg):
+        raise AssertionError(f"{arch}: {served} SSD launches in a prefill, "
+                             f"expected {mamba_layers(cfg)}")
+    pipe = make_pipeline(cfg, shape)
+    try:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
+    finally:
+        pipe.close()
+    out["breakdown"] = train_breakdown(tr, batch, rows=SSD_TRAIN_B)
+    del batch
+    out.update({"layers": cfg.num_layers, "mamba_layers": mamba_layers(cfg),
+                "batch": SSD_TRAIN_B, "seq": SSD_TRAIN_S,
+                "params": sum(p.numel() for p in tr.model.parameters()),
+                "ssd_launches_training": trained,
+                "ssd_launches_prefill_after": served})
+    log(f"[17] {arch} ({cfg.num_layers} layers): losses {out['losses']}, "
+        f"median step {out['median_step_ms_after_first']:.1f} ms, peak "
+        f"{out['device_max_allocated_bytes'] / 2**30:.1f} GiB")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: whisper-medium (encdec) served and trained, in a child process
+# ---------------------------------------------------------------------------
+
+def whisper_teacher_force(model, seq, frames):
+    """Logits of one train-mode pass over seq [1, S] (no grad), padded at
+    its end to a multiple of 128 past 128 (flash's precondition): causal
+    self-attention and per-query cross-attention keep the padding out of
+    every earlier position."""
+    import torch
+    S = seq.shape[1]
+    pad = (-S) % 128 if S > 128 else 0
+    if pad:
+        seq = torch.cat([seq, torch.zeros((1, pad), dtype=seq.dtype,
+                                          device=seq.device)], dim=1)
+    with torch.no_grad():
+        return model.forward(seq, frames)[0][:, :S]
+
+
+def whisper_serve(dev) -> dict:
+    """whisper-medium served under ``attn_impl="kernel"``: encode + prefill
+    of a WHISPER_PROMPT-token prompt, then WHISPER_NEW greedy one-token
+    steps, the launch counts set to 0 just before and read just after
+    (flash once per decoder layer in the prefill, flash-decode once per
+    decoder layer per step; every call at 16 / 16 x 64; the encoder and the
+    cross-attention run ``mha``); served again for its times (the same
+    tokens); one step timed and traced; every token teacher-forced."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_config("whisper-medium"),
+                              attn_impl="kernel")
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    reset_peak()
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frames = torch.randn((1, cfg.encoder_seq, cfg.d_model), device=dev,
+                         generator=torch.Generator(dev).manual_seed(70)
+                         ).to(model.dtype)
+    prompt = torch.randint(0, cfg.vocab_size, (1, WHISPER_PROMPT),
+                           generator=torch.Generator().manual_seed(71))
+    p = prompt.to(dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def serve():
+        """-> (tokens [1 + WHISPER_NEW] on the device, cache)"""
+        ev[0].record()
+        logits, cache = model.prefill(p, WHISPER_MAX_SEQ, frames)
+        ev[1].record()
+        tok = logits.argmax(-1)
+        out = [tok]
+        for i in range(WHISPER_NEW):
+            logits, cache, _ = model.decode_step(cache, tok[:, None],
+                                                 WHISPER_PROMPT + i)
+            tok = logits[:, -1].argmax(-1)
+            out.append(tok)
+        ev[2].record()
+        return torch.cat(out), cache
+
+    with torch.no_grad(), attention_shapes() as shapes:
+        reset_launches(trace=False)
+        t0 = time.perf_counter()
+        tokens, cache = serve()
+        torch.cuda.synchronize()
+        first_wall = time.perf_counter() - t0
+        launches = read_launches("whisper-medium serving",
+                                 ("flash_attention", "decode_attention"))
+    want = {"flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * WHISPER_NEW}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"whisper-medium: launches {launches}, "
+                             f"expected {want}")
+    want_shapes = {(k, *heads) for k in want}
+    if shapes != want_shapes:
+        raise AssertionError(f"whisper-medium: attention ran at "
+                             f"{sorted(shapes)}, not {sorted(want_shapes)}")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        again, cache = serve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not torch.equal(again, tokens):
+            raise AssertionError("whisper-medium: served again, other "
+                                 "tokens")
+        prefill_ms = ev[0].elapsed_time(ev[1])
+        steps_ms = ev[1].elapsed_time(ev[2])
+        encode_ms = cuda_ms(lambda: model.encode(frames), iters=3)
+        tok = tokens[-1:][:, None]
+        step_ms = cuda_ms(lambda: model.decode_step(cache, tok,
+                                                    WHISPER_PROMPT))
+        step_prof = device_profile(
+            lambda: model.decode_step(cache, tok, WHISPER_PROMPT), step_ms,
+            FOCUS_DECODE)
+    del cache
+    emitted = tokens.tolist()
+    loss = lossless_phase(
+        model, [(prompt, emitted)], dev,
+        forward=lambda m, seq: whisper_teacher_force(m, seq, frames),
+        margin=WHISPER_MARGIN)
+    if loss["exact"] < WHISPER_MIN_EXACT * len(emitted):
+        raise AssertionError(f"whisper-medium: only {loss['exact']} of "
+                             f"{len(emitted)} tokens are the teacher-forced "
+                             f"argmax")
+    info = {"model": cfg.name, "encoder_layers": cfg.encoder_layers,
+            "decoder_layers": cfg.num_layers,
+            "encoder_seq": cfg.encoder_seq, "prompt": WHISPER_PROMPT,
+            "new_tokens": WHISPER_NEW, "max_seq": WHISPER_MAX_SEQ,
+            "heads": {"H": heads[0], "Hkv": heads[1], "D": heads[2]},
+            "attention_calls": sorted(shapes),
+            "params": sum(t.numel() for t in model.parameters()),
+            "model_init_s": init_s, "first_wall_s": first_wall,
+            "wall_s": wall, "encode_ms": encode_ms,
+            "prefill_ms": prefill_ms,
+            "tpot_ms": steps_ms / WHISPER_NEW,
+            "tpot_wall_s": (wall - prefill_ms / 1e3) / WHISPER_NEW,
+            "decode_step_ms": step_ms, "decode_step_profile": step_prof,
+            "launches": {k: launches[k] for k in want},
+            "launches_host": {k: launches["host"][k] for k in want},
+            "lossless": loss,
+            "device_max_allocated_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[18] whisper-medium served: encode {encode_ms:.2f} ms, prefill "
+        f"{prefill_ms:.2f} ms, TPOT {info['tpot_ms']:.2f} ms, launches "
+        f"{info['launches']}, lossless {loss}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def whisper_train(dev) -> dict:
+    """whisper-medium trained through ``make_train_step`` (the Trainer's
+    pipeline gives no frames, as the reference's gives none) under
+    ``attn_impl="xla"``: WHISPER_TRAIN_STEPS AdamW steps on the port's
+    pipeline's tokens with a seeded frames batch each step; losses finite,
+    the last 3 below the first; step ms (CUDA events), tokens/s, peak."""
+    import statistics
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.train import make_train_step
+    from repro_torch.optim.optimizer import make_optimizer, warmup_cosine
+    cfg = get_config("whisper-medium")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_peak()
+    model = build_model(cfg, dev, seed=0)
+    for prm in model.parameters():
+        prm.requires_grad_(True)
+    opt = make_optimizer("adamw", warmup_cosine(
+        WHISPER_TRAIN_LR, TRAIN_WARMUP, WHISPER_TRAIN_STEPS))
+    step = make_train_step(model, cfg, RunConfig(), opt)
+    params = dict(model.named_parameters())
+    state = opt.init(params)
+    shape = ShapeConfig("train", WHISPER_TRAIN_S, WHISPER_TRAIN_B, "train")
+    gen = torch.Generator(dev).manual_seed(72)
+    pipe = make_pipeline(cfg, shape)
+    losses, norms, ms = [], [], []
+    try:
+        for _ in range(WHISPER_TRAIN_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in next(pipe).items()}
+            batch["frames"] = torch.randn(
+                (WHISPER_TRAIN_B, cfg.encoder_seq, cfg.d_model), device=dev,
+                generator=gen).to(model.dtype)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            params, state, metrics = step(params, state, batch)
+            ev[1].record()
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            ms.append(ev[0].elapsed_time(ev[1]))
+    finally:
+        pipe.close()
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"whisper-medium: losses {losses}, grad norms "
+                             f"{norms}")
+    if not sum(losses[-3:]) / 3 < losses[0]:
+        raise AssertionError(f"whisper-medium losses did not fall: "
+                             f"{losses}")
+    breakdown = traced_step(lambda: step(params, state, batch))
+    med = statistics.median(ms[1:])
+    tokens = WHISPER_TRAIN_B * WHISPER_TRAIN_S
+    out = {"batch": WHISPER_TRAIN_B, "seq": WHISPER_TRAIN_S,
+           "frames": [WHISPER_TRAIN_B, cfg.encoder_seq, cfg.d_model],
+           "attn_impl": cfg.attn_impl, "remat": cfg.remat_policy,
+           "learning_rate": WHISPER_TRAIN_LR, "losses": losses,
+           "grad_norm": norms,
+           "step_ms": ms, "median_step_ms_after_first": med,
+           "tokens_per_s": tokens / (med / 1e3), "breakdown": breakdown,
+           "params": sum(prm.numel() for prm in params.values()),
+           "device_max_allocated_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[18] whisper-medium trained: losses {losses}, median step "
+        f"{med:.1f} ms, peak {out['device_max_allocated_bytes'] / 2**30:.1f}"
+        f" GiB")
+    del model, params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_child(dev) -> dict:
+    """Phase 18 on its own (see the module docstring)."""
+    t0 = time.perf_counter()
+    info = {"serve": whisper_serve(dev), "train": whisper_train(dev),
+            "card_vs_cpu": card_vs_cpu(dev, "whisper-medium")}
+    log(f"[18] whisper-medium card vs CPU: gradients within "
+        f"{info['card_vs_cpu']['grad_max_rel_err']}")
     info["phase_s"] = time.perf_counter() - t0
     return info
 
@@ -3123,7 +3476,8 @@ def run_child(phase: str, *args) -> dict:
 
 def child_main(phase: str, *args) -> int:
     """A phase in a process of its own: the chaos phase, one dense target
-    (``dense <arch>``) or training; prints its result as one JSON line."""
+    (``dense <arch>``), training or whisper-medium; prints its result as
+    one JSON line."""
     if phase == "train":   # cuBLAS's workspace for deterministic algorithms
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
@@ -3141,6 +3495,8 @@ def child_main(phase: str, *args) -> int:
         info = dense_phase(dev, arch, layers, seed)
     elif phase == "train":
         info = train_child(dev)
+    elif phase == "whisper":
+        info = whisper_child(dev)
     else:
         raise ValueError(f"no phase {phase!r}")
     info["process_peaks"] = {
@@ -3191,6 +3547,9 @@ def main() -> int:
             f"{d['device_max_allocated_bytes'] / 2**30:.1f} GiB")
     train_info = run_child("train")
     log(f"[17] training ok in {train_info['phase_s']:.1f} s")
+    whisper_info = run_child("whisper")
+    log(f"[18] whisper-medium served and trained in "
+        f"{whisper_info['phase_s']:.1f} s")
 
     mixtral = get_config("mixtral-8x7b")
     rows, main_k = kernel_phase(dev, mixtral.d_model, mixtral.moe_d_ff)
@@ -3338,6 +3697,8 @@ def main() -> int:
         "launches_solo_path": solo_launches["flash_attention"],
         "launches_dense_paths": {a: d["launches"]["flash_attention"]
                                  for a, d in dense_targets.items()},
+        "launches_whisper_path": whisper_info["serve"]["launches"][
+            "flash_attention"],
         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -3368,6 +3729,8 @@ def main() -> int:
         "launches_gelu_path": gelu_info["launches"]["decode_attention"],
         "launches_dense_paths": {a: d["launches"]["decode_attention"]
                                  for a, d in dense_targets.items()},
+        "launches_whisper_path": whisper_info["serve"]["launches"][
+            "decode_attention"],
         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -3433,6 +3796,26 @@ def main() -> int:
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "device_ms": t["device_ms"],
                 "library_device_ms": t["library_device_ms"]})
+    # flash and flash-decode at whisper-medium's 16 / 16 x 64 (phase 18):
+    # the served prefill's S 128 and the last served step's 192 keys
+    wserve = whisper_info["serve"]
+    for name, t, source, line in (
+            ("flash_attention", fa_timing[f"{WHISPER_PROMPT}_whisper-medium"],
+             "flash_attention.cu", "flash_attention.py:27"),
+            ("decode_attention", dec_timing["whisper-medium"],
+             "decode_attention.cu", "decode_attention.py:26")):
+        kernels.append({
+            "name": f"{name}_whisper", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{line}",
+            "launches": wserve["launches"][name],
+            "launches_host": wserve["launches_host"][name],
+            "H": t["H"], "Hkv": t["Hkv"], "D": t["D"],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"decode_timing": dec_timing}))
     print(json.dumps({"flash_timing": {
@@ -3470,6 +3853,7 @@ def main() -> int:
     print(json.dumps({"dense_targets": dense_targets}))
     print(json.dumps({"chaos_requests": chaos_info}))
     print(json.dumps({"train": train_info}))
+    print(json.dumps({"whisper": whisper_info}))
     print(json.dumps({"deepseek_requests": ds_info}))
     print(json.dumps({"deepseek_kernel_timing": {
         "shape": {"d": DS_D, "f": DS_F, "k": DS_K, "pool": DS_TIGHT,
@@ -3498,7 +3882,7 @@ def main() -> int:
         "child_processes": {
             name: info["process_peaks"] for name, info in (
                 ("chaos", chaos_info), *dense_targets.items(),
-                ("train", train_info))},
+                ("train", train_info), ("whisper", whisper_info))},
         "pinned_staging_bytes": {"tight": tight_info["pinned_staging_bytes"],
                                  "ample": ample_info["pinned_staging_bytes"]},
         "host_max_rss_bytes":

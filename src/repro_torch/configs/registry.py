@@ -10,9 +10,12 @@ command-r-35b (swiglu, tied embeddings, vocab 256000), granite-20b (MQA,
 a two-matrix gelu FFN) and nemotron-4-340b (head dim 192, a squared-ReLU
 FFN); and the SSD families:
 mamba2-780m (ssm) and zamba2-7b (hybrid), served greedy with all weights
-resident; and llava-next-mistral-7b (vlm: a mistral-7b backbone fed
-prepended patch embeddings), which the port trains.  An MoE draft keeps its experts resident on the device; only the
-target's are offloaded."""
+resident; llava-next-mistral-7b (vlm: a mistral-7b backbone fed
+prepended patch embeddings), which the port trains; and whisper-medium
+(encdec: 24 encoder + 24 decoder blocks over stubbed frame embeddings),
+which the port serves through its own prefill / decode steps and trains.
+An MoE draft keeps its experts resident on the device; only the target's
+are offloaded."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -21,7 +24,7 @@ from repro_torch.configs import (command_r_35b, deepseek_v2_lite_16b,
                                  granite_20b, llama3_2_3b,
                                  llava_next_mistral_7b, mamba2_780m,
                                  mixtral_8x7b, nemotron_4_340b, phi_3_5_moe,
-                                 zamba2_7b)
+                                 whisper_medium, zamba2_7b)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
@@ -35,6 +38,7 @@ ARCHS: Dict[str, ModelConfig] = {
     "mamba2-780m": mamba2_780m.CONFIG,
     "zamba2-7b": zamba2_7b.CONFIG,
     "llava-next-mistral-7b": llava_next_mistral_7b.CONFIG,
+    "whisper-medium": whisper_medium.CONFIG,
 }
 
 # SP-MoE draft-model pairings (paper Table 1).  The deepseek draft is the

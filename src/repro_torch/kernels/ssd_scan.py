@@ -84,10 +84,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     final_state [b,h,p,n] f32), from a zero initial state.  s must be a
     multiple of ``chunk``; padded steps with dt = 0 leave the state
     unchanged.  Raises under autograd (``kernels/guard.py``): SSD-family
-    training is not ported yet."""
+    training takes the plain scan (``mamba_forward``'s train route)."""
     refuse_autograd("ssd_scan", x, dt, A, B, C,
-                    note="; SSD-family (ssm / hybrid) training is not "
-                         "ported yet")
+                    note="; SSD-family (ssm / hybrid) training takes the "
+                         "plain ref.ssd_ref (models/mamba.py::mamba_forward"
+                         ", train=True)")
     if x.device.type == "cpu":
         return R.ssd_ref(x, dt, A, B, C, chunk)
     _check(x, dt, A, B, C, chunk)

@@ -38,11 +38,21 @@ class Trainer:
     ``step_ms`` holds each step's time on the card (CUDA events around the
     step; empty on the CPU), ``step_s`` its host time, which ends in the
     loss readback, and ``metrics`` its metrics as the step returned them
-    (0-d device tensors, read by no step)."""
+    (0-d device tensors, read by no step).
+
+    An encdec model (whisper) is refused: the pipeline gives no ``frames``,
+    as the reference's gives none; it trains through
+    ``models/train.py::make_train_step`` with a batch that holds them."""
 
     def __init__(self, cfg, shape: ShapeConfig, run: RunConfig,
                  device: DeviceLike = None, ckpt_dir: Optional[str] = None,
                  grad_compress: bool = False, seed: int = 0):
+        if cfg.family == "encdec":
+            raise ValueError(
+                f"{cfg.name}: the Trainer's data pipeline gives no frames "
+                f"for an encdec model; train it through "
+                f"models/train.py::make_train_step with a batch that holds "
+                f"frames [B, encoder_seq, d_model]")
         self.cfg, self.shape, self.run = cfg, shape, run
         self.device = resolve_device(device)
         self.seed = seed

@@ -2,9 +2,10 @@
 as from ``jax.tree.map(np.asarray, params)``) into the port's modules.
 
 The reference stacks layers of one structure along leading axes, which are
-unstacked here: ``layers``, ``dense_layers`` and ``tail`` are ``[L, ...]``
-and become ``layers.<l>.<path>``, ``dense_layers.<l>.<path>`` and
-``tail.<t>.<path>``; a hybrid model's
+unstacked here: ``layers``, ``dense_layers``, ``tail`` and an encdec
+model's ``enc`` / ``dec`` are ``[L, ...]`` and become
+``layers.<l>.<path>``, ``dense_layers.<l>.<path>``, ``tail.<t>.<path>``,
+``enc.<l>.<path>`` and ``dec.<l>.<path>``; a hybrid model's
 ``mamba_groups`` is ``[G, per, ...]`` and becomes
 ``mamba_groups.<g>.<i>.<path>``.  Any other subtree
 (``shared_attn``, one block whose weights every group reuses) keeps its
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 
 # top-level subtree -> number of stacked leading axes
-STACKED = {"layers": 1, "dense_layers": 1, "tail": 1, "mamba_groups": 2}
+STACKED = {"layers": 1, "dense_layers": 1, "tail": 1, "mamba_groups": 2,
+           "enc": 1, "dec": 1}
 
 
 def _tensor(a: Any) -> torch.Tensor:

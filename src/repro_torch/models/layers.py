@@ -6,9 +6,11 @@ Functions take their weights as attributes of a module (``p.wq``) in the
 reference's layouts (``wq [d, H, hd]``, ``wo [H, hd, d]``, ``wg [d, f]``) and
 compute in the input's dtype; reductions (softmax, norms) run in f32, as the
 reference does.  Attention is plain tensor ops, as the reference's ``mha`` is
-plain jnp, except under ``attn_impl="kernel"``: there full-sequence attention
-runs the flash-attention kernel and a one-token decode step over a plain
-prefix the flash-decode kernel (``kernels/ops.py``).  MLA is plain tensor
+plain jnp, except under ``attn_impl="kernel"``: there causal full-sequence
+self-attention runs the flash-attention kernel and a one-token decode step
+over a plain prefix the flash-decode kernel (``kernels/ops.py``); an
+encoder's bidirectional attention (a ``mask``) and cross-attention
+(``kv_override``) stay plain, as in the reference.  MLA is plain tensor
 ops under every ``attn_impl``, as in the reference: its q/k heads (nope +
 rope) are wider than its v heads, and its decode attends in the latent
 space, so neither attention kernel computes it.
@@ -127,29 +129,43 @@ def causal_mask(sq: int, skv: int, window: Optional[int] = None,
 # ---------------------------------------------------------------------------
 
 def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
-                      positions: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      positions: Optional[torch.Tensor] = None,
+                      mask: Optional[torch.Tensor] = None,
+                      kv_override: Optional[Tuple[torch.Tensor,
+                                                  torch.Tensor]] = None,
+                      use_rope: bool = True) -> torch.Tensor:
     """Full-sequence attention (train / prefill), x: [B,S,D].
 
-    ``attn_impl="kernel"`` without a logit softcap goes through the flash
-    attention kernel with the reference's blocks, ``min(128, S)`` each (so
-    S must be a multiple of 128 once it exceeds 128, as in the reference);
-    anything else through ``mha``.  The port has no mask or cross-attention
-    arguments here, the reference's other two conditions for the kernel."""
+    ``kv_override`` (k, v ``[B, Skv, Hkv, hd]``) supplies the keys and
+    values (cross-attention: no rope on them); ``mask`` (broadcastable to
+    ``mha``'s) is used as given; with neither, the mask is causal (and
+    windowed under ``sliding_window``).  ``use_rope=False`` leaves q (and
+    k) unrotated.  ``attn_impl="kernel"`` with no mask, no override and no
+    logit softcap goes through the flash attention kernel with the
+    reference's blocks, ``min(128, S)`` each (so S must be a multiple of
+    128 once it exceeds 128, as in the reference); anything else through
+    ``mha``, as the reference's conditions for its kernel are."""
     B, S, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    if cfg.attn_impl == "kernel" and cfg.attn_logit_softcap is None:
+    if kv_override is not None:                      # cross-attention
+        k, v = kv_override
+    else:
+        k = torch.einsum("bsd,dhk->bshk", x, p.wk)
+        v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        if kv_override is None:
+            k = apply_rope(k, positions, cfg.rope_theta)
+    if (cfg.attn_impl == "kernel" and kv_override is None and mask is None
+            and cfg.attn_logit_softcap is None):
         out = ops.flash_attention(q, k, v, causal=True,
                                   window=cfg.sliding_window,
                                   block_q=min(128, S), block_k=min(128, S))
     else:
-        mask = causal_mask(S, S, cfg.sliding_window, x.device)
+        if mask is None and kv_override is None:
+            mask = causal_mask(S, S, cfg.sliding_window, x.device)
         out = mha(q, k, v, mask, cfg.attn_logit_softcap)
     return torch.einsum("bshk,hkd->bsd", out, p.wo)
 

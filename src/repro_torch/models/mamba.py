@@ -1,11 +1,16 @@
 """Mamba2 (SSD) block: in_proj -> causal conv -> SSD -> gated RMSNorm ->
 out_proj.  The port of ``repro/models/mamba.py``.
 
-Single B/C group.  The full-sequence path (train and prefill) takes y, and
-in prefill also the final SSM state, from ONE call of ``ops.ssd``: the
-chunked-scan kernel on the card, ``ref.ssd_ref`` on the CPU.  The reference
-runs ``ssd_ref`` twice in prefill (here and in
-``transformer._mamba_prefill_cache``); both give the same state.  Decode is
+Single B/C group.  The serving full-sequence path (prefill, ``score``)
+takes y, and in prefill also the final SSM state, from ONE call of
+``ops.ssd``: the chunked-scan kernel on the card, ``ref.ssd_ref`` on the
+CPU.  The reference runs ``ssd_ref`` twice in prefill (here and in
+``transformer._mamba_prefill_cache``); both give the same state.  The
+train-mode forward (``train=True``, which ``DecoderLM``'s train mode
+passes) computes the scan with the plain ``ref.ssd_ref``, differentiated
+by autograd: the reference's ``mamba_forward`` runs ``ssd_ref`` on every
+path and trains through none of its Pallas kernels, and the scan kernel has
+no backward (its wrapper raises under autograd).  Decode is
 the O(1) recurrent update with a rolling conv window, plain torch as in the
 reference (``ref.ssd_decode_ref``), one token at a time; it is written with
 matrix products and broadcasts rather than ``einsum``, which launches
@@ -85,12 +90,14 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 
 
 def mamba_forward(p: Mamba, x: torch.Tensor, cfg: ModelConfig,
-                  with_cache: bool = False
+                  with_cache: bool = False, train: bool = False
                   ) -> Union[torch.Tensor, Tuple[torch.Tensor, Cache]]:
     """x: [B,S,d] -> [B,S,d] (full-sequence SSD).  With ``with_cache`` also
     the decode cache after the sequence: ``{"ssm": final state [B,H,P,N]
     f32, "conv": the last W-1 pre-conv rows [B,W-1,conv_ch]}``, from the
-    same ``ops.ssd`` call.
+    same scan.  The scan is ``ops.ssd`` (the kernel on the card), or with
+    ``train`` the plain ``ref.ssd_ref``, which autograd differentiates
+    (the train route, chosen by the caller's mode, not on failure).
 
     The chunk is ``min(ssm_chunk, S)``; a longer S that it does not divide
     is padded at the end with dt = 0, which leaves the state unchanged."""
@@ -111,7 +118,8 @@ def mamba_forward(p: Mamba, x: torch.Tensor, cfg: ModelConfig,
     if pad:
         ins = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in ins]
     xp, dtp, Bp, Cp = (t.contiguous() for t in ins)
-    y, state = ops.ssd(xp, dtp, A, Bp, Cp, chunk)
+    scan = R.ssd_ref if train else ops.ssd
+    y, state = scan(xp, dtp, A, Bp, Cp, chunk)
     y = y[:, :S] + xh * p.D[:, None]
     y = y.reshape(Bsz, S, d_in).to(x.dtype)
     y = L.rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)

@@ -8,7 +8,8 @@ batch[, ef_state]) -> (params, opt_state[, ef_state], metrics)``, where
 and are updated in place; ``metrics`` holds ``loss``, ``ce``, ``aux_loss``
 and ``grad_norm`` as 0-d device tensors and ``lr`` as a float.  A batch is
 a dict of tensors on the model's device: ``tokens`` and ``labels`` [B, S]
-and, for a vlm, ``patch_embeds`` [B, P, d].  Per-layer remat is the
+and, for a vlm, ``patch_embeds`` [B, P, d], for an encdec model
+``frames`` [B, encoder_seq, d].  Per-layer remat is the
 model's (``cfg.remat``); the reference's pjit shardings do not apply (one
 device).
 """
@@ -48,13 +49,15 @@ def _accumulate(gsum: Tensors, grads: Tensors):
 def make_loss_fn(model, cfg: ModelConfig):
     """batch -> (loss, {"ce", "aux_loss"}); loss = ce + router_aux_loss_coef
     · aux."""
-    if cfg.family == "encdec":
-        raise NotImplementedError("encoder-decoder models are not ported yet")
-
     def loss_fn(batch: Tensors) -> Tuple[torch.Tensor, Tensors]:
         if cfg.family == "vlm":
             logits, aux = model.forward(batch["tokens"],
                                         patch_embeds=batch["patch_embeds"])
+        elif cfg.family == "encdec":
+            if "frames" not in batch:
+                raise ValueError(f"{cfg.name}: an encdec batch needs frames "
+                                 f"[B, encoder_seq, d_model]")
+            logits, aux = model.forward(batch["tokens"], batch["frames"])
         else:
             logits, aux = model.forward(batch["tokens"])
         ce = cross_entropy(logits, batch["labels"])

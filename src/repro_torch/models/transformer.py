@@ -27,8 +27,10 @@ Four modes share one block function:
 * ``forward``      full sequence, no cache -> (logits, aux): the training
                    mode.  MoE layers route with the reference's rule
                    (``moe.moe_forward``: capacity routing with drops for
-                   rows longer than 8 tokens), and with ``cfg.remat`` each
-                   block is checkpointed when autograd records it
+                   rows longer than 8 tokens), mamba layers scan with the
+                   plain ``ssd_ref`` (``mamba_forward(train=True)``), and
+                   with ``cfg.remat`` each block is checkpointed when
+                   autograd records it
 * ``score``        full sequence, no cache -> logits, every MoE layer
                    drop-free as the serving paths route it (what a served
                    stream is teacher-forced against)
@@ -177,9 +179,10 @@ class DecoderLM(nn.Module):
                  expert_device: DeviceLike = None):
         super().__init__()
         if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
-            raise NotImplementedError(
-                f"{cfg.name}: only dense, moe, ssm, hybrid and vlm models "
-                f"are ported yet")
+            raise ValueError(
+                f"{cfg.name}: DecoderLM takes the dense, moe, ssm, hybrid "
+                f"and vlm families; an encdec model is EncDecLM "
+                f"(models/encdec.py)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
@@ -339,7 +342,8 @@ class DecoderLM(nn.Module):
                 y, new = M.mamba_forward(blk.mamba, h, cfg, with_cache=True)
                 cache_l.update(new)
             else:
-                y = M.mamba_forward(blk.mamba, h, cfg)
+                y = M.mamba_forward(blk.mamba, h, cfg,
+                                    train=(mode == "train"))
             x = x + y
             return x, aux, x
         if mode == "decode":

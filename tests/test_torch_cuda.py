@@ -8,8 +8,10 @@ fused cross-session rounds and under seeded I/O faults, back-to-back
 staging through pinned buffers, the dense targets served greedy and
 speculatively through flash-decode, the SSD families' models on the card against
 themselves on the CPU, captured steps (a replay's kernels in a trace, a
-capture that fails), ``ops.moe_gemm`` (the dense-layout entry point) and a
-train step on the card against the CPU.  Every test is
+capture that fails), ``ops.moe_gemm`` (the dense-layout entry point), a
+train step on the card against the CPU (mixtral, the SSD families' plain
+scan, whisper with frames), the attention kernels at whisper-medium's 16 /
+16 x 64 and reduced whisper on the card against the CPU.  Every test is
 marked ``cuda`` and skips without a card (the kernels have no CPU mode).
 This file imports nothing of JAX, so it also runs where JAX is not
 installed:
@@ -369,6 +371,7 @@ def test_ffn_refuses_bf16_rows_it_cannot_copy(cuda):
     (96, 8, 192, 300, (300, 1, 129), 5),       # nemotron-4-340b's heads
     (48, 1, 128, 4112, (4096, 64, 65), 13),    # granite-20b's 48 : 1
     (48, 1, 192, 200, (200, 1, 129), 4),       # 48 : 1 at D 192
+    (16, 16, 64, 192, (192, 129, 160), 3),     # whisper-medium's steps
 ])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
@@ -690,6 +693,8 @@ def test_deepseek_fused_round_equals_solo_blocks_on_the_card(cuda):
     (1, 256, 256, 8, 8, 192, 40),        # D 192, a window
     (1, 128, 512, 8, 1, 192, None),      # D 192, Sq < Skv
     (1, 256, 256, 48, 1, 128, None),     # granite-20b's 48 : 1
+    (1, 128, 128, 16, 16, 64, None),     # whisper-medium's served prefill
+    (2, 512, 512, 16, 16, 64, None),     # whisper-medium, two rows
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
@@ -996,9 +1001,23 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     on the card against the same step on the CPU, from the same weights and
     batch: the loss and every gradient (through the step's own gradient
     function) within 1e-4 relative."""
-    from repro_torch.configs.base import RunConfig
+    _card_vs_cpu_step(cuda, "mixtral-8x7b")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b",
+                                  "whisper-medium"])
+def test_other_families_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """The same for the SSD families (the plain scan ``ssd_ref`` on both
+    devices; the kernel's wrapper is never called) and whisper (a frames
+    batch)."""
+    before = ops.ssd.launches
+    _card_vs_cpu_step(cuda, arch)
+    assert ops.ssd.launches == before
+
+
+def _card_vs_cpu_step(cuda, arch):
     from repro_torch.models.train import make_loss_fn
-    cfg = get_config("mixtral-8x7b").reduced(dtype="float32")
+    cfg = get_config(arch).reduced(dtype="float32")
     models = {}
     for dev in ("cpu", cuda):
         m = build_model(cfg, "cpu", seed=0).to(dev)
@@ -1007,9 +1026,12 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         models[str(dev)] = m
     gen = torch.Generator().manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (4, 33), generator=gen)
+    frames = torch.randn((4, cfg.encoder_seq, cfg.d_model), generator=gen)
     out = {}
     for dev, m in models.items():
         batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        if cfg.family == "encdec":
+            batch["frames"] = frames.to(dev)
         loss, _ = make_loss_fn(m, cfg)(batch)
         names = [n for n, _ in m.named_parameters()]
         grads = torch.autograd.grad(loss, [p for _, p in m.named_parameters()])
@@ -1022,3 +1044,39 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         err = float((gg[n] - g).abs().max()) / max(float(g.abs().max()),
                                                     1e-30)
         assert err <= 1e-4, (n, err)
+
+
+@pytest.mark.parametrize("over", [{}, {"head_dim": 64,
+                                       "attn_impl": "kernel"}],
+                         ids=["xla", "kernel-hd64"])
+def test_whisper_on_the_card_matches_the_cpu(cuda, over):
+    """Reduced whisper in f32, the same weights on both devices: prefill
+    and four one-token steps give the same logits within 1e-4 (under
+    ``attn_impl="kernel"`` at head dim 64: flash once per decoder layer in
+    the prefill, flash-decode once per decoder layer per step on the card,
+    their plain versions on the CPU), and so does the train-mode forward."""
+    cfg = get_config("whisper-medium").reduced(dtype="float32", **over)
+    cpu = build_model(cfg, "cpu", seed=0)
+    gpu = build_model(cfg, cuda, seed=0)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen)
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen)
+    n0 = (FA.flash_attention.launches, DA.decode_attention.launches)
+    with torch.no_grad():
+        lc, cc = cpu.prefill(prompt, 40, frames)
+        lg, cg = gpu.prefill(prompt.to(cuda), 40, frames.to(cuda))
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=0)
+        tok = torch.argmax(lc, -1)[:, None]
+        for pos in range(24, 28):
+            lc, cc, _ = cpu.decode_step(cc, tok, pos)
+            lg, cg, _ = gpu.decode_step(cg, tok.to(cuda), pos)
+            torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=0)
+            tok = torch.argmax(lc[:, -1], -1)[:, None]
+        fc, _ = cpu.forward(prompt, frames)
+        fg, _ = gpu.forward(prompt.to(cuda), frames.to(cuda))
+        torch.testing.assert_close(fg.cpu(), fc, atol=1e-4, rtol=0)
+    n1 = (FA.flash_attention.launches, DA.decode_attention.launches)
+    kernel = cfg.attn_impl == "kernel"
+    assert n1[0] - n0[0] == 2 * cfg.num_layers * kernel
+    assert n1[1] - n0[1] == 4 * cfg.num_layers * kernel

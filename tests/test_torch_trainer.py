@@ -6,7 +6,10 @@ converges; an injected failure at step 9 resumes from the step-8
 checkpoint and finishes with 12 losses), the example's failure and
 restart, and the entry points asking for the card (raising without one)
 unless told ``--device cpu``.  A tiny llama3.2-3b (2 layers, d 32) as in
-the reference's tests, and a tiny mixtral for the MoE train route."""
+the reference's tests, a tiny mixtral for the MoE train route, and tiny
+mamba2-780m / zamba2-7b for the SSD families' train route (the plain scan;
+the kernel's wrapper is never called) with their f32 ``A_log`` / ``D`` /
+``dt_bias`` through the checkpoint; the launcher trains mamba2 too."""
 import importlib.util
 import sys
 import tempfile
@@ -74,6 +77,44 @@ def test_checkpoint_restart_resumes_identically():
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b"])
+def test_ssd_family_trains_and_restarts_bit_for_bit(arch, monkeypatch):
+    """The Trainer trains the SSD families unchanged: the loss falls over 25
+    steps without one call of the scan kernel's wrapper ``ops.ssd``; 10
+    steps straight equal 5 + restart + 5 bit for bit, and the checkpoint
+    holds the mamba blocks' f32 parameters as f32."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.kernels import ops
+    from repro_torch.models import mamba as M
+    wrapper, calls = ops.ssd, []
+    monkeypatch.setattr(M.ops, "ssd",
+                        lambda *a: calls.append(1) or wrapper(*a))
+    tr, cfg = _tiny_trainer(arch=arch)
+    _, losses = tr.train(25, log_every=0)
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.1, losses
+    assert calls == []
+    f32 = [n for n, p in tr.model.named_parameters()
+           if n.endswith(("mamba.A_log", "mamba.D", "mamba.dt_bias"))]
+    assert f32 and all(dict(tr.model.named_parameters())[n].dtype ==
+                       torch.float32 for n in f32)
+    with tempfile.TemporaryDirectory() as d:
+        tr, _ = _tiny_trainer(arch=arch)
+        state_a, losses_a = tr.train(10, log_every=0)
+        tr2, _ = _tiny_trainer(ckpt_dir=d, arch=arch)
+        state_5, _ = tr2.train(5, ckpt_every=5, log_every=0)
+        saved = Checkpointer(d).restore(5, state_5)
+        for n in f32:
+            assert saved["params"][n].dtype == torch.float32, n
+            assert torch.equal(saved["params"][n], state_5["params"][n]), n
+        tr3, _ = _tiny_trainer(ckpt_dir=d, arch=arch)
+        state_b, losses_b = tr3.train(10, log_every=0)
+    assert losses_b == losses_a[5:]
+    for n, a in state_a["params"].items():
+        assert torch.equal(a, state_b["params"][n]), n
+    for n, a in state_a["opt"].m.items():
+        assert torch.equal(a, state_b["opt"].m[n]), n
+
+
 def test_training_with_grad_compression_converges():
     tr, _ = _tiny_trainer(grad_compress=True)
     state, losses = tr.train(25, log_every=0)
@@ -117,6 +158,14 @@ def test_train_lm_example_recovers_from_a_failure_on_the_cpu(capsys):
 def test_launcher_trains_on_the_cpu(capsys):
     losses = launcher.main(["--arch", "mixtral-8x7b", "--reduced", "--steps",
                             "3", "--batch", "2", "--seq", "16", "--device",
+                            "cpu"])
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert "final loss" in capsys.readouterr().out
+
+
+def test_launcher_trains_an_ssd_family_model_on_the_cpu(capsys):
+    losses = launcher.main(["--arch", "mamba2-780m", "--reduced", "--steps",
+                            "3", "--batch", "2", "--seq", "40", "--device",
                             "cpu"])
     assert len(losses) == 3 and np.isfinite(losses).all()
     assert "final loss" in capsys.readouterr().out
