@@ -197,11 +197,28 @@ Phases (each raises on failure):
      ``"xla"`` through ``make_train_step`` at B 4 x S 448 with a frames
      batch each step (losses finite and falling; step ms, tokens/s, peak),
      and one f32 step of the reduced model on the card against the CPU
+ 19. sequence-parallel Mamba2 prefill, in a child process (``--phase
+     seqpar``): mamba2-780m at full width and depth (48 layers), bf16, B 1
+     x S 32768 (prefill_32k's sequence; its batch cut from 32 to 1 so that
+     four ranks share the one card), each rank holding one shard of the
+     sequence and scanning it with the SSD kernel
+     (``models/mamba_sp.py``): a 1-rank NCCL group, then gloo groups of 2
+     and 4 ranks (``--phase seqpar-rank``, one process each on the card);
+     each run's last-position logits against the single-process forward
+     under the deep stacks' rule (max abs error within ``SEQPAR_TOL``
+     logits; the argmax, or a near tie within that margin), 48 SSD
+     launches per rank (counted from 0 around the rank's
+     forward), each rank's forward time and device memory peak; a 4-layer
+     f32 run over 4 gloo ranks (the same argmax, within 1e-3); the SSD
+     kernel against its
+     plain version at each shard shape (timed); and one dry-run cell
+     (``launch/dryrun.py``, llama3.2-3b decode_32k on the 16x16 mesh over
+     a fake process group, on the host) that must end ok
 
-Phases 5b, 14-16, 17 and 18 run first, right after the build, each in a
-child process of this script (``--phase chaos``, ``--phase dense <arch>``,
-``--phase train``, ``--phase whisper``) that prints its result as one JSON
-line: it has the
+Phases 5b, 14-16, 17, 18 and 19 run first, right after the build, each in
+a child process of this script (``--phase chaos``, ``--phase dense
+<arch>``, ``--phase train``, ``--phase whisper``, ``--phase seqpar``)
+that prints its result as one JSON line: it has the
 card's whole memory
 (nemotron-4-340b's two models need 70 GB) and a profiler of its own (in
 one process, a trace after the chaos phase's once saw no device activity
@@ -228,7 +245,7 @@ trace: every drafted token must have run each MoE layer of the draft.
 
 Prints JSON lines (kernels, decode_timing, flash_timing, ssd_timing,
 kernel_checks, requests, ssm_requests, gelu_requests, dense_requests,
-dense_targets, chaos_requests, train, whisper, deepseek_requests,
+dense_targets, chaos_requests, train, whisper, seqpar, deepseek_requests,
 deepseek_kernel_timing, phi_requests, phi_kernel_timing,
 breakdown, graphs (every eager-against-replay measure, each engine's builds,
 capture seconds and private pool bytes, the concurrent engines' fused
@@ -380,6 +397,37 @@ WHISPER_MAX_SEQ = WHISPER_PROMPT + WHISPER_NEW
 WHISPER_MARGIN, WHISPER_MIN_EXACT = SSM_MARGIN, SSM_MIN_EXACT
 WHISPER_TRAIN_B, WHISPER_TRAIN_S, WHISPER_TRAIN_STEPS = 4, 448, 6
 WHISPER_TRAIN_LR = 5e-5
+
+# phase 19, sequence-parallel Mamba2 prefill (``models/mamba_sp.py``), in a
+# child process (``--phase seqpar``): mamba2-780m at full width and depth
+# (48 layers, d 1536, 48 heads x 64, state 128, vocab 50280), bf16, random
+# weights from seed 0, B 1 x S 32768: prefill_32k's sequence, its batch cut
+# from 32 to 1 so that four ranks share the one card.  Each rank holds one
+# contiguous shard of the sequence and the whole model, and scans its shard
+# with the SSD kernel (one launch per layer): a 1-rank NCCL group, and gloo
+# groups of 2 and 4 ranks (each a process of its own on the one card; gloo
+# takes the tiny payloads through the host).  Each run's last-position
+# logits against the single-process ``forward`` (the plain ssd_ref over the
+# whole sequence) under the deep stacks' rule: a max abs error within
+# SEQPAR_TOL logits, and the reference's argmax or a token the reference
+# ranks within SSM_MARGIN of its top (bf16 through 48 layers, where the
+# kernel's f32 summation order alone moved logits by up to 0.31; the
+# shards' scans also round y at other places than the whole sequence's,
+# and fold the incoming state in f32 after the scan; on an H100 the 4-rank
+# run's argmax was the reference's second token, 3.797 against 3.859).
+# The exact check
+# is the reduced-depth f32 run (4 layers, S 4096, 4 gloo ranks): the same
+# argmax, within SEQPAR_F32_TOL absolute.  The SSD
+# kernel against ssd_ref at each run's shard shape (S 32768, 16384, 8192);
+# one dry-run cell (``launch/dryrun.py``: llama3.2-3b decode_32k on the
+# 16x16 mesh over a fake process group, on the host) must end ok.
+SEQPAR_S, SEQPAR_SEED = 32768, 50
+SEQPAR_RUNS = (("nccl", 1), ("gloo", 2), ("gloo", 4))
+SEQPAR_TOL = SSM_MARGIN
+SEQPAR_F32_LAYERS, SEQPAR_F32_S, SEQPAR_F32_RANKS = 4, 4096, 4
+SEQPAR_F32_TOL = 1e-3
+SEQPAR_DRYRUN = ("llama3.2-3b", "decode_32k")
+SEQPAR_RANK_TIMEOUT_S = 240
 
 # phase 17, training (``launch/train.py::Trainer``): mixtral-8x7b at full
 # width (d 4096, 32 / 8 heads x 128, 8 experts top-2 of width 14336, vocab
@@ -3458,6 +3506,254 @@ def chaos_child(dev) -> dict:
     return info
 
 
+def seqpar_model(dev, dtype: str = "bfloat16", layers=None):
+    """mamba2-780m at full width (``layers`` deep, default all 48), random
+    weights from seed 0, and the phase's tokens [1, SEQPAR_S] (a CPU
+    generator: the same in every process)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_config("mamba2-780m"), dtype=dtype,
+                              **({"num_layers": layers} if layers else {}))
+    model = build_model(cfg, dev, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SEQPAR_S),
+                           generator=torch.Generator().manual_seed(
+                               SEQPAR_SEED))
+    return model, tokens
+
+
+def seqpar_rank(backend: str, n: int, rank: int, store: str, out: str
+                ) -> dict:
+    """One rank of a sequence-parallel prefill: its shard of the bf16
+    full-depth model's sequence (the SSD launches counted from 0 around
+    the first call, a second call timed, the rank's device memory peak)
+    and, in the f32 run's group, its shard of the reduced model's; rank 0
+    saves the logits to ``out``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models.mamba_sp import seq_parallel_forward
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, store=dist.FileStore(store, n),
+                            rank=rank, world_size=n)
+    try:
+        model, tokens = seqpar_model(dev)
+        s = SEQPAR_S // n
+        shard = tokens[:, rank * s:(rank + 1) * s].to(dev)
+        torch.cuda.synchronize()
+        reset_peak()
+        SSD.ssd_scan.launches = 0
+        logits = seq_parallel_forward(model, shard)
+        torch.cuda.synchronize()
+        launches = SSD.ssd_scan.launches
+        ms = cuda_ms(lambda: seq_parallel_forward(model, shard), iters=2)
+        info = {"rank": rank, "shard": [rank * s, (rank + 1) * s],
+                "ssd_launches": launches, "forward_ms": ms,
+                "device_max_allocated_bytes":
+                    torch.cuda.max_memory_allocated()}
+        saved = {"logits": logits.float().cpu()}
+        del model
+        if backend == "gloo" and n == SEQPAR_F32_RANKS:
+            m32, _ = seqpar_model(dev, "float32", SEQPAR_F32_LAYERS)
+            s32 = SEQPAR_F32_S // n
+            saved["logits_f32"] = seq_parallel_forward(
+                m32, tokens[:, rank * s32:(rank + 1) * s32].to(dev)).cpu()
+        if rank == 0:
+            torch.save(saved, out)
+        return info
+    finally:
+        dist.destroy_process_group()
+
+
+def seqpar_group(backend: str, n: int, tmp: Path) -> dict:
+    """A group of ``n`` rank processes of this script (``--phase
+    seqpar-rank``) started together on the one card and joined within
+    SEQPAR_RANK_TIMEOUT_S (all killed on a hang); -> each rank's line and
+    rank 0's logits."""
+    import torch
+    run = tmp / f"{backend}{n}"
+    run.mkdir()
+    out = run / "logits.pt"
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--phase",
+         "seqpar-rank", backend, str(n), str(r), str(run / "store"),
+         str(out)], stdout=subprocess.PIPE, text=True) for r in range(n)]
+    lines = []
+    try:
+        for p in procs:
+            lines.append(p.communicate(timeout=SEQPAR_RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"seqpar {backend} x {n}: ranks exited "
+                             f"{[p.returncode for p in procs]}")
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o in lines]
+    return {"ranks": ranks, "saved": torch.load(out)}
+
+
+def seqpar_child(dev) -> dict:
+    """Phase 19 on its own (see the module docstring); its stores, saved
+    logits and the dry-run's record in a temporary directory."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="seqpar") as tmp:
+        return seqpar_phase(dev, Path(tmp))
+
+
+def seqpar_phase(dev, tmp: Path) -> dict:
+    import torch
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models import mamba as M
+    t0 = time.perf_counter()
+    arch, shape = SEQPAR_DRYRUN
+    dry_out, dry_log = tmp / "dryrun.json", tmp / "dryrun.log"
+    with open(dry_log, "w") as log_file:
+        dry = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--multi-pod", "no", "--out",
+             str(dry_out)],
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            stdout=log_file, stderr=subprocess.STDOUT)
+    try:
+        # the single-process references: the plain scan over the whole
+        # sequence (forward, no kernel)
+        model, tokens = seqpar_model(dev)
+        cfg = model.cfg
+        with torch.no_grad():
+            ref = model(tokens.to(dev))[0][:, -1].float().cpu()
+            ref_ms = cuda_ms(lambda: model(tokens.to(dev)), iters=1)
+        del model
+        m32, _ = seqpar_model(dev, "float32", SEQPAR_F32_LAYERS)
+        with torch.no_grad():
+            ref32 = m32(tokens[:, :SEQPAR_F32_S].to(dev))[0][:, -1].cpu()
+        del m32
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs = {}
+        for backend, n in SEQPAR_RUNS:
+            if backend == "nccl":       # this process's one rank
+                (tmp / "nccl1").mkdir()
+                out = tmp / "nccl1" / "logits.pt"
+                r = {"ranks": [seqpar_rank(backend, n, 0,
+                                           str(tmp / "nccl1" / "store"),
+                                           str(out))],
+                     "saved": torch.load(out)}
+                gc.collect()
+                torch.cuda.empty_cache()
+            else:
+                r = seqpar_group(backend, n, tmp)
+            got = r["saved"]["logits"]
+            err = (got - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            row = {"backend": backend, "ranks": n, "shard_len": SEQPAR_S // n,
+                   "max_abs_err": err, "ref_max_abs": scale,
+                   "tol_abs": SEQPAR_TOL,
+                   "argmax": got.argmax(-1).tolist(),
+                   "ref_argmax": ref.argmax(-1).tolist(),
+                   "ssd_launches_per_rank": [x["ssd_launches"]
+                                             for x in r["ranks"]],
+                   "forward_ms_per_rank": [x["forward_ms"]
+                                           for x in r["ranks"]],
+                   "device_peak_bytes_per_rank": [
+                       x["device_max_allocated_bytes"] for x in r["ranks"]]}
+            if not (torch.isfinite(got).all() and got.shape == ref.shape):
+                raise AssertionError(f"seqpar {backend} x {n}: logits "
+                                     f"{tuple(got.shape)} not finite")
+            if "logits_f32" in r["saved"]:
+                got32 = r["saved"]["logits_f32"]
+                e32 = (got32 - ref32).abs().max().item()
+                row["f32"] = {"layers": SEQPAR_F32_LAYERS,
+                              "S": SEQPAR_F32_S, "max_abs_err": e32,
+                              "tol_abs": SEQPAR_F32_TOL,
+                              "argmax": got32.argmax(-1).tolist(),
+                              "ref_argmax": ref32.argmax(-1).tolist()}
+                if not (e32 <= SEQPAR_F32_TOL and row["f32"]["argmax"] ==
+                        row["f32"]["ref_argmax"]):
+                    raise AssertionError(f"seqpar f32: {row['f32']}")
+            # the deep stacks' rule for the token: the reference's argmax,
+            # or one the reference ranks within SSM_MARGIN of its top (a
+            # near tie under bf16); the f32 run above matched exactly
+            gap = (ref.max(-1).values - ref.gather(
+                -1, got.argmax(-1, keepdim=True))[:, 0]).max().item()
+            row["ref_gap_of_argmax"] = gap
+            row["ref_top2"] = ref.topk(2, -1).values.tolist()
+            if gap > SSM_MARGIN or err > SEQPAR_TOL:
+                raise AssertionError(f"seqpar {backend} x {n}: {row}")
+            if row["ssd_launches_per_rank"] != [mamba_layers(cfg)] * n:
+                raise AssertionError(f"seqpar {backend} x {n}: SSD launches "
+                                     f"{row['ssd_launches_per_rank']}")
+            runs[f"{backend}{n}"] = row
+            log(f"[19] seqpar {backend} x {n}: max abs err {err:.4f} of "
+                f"{scale:.2f}, argmax {row['argmax']} (reference "
+                f"{row['ref_argmax']}, {gap:.4f} below its top), forward "
+                f"{max(row['forward_ms_per_rank']):.1f} ms")
+        # the SSD kernel at each run's shard shape, against ssd_ref
+        d_in, h, N, conv_ch = M.dims(cfg)
+        p, Q = cfg.ssm_head_dim, cfg.ssm_chunk
+        gen = torch.Generator(dev).manual_seed(5)
+        kernel = {}
+        for _, n in SEQPAR_RUNS:
+            S = SEQPAR_S // n
+            x, dt, A, B, C = ssd_inputs(gen, dev, S, h, p, N, torch.bfloat16)
+            y, st = SSD.ssd_scan(x, dt, A, B, C, Q)
+            y_ref, st_ref = R.ssd_ref(x, dt, A, B, C, Q)
+            err = (y.float() - y_ref.float()).abs().max().item()
+            scale = y_ref.float().abs().max().item()
+            serr = (st - st_ref).abs().max().item()
+            sscale = st_ref.abs().max().item()
+            if not (err <= SSD_TOL["bfloat16"] * scale and
+                    serr <= SSD_STATE_TOL * max(sscale, 1e-6)):
+                raise AssertionError(f"ssd_scan at S {S}: y err {err} of "
+                                     f"{scale}, state err {serr}")
+            bound, by, flops, nbytes = ssd_bound(S, Q, h, p, N, 2)
+            kernel[S] = {
+                "h": h, "p": p, "n": N, "chunk": Q, "max_abs_err": err,
+                "max_rel_err": err / scale, "state_max_abs_err": serr,
+                "ms": cuda_ms(lambda: SSD.ssd_scan(x, dt, A, B, C, Q)),
+                "plain_ms": cuda_ms(lambda: R.ssd_ref(x, dt, A, B, C, Q),
+                                    iters=2),
+                "library_ms": None, "bound_ms": bound, "bound_by": by,
+                "flops": flops, "bytes": nbytes}
+            del x, dt, A, B, C, y, st, y_ref, st_ref
+        torch.cuda.empty_cache()
+        dry.wait(timeout=CHILD_TIMEOUT_S)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    cells = json.loads(dry_out.read_text()) if dry_out.exists() else []
+    if dry.returncode != 0 or len(cells) != 1 or cells[0]["status"] != "ok":
+        raise AssertionError(f"dry-run {arch} x {shape}: exit "
+                             f"{dry.returncode}, {cells}, "
+                             f"{dry_log.read_text()[-2000:]}")
+    cell = cells[0]
+    # collective bytes per layer and rank: the all-gathered halos [B, W-1,
+    # conv_ch], end states [B, H, P, N] f32 and decays [B, H] f32, n of
+    # each; against the layer's activations [B, S_loc, d] (what a tensor-
+    # parallel all-reduce would move)
+    W, el = cfg.ssm_conv_width, 2
+    coll = {f"ranks{n}": {
+        "all_gather_bytes": n * ((W - 1) * conv_ch * el + h * p * N * 4
+                                 + h * 4),
+        "activation_bytes": (SEQPAR_S // n) * cfg.d_model * el}
+        for _, n in SEQPAR_RUNS}
+    return {"model": {"arch": "mamba2-780m", "layers": cfg.num_layers,
+                      "d_model": cfg.d_model, "dtype": cfg.dtype, "B": 1,
+                      "S": SEQPAR_S},
+            "single_forward_ms": ref_ms, "runs": runs,
+            "collective_bytes_per_layer": coll,
+            "ssd_kernel_at_shard": {f"S{S}": k for S, k in kernel.items()},
+            "dryrun": {k: cell[k] for k in (
+                "arch", "shape", "status", "fn", "mesh", "memory",
+                "xla_cost", "hlo_collectives", "resharded_ops",
+                "compile_s")},
+            "phase_s": time.perf_counter() - t0}
+
+
 def run_child(phase: str, *args) -> dict:
     """Run one phase in a child process of this script (``--phase``): its
     log lines go to this stderr, its result is the last line of its
@@ -3476,8 +3772,9 @@ def run_child(phase: str, *args) -> dict:
 
 def child_main(phase: str, *args) -> int:
     """A phase in a process of its own: the chaos phase, one dense target
-    (``dense <arch>``), training or whisper-medium; prints its result as
-    one JSON line."""
+    (``dense <arch>``), training, whisper-medium, sequence-parallel Mamba2
+    or one of its ranks (``seqpar-rank <backend> <n> <rank> <store>
+    <out>``); prints its result as one JSON line."""
     if phase == "train":   # cuBLAS's workspace for deterministic algorithms
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
@@ -3497,6 +3794,11 @@ def child_main(phase: str, *args) -> int:
         info = train_child(dev)
     elif phase == "whisper":
         info = whisper_child(dev)
+    elif phase == "seqpar":
+        info = seqpar_child(dev)
+    elif phase == "seqpar-rank":
+        backend, n, rank, store, out = args
+        info = seqpar_rank(backend, int(n), int(rank), store, out)
     else:
         raise ValueError(f"no phase {phase!r}")
     info["process_peaks"] = {
@@ -3550,6 +3852,9 @@ def main() -> int:
     whisper_info = run_child("whisper")
     log(f"[18] whisper-medium served and trained in "
         f"{whisper_info['phase_s']:.1f} s")
+    seqpar_info = run_child("seqpar")
+    log(f"[19] sequence-parallel mamba2-780m ok in "
+        f"{seqpar_info['phase_s']:.1f} s")
 
     mixtral = get_config("mixtral-8x7b")
     rows, main_k = kernel_phase(dev, mixtral.d_model, mixtral.moe_d_ff)
@@ -3816,6 +4121,22 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
             "library_device_ms": t["library_device_ms"]})
+    # the SSD kernel at the shard shapes of phase 19 (one rank's sequence
+    # of 32768 over 2 and 4 ranks); launches: each rank's, all equal
+    for backend, n in SEQPAR_RUNS[1:]:
+        S = SEQPAR_S // n
+        t = seqpar_info["ssd_kernel_at_shard"][f"S{S}"]
+        run = seqpar_info["runs"][f"{backend}{n}"]
+        kernels.append({
+            "name": f"ssd_scan_seqpar_S{S}", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:26",
+            "launches": run["ssd_launches_per_rank"][0],
+            "launches_per_rank": run["ssd_launches_per_rank"],
+            "ranks": n, "S": S, "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"decode_timing": dec_timing}))
     print(json.dumps({"flash_timing": {
@@ -3854,6 +4175,7 @@ def main() -> int:
     print(json.dumps({"chaos_requests": chaos_info}))
     print(json.dumps({"train": train_info}))
     print(json.dumps({"whisper": whisper_info}))
+    print(json.dumps({"seqpar": seqpar_info}))
     print(json.dumps({"deepseek_requests": ds_info}))
     print(json.dumps({"deepseek_kernel_timing": {
         "shape": {"d": DS_D, "f": DS_F, "k": DS_K, "pool": DS_TIGHT,
@@ -3882,7 +4204,8 @@ def main() -> int:
         "child_processes": {
             name: info["process_peaks"] for name, info in (
                 ("chaos", chaos_info), *dense_targets.items(),
-                ("train", train_info), ("whisper", whisper_info))},
+                ("train", train_info), ("whisper", whisper_info),
+                ("seqpar", seqpar_info))},
         "pinned_staging_bytes": {"tight": tight_info["pinned_staging_bytes"],
                                  "ample": ample_info["pinned_staging_bytes"]},
         "host_max_rss_bytes":

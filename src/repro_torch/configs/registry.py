@@ -41,6 +41,12 @@ ARCHS: Dict[str, ModelConfig] = {
     "whisper-medium": whisper_medium.CONFIG,
 }
 
+# The reference's ten assigned architectures: the dry-run and roofline
+# matrix (``launch/dryrun.py``); phi-3.5-moe is the paper's extra.
+ASSIGNED = ("granite-20b", "command-r-35b", "nemotron-4-340b", "llama3.2-3b",
+            "whisper-medium", "llava-next-mistral-7b", "deepseek-v2-lite-16b",
+            "mixtral-8x7b", "zamba2-7b", "mamba2-780m")
+
 # SP-MoE draft-model pairings (paper Table 1).  The deepseek draft is the
 # AWQ-quantized same architecture; a config with the same dims stands in.
 DRAFTS: Dict[str, ModelConfig] = {

@@ -89,8 +89,11 @@ class EncDecLM(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
-        gen = generator if generator is not None else \
-            torch.Generator(self.device).manual_seed(seed)
+        if self.device.type == "meta":   # shapes only: nothing is drawn
+            gen = None
+        else:
+            gen = generator if generator is not None else \
+                torch.Generator(self.device).manual_seed(seed)
         dt, dev = self.dtype, self.device
         self.wte = L.param(L.dense_init(gen, (cfg.vocab_size, cfg.d_model),
                                        dt, dev, scale=cfg.d_model ** 0.5))

@@ -24,7 +24,7 @@ layouts (``in_proj [d, 2·d_inner + 2·N + H]``, ``conv_w [W, conv_ch]``,
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -79,12 +79,15 @@ def _split(zxbcdt: torch.Tensor, cfg: ModelConfig):
     return torch.split(zxbcdt, [d_in, d_in, N, N, H], dim=-1)
 
 
-def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-                 ) -> torch.Tensor:
+def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 halo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Depthwise causal conv + SiLU, in xBC's dtype.  xBC: [B,S,ch];
-    w: [W,ch]."""
+    w: [W,ch]; ``halo`` [B,W-1,ch]: the rows before xBC's first (zeros
+    when omitted; a sequence shard's left neighbour's last rows in
+    ``mamba_sp``)."""
     W, S = w.shape[0], xBC.shape[1]
-    pad = F.pad(xBC, (0, 0, W - 1, 0))
+    pad = F.pad(xBC, (0, 0, W - 1, 0)) if halo is None \
+        else torch.cat([halo, xBC], dim=1)
     out = sum(pad[:, i:i + S, :] * w[i] for i in range(W))
     return F.silu(out + b)
 

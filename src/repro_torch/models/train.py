@@ -31,8 +31,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ``z_loss · lse²`` inside the mean (as the reference reports it)."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    ce = lse - gold
+    gold = torch.gather(lf, -1, labels[..., None].long())
+    # subtracted before the last dim is dropped: the same values, and the
+    # shape at which a vocab-sharded gather's mask is reduced on DTensors
+    # (launch/dryrun.py)
+    ce = (lse[..., None] - gold)[..., 0]
     return torch.mean(ce + z_loss * torch.square(lse))
 
 

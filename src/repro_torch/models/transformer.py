@@ -188,8 +188,11 @@ class DecoderLM(nn.Module):
         self.dtype = torch_dtype(cfg.dtype)
         expert_device = self.device if expert_device is None \
             else torch.device(expert_device)
-        gen = generator if generator is not None else \
-            torch.Generator(self.device).manual_seed(seed)
+        if self.device.type == "meta":   # shapes only: nothing is drawn
+            gen = None
+        else:
+            gen = generator if generator is not None else \
+                torch.Generator(self.device).manual_seed(seed)
         dt, dev = self.dtype, self.device
         self.wte = L.param(L.dense_init(gen, (cfg.vocab_size, cfg.d_model),
                                        dt, dev, scale=cfg.d_model ** 0.5))

@@ -135,9 +135,8 @@ class AdamW:
     grad_clip: float = 1.0
 
     def init(self, params: Tensors) -> AdamState:
-        def zeros():
-            return {n: torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device)
+        def zeros():       # each laid out as its parameter (a DTensor too)
+            return {n: torch.zeros_like(p, dtype=torch.float32)
                     for n, p in params.items()}
         return AdamState(torch.zeros((), dtype=torch.int32), zeros(),
                          zeros())

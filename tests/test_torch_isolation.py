@@ -51,12 +51,19 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.optim.optimizer, repro_torch.optim.grad_compress, "
             "repro_torch.data.pipeline, "
             "repro_torch.checkpoint.checkpointer, "
-            "repro_torch.runtime.fault_tolerance; "
-            "print('jax' in sys.modules, 'repro' in sys.modules)")
+            "repro_torch.runtime.fault_tolerance, "
+            "repro_torch.models.sharding, repro_torch.models.mamba_sp, "
+            "repro_torch.models.costmodel, repro_torch.models.registry, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun; "
+            "import torch.distributed as dist; "
+            "print('jax' in sys.modules, 'repro' in sys.modules, "
+            "dist.is_initialized())")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, check=True)
-    assert out.stdout.split() == ["False", "False"]
+    # and no process group is started by an import (launch/mesh.py,
+    # launch/dryrun.py start theirs when called)
+    assert out.stdout.split() == ["False", "False", "False"]
 
 
 @pytest.fixture
