@@ -169,7 +169,22 @@ Phases (each raises on failure):
      text tokens, B 2) for 3 AdamW steps, its logits over the text only;
      printed: losses, grad_norm and lr per step, the median step time
      after step 1 (CUDA events), tokens/s, the step's matmul FLOPs against
-     989 TFLOP/s and each optimizer's device memory peak.  Then one f32 step
+     989 TFLOP/s and each optimizer's device memory peak.  Then training on
+     a mesh, over a 1-rank NCCL group (``launch/train.py::Trainer(mesh=
+     single_device_mesh())``, every parameter a DTensor laid out by
+     ``models/placement.py``): mixtral the same for 5 steps, its losses
+     against the plain run's within 1e-3 relative (bit-equality reported),
+     its untraced step ms and peak, and what the dry-run's reshard
+     fallback (``placement.Reshard``) would cost the step: steps with and
+     without it, alternated, and the ops it ran on gathered inputs (none
+     expected: the train path has no fallback); the same pairs of
+     llama3.2-3b steps on the mesh; and a checkpoint across meshes:
+     llama3.2-3b at full width, 2
+     layers, B 4 x S 1024, 3 steps on the mesh, saved at step 3 (~7 GB),
+     restored into a plain ``Trainer`` and onto a fresh 1-rank mesh (every
+     tensor bit-equal to the saved one), 2 more steps in each, both equal to
+     5 uninterrupted steps under ``torch.use_deterministic_algorithms``.
+     Then one f32 step
      of a reduced mixtral on the card against the CPU (loss and every
      gradient within 1e-4 relative); a train step under
      ``attn_impl="kernel"`` raising (flash attention has no backward); and
@@ -449,6 +464,9 @@ VLM_B, VLM_S, VLM_STEPS = 2, 1024, 3
 SSD_TRAIN = (("mamba2-780m", None), ("zamba2-7b", ZAMBA_LAYERS))
 SSD_TRAIN_B, SSD_TRAIN_S, SSD_TRAIN_STEPS = 4, 1024, 6
 TRAIN_CPU_RTOL = 1e-4
+# phase 17 on a 1-rank mesh: mixtral's steps against the plain run's
+MESH_STEPS, MESH_LOSS_RTOL = 5, 1e-3
+MODE_AB_PAIRS = 3   # mesh steps without and with the reshard mode, each
 MOE_GEMM_C = 64                      # ops.moe_gemm rows per expert
 PEAK_BF16_FLOPS = 989e12             # H100 SXM, dense bf16
 
@@ -3002,6 +3020,203 @@ def train_restart_drill(dev) -> dict:
                                     "final_loss": la[-1]}}
 
 
+@contextlib.contextmanager
+def one_rank_group():
+    """A 1-rank NCCL process group (over a ``FileStore`` in a temp dir),
+    destroyed on exit: what ``Trainer(mesh=single_device_mesh())`` runs
+    over on the card."""
+    import tempfile
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def mesh_train(dev, cfg, shape, run, plain: dict) -> dict:
+    """The MoE train route on a mesh: ``cfg`` (mixtral, phase 17's cut)
+    through ``Trainer(mesh=single_device_mesh())`` for MESH_STEPS steps on
+    a 1-rank NCCL group, its losses against the plain run's of the same
+    seed and data (``plain``, ``train_run``'s record) within
+    MESH_LOSS_RTOL relative (bit-equality reported: every placement is
+    trivial); the untraced step ms beside the plain run's, the peak, and
+    ``reshard_mode_ab`` on the trained state."""
+    import torch
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import placement as P
+    with one_rank_group():
+        tr = Trainer(cfg, shape, run, mesh=single_device_mesh())
+        out = train_run(tr, MESH_STEPS)
+        # where a step's time goes: one warm step traced on a fresh state
+        state = tr.init_state()
+        pipe = make_pipeline(cfg, shape)
+        try:
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in next(pipe).items()}
+        finally:
+            pipe.close()
+        batch = P.distribute_microbatches(batch, tr.mesh, run.microbatch)
+        out["breakdown"] = traced_step(lambda: tr._step(state, batch))
+        out["reshard_mode_ab"] = reshard_mode_ab(tr, state, batch)
+        del tr, state, batch
+        gc.collect()
+    want = plain["losses"][:MESH_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], want))
+    out.update({"steps": MESH_STEPS, "plain_losses": want,
+                "max_rel_loss_err": rel, "tol_rel": MESH_LOSS_RTOL,
+                "bit_equal": out["losses"] == want,
+                "plain_median_step_ms_after_first":
+                    plain["median_step_ms_after_first"]})
+    if rel > MESH_LOSS_RTOL:
+        raise AssertionError(f"mixtral on a 1-rank mesh: losses "
+                             f"{out['losses']} vs plain {want}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def reshard_mode_ab(tr, state, batch, pairs: int = MODE_AB_PAIRS) -> dict:
+    """What the dry-run's reshard fallback would cost a mesh step: steps of
+    ``tr`` (a ``Trainer`` on a mesh) on ``state`` and ``batch`` without and
+    with ``placement.Reshard`` entered, alternated ``pairs`` times, each
+    timed with CUDA events -> medians, and the ops the mode ran on
+    gathered inputs (none: every op of the step places as laid out)."""
+    import statistics
+    import torch
+    from repro_torch.models import placement as P
+    ms = {"without": [], "with": []}
+    resharded: dict = {}
+    for _ in range(pairs):
+        for kind in ("without", "with"):
+            mode = P.Reshard() if kind == "with" else contextlib.nullcontext()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            with mode:
+                state, metrics = tr._step(state, batch)
+            ev[1].record()
+            float(metrics["loss"])
+            ms[kind].append(ev[0].elapsed_time(ev[1]))
+            if kind == "with":
+                for op, n in mode.resharded.items():
+                    resharded[op] = resharded.get(op, 0) + n
+    out = {f"median_ms_{k}_mode": statistics.median(v)
+           for k, v in ms.items()}
+    out.update({"ms": ms, "resharded_ops_under_mode": resharded})
+    return out
+
+
+def mesh_checkpoint_drill(dev) -> dict:
+    """A checkpoint across meshes: llama3.2-3b at full width, 2 layers, B 4
+    x S 1024, 3 AdamW steps on a 1-rank mesh, saved at step 3 into a temp
+    dir; restored once into a plain ``Trainer`` and once onto a fresh
+    1-rank mesh (every tensor bit-equal to the saved one), 2 more steps in
+    each, both runs' losses equal to 5 uninterrupted plain steps (under
+    ``torch.use_deterministic_algorithms(True)``); then
+    ``reshard_mode_ab`` on the mesh run's state."""
+    import tempfile
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import placement as P
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              num_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+    run = RunConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                    total_steps=5)
+
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    def same(a, b) -> bool:
+        la = [(k, local(v)) for k, v in sorted(_flat_state(a).items())]
+        lb = [(k, local(v)) for k, v in sorted(_flat_state(b).items())]
+        return [k for k, _ in la] == [k for k, _ in lb] and all(
+            torch.equal(x, y) for (_, x), (_, y) in zip(la, lb))
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        _, straight = Trainer(cfg, shape, run, device=dev).train(
+            5, log_every=0)
+        gc.collect()
+        with one_rank_group(), tempfile.TemporaryDirectory() as d:
+            mesh = single_device_mesh()
+            first = Trainer(cfg, shape, run, mesh=mesh, ckpt_dir=d)
+            saved_state, head = first.train(3, ckpt_every=3, log_every=0)
+            del first
+            t_save = time.perf_counter()
+            restored = {}
+            for name, tr in (("plain", Trainer(cfg, shape, run, device=dev,
+                                               ckpt_dir=d)),
+                             ("mesh", Trainer(cfg, shape, run, mesh=mesh,
+                                              ckpt_dir=d))):
+                t1 = time.perf_counter()
+                got = tr.ckpt.restore(3, tr.init_state())
+                restore_s = time.perf_counter() - t1
+                bit = same(got, saved_state)
+                del got
+                gc.collect()
+                state, tail = tr.train(5, log_every=0)
+                restored[name] = {"bit_equal_to_saved": bit,
+                                  "restore_s": restore_s,
+                                  "losses": tail,
+                                  "equal_to_straight": tail == straight[3:]}
+                if name == "mesh":
+                    pipe = make_pipeline(cfg, shape)
+                    try:
+                        batch = {k: torch.from_numpy(v).to(dev)
+                                 for k, v in next(pipe).items()}
+                    finally:
+                        pipe.close()
+                    batch = P.distribute_microbatches(batch, mesh,
+                                                      run.microbatch)
+                    ab = reshard_mode_ab(tr, state, batch)
+                    del batch
+                del tr, state
+                gc.collect()
+                torch.cuda.empty_cache()
+            disk = sum(f.stat().st_size for f in Path(d).rglob("*")
+                       if f.is_file())
+            del saved_state
+    finally:
+        torch.use_deterministic_algorithms(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"arch": "llama3.2-3b", "layers": TRAIN_LAYERS, "batch": TRAIN_B,
+           "seq": TRAIN_S, "straight_losses": straight,
+           "first_losses": head, "checkpoint_bytes": disk,
+           "restored": restored, "reshard_mode_ab": ab,
+           "seconds": time.perf_counter() - t0,
+           "after_save_s": time.perf_counter() - t_save}
+    if head != straight[:3] or not all(
+            r["bit_equal_to_saved"] and r["equal_to_straight"]
+            for r in restored.values()):
+        raise AssertionError(f"checkpoint across meshes: {out}")
+    return out
+
+
+def _flat_state(state) -> dict:
+    """{path: tensor} of a Trainer state (params, opt's fields)."""
+    out = {}
+    for name, tree in state.items():
+        if isinstance(tree, dict):
+            items = tree.items()
+        else:
+            items = [(f, getattr(tree, f)) for f in tree._fields]
+        for k, v in items:
+            if isinstance(v, dict):
+                out.update({f"{name}/{k}/{n}": t for n, t in v.items()})
+            else:
+                out[f"{name}/{k}"] = v
+    return out
+
+
 def card_vs_cpu(dev, arch: str = "mixtral-8x7b") -> dict:
     """One train step's loss and gradients (``arch`` reduced, f32, B 4 x S
     32: mixtral's capacity route, the SSD families' plain scan, whisper
@@ -3137,6 +3352,18 @@ def train_child(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mesh = {"mixtral-8x7b": mesh_train(dev, cfg, shape, run, adamw)}
+    log(f"[17] mixtral-8x7b on a 1-rank mesh: losses "
+        f"{mesh['mixtral-8x7b']['losses']} (bit-equal to the plain run's: "
+        f"{mesh['mixtral-8x7b']['bit_equal']}), median step "
+        f"{mesh['mixtral-8x7b']['median_step_ms_after_first']:.1f} ms, "
+        f"with the reshard mode / without: "
+        f"{mesh['mixtral-8x7b']['reshard_mode_ab']}")
+    mesh["llama3.2-3b_checkpoint"] = mesh_checkpoint_drill(dev)
+    log(f"[17] llama3.2-3b checkpoint across meshes: "
+        f"{mesh['llama3.2-3b_checkpoint']}")
+    mesh["card"] = smi_line()
+
     tr8 = Trainer(cfg, shape, dataclasses.replace(run, optimizer="adamw8bit"),
                   device=dev, grad_compress=True)
     adamw8 = train_run(tr8, TRAIN_8BIT_STEPS)
@@ -3188,6 +3415,7 @@ def train_child(dev) -> dict:
         "card_vs_cpu": card_vs_cpu(dev),
         "card_vs_cpu_ssd": {arch: card_vs_cpu(dev, arch)
                             for arch, _ in SSD_TRAIN},
+        "mesh": mesh,
         "guard": guard_on_card(dev),
         "restart": train_restart_drill(dev)})
     log(f"[17] card vs CPU {info['card_vs_cpu']}; restart "

@@ -18,7 +18,7 @@ An MoE draft keeps its experts resident on the device; only the target's
 are offloaded."""
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 from repro_torch.configs import (command_r_35b, deepseek_v2_lite_16b,
                                  granite_20b, llama3_2_3b,
@@ -64,3 +64,8 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_draft_config(arch: str) -> Optional[ModelConfig]:
     return DRAFTS.get(arch)
+
+
+def arch_ids() -> Tuple[str, ...]:
+    """The reference's ten assigned architectures, in its order."""
+    return tuple(ASSIGNED)

@@ -113,6 +113,13 @@ class ExpertCache:
                     self.misses += 1
             return hits, misses
 
+    def slots_of(self, keys: Sequence[ExpertKey]) -> torch.Tensor:
+        """The slots of cached ``keys`` (int32, on the pool's device);
+        raises ``KeyError`` for one not cached."""
+        with self.lock:
+            return torch.tensor([self.table[k] for k in keys],
+                                dtype=torch.int32, device=self.device)
+
     @contextlib.contextmanager
     def reading(self) -> Iterator[Tuple[Dict[str, torch.Tensor],
                                         Optional[torch.Tensor]]]:
@@ -252,6 +259,11 @@ class ExpertCache:
                 release = getattr(host_arrays, "release", None)
                 if release is not None:
                     release(ev)
+
+    def hit_rate(self) -> float:
+        """Hits over lookups since the last ``reset_stats`` (0 before any)."""
+        tot = self.hits + self.misses
+        return self.hits / tot if tot else 0.0
 
     def wait(self):
         """Barrier: every dispatched buffer update has landed."""

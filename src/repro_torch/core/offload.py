@@ -117,6 +117,10 @@ class HostExpertStore:
         self._sums: Dict[ExpertKey, Tuple[int, ...]] = {}  # per key
         self._sums_lock = threading.Lock()
 
+    def expert_bytes(self) -> int:
+        """The bytes of one expert (one (layer, expert) key, every name)."""
+        return int(sum(t[0].nbytes for t in self._flat.values()))
+
     def _alloc_stage(self, cap: int) -> _Stage:
         out = {n: torch.empty((cap,) + tuple(t.shape[1:]), dtype=t.dtype,
                               pin_memory=self.pin)

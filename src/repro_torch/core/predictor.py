@@ -44,6 +44,15 @@ class ExpertPredictor:
         uniq = list(dict.fromkeys(ids))
         return [(layer, e) for e in uniq[: self.k]]
 
+    def predict_all(self, taps: torch.Tensor, cutoff: int
+                    ) -> List[ExpertKey]:
+        """taps: [L, B, 1, d] (one draft step) -> predictions for layers
+        0..cutoff, shallow layers first (just-in-time ordering)."""
+        out: List[ExpertKey] = []
+        for layer in range(min(cutoff + 1, self.num_layers, taps.shape[0])):
+            out.extend(self.predict_layer(layer, taps[layer]))
+        return out
+
 
 # ---------------------------------------------------------------------------
 # Observation I analytics (Figure 2)

@@ -29,7 +29,8 @@ on every exit.  Without them every step runs eagerly on caches of its own.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Iterator, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 
@@ -132,12 +133,14 @@ def make_sd_step(draft_model, target_model, draft_len: int,
     return sd_step
 
 
-def _bump(stats: Optional[dict], iters=0, drafted=0, accepted=0):
+def _bump(stats: Optional[dict], iters=0, drafted=0, accepted=0, **extra):
     if stats is None:
         return
     stats["iterations"] = stats.get("iterations", 0) + iters
     stats["drafted"] = stats.get("drafted", 0) + drafted
     stats["accepted"] = stats.get("accepted", 0) + accepted
+    for k, v in extra.items():
+        stats.setdefault(k, []).append(v)
 
 
 def adaptive_next_len(n: int, n_accepted: int, acc_ewma: float,
@@ -263,6 +266,7 @@ def sd_adaptive_stream(draft_model, target_model, prompt: torch.Tensor,
 
     def next_len(n: int, n_accepted: int) -> int:
         nonlocal acc_ewma
+        _bump(stats, draft_lens=n)
         n, acc_ewma = adaptive_next_len(n, n_accepted, acc_ewma, min_len,
                                         max_len, ewma)
         return n
@@ -270,6 +274,47 @@ def sd_adaptive_stream(draft_model, target_model, prompt: torch.Tensor,
     yield from _sd_iterations(draft_model, target_model, prompt,
                               max_new_tokens, max_seq, pool, stats, step_for,
                               next_len, min_len)
+
+
+def sd_generate(draft_model, target_model, prompt: torch.Tensor,
+                max_new_tokens: int, draft_len: int, max_seq: int
+                ) -> Tuple[torch.Tensor, Dict[str, float]]:
+    """One-shot fixed-N SD: prompt [1, P] -> (tokens [<= max_new_tokens],
+    stats).  Thin wrapper over :func:`sd_stream`."""
+    c: Dict[str, Any] = {}
+    out: list = []
+    for chunk in sd_stream(draft_model, target_model, prompt, max_new_tokens,
+                           draft_len, max_seq, stats=c):
+        out.extend(chunk)
+    iters = c.get("iterations", 0)
+    return torch.tensor(out, dtype=torch.int64), {
+        "iterations": iters,
+        "acceptance_rate": c.get("accepted", 0) / max(iters * draft_len, 1),
+        "tokens_per_iteration": len(out) / max(iters, 1)}
+
+
+def sd_generate_adaptive(draft_model, target_model, prompt: torch.Tensor,
+                         max_new_tokens: int, max_seq: int, min_len: int = 1,
+                         max_len: int = 8, ewma: float = 0.5
+                         ) -> Tuple[torch.Tensor, Dict[str, float]]:
+    """Acceptance-adaptive draft length (beyond the paper): an EWMA of
+    each iteration's acceptance grows or shrinks N between ``min_len`` and
+    ``max_len``; lossless for any schedule.  Thin wrapper over
+    :func:`sd_adaptive_stream`."""
+    c: Dict[str, Any] = {}
+    out: list = []
+    for chunk in sd_adaptive_stream(draft_model, target_model, prompt,
+                                    max_new_tokens, max_seq, min_len=min_len,
+                                    max_len=max_len, ewma=ewma, stats=c):
+        out.extend(chunk)
+    iters = c.get("iterations", 0)
+    lens = c.get("draft_lens", [])
+    return torch.tensor(out, dtype=torch.int64), {
+        "iterations": iters,
+        "acceptance_rate": c.get("accepted", 0) / max(c.get("drafted", 0), 1),
+        "tokens_per_iteration": len(out) / max(iters, 1),
+        "final_draft_len": lens[-1] if lens else min_len,
+        "mean_draft_len": sum(lens) / len(lens) if lens else float(min_len)}
 
 
 def greedy_generate(model, prompt: torch.Tensor, max_new_tokens: int,

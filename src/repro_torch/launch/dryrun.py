@@ -22,18 +22,15 @@ would run it:
   over the mesh's ``model`` group); ``decode`` one ``decode_step`` of
   ``--verify-block`` tokens at the end of a full cache.
 
-GSPMD plans the whole program; DTensor places one op at a time.  What
-this trace adds so that a step keeps the layout the rules mean:
-
-* FSDP: a weight sharded over (pod, data) is all-gathered over them where
-  it is read (``_gather_on_use``), as XLA gathers per layer;
-* the residual stream between blocks is pinned to the batch sharding
-  (``_pin_residual``): a row-parallel partial sum is all-reduced there;
-* ``layers.mha`` runs per head (``_mha_per_head``: the same values),
-  since the grouped einsum turns a head sharding into a strided one that
-  DTensor's planner walks index by index;
-* an op DTensor cannot place as laid out is run on inputs all-gathered
-  (``_Reshard``) and counted under ``resharded_ops``.
+Every tensor is laid out by ``models/placement.py``, the layout the
+mesh ``Trainer`` trains with, so a record describes the step that trains:
+on the 2 x 16 x 16 mesh the tensors live on the flattened (pod_data,
+model) mesh, FSDP weights are gathered where they are read, the residual
+stream is pinned to the batch sharding, and an op DTensor cannot place is
+run on all-gathered inputs and counted under ``resharded_ops``.  What the
+trace adds of its own: ``layers.mha`` runs per head (``_mha_per_head``:
+the same values), since the grouped einsum turns a head sharding into a
+strided one that DTensor's planner walks index by index.
 
 The cells trace the kernels' plain versions: fake tensors live on the CPU
 device, and the kernels go through ``ctypes`` and cannot take a fake
@@ -81,15 +78,14 @@ from typing import Any, Dict, Optional
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch._subclasses.fake_tensor import (FakeTensorMode,
-                                           unset_fake_temporarily)
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed._tools.mem_tracker import MemTracker
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.debug import CommDebugMode
 from torch.distributed.tensor.experimental import (implicit_replication,
                                                   register_sharding)
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves, tree_map
+from torch.utils._pytree import tree_leaves
 from torch.utils.weak import WeakIdKeyDictionary
 from torch.utils.flop_counter import FlopCounterMode, register_flop_formula
 
@@ -99,6 +95,7 @@ from repro_torch.configs.registry import ASSIGNED, get_config
 from repro_torch.kernels import ref as R
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import layers as L
+from repro_torch.models import placement as P
 from repro_torch.models import sharding as SH
 from repro_torch.models.costmodel import roofline_terms
 from repro_torch.models.mamba_sp import seq_parallel_forward
@@ -218,12 +215,25 @@ class _PerRank(TorchDispatchMode):
         return out
 
 
+def _group_size(args) -> Optional[int]:
+    """The size of the process group a functional collective names (its
+    last string argument)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    names = [a for a in args if isinstance(a, str)]
+    try:
+        return _resolve_process_group(names[-1]).size()
+    except Exception:
+        return None
+
+
 class _CollectiveBytes(TorchDispatchMode):
-    """Sums the bytes of every collective's local result by family."""
+    """Sums the bytes of every collective's local result by family, and
+    counts its calls by the size of the group they ran over."""
 
     def __init__(self):
         super().__init__()
         self.bytes: Dict[str, float] = {}
+        self.groups: Dict[str, Dict[str, int]] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -231,87 +241,10 @@ class _CollectiveBytes(TorchDispatchMode):
         if fam is not None and not _has_dtensor(args):
             self.bytes[fam] = self.bytes.get(fam, 0.0) + float(
                 _local_bytes(out))
+            size = str(_group_size(args))
+            sizes = self.groups.setdefault(fam, {})
+            sizes[size] = sizes.get(size, 0) + 1
         return out
-
-
-class _Reshard(TorchDispatchMode):
-    """Where a DTensor op does not trace as laid out (DTensor has no
-    strategy for it on these placements or none at all, fails in one, or
-    its redistribution planner reads a fake tensor's values, see the
-    module docstring), its DTensor inputs are all-gathered (``_reshard``)
-    and it runs on them, as GSPMD inserts an all-gather where a sharding
-    cannot be kept; it is counted in ``resharded``.  This runs with the
-    fake mode lifted (the inputs and outputs stay fake), and its outputs
-    are handed to ``tracker``, which sees no op run outside the fake mode
-    it was entered under."""
-
-    def __init__(self, tracker: MemTracker):
-        super().__init__()
-        self.tracker = tracker
-        self.resharded: Dict[str, int] = {}
-        self.last_op = None
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        self.last_op = str(func)
-        try:
-            return func(*args, **kwargs)
-        except Exception:
-            if not _has_dtensor((args, kwargs)):
-                raise
-        with unset_fake_temporarily():
-            out = self._reshard(func, args, kwargs)
-        self.resharded[str(func)] = self.resharded.get(str(func), 0) + 1
-        self.tracker.track_external(*[t for t in tree_leaves(out)
-                                      if isinstance(t, torch.Tensor)])
-        return out
-
-    @staticmethod
-    def _reshard(func, args, kwargs):
-        """Run ``func`` with its DTensor inputs replicated over the last
-        mesh dim (``model``); where that fails too (an op DTensor has no
-        strategy for at all), on their whole tensors, its results
-        replicated again (an in-place op's written back into its target's
-        own layout)."""
-        def over_model(a):
-            if not isinstance(a, DTensor):
-                return a
-            last = a.device_mesh.ndim - 1
-            return a.redistribute(a.device_mesh, [
-                Replicate() if i == last else p
-                for i, p in enumerate(a.placements)])
-        try:
-            return func(*tree_map(over_model, args),
-                        **tree_map(over_model, kwargs))
-        except Exception:
-            pass
-        mesh = next(a.device_mesh for a in tree_leaves((args, kwargs))
-                    if isinstance(a, DTensor))
-        whole = [Replicate()] * mesh.ndim
-        out = func(*tree_map(_whole, args), **tree_map(_whole, kwargs))
-        target = args[0] if args else None
-        if func._schema.is_mutable and isinstance(target, DTensor):
-            back = DTensor.from_local(out, mesh, whole, run_check=False
-                                      ).redistribute(mesh, target.placements)
-            target.to_local().copy_(back.to_local())
-            return target
-        if func._schema.is_mutable and isinstance(target, torch.Tensor):
-            return out                          # a plain target, updated
-        return tree_map(lambda t: DTensor.from_local(
-            t, mesh, whole, run_check=False)
-            if isinstance(t, torch.Tensor) else t, out)
-
-
-def _whole(a):
-    """A DTensor's whole tensor on every rank (an all-gather)."""
-    return a.full_tensor() if isinstance(a, DTensor) else a
-
-
-def _batch_spec(shape, mesh) -> SH.Spec:
-    """Batch over (pod, data) when the dim divides (long_500k has
-    global_batch=1 -> replicated)."""
-    return (SH._fit(shape[0], mesh, SH.data_axes(mesh)),) + \
-        (None,) * (len(shape) - 1)
 
 
 def plan_microbatch(cfg, shape, mesh) -> int:
@@ -332,82 +265,6 @@ def plan_microbatch(cfg, shape, mesh) -> int:
 def _fake_inputs(specs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Meta input specs -> fake CPU tensors (call under the fake mode)."""
     return {k: torch.zeros(t.shape, dtype=t.dtype) for k, t in specs.items()}
-
-
-def _gather_on_use(mod, leaf: str, placements):
-    """FSDP's gather-on-use: ``mod.<leaf>``, stored sharded over the fsdp
-    mesh dims as ``mod.<leaf>_fsdp``, reads as its all-gather over them
-    (once per use, layer by layer, and again where remat recomputes it;
-    the gradient flows back as a reduce-scatter), the counterpart of XLA
-    gathering FSDP weights per layer inside the scan.  A property on a
-    subclass made for ``mod`` (no module is called, so no module hook
-    fires)."""
-    stored = mod._parameters.pop(leaf)
-    mod.register_parameter(leaf + "_fsdp", stored)
-    # one mesh dim at a time, the inner first: each step (and its
-    # reduce-scatter in the backward) a plain one-dim collective
-    steps, now = [], list(stored.placements)
-    for i in reversed(range(len(now))):
-        if now[i] != placements[i]:
-            now[i] = placements[i]
-            steps.append(list(now))
-
-    def read(self):
-        w = getattr(self, leaf + "_fsdp")
-        for p in steps:
-            w = w.redistribute(w.device_mesh, p)
-        return w
-    mod.__class__ = type(type(mod).__name__, (type(mod),),
-                         {leaf: property(read)})
-    return stored
-
-
-def _place_params(model, specs, mesh, requires_grad: bool, fsdp=()):
-    """Swap every (meta) parameter of ``model`` for a fake tensor laid out
-    by its spec (a DTensor), or kept whole with ``specs=None``; a
-    parameter sharded over the ``fsdp`` mesh axes is gathered over them on
-    use.  -> {name: stored parameter}."""
-    names = list(mesh.mesh_dim_names) if specs is not None else []
-    gathered = [names.index(a) for a in fsdp]
-    stored = {}
-    for name, p in list(model.named_parameters()):
-        owner, _, leaf = name.rpartition(".")
-        mod = model.get_submodule(owner) if owner else model
-        t = torch.zeros(p.shape, dtype=p.dtype)
-        if specs is not None:
-            t = SH.distribute(t, mesh, specs[name])
-        setattr(mod, leaf, torch.nn.Parameter(t, requires_grad=requires_grad))
-        stored[name] = getattr(mod, leaf)
-        if any(isinstance(t.placements[i], Shard) for i in gathered):
-            _gather_on_use(mod, leaf, [
-                Replicate() if i in gathered else pl
-                for i, pl in enumerate(t.placements)])
-    model.device = torch.device("cpu")
-    return stored
-
-
-def _pin_residual(model, mesh):
-    """The residual stream between blocks (and into the head) sharded over
-    the batch alone: over pod and data where it is, replicated over
-    model, as the rules lay activations out.  A row-parallel product's
-    partial sum is all-reduced there, as in Megatron-style tensor
-    parallelism; without the pin DTensor's op-by-op propagation carries it
-    into the next block and may reduce-scatter it over the sequence."""
-    if not hasattr(model, "_block"):
-        return
-    data = [i for i, a in enumerate(mesh.mesh_dim_names) if a != "model"]
-
-    def pin(x):
-        if not isinstance(x, DTensor):
-            return x
-        return x.redistribute(x.device_mesh, [
-            p if i in data and p == Shard(0) else Replicate()
-            for i, p in enumerate(x.placements)])
-    embed, block, logits = model.embed, model._block, model.logits
-    model.embed = lambda tokens: pin(embed(tokens))
-    model._block = lambda *a, **k: (lambda out: (pin(out[0]),) + out[1:])(
-        block(*a, **k))
-    model.logits = lambda x: logits(pin(x))
 
 
 def _grouped_ffn(x, w, grp_slot, grp_count):
@@ -550,13 +407,12 @@ def lower_cell(arch: str, shape_name: str, mesh, *, optimizer: str = "adamw",
     with fake:
         sp = shape.kind == "prefill" and seq_parallel and \
             cfg.family == "ssm"
-        fsdp = SH.fsdp_axes(mesh) if (mode == "train" or weight_gather) \
-            else ()
-        params = _place_params(model, None if sp else specs, mesh,
-                               requires_grad=shape.kind == "train",
-                               fsdp=fsdp)
+        fsdp = mode == "train" or weight_gather
+        params = P.place_params(model, None if sp else specs, mesh,
+                                requires_grad=shape.kind == "train",
+                                fsdp=fsdp)
         if not sp:
-            _pin_residual(model, mesh)
+            P.pin_residual(model, mesh)
         aliased: Any = []
         if shape.kind == "train":
             micro = plan_microbatch(cfg, shape, mesh)
@@ -566,8 +422,7 @@ def lower_cell(arch: str, shape_name: str, mesh, *, optimizer: str = "adamw",
             # here (a tensor made under the fake mode has no value)
             state = opt.init(params)._replace(step=0)
             batch = _fake_inputs(input_specs(cfg, shape))
-            batch = {k: SH.distribute(t, mesh, _batch_spec(t.shape, mesh))
-                     for k, t in batch.items()}
+            batch = P.distribute_microbatches(batch, mesh, micro)
             step_fn = make_train_step(model, cfg, run, opt)
             args, aliased = (params, state, batch), (params, state)
 
@@ -587,8 +442,7 @@ def lower_cell(arch: str, shape_name: str, mesh, *, optimizer: str = "adamw",
             fn_desc = "prefill_forward(seq_parallel)"
         elif shape.kind == "prefill":
             inputs = _fake_inputs(input_specs(cfg, shape))
-            inputs = {k: SH.distribute(t, mesh, _batch_spec(t.shape, mesh))
-                      for k, t in inputs.items()}
+            inputs = P.distribute_batch(inputs, mesh)
             args = (params, inputs)
 
             def step():
@@ -605,12 +459,12 @@ def lower_cell(arch: str, shape_name: str, mesh, *, optimizer: str = "adamw",
         else:
             B, S = shape.global_batch, shape.seq_len
             cache = model.init_cache(B, S)
-            cache = SH.distribute_tree(
+            cache = P.distribute_tree(
                 cache, SH.cache_pspecs(cfg, cache, mesh), mesh)
             pos = S - verify_block
             cache["written"] = pos
             tok = torch.zeros((B, verify_block), dtype=torch.int32)
-            tok = SH.distribute(tok, mesh, _batch_spec(tok.shape, mesh))
+            tok = P.distribute(tok, mesh, P.batch_spec(tok.shape, mesh))
             args, aliased = (params, cache, tok), cache
 
             def step():
@@ -624,7 +478,7 @@ def lower_cell(arch: str, shape_name: str, mesh, *, optimizer: str = "adamw",
         flops = _LocalFlops(rank)
         coll_bytes = _CollectiveBytes()
         comm = CommDebugMode()
-        reshard = _Reshard(tracker)
+        reshard = P.Reshard(tracker)
         live = _PerRank(rank)
         live.track(args)
         with ExitStack() as stack:
@@ -653,7 +507,8 @@ def lower_cell(arch: str, shape_name: str, mesh, *, optimizer: str = "adamw",
         if fam is not None:
             counts[fam] = counts.get(fam, 0) + n
     colls = {fam: {"count": counts.get(fam, 0),
-                   "bytes": coll_bytes.bytes.get(fam, 0.0)}
+                   "bytes": coll_bytes.bytes.get(fam, 0.0),
+                   "calls_by_group_size": coll_bytes.groups.get(fam, {})}
              for fam in sorted(set(counts) | set(coll_bytes.bytes))}
     analytical = roofline_terms(cfg, shape, mesh_shape, mode,
                                 weight_gather=weight_gather,
@@ -663,6 +518,7 @@ def lower_cell(arch: str, shape_name: str, mesh, *, optimizer: str = "adamw",
     rec = {
         "arch": arch, "shape": shape_name, "status": "ok", "fn": fn_desc,
         "mesh": mesh_shape,
+        "layout_mesh": SH.mesh_shape(P.layout_mesh(mesh)),
         "weight_gather": weight_gather,
         "verify_block": verify_block,
         "capacity_factor": capacity_factor,
@@ -689,7 +545,7 @@ def lower_cell(arch: str, shape_name: str, mesh, *, optimizer: str = "adamw",
 
 class CellTimeout(BaseException):
     """A cell's trace ran past CELL_TIMEOUT_S (a BaseException, so that no
-    ``except Exception`` on the way, DTensor's or ``_Reshard``'s, takes
+    ``except Exception`` on the way, DTensor's or ``Reshard``'s, takes
     it for a failed op)."""
 
 

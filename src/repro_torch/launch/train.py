@@ -1,12 +1,21 @@
 """Training entry point: data pipeline -> train step -> checkpoint ->
 fault-tolerant supervision.  The port of ``repro/launch/train.py``.
 
-One device: the model, its gradients and the optimizer state live on
+Without a mesh the model, its gradients and the optimizer state live on
 ``device`` (the card by default; without one it raises, pass
-``device="cpu"`` to train on the CPU).  The reference's mesh and parameter
-shardings belong to distribution, which is not ported yet.  A step reads
-one value back to the host, the loss, as the reference's
-``float(metrics["loss"])`` does.
+``device="cpu"`` to train on the CPU).  With the reference's ``mesh`` (a
+``DeviceMesh`` over the default process group, ``launch/mesh.py``) every
+rank builds the model from the seed on its own device (the mesh's device
+type; for ``cuda`` the rank's card, raising where there is none), lays
+each parameter out by ``param_pspecs(cfg, ..., mode="train")`` through
+``models/placement.py`` (FSDP over the data dims, gathered on use; TP over
+``model``), keeps its optimizer state laid out as its parameters, and
+keeps its own shard of every batch: each rank draws the same global batch
+from the seed, so the data stay restart-stable.  Every op of a step on a
+mesh runs as DTensor places it (the capacity route's data-dependent
+routing on each rank's own rows, ``models/moe.py``); one it cannot place
+raises.  A step reads one value back to the host, the loss, as the
+reference's ``float(metrics["loss"])`` does.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \\
         --reduced --steps 50 --device cpu
@@ -18,12 +27,15 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import RunConfig, ShapeConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import make_pipeline
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import placement as P
+from repro_torch.models import sharding as SH
 from repro_torch.models.registry import build_model
 from repro_torch.models.train import make_train_step
 from repro_torch.optim.grad_compress import init_error_feedback
@@ -42,9 +54,13 @@ class Trainer:
 
     An encdec model (whisper) is refused: the pipeline gives no ``frames``,
     as the reference's gives none; it trains through
-    ``models/train.py::make_train_step`` with a batch that holds them."""
+    ``models/train.py::make_train_step`` with a batch that holds them.
 
-    def __init__(self, cfg, shape: ShapeConfig, run: RunConfig,
+    ``mesh``: train on that ``DeviceMesh`` (see the module docstring); the
+    state's parameters and moments are DTensors, and the metrics are read
+    whole.  ``device`` must then be None or the mesh's device."""
+
+    def __init__(self, cfg, shape: ShapeConfig, run: RunConfig, mesh=None,
                  device: DeviceLike = None, ckpt_dir: Optional[str] = None,
                  grad_compress: bool = False, seed: int = 0):
         if cfg.family == "encdec":
@@ -54,6 +70,9 @@ class Trainer:
                 f"models/train.py::make_train_step with a batch that holds "
                 f"frames [B, encoder_seq, d_model]")
         self.cfg, self.shape, self.run = cfg, shape, run
+        self.mesh = mesh
+        if mesh is not None:
+            device = _mesh_device(mesh, device)
         self.device = resolve_device(device)
         self.seed = seed
         self.opt = make_optimizer(
@@ -77,12 +96,20 @@ class Trainer:
         self.model = self.step_fn = None       # free the last one first
         self.model = build_model(self.cfg, self.device,
                                  seed=self.seed if seed is None else seed)
-        for p in self.model.parameters():
-            p.requires_grad_(True)
+        if self.mesh is None:
+            for p in self.model.parameters():
+                p.requires_grad_(True)
+            params = dict(self.model.named_parameters())
+        else:
+            specs = SH.param_pspecs(self.cfg,
+                                    dict(self.model.named_parameters()),
+                                    self.mesh, mode="train")
+            params = P.place_params(self.model, specs, self.mesh,
+                                    requires_grad=True, fsdp=True)
+            P.pin_residual(self.model, self.mesh)
         self.step_fn = make_train_step(self.model, self.cfg, self.run,
                                        self.opt,
                                        grad_compress=self.grad_compress)
-        params = dict(self.model.named_parameters())
         state: Dict[str, Any] = {"params": params,
                                  "opt": self.opt.init(params)}
         if self.grad_compress:
@@ -122,19 +149,15 @@ class Trainer:
                     raise RuntimeError(f"injected failure at step {step}")
                 batch = {k: torch.from_numpy(v).to(self.device)
                          for k, v in next(pipe).items()}
+                if self.mesh is not None:
+                    batch = P.distribute_microbatches(batch, self.mesh,
+                                                      self.run.microbatch)
                 t0 = time.perf_counter()
                 if cuda:
                     ev = [torch.cuda.Event(enable_timing=True)
                           for _ in range(2)]
                     ev[0].record()
-                if self.grad_compress:
-                    params, opt, ef, metrics = self.step_fn(
-                        state["params"], state["opt"], batch, state["ef"])
-                    state = {"params": params, "opt": opt, "ef": ef}
-                else:
-                    params, opt, metrics = self.step_fn(
-                        state["params"], state["opt"], batch)
-                    state = {"params": params, "opt": opt}
+                state, metrics = self._step(state, batch)
                 if cuda:
                     ev[1].record()
                 loss = float(metrics["loss"])     # the step's one readback
@@ -156,6 +179,38 @@ class Trainer:
             if self.ckpt:
                 self.ckpt.wait()
         return state, losses
+
+    def _step(self, state, batch):
+        """One train step -> (state, metrics); on a mesh the plain tensors
+        the model makes (positions, masks, zeros) read as replicated, and
+        the metrics are read whole."""
+        def step():
+            if self.grad_compress:
+                params, opt, ef, metrics = self.step_fn(
+                    state["params"], state["opt"], batch, state["ef"])
+                return {"params": params, "opt": opt, "ef": ef}, metrics
+            params, opt, metrics = self.step_fn(state["params"],
+                                                state["opt"], batch)
+            return {"params": params, "opt": opt}, metrics
+        if self.mesh is None:
+            return step()
+        with implicit_replication():
+            state, metrics = step()
+        return state, {k: P.whole(v) for k, v in metrics.items()}
+
+
+def _mesh_device(mesh, device: DeviceLike) -> torch.device:
+    """The rank's device on ``mesh``: its device type, and for ``cuda`` the
+    card the mesh set for this rank; raises where there is no card."""
+    if mesh.device_type == "cuda":
+        resolve_device("cuda")
+        dev = torch.device("cuda", torch.cuda.current_device())
+    else:
+        dev = torch.device(mesh.device_type)
+    if device is not None and torch.device(device).type != dev.type:
+        raise ValueError(f"device {device} is not the mesh's "
+                         f"{mesh.device_type}")
+    return dev
 
 
 def main(argv=None):

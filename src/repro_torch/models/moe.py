@@ -31,6 +31,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import cache_moe as K
@@ -50,15 +51,26 @@ def gate_topk(gate_w: torch.Tensor, x: torch.Tensor, k: int
     weights, ids = torch.topk(probs, k, dim=-1)
     weights = weights / torch.sum(weights, dim=-1, keepdim=True)
     E = gate_w.shape[-1]
-    flat_ids = ids.reshape(-1)
-    counts = torch.zeros(E, dtype=torch.float32, device=x.device
-                         ).index_add_(0, flat_ids,
-                                      torch.ones_like(flat_ids,
-                                                      dtype=torch.float32))
+    counts = _expert_counts(ids, E)
     frac = counts / torch.clamp(torch.sum(counts), min=1.0)
     mean_prob = torch.mean(probs.reshape(-1, E), dim=0)
     aux = E * torch.sum(frac * mean_prob)
     return weights.to(x.dtype), ids, probs, aux
+
+
+def _expert_counts(ids: torch.Tensor, E: int) -> torch.Tensor:
+    """[E] f32: how many (token, choice) pairs chose each expert.  Of a
+    DTensor, each rank counts its own shard and the counts are a partial
+    sum over the mesh dims that split ``ids``."""
+    if isinstance(ids, DTensor):
+        return DTensor.from_local(
+            _expert_counts(ids.to_local(), E), ids.device_mesh,
+            [Partial() if isinstance(pl, Shard) else pl
+             for pl in ids.placements], run_check=False)
+    flat = ids.reshape(-1)
+    return torch.zeros(E, dtype=torch.float32, device=ids.device
+                       ).index_add_(0, flat, torch.ones_like(
+                           flat, dtype=torch.float32))
 
 
 def _expert_ffn(p, e: int, x: torch.Tensor, activation: str) -> torch.Tensor:
@@ -184,25 +196,62 @@ def _expert_ffn_stacked(p, xg: torch.Tensor, activation: str
     return torch.einsum("becf,efd->becd", h, p.wd)
 
 
+def _per_row(fn, *ts):
+    """``fn(*ts)``, for a ``fn`` whose every row (dim 0, the batch) depends
+    on the same row of its inputs alone.  Of DTensors, each rank runs
+    ``fn`` on its own rows: the inputs made whole but for their rows (as
+    the first one's rows are split), the outputs laid out alike."""
+    if not isinstance(ts[0], DTensor):
+        return fn(*ts)
+    mesh = ts[0].device_mesh
+    rows = [pl if pl == Shard(0) else Replicate()
+            for pl in ts[0].placements]
+    B = ts[0].shape[0]
+    out = fn(*(t.redistribute(mesh, rows).to_local() for t in ts))
+
+    def wrap(t):
+        shape = (B,) + tuple(t.shape[1:])
+        return DTensor.from_local(
+            t, mesh, rows, run_check=False, shape=torch.Size(shape),
+            stride=tuple(math.prod(shape[i + 1:])
+                         for i in range(len(shape))))
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def _gather_slots(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B, S, d], idx [B, E, C] -> [B, E, C, d], each row's tokens."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    return x[rows[:, None, None], idx]
+
+
+def _combine(yg: torch.Tensor, valid: torch.Tensor, ids: torch.Tensor,
+             slot: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Each (token, choice) reads its (expert, slot) of ``yg`` [B, E, C,
+    d] (slot C, a dropped choice, reads 0), weighted by its gate weight:
+    -> [B, S, d]."""
+    B, E, C, d = yg.shape
+    yg = yg * valid[..., None].to(yg.dtype)
+    flat = F.pad(yg, (0, 0, 0, 1)).reshape(B, E * (C + 1), d)
+    rows = torch.arange(B, device=yg.device)
+    per_choice = flat[rows[:, None, None], ids * (C + 1) + slot]  # [B,S,k,d]
+    return torch.sum(per_choice * weights[..., None], dim=2)
+
+
 def moe_grouped(p, x: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Train path.  x: [B, S, d] -> (y, aux).  Routing and capacity per
     batch row: each expert takes at most ``capacity(cfg, S)`` of the row's
     (token, choice) pairs, in token order; the rest are dropped (their
-    term of the gate-weighted sum is 0)."""
-    B, S, d = x.shape
+    term of the gate-weighted sum is 0).  On a mesh the routing, the
+    gather and the combine run on each rank's own rows (``_per_row``),
+    the expert products on DTensors."""
     E, k = cfg.num_experts, cfg.num_experts_per_tok
-    C = capacity(cfg, S)
+    C = capacity(cfg, x.shape[1])
     weights, ids, _, aux = gate_topk(p.gate, x, k)
-    idx, valid, slot = _dispatch_indices(ids, E, C)
-    rows = torch.arange(B, device=x.device)
-    xg = x[rows[:, None, None], idx]                          # [B,E,C,d]
+    idx, valid, slot = _per_row(lambda i: _dispatch_indices(i, E, C), ids)
+    xg = _per_row(_gather_slots, x, idx)                      # [B,E,C,d]
     yg = _expert_ffn_stacked(p, xg, cfg.ffn_activation)
-    yg = yg * valid[..., None].to(yg.dtype)
-    # combine: each (token, choice) reads its (expert, slot); slot C = 0
-    flat = F.pad(yg, (0, 0, 0, 1)).reshape(B, E * (C + 1), d)
-    per_choice = flat[rows[:, None, None], ids * (C + 1) + slot]  # [B,S,k,d]
-    y = torch.sum(per_choice * weights[..., None], dim=2)
+    y = _per_row(_combine, yg, valid, ids, slot, weights)
     if cfg.num_shared_experts:
         y = y + ffn_forward(p.shared, x, "swiglu")
     return y.to(x.dtype), aux

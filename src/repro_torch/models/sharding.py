@@ -24,8 +24,8 @@ The port's layers are unstacked (``layers.<l>.attn.wq``,
 them), so a spec here is the reference's without its leading ``None`` per
 stacked layer axis.
 
-``placements`` turns a spec into DTensor placements on a ``DeviceMesh``,
-and ``distribute`` / ``distribute_tree`` apply them (the counterpart of the
+``placements`` turns a spec into DTensor placements on a ``DeviceMesh``;
+``models/placement.py`` lays tensors out by them (the counterpart of the
 reference's ``to_shardings``).
 """
 from __future__ import annotations
@@ -35,8 +35,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
-                                      distribute_tensor)
+from torch.distributed.tensor import Placement, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 
@@ -224,22 +223,3 @@ def placements(spec: Spec, mesh: DeviceMesh) -> List[Placement]:
             out[i] = Shard(dim)
     return out
 
-
-def distribute(t: torch.Tensor, mesh: DeviceMesh, spec: Spec) -> DTensor:
-    """``t`` (the whole tensor, on every rank) as a DTensor laid out by
-    ``spec``; each rank keeps its own shard (nothing is sent)."""
-    return distribute_tensor(t, mesh, placements(spec, mesh),
-                             src_data_rank=None)
-
-
-def distribute_tree(tree: Any, specs: Any, mesh: DeviceMesh) -> Any:
-    """``distribute`` over a nested dict / list of tensors and its specs
-    (as from ``cache_pspecs``); other leaves are kept."""
-    if isinstance(tree, dict):
-        return {k: distribute_tree(v, specs[k], mesh)
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [distribute_tree(v, s, mesh) for v, s in zip(tree, specs)]
-    if isinstance(tree, torch.Tensor):
-        return distribute(tree, mesh, specs)
-    return tree

@@ -10,14 +10,22 @@ and ``grad_norm`` as 0-d device tensors and ``lr`` as a float.  A batch is
 a dict of tensors on the model's device: ``tokens`` and ``labels`` [B, S]
 and, for a vlm, ``patch_embeds`` [B, P, d], for an encdec model
 ``frames`` [B, encoder_seq, d].  Per-layer remat is the
-model's (``cfg.remat``); the reference's pjit shardings do not apply (one
-device).
+model's (``cfg.remat``).
+
+On a mesh (``launch/train.py::Trainer(mesh=...)``) the parameters are
+DTensors laid out by the sharding rules (``models/placement.py``), each
+gradient is reduced to its parameter's layout where autograd returns it,
+and the batch may come as a list of ``run.microbatch`` microbatch dicts
+(each one sharded over the data dims: a global batch split as the
+reference splits it, rows ``[i·B/n, (i+1)·B/n)``, cannot be sliced out of
+a batch that is sharded by rows without gathering it).
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.optim.grad_compress import compress_with_error_feedback
@@ -47,6 +55,16 @@ def _accumulate(gsum: Tensors, grads: Tensors):
             gsum[name].add_(g.float())
         else:
             gsum[name] = g.float()
+
+
+def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient reduced to (or split into) its parameter's
+    layout: a partial sum over the data dims is all-reduced, or
+    reduce-scattered where the parameter is sharded there."""
+    if isinstance(g, DTensor) and isinstance(p, DTensor) and \
+            tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_loss_fn(model, cfg: ModelConfig):
@@ -84,21 +102,27 @@ def make_train_step(model, cfg: ModelConfig, run: RunConfig, optimizer,
     def grads_of(loss: torch.Tensor, params: Tensors) -> Tensors:
         gs = torch.autograd.grad(loss, list(params.values()),
                                  allow_unused=True)
-        return {n: torch.zeros_like(p) if g is None else g
+        return {n: torch.zeros_like(p) if g is None else _as_param(g, p)
                 for (n, p), g in zip(params.items(), gs)}
 
-    def compute_grads(params: Tensors, batch: Tensors):
+    def microbatches(batch, n: int):
+        if isinstance(batch, (list, tuple)):
+            if len(batch) != n:
+                raise ValueError(f"{len(batch)} microbatches given, "
+                                 f"run.microbatch is {n}")
+            return list(batch)
+        b = batch["tokens"].shape[0]
+        if b % n:
+            raise ValueError(f"batch {b} not divisible by microbatch {n}")
+        return [{k: v[i * b // n:(i + 1) * b // n] for k, v in batch.items()}
+                for i in range(n)]
+
+    def compute_grads(params: Tensors, batch):
         n = run.microbatch
         if n and n > 1:
-            b = batch["tokens"].shape[0]
-            if b % n:
-                raise ValueError(f"batch {b} not divisible by microbatch "
-                                 f"{n}")
             gsum: Tensors = {}
             lsum = 0.0
-            for i in range(n):
-                mb = {k: v[i * b // n:(i + 1) * b // n]
-                      for k, v in batch.items()}
+            for mb in microbatches(batch, n):
                 loss, aux = loss_fn(mb)
                 _accumulate(gsum, grads_of(loss, params))
                 lsum = lsum + loss.detach()
@@ -106,6 +130,8 @@ def make_train_step(model, cfg: ModelConfig, run: RunConfig, optimizer,
             for name in list(gsum):
                 grads[name] = gsum.pop(name).div_(n).to(torch.bfloat16)
             return lsum / n, {k: v.detach() for k, v in aux.items()}, grads
+        if isinstance(batch, (list, tuple)):
+            (batch,) = microbatches(batch, 1)
         loss, aux = loss_fn(batch)
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, \
             grads_of(loss, params)

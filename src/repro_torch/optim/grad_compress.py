@@ -5,9 +5,11 @@ Each gradient, plus the residual carried from the last step, is quantized
 to int8 in blocks of 256 with f32 scales and dequantized again; what the
 round trip lost becomes the next residual (error feedback, Karimireddy et
 al., 2019), so the accumulated applied gradient converges to the true sum.
-On one device there is no reduction to compress; the transform is applied
-where a data-parallel reduction would sit, as in the reference, and
-``compressed_bytes_fraction`` gives the bytes it would save.
+The transform is applied where a data-parallel reduction would sit, as in
+the reference (after the gradients are reduced to their parameters'
+layout, on a mesh too: the blocks are the global tensor's, see
+``optimizer.quantize_i8``), and ``compressed_bytes_fraction`` gives the
+bytes it would save.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ Tensors = Dict[str, torch.Tensor]
 
 
 def init_error_feedback(params: Tensors) -> Tensors:
-    return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """f32 zeros laid out as each parameter (a DTensor on a mesh)."""
+    return {n: torch.zeros_like(p, dtype=torch.float32)
             for n, p in params.items()}
 
 
@@ -37,7 +40,7 @@ def compress_with_error_feedback(grads: Tensors, ef_state: Tensors
         e = ef_state[name]
         gf = g.float() + e
         q, s = quantize_i8(gf)
-        deq = dequantize_i8(q, s, gf.shape)
+        deq = dequantize_i8(q, s, gf.shape, like=gf)
         newg[name] = deq.to(g.dtype)
         e.copy_(gf.sub_(deq))
     return newg, ef_state

@@ -9,17 +9,25 @@ size), and computes what the reference computes: f32 moments, the bias
 corrections ``1 - b^step``, decoupled weight decay on ``p`` and the learning
 rate at ``step + 1``.  The step count is a 0-d int32 tensor on the host, so
 the learning rate and the bias corrections are host scalars (f32 arithmetic,
-as the reference's) and an update reads nothing back from the device.  The
-reference's sharding remarks do not apply: one device.
+as the reference's) and an update reads nothing back from the device.
+
+On a mesh (``launch/train.py::Trainer(mesh=...)``) parameters, gradients
+and f32 moments are DTensors laid out alike, and every op above computes
+what it computes on the global tensors: the global norm sums every shard
+(DTensor reduces the partial sums), and the int8 blocks of 256 are those
+of the global flattened tensor, as in the reference (``quantize_i8``).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, NamedTuple, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -76,9 +84,45 @@ def clip_by_global_norm(grads: Tensors, max_norm: float
 QBLOCK = 256
 
 
+def _block_placements(x: DTensor):
+    """The placements under which the 256-blocks of ``x``'s global
+    flattening ([nb, 256]) are laid out as ``x`` is, so that each rank's
+    blocks are those of its own shard: ``x`` split only along dim 0 (or
+    not at all; a mesh dim of size 1 splits nothing), evenly, into runs of
+    whole blocks.  None otherwise."""
+    pls = tuple(Replicate() if n == 1 else p
+                for n, p in zip(x.device_mesh.shape, x.placements))
+    if any(not (isinstance(p, Replicate) or p == Shard(0)) for p in pls):
+        return None
+    k = math.prod(n for n, p in zip(x.device_mesh.shape, pls)
+                  if isinstance(p, Shard))
+    if k > 1:
+        rows = x.shape[0]
+        run = rows // k * math.prod(x.shape[1:])
+        if rows % k or run % QBLOCK:
+            return None
+    return pls
+
+
 def quantize_i8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x -> (int8 values [nb, 256], f32 per-block scales [nb, 1]); blocks
-    along the flattened tensor, the last one zero-padded."""
+    along the flattened tensor, the last one zero-padded.  A DTensor's
+    blocks are those of its global tensor: where its shards are runs of
+    whole blocks (``_block_placements``) each rank quantizes its own shard
+    and keeps its blocks, laid out alike; else the tensor is gathered (one
+    tensor at a time) and the blocks split over every mesh dim."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        pls = _block_placements(x)
+        if pls is None:
+            return tuple(distribute_tensor(t, mesh, [Shard(0)] * mesh.ndim,
+                                           src_data_rank=None)
+                         for t in quantize_i8(x.full_tensor()))
+        nb = -(-x.numel() // QBLOCK)
+        return tuple(DTensor.from_local(t, mesh, pls, run_check=False,
+                                        shape=(nb, t.shape[1]),
+                                        stride=(t.shape[1], 1))
+                     for t in quantize_i8(x.to_local()))
     flat = x.float().reshape(-1)
     flat = F.pad(flat, (0, (-flat.numel()) % QBLOCK)).reshape(-1, QBLOCK)
     scale = torch.amax(torch.abs(flat), dim=1, keepdim=True) / 127.0
@@ -87,7 +131,22 @@ def quantize_i8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def dequantize_i8(q: torch.Tensor, scale: torch.Tensor, shape,
-                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                  dtype: torch.dtype = torch.float32,
+                  like: torch.Tensor = None) -> torch.Tensor:
+    """The tensor of ``shape`` that ``quantize_i8`` gave (q, scale); of
+    DTensor blocks, laid out as ``like`` (a DTensor of that shape)."""
+    if isinstance(q, DTensor):
+        if tuple(q.placements) == _block_placements(like):
+            local = like.to_local()
+            t = dequantize_i8(q.to_local(), scale.to_local(), local.shape,
+                              dtype)
+            return DTensor.from_local(t, like.device_mesh, like.placements,
+                                      run_check=False, shape=like.shape,
+                                      stride=like.stride())
+        full = dequantize_i8(q.full_tensor(), scale.full_tensor(), shape,
+                             dtype)
+        return distribute_tensor(full, like.device_mesh, like.placements,
+                                 src_data_rank=None)
     flat = (q.float() * scale).reshape(-1)
     n = int(np.prod(shape))
     return flat[:n].reshape(shape).to(dtype)
@@ -183,8 +242,7 @@ class AdamW8bit:
     grad_clip: float = 1.0
 
     def init(self, params: Tensors) -> Adam8bitState:
-        qs = {n: quantize_i8(torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device))
+        qs = {n: quantize_i8(torch.zeros_like(p, dtype=torch.float32))
               for n, p in params.items()}
         mq = {n: q for n, (q, _) in qs.items()}
         ms = {n: s for n, (_, s) in qs.items()}
@@ -204,8 +262,8 @@ class AdamW8bit:
         mq, ms, vq, vs = state.m_q, state.m_s, state.v_q, state.v_s
         for name, p in params.items():
             gf = grads[name].float()
-            m = dequantize_i8(mq[name], ms[name], p.shape)
-            v = dequantize_i8(vq[name], vs[name], p.shape)
+            m = dequantize_i8(mq[name], ms[name], p.shape, like=p)
+            v = dequantize_i8(vq[name], vs[name], p.shape, like=p)
             m.mul_(self.b1).add_(gf, alpha=1 - self.b1)
             v.mul_(self.b2).addcmul_(gf, gf, value=1 - self.b2)
             del gf

@@ -5,8 +5,10 @@ with the reference's record keys, their argument bytes equal to the closed
 form from the sharding rules (each parameter's and cache tensor's bytes
 over the product of its spec's mesh axes; the sequence-parallel cell's
 weights whole, its tokens one rank's shard); a train-mode cell (FSDP: the
-weights gathered on use) records an ``all_gather``; and a cell that
-``shape_applicable`` refuses is ``skipped``."""
+weights gathered on use) records an ``all_gather``; a cell that
+``shape_applicable`` refuses is ``skipped``; and a 2-layer mixtral-8x7b
+train cell on the 2 x 16 x 16 mesh ends ``ok`` with its FSDP collectives
+over the flattened (pod x data) dim."""
 import json
 import os
 import subprocess
@@ -141,3 +143,36 @@ def test_train_cell_gathers_fsdp_weights():
     assert colls["all_gather"]["count"] > 0
     assert colls["all_gather"]["bytes"] > 0
     assert "reduce_scatter" in colls or "all_reduce" in colls
+
+
+MULTI_POD_TRAIN = textwrap.dedent("""
+    import dataclasses, json
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+    D.start_fake_world(512)
+    mesh = make_production_mesh(multi_pod=True, device_type="cpu")
+    D.get_config = lambda a: dataclasses.replace(get_config(a), num_layers=2)
+    print(json.dumps(D.lower_cell("mixtral-8x7b", "train_4k", mesh)))
+""")
+
+
+def test_multi_pod_train_cell_shards_fsdp_over_flattened_pod_data():
+    """mixtral-8x7b at full width, 2 layers, train_4k on the 2 x 16 x 16
+    mesh: laid out on the flattened (pod_data 32, model 16) mesh, each
+    FSDP weight is all-gathered and its gradient reduce-scattered in one
+    collective over the 32 ranks of pod x data (over the two mesh dims
+    DTensor's planner ran past the 900 s cell limit)."""
+    res = subprocess.run([sys.executable, "-c", MULTI_POD_TRAIN],
+                         capture_output=True, text=True, timeout=300,
+                         env=_env())
+    assert res.returncode == 0, res.stderr[-3000:]
+    cell = json.loads(res.stdout.strip().splitlines()[-1])
+    assert cell["status"] == "ok" and cell["fn"] == "train_step(micro=1)"
+    assert cell["mesh"] == {"pod": 2, "data": 16, "model": 16}
+    assert cell["layout_mesh"] == {"pod_data": 32, "model": 16}
+    colls = cell["hlo_collectives"]
+    for fam in ("all_gather", "reduce_scatter"):
+        assert colls[fam]["calls_by_group_size"].get("32", 0) > 0, colls
+        assert colls[fam]["bytes"] > 0
+    assert set(colls["all_gather"]["calls_by_group_size"]) <= {"16", "32"}
