@@ -61,7 +61,11 @@ Phases (each raises on failure):
      call) at mamba2 S 512 / 2048 and zamba2 S 512); flash and flash-decode
      also at whisper-medium's 16 / 16 x 64 (flash at S 128 and 512, timed at
      both; flash-decode also in a 192-slot cache, lengths 129..192, timed
-     at 192)
+     at 192), and at head shapes no model here has (``EXTRA_SHAPES``:
+     phi-2's 32 / 32 x 80, phi-3-mini's 32 / 32 x 96, gemma-7b's 16 / 16 x
+     256, falcon-7b's 71 / 1 x 64 (flash-decode only) and 32 / 8 x 40, a
+     width padded in the kernels' loads), flash timed at S 512 and
+     flash-decode at 543 of 576; a head dim of 20 or 264 must raise
   3. solo serving with a tight cache (12 slots): misses, prefetches,
      evictions
   4. solo serving with an ample cache (32 slots): the fast path, <=2 host
@@ -136,7 +140,11 @@ Phases (each raises on failure):
      T 1 and T 512), bf16 and f32, batch invariance; sd x spmoe with a
      tight cache (8 slots for 32 experts) and an ample one (32 slots: <= 2
      host syncs per fast block, counters reset after the first request),
-     every drafted token through the draft's MoE layers on the kernel; one
+     every drafted token through the draft's MoE layers on the kernel (by
+     the host's record of each draft step and by the trace between the
+     step's markers, ``check_draft_launches``; ``--phase phi-draft <n>``
+     runs this path n times, then twice with a draft layer's kernels
+     skipped, uncounted and counted, which must each fail the check); one
      MoE draft decode step under CUDA sync debugging against the derived
      dense draft's of the same depth (no more syncs; one gate_up and one
      down launch per MoE layer), both drafting stages timed; the fast
@@ -197,8 +205,12 @@ Phases (each raises on failure):
      S 1024, 6 AdamW steps each (losses finite, the last 3 below the
      first; step ms, peak), the SSD kernel launched 0 times in training
      (the train route scans with the plain ``ssd_ref``) and once per mamba
-     layer in a prefill of the trained model; one f32 step of each, reduced,
-     on the card against the CPU
+     layer in a prefill of the trained model; mamba2-780m again for 3
+     steps of AdamW8bit with int8 gradient compression (the first two
+     losses finite; ``A_log`` / ``D`` / ``dt_bias``, 48 a layer, quantized
+     as the reference's stacked leaves, [9, 256] each; its median step
+     beside the AdamW run's); one f32 step of each, reduced, on the card
+     against the CPU
  18. whisper-medium, in a child process (``--phase whisper``): 24 encoder
      + 24 decoder layers at full width (d 1024, 16 / 16 heads x 64, gelu
      d_ff 4096, vocab 51865, tied), bf16, random weights from seed 0, frames
@@ -254,9 +266,13 @@ on the path are the calls whose kernels the device ran in the trace
 9) and whisper's (18) capture nothing and go untraced: there every launch
 is its wrapper's own.  Each kernel of the path must have launched through
 its wrapper and run on the device, and every counted launch must have run.
-Where a path has an MoE draft (12 self-draft, 13), a marker kernel before
-and after each draft step tells the draft's expert-FFN kernels apart in the
-trace: every drafted token must have run each MoE layer of the draft.
+Where a path has an MoE draft (12 self-draft, 13), every drafted token must
+have run each MoE layer of the draft through the kernel, by two counts:
+the host's record of each draft step (the wrappers' launches and each
+replayed capture's recorded calls) and the device's, the calls the trace
+holds between a marker kernel put before and after each draft step.  The
+profiler's trace now and then loses a whole replay's records; the device
+count forgives a step whose window it lost whole, and nothing else.
 
 Prints JSON lines (kernels, decode_timing, flash_timing, ssd_timing,
 kernel_checks, requests, ssm_requests, gelu_requests, dense_requests,
@@ -272,6 +288,7 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -317,6 +334,20 @@ FA_SHAPES = (("zamba2-7b", 32, 32, 112), ("nemotron-4-340b", 96, 8, 192),
              ("whisper-medium", 16, 16, 64))
 # flash at whisper-medium's served prefill too: one 128-key block a layer
 FA_WHISPER = FA_SHAPES[-1]
+# head shapes of public models that no model of this repository has, which
+# the attention kernels take (any head dim that is a multiple of 8 from 8 to
+# 256, any number of q heads per kv head): phi-2 (D 80), phi-3-mini (D 96),
+# gemma-7b (D 256), falcon-7b (71 q heads on 1 kv head) and a width padded
+# inside the kernel's loads (D 40 runs in the 64 instance); each held
+# against its plain version (f32 and bf16) and timed (bf16) by flash at S
+# 512 (not falcon-7b) and by flash-decode at 543 of 576 keys.  No model
+# path launches them: their rows in the kernels line have 0 launches.
+EXTRA_SHAPES = (("phi-2", 32, 32, 80), ("phi-3-mini", 32, 32, 96),
+                ("gemma-7b", 16, 16, 256), ("falcon-7b", 71, 1, 64),
+                ("padded-40", 32, 8, 40))
+FA_EXTRA = tuple(x for x in EXTRA_SHAPES if x[0] != "falcon-7b")
+# head dims the kernels refuse (ValueError on the card, never a silent mha)
+REFUSED_HEAD_DIMS = (20, 264)
 # lossless check: the engine (5-token verify blocks, f32 expert combine) and
 # the resident reference (one teacher-forced forward, bf16 combine) round
 # the bf16 residual stream at different places; a token that is not the
@@ -361,10 +392,12 @@ SSM_MARGIN, SSM_MIN_EXACT = 0.5, 0.8
 # is split, bf16 also in that the plain version rounds the scores and p to
 # bf16 (as the reference's decode_attention_ref) and the kernel p only.
 DECODE_WIDTHS = (("llama3.2-3b", 24, 8, 128),
-                 ("mistral-7b-draft", 32, 8, 128), *FA_SHAPES)
+                 ("mistral-7b-draft", 32, 8, 128), *FA_SHAPES,
+                 *EXTRA_SHAPES)
 DECODE_CACHES = ((576, (543, 1, 77), ("llama3.2-3b", "zamba2-7b",
                                       "nemotron-4-340b", "granite-20b",
-                                      "command-r-35b")),
+                                      "command-r-35b",
+                                      *(x[0] for x in EXTRA_SHAPES))),
                  (4112, (4096, 1, 512), ("mistral-7b-draft",)),
                  # whisper-medium's served steps: lengths 129..192 of 192
                  (192, (192, 129, 160), ("whisper-medium",)))
@@ -827,7 +860,7 @@ def flash_phase(dev):
             (512, None, ("bfloat16",), (LLAMA_HEADS, FA_KV_HEADS, FA_DIM,
                                         None)),
             *((512, None, both, (h, hkv, d, m))
-              for m, h, hkv, d in FA_SHAPES),
+              for m, h, hkv, d in FA_SHAPES + FA_EXTRA),
             (128, None, both, FA_WHISPER[1:] + FA_WHISPER[:1]),
             (384, 100, both, FA_SHAPES[1][1:] + (None,))):
         for dt_name in dtypes:
@@ -880,6 +913,15 @@ def flash_phase(dev):
                     "library_device_ms": traced_ms(sdpa),
                     "bound_ms": bound, "bound_by": by, "max_abs_err": err}
             del q, k, v, got, want
+    for D in REFUSED_HEAD_DIMS:
+        q = torch.zeros((1, 128, 4, D), dtype=torch.bfloat16, device=dev)
+        try:
+            FA.flash_attention(q, q, q)
+        except ValueError as e:
+            rows.append({"kernel": "flash_attention", "D": D,
+                         "refused": str(e), "ok": True})
+        else:
+            raise AssertionError(f"flash_attention took head dim {D}")
     torch.cuda.empty_cache()
     return rows, timing
 
@@ -990,6 +1032,17 @@ def decode_phase(dev):
                             lambda: F.scaled_dot_product_attention(
                                 qs, ks, vs, enable_gqa=True)))
                 del q, k, v, got
+    lens = torch.ones(1, dtype=torch.int32, device=dev)
+    for D in REFUSED_HEAD_DIMS:
+        q = torch.zeros((1, 4, D), dtype=torch.bfloat16, device=dev)
+        kv = torch.zeros((1, 64, 2, D), dtype=torch.bfloat16, device=dev)
+        try:
+            DA.decode_attention(q, kv, kv, lens)
+        except ValueError as e:
+            rows.append({"kernel": "decode_attention", "D": D,
+                         "refused": str(e), "ok": True})
+        else:
+            raise AssertionError(f"decode_attention took head dim {D}")
     torch.cuda.empty_cache()
     return rows, timing
 
@@ -1115,6 +1168,20 @@ def host_launches():
 
 
 _PATH = {}                      # the device trace of the path being driven
+# the attention wrappers' launches by head shape over every main path of
+# this run, its children's included: "<wrapper> H/Hkv/D" -> launches
+SHAPE_LAUNCHES = collections.Counter()
+
+
+def fold_shape_launches():
+    """Just after a main path: add the attention wrappers' launches by
+    head shape (``flash_attention.shapes``, ``decode_attention.shapes``,
+    set to 0 by ``reset_launches``) to ``SHAPE_LAUNCHES``."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    for w in (FA.flash_attention, DA.decode_attention):
+        for (H, Hkv, D), n in w.shapes.items():
+            SHAPE_LAUNCHES[f"{w.__name__} {H}/{Hkv}/{D}"] += n
 
 
 def reset_launches(trace: bool = True):
@@ -1134,6 +1201,8 @@ def reset_launches(trace: bool = True):
     K.gate_up.launches = K.up_gelu.launches = K.down.launches = 0
     ops.cache_moe.launches = 0
     FA.flash_attention.launches = DA.decode_attention.launches = 0
+    FA.flash_attention.shapes.clear()
+    DA.decode_attention.shapes.clear()
     SSD.ssd_scan.launches = 0
     _PATH["prof"] = profile(activities=[ProfilerActivity.CUDA]) \
         if trace else None
@@ -1149,17 +1218,22 @@ def read_launches(path: str, kernels=MOE_PATH):
     them (untraced, the wrappers' own counts).  Those counts are returned
     by name; the wrappers' own counts under ``"host"``; the calls run
     between the markers of ``mark_draft_steps`` under ``"draft"``, with
-    the markers seen under ``"draft_marks"``.  Each of ``kernels`` must
-    have launched through its wrapper and run on the device, and every
-    launch a wrapper counted must have run."""
+    the markers seen under ``"draft_marks"`` and, per pair of markers, the
+    kernels inside, how many of the port's, and the device ns from one
+    marker to the next under ``"_windows"`` (``check_draft_launches``
+    takes it).  Each of ``kernels`` must have launched through its wrapper
+    and run on the device, and every launch a wrapper counted must have
+    run."""
     import torch
     from torch.autograd import DeviceType
     torch.cuda.synchronize()
     prof = _PATH.pop("prof")
     host = host_launches()
+    fold_shape_launches()
     ran = dict(host)
     draft = dict.fromkeys(KERNEL_NAMES, 0)
     marks, seen, names = 0, 0, set()
+    windows = []              # per pair of markers: the kernels inside
     if prof is not None:
         time.sleep(EDGE_S)
         t0 = time.perf_counter()
@@ -1178,15 +1252,26 @@ def read_launches(path: str, kernels=MOE_PATH):
         log(f"{path}: the trace's {seen} device activities read in "
             f"{time.perf_counter() - t0:.1f} s")
         ran = dict.fromkeys(KERNEL_NAMES, 0)
-        inside = False
-        for _, name in ours:
+        opened = None             # the open window's first marker's start
+        for start, name in ours:
             if MARK.search(name):
-                inside, marks = not inside, marks + 1
+                marks += 1
+                if opened is None:
+                    opened = start
+                    windows.append({**dict.fromkeys(KERNEL_NAMES, 0),
+                                    "port": 0})
+                else:
+                    windows[-1]["gap_ns"] = start - opened
+                    opened = None
                 continue
+            if opened is not None:
+                windows[-1]["port"] += 1
             for k, (pattern, _) in KERNEL_NAMES.items():
                 if pattern.search(name):
                     ran[k] += 1
-                    draft[k] += inside
+                    if opened is not None:
+                        draft[k] += 1
+                        windows[-1][k] += 1
                     break
         for k, (_, per_call) in KERNEL_NAMES.items():
             if ran[k] % per_call or draft[k] % per_call:
@@ -1204,23 +1289,48 @@ def read_launches(path: str, kernels=MOE_PATH):
         if ran[k] < host[k]:
             raise AssertionError(f"{path}: {k} launched {host[k]} times, "
                                  f"the device ran {ran[k]}")
-    return {**ran, "host": host, "draft": draft, "draft_marks": marks}
+    out = {**ran, "host": host, "draft": draft, "draft_marks": marks}
+    if windows:
+        out["_windows"] = windows
+    return out
 
 
 def mark_draft_steps(rt, calls: list):
     """Put a marker kernel (``torch.cuda._sleep``, ``MARK``) on the stream
     before and after each of the runtime's draft steps, so that a path's
-    trace tells the draft's kernels apart (``read_launches``); each step
-    appends to ``calls``.  ``del rt._draft_step`` takes the markers away."""
+    trace tells the draft's kernels apart (``read_launches``), and append
+    to ``calls``, per step, the expert-FFN calls the host made the device
+    run in it: the wrappers' own launches (a build's eager warm-up) plus,
+    for each captured step replayed, the calls its capture recorded (the
+    wrappers' ``captured``, counted per key as ``rt.graphs`` builds it).
+    A replayed step built before the marking counts 0.  ``del
+    rt._draft_step`` takes the markers away."""
     import torch
-    step = rt._draft_step
+    from repro_torch.kernels import cache_moe as K
+    step, graphs = rt._draft_step, rt.graphs
+    wrappers = {"gate_up": K.gate_up, "down": K.down}
+    in_graph = {}                 # step key -> the calls its capture holds
+    build = graphs.build
+
+    def recorded(key, body, inputs):
+        before = {k: w.captured for k, w in wrappers.items()}
+        g = build(key, body, inputs)
+        in_graph[key] = {k: w.captured - before[k]
+                         for k, w in wrappers.items()}
+        return g
 
     def marked(*a):
-        calls.append(1)
+        launched = {k: w.launches for k, w in wrappers.items()}
+        runs = dict(graphs.key_runs)
         torch.cuda._sleep(1)
         out = step(*a)
         torch.cuda._sleep(1)
+        calls.append({k: w.launches - launched[k] + sum(
+            (n - runs.get(key, 0)) * in_graph.get(key, {}).get(k, 0)
+            for key, n in graphs.key_runs.items())
+            for k, w in wrappers.items()})
         return out
+    graphs.build = recorded
     rt._draft_step = marked
 
 
@@ -2501,23 +2611,51 @@ def deepseek_phase(dev):
     return info, rows, timing
 
 
-def check_draft_launches(name, results, launches, dcfg, steps: int):
+def check_draft_launches(name, results, launches, dcfg, steps: list):
     """Every drafted token ran the draft's MoE layers through the kernel:
-    the expert-FFN calls whose kernels the device ran between the markers
-    of the path's ``steps`` draft steps (``mark_draft_steps``), as the
-    path's trace counts them (``read_launches``)."""
+    at least the drafted tokens times the draft's MoE layers expert-FFN
+    calls, by two counts that must both reach that bound.  The host's
+    (``mark_draft_steps``: the wrappers' launches and each replayed
+    capture's recorded calls), and the device's: the calls the trace holds
+    between the steps' markers, plus the host's calls of each step whose
+    window the trace lost whole (no kernel of the port between its
+    markers, which lie at least a quarter of the full windows' median gap
+    apart: a replay's time).  That loss, and only it, is forgiven: the
+    profiler's trace of a long path is not exact (36 reruns of this path
+    lost one such window twice)."""
     drafted = sum(r.metrics.drafted for r in results)
-    got = launches["draft"]
-    calls = min(got["cache_moe_gate_up"], got["cache_moe_down"])
-    if launches["draft_marks"] != 2 * steps:
-        raise AssertionError(f"{name}: {launches['draft_marks']} markers "
-                             f"for {steps} draft steps")
-    if drafted <= 0 or calls < drafted * dcfg.num_moe_layers:
-        raise AssertionError(f"{name}: {calls} MoE draft layer launches "
-                             f"for {drafted} drafted tokens")
-    return {"drafted": drafted, "draft_steps": steps,
-            "draft_moe_calls": got["cache_moe_gate_up"],
-            "draft_down_calls": got["cache_moe_down"]}
+    bound = drafted * dcfg.num_moe_layers
+    keys = ("gate_up", "down")
+    host = {k: sum(st[k] for st in steps) for k in keys}
+    trace = {k: launches["draft"][f"cache_moe_{k}"] for k in keys}
+    windows = launches.pop("_windows", [])
+    aligned = len(windows) == len(steps) and \
+        all("gap_ns" in w for w in windows)
+    full = sorted(w["gap_ns"] for w, st in zip(windows, steps) if all(
+        w[f"cache_moe_{k}"] >= st[k] for k in keys)) if aligned else []
+    lost = [i for i, w in enumerate(windows) if full and not w["port"]
+            and w["gap_ns"] >= full[len(full) // 2] / 4]
+    device = {k: trace[k] + sum(steps[i][k] for i in lost) for k in keys}
+    out = {"drafted": drafted, "bound": bound, "draft_steps": len(steps),
+           "draft_calls_host": host["gate_up"],
+           "draft_down_calls_host": host["down"],
+           "draft_calls_trace": trace["gate_up"],
+           "draft_down_calls_trace": trace["down"],
+           "draft_marks": launches["draft_marks"], "aligned": aligned,
+           "lost_windows": len(lost),
+           "lost_window_gaps_ns": [windows[i]["gap_ns"] for i in lost[:4]],
+           "full_window_median_gap_ns":
+               full[len(full) // 2] if full else None,
+           "draft_calls_device": min(device.values())}
+    if drafted <= 0 or min(host.values()) < bound:
+        raise AssertionError(f"{name}: the host's record holds "
+                             f"{min(host.values())} MoE draft layer calls "
+                             f"for {drafted} drafted tokens: {out}")
+    if min(device.values()) < bound:
+        raise AssertionError(f"{name}: the device trace holds "
+                             f"{min(device.values())} MoE draft layer "
+                             f"calls for {drafted} drafted tokens: {out}")
+    return out
 
 
 def moe_draft_request(name, target, draft, cfg, dcfg, slots, prompt,
@@ -2545,9 +2683,8 @@ def moe_draft_request(name, target, draft, cfg, dcfg, slots, prompt,
         raise AssertionError(f"{name}: the request ended "
                              f"{res.finish_reason} after {len(res.tokens)} "
                              f"tokens")
-    info = {"launches": launches,
-            **check_draft_launches(name, [res], launches, dcfg,
-                                   len(steps)),
+    info = {**check_draft_launches(name, [res], launches, dcfg, steps),
+            "launches": launches,
             "tpot_wall_s": res.metrics.tpot_wall,
             "hit_rate": res.metrics.hit_rate,
             **{k: res.metrics[k] for k in ("verify_blocks", "fast_blocks",
@@ -2624,23 +2761,10 @@ def draft_step_check(moe_draft, dense_draft, vocab: int, dev):
     return out
 
 
-def phi_phase(dev):
-    """phi-3.5-moe at full width with its MoE draft phi-mini-moe, both cut
-    to ``PHI_LAYERS`` layers, bf16, ``attn_impl="kernel"``, target seed 0
-    with its routed experts on the host, draft seed 1 with its experts on the card: the
-    expert FFN against its plain version at the target's widths (f 6400,
-    16-slot pool, timed at T 5) and the draft's (f 960, its 16 experts,
-    timed at T 1 and T 512); sd x spmoe with a tight cache (8 slots, two
-    64-token requests, 32 new tokens each) and an ample one (32 slots:
-    <= 2 host syncs per fast block; counters reset after the first
-    request), the launch counts set to 0 just before and read just after,
-    every drafted token through the draft's MoE layers on the kernel; one
-    MoE draft step against the derived dense draft's (no more syncs); then
-    every token teacher-forced through the resident experts."""
-    import torch
+def phi_configs():
+    """phi-3.5-moe and its MoE draft phi-mini-moe at full width, cut to
+    ``PHI_LAYERS`` layers, under ``attn_impl="kernel"``."""
     from repro_torch.configs.registry import get_config, get_draft_config
-    from repro_torch.core.engine import derive_draft_config
-    from repro_torch.models.registry import build_model
     cfg = dataclasses.replace(get_config("phi-3.5-moe"),
                               num_layers=PHI_LAYERS, attn_impl="kernel")
     dcfg = dataclasses.replace(get_draft_config("phi-3.5-moe"),
@@ -2649,24 +2773,29 @@ def phi_phase(dev):
               dcfg.num_experts, cfg.num_experts_per_tok, dcfg.family)
     if widths != (PHI_D, PHI_F, PHI_DRAFT_F, PHI_E, PHI_E, PHI_K, "moe"):
         raise AssertionError(f"phi widths: {widths}")
-    rows, timing = kernel_phase(dev, PHI_D, PHI_F, pool=PHI_E,
-                                prefill_slots=PHI_E, seed=20,
-                                timed=(BLOCK_T,))
-    drows, dtiming = kernel_phase(dev, PHI_D, PHI_DRAFT_F, pool=PHI_E,
-                                  prefill_slots=PHI_E, seed=21,
-                                  timed=(1, CONC_PROMPT))
-    log(f"[13] phi expert FFN matches its plain version "
-        f"({len(rows) + len(drows)} checks): target "
-        f"{timing[BLOCK_T]['timing']}; draft "
-        f"{[dtiming[T]['timing'] for T in dtiming]}")
-    t0 = time.perf_counter()
+    return cfg, dcfg
+
+
+def phi_models(cfg, dcfg, dev):
+    """The target (seed 0, routed experts on the host), the draft (seed 1,
+    on the card) and the four prompts."""
+    import torch
+    from repro_torch.models.registry import build_model
     target = build_model(cfg, dev, seed=0, expert_device="cpu")
     draft = build_model(dcfg, dev, seed=1)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     prompts = [torch.randint(0, cfg.vocab_size, (1, PHI_PROMPT),
                              generator=torch.Generator().manual_seed(100 + i))
                for i in range(4)]
+    return target, draft, prompts
+
+
+def phi_solo_serving(cfg, dcfg, target, draft, prompts):
+    """Phase 13's solo path: sd x spmoe, a tight cache (two requests) then
+    an ample one (two more), the launch counts set to 0 just before and
+    read just after, every draft step marked; -> the ample engine (open)
+    and what each part gave, the path's launches and the draft check."""
+    import torch
     reset_launches()
     steps = []
     eng, tight, tight_info = serve_phase("phi-tight", target, draft, cfg,
@@ -2682,12 +2811,147 @@ def phi_phase(dev):
     eng, ample, ample_info = serve_phase("phi-ample", target, draft, cfg,
                                          dcfg, PHI_AMPLE, prompts[2:],
                                          PHI_NEW, spy=True, draft_calls=steps)
-    launches = read_launches("phi solo serving")
-    ample_tot = check_ample(ample, ample_info)
-    drafts = check_draft_launches("phi solo serving", tight + ample,
-                                  launches, dcfg, len(steps))
+    try:
+        launches = read_launches("phi solo serving")
+        ample_tot = check_ample(ample, ample_info)
+        drafts = check_draft_launches("phi solo serving", tight + ample,
+                                      launches, dcfg, steps)
+    except BaseException:
+        eng.close()
+        raise
     log(f"[13] phi ample cache ok: {ample_tot}; steady "
         f"{ample_info['steady']}; launches {launches}; {drafts}")
+    return (eng, tight, tight_info, tight_tot, ample, ample_info, ample_tot,
+            launches, drafts)
+
+
+def phi_draft_child(dev, reps: int) -> dict:
+    """Phase 13's solo path ``reps`` times on one pair of models (``--phase
+    phi-draft <reps>``): each run's draft check (``check_draft_launches``)
+    with its host and device counts and the whole path's trace and wrapper
+    counts.  Then twice with a launch really missing
+    (``skip_a_draft_layer``): the draft's last MoE layer's kernels skipped
+    with their wrappers' counts (the host's count must fail the check),
+    then skipped with the counts made as if they ran (the device's must).
+    Fails if any of the ``reps`` runs failed its check."""
+    import torch
+    from repro_torch.models import moe as MOE
+    cfg, dcfg = phi_configs()
+    target, draft, prompts = phi_models(cfg, dcfg, dev)
+    runs = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        try:
+            out = phi_solo_serving(cfg, dcfg, target, draft, prompts)
+        except AssertionError as e:
+            runs.append({"run": i, "error": str(e)[:3000]})
+            log(f"[13] phi draft run {i} failed: {e}")
+            _PATH.clear()
+            gc.collect()
+            continue
+        out[0].close()
+        launches, drafts = out[7], out[8]
+        runs.append({"run": i, "s": time.perf_counter() - t0, **drafts,
+                     "trace_gate_up": launches["cache_moe_gate_up"],
+                     "host_gate_up": launches["host"]["cache_moe_gate_up"]})
+        log(f"[13] phi draft run {i}: {runs[-1]}")
+        del out
+        gc.collect()
+    failed = [r for r in runs if "error" in r]
+    missing = {}
+    kernels, skip = MOE.K, draft.layers[-1].moe
+    for counted, source in ((False, "host's record"),
+                            (True, "device trace")):
+        MOE.K = skip_a_draft_layer(kernels, skip, counted)
+        try:
+            phi_solo_serving(cfg, dcfg, target, draft, prompts)[0].close()
+            missing[source] = None
+        except AssertionError as e:
+            missing[source] = str(e)[:300]
+        finally:
+            MOE.K = kernels
+            _PATH.clear()
+        log(f"[13] phi draft with a launch missing "
+            f"({'counted' if counted else 'uncounted'}): "
+            f"{missing[source] or 'the check passed'}")
+    info = {"phi_draft_runs": runs, "launch_missing_checks": missing}
+    caught = all(m and f"the {source} holds" in m
+                 for source, m in missing.items())
+    if failed or not caught:
+        log(json.dumps(info))
+        raise AssertionError(f"{len(failed)} of {reps} runs failed the "
+                             f"draft check; with a launch missing: "
+                             f"{missing}")
+    torch.cuda.empty_cache()
+    return info
+
+
+def skip_a_draft_layer(kernels, layer, counted: bool):
+    """``kernels`` (the expert-FFN module as ``models/moe.py`` calls it)
+    with the calls on ``layer``'s experts answered by zeros, no kernel;
+    ``counted``: each such call still counted by its wrapper, as a launch
+    or (inside a capture) a captured call."""
+    import types
+
+    import torch
+
+    def count(w):
+        if not counted:
+            return
+        if torch.cuda.is_current_stream_capturing():
+            w.captured += 1
+        else:
+            w.launches += 1
+
+    def gate_up(x, g, wg, wu):
+        if wg is layer.wg:
+            count(kernels.gate_up)
+            return torch.zeros((g.row_tok.shape[0], wg.shape[2]),
+                               dtype=x.dtype, device=x.device)
+        return kernels.gate_up(x, g, wg, wu)
+
+    def down(h, g, wd):
+        if wd is layer.wd:
+            count(kernels.down)
+            return torch.zeros((h.shape[0], wd.shape[2]), dtype=h.dtype,
+                               device=h.device)
+        return kernels.down(h, g, wd)
+    return types.SimpleNamespace(**{**vars(kernels), "gate_up": gate_up,
+                                    "down": down})
+
+
+def phi_phase(dev):
+    """phi-3.5-moe at full width with its MoE draft phi-mini-moe, both cut
+    to ``PHI_LAYERS`` layers, bf16, ``attn_impl="kernel"``, target seed 0
+    with its routed experts on the host, draft seed 1 with its experts on the card: the
+    expert FFN against its plain version at the target's widths (f 6400,
+    16-slot pool, timed at T 5) and the draft's (f 960, its 16 experts,
+    timed at T 1 and T 512); sd x spmoe with a tight cache (8 slots, two
+    64-token requests, 32 new tokens each) and an ample one (32 slots:
+    <= 2 host syncs per fast block; counters reset after the first
+    request), the launch counts set to 0 just before and read just after,
+    every drafted token through the draft's MoE layers on the kernel; one
+    MoE draft step against the derived dense draft's (no more syncs); then
+    every token teacher-forced through the resident experts."""
+    import torch
+    from repro_torch.core.engine import derive_draft_config
+    from repro_torch.models.registry import build_model
+    cfg, dcfg = phi_configs()
+    rows, timing = kernel_phase(dev, PHI_D, PHI_F, pool=PHI_E,
+                                prefill_slots=PHI_E, seed=20,
+                                timed=(BLOCK_T,))
+    drows, dtiming = kernel_phase(dev, PHI_D, PHI_DRAFT_F, pool=PHI_E,
+                                  prefill_slots=PHI_E, seed=21,
+                                  timed=(1, CONC_PROMPT))
+    log(f"[13] phi expert FFN matches its plain version "
+        f"({len(rows) + len(drows)} checks): target "
+        f"{timing[BLOCK_T]['timing']}; draft "
+        f"{[dtiming[T]['timing'] for T in dtiming]}")
+    t0 = time.perf_counter()
+    target, draft, prompts = phi_models(cfg, dcfg, dev)
+    init_s = time.perf_counter() - t0
+    (eng, tight, tight_info, tight_tot, ample, ample_info, ample_tot,
+     launches, drafts) = phi_solo_serving(cfg, dcfg, target, draft, prompts)
     preload_every_expert(eng.runtime)
     phi_graphs = {"verify_block": verify_replay_ab(eng.runtime, 101),
                   "moe_drafting_stage": draft_stage_ab(eng.runtime,
@@ -3400,6 +3664,8 @@ def train_child(dev) -> dict:
     torch.cuda.empty_cache()
 
     ssd = {arch: ssd_train(dev, arch, layers) for arch, layers in SSD_TRAIN}
+    ssd["mamba2-780m"]["adamw8bit_grad_compress"] = ssd_train_8bit(
+        dev, ssd["mamba2-780m"]["median_step_ms_after_first"])
 
     info.update({
         "mixtral-8x7b": {"layers": TRAIN_LAYERS, "batch": TRAIN_B,
@@ -3481,6 +3747,103 @@ def ssd_train(dev, arch: str, layers) -> dict:
     del tr
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def ssd_train_8bit(dev, adamw_ms: float) -> dict:
+    """mamba2-780m at full width and depth through ``Trainer.train`` under
+    AdamW8bit with int8 gradient compression, TRAIN_8BIT_STEPS steps at
+    the AdamW run's batch: the losses of the first two finite (the third
+    comes after AdamW8bit's own blow-up), and the reference's stacked
+    leaves whose 256-blocks straddle the layers (``A_log``, ``D``,
+    ``dt_bias``: 48 a layer) quantized as stacks, ``[ceil(48 * 48 / 256),
+    256]`` = [9, 256] each; the median step beside the AdamW run's
+    (``adamw_ms``); then, on the trained state, the parts a step differs
+    in (``eight_bit_parts``)."""
+    import statistics
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim.optimizer import QBLOCK
+    cfg = get_config("mamba2-780m")
+    run = RunConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                    total_steps=SSD_TRAIN_STEPS, optimizer="adamw8bit")
+    tr = Trainer(cfg, ShapeConfig("train", SSD_TRAIN_S, SSD_TRAIN_B,
+                                  "train"), run, device=dev,
+                 grad_compress=True)
+    torch.cuda.synchronize()
+    reset_peak()
+    state, losses = tr.train(TRAIN_8BIT_STEPS, log_every=0)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses[:2]):
+        raise AssertionError(f"mamba2-780m AdamW8bit losses {losses}")
+    params = state["params"]
+    groups = tr.opt.groups
+    shapes = {k: list(state["opt"].m_q[k].shape) for k in groups}
+    for leaf in ("A_log", "D", "dt_bias"):
+        key = f"layers.*.mamba.{leaf}"
+        names = groups.get(key, [])
+        want = [-(-sum(params[n].numel() for n in names) // QBLOCK), QBLOCK]
+        if len(names) != cfg.num_layers or shapes[key] != want:
+            raise AssertionError(f"mamba2-780m: {key} over {len(names)} "
+                                 f"layers, state {shapes.get(key)}, "
+                                 f"expected {want}")
+    med = statistics.median(tr.step_ms[1:])
+    out = {"losses": losses, "step_ms": tr.step_ms,
+           "median_step_ms_after_first": med,
+           "adamw_median_step_ms_same_run": adamw_ms,
+           "groups": {k: {"layers": len(groups[k]), "m_q_shape": v}
+                      for k, v in shapes.items()},
+           "device_max_allocated_bytes": peak,
+           "parts": eight_bit_parts(tr, state)}
+    log(f"[17] mamba2-780m AdamW8bit + grad_compress: losses {losses}, "
+        f"median step {med:.1f} ms (AdamW {adamw_ms:.1f}); groups "
+        f"{out['groups']}; parts {out['parts']}")
+    del tr, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def eight_bit_parts(tr, state) -> dict:
+    """Where an AdamW8bit + compression step differs from an AdamW step,
+    on ``tr``'s trained state and one set of seeded bf16 gradients (event
+    ms, 3 calls each after one): the 8-bit update, the compression, an
+    AdamW update on f32 moments of its own, and the moment update alone
+    over every parameter as AdamW8bit makes it (``b m`` and ``(1 - b) g``
+    each rounded, two f32 temporaries a parameter) against the fused form
+    (``add_(g, alpha=)``, ``addcmul_``), on f32 moments."""
+    import torch
+    from repro_torch.optim.grad_compress import compress_with_error_feedback
+    from repro_torch.optim.optimizer import AdamW
+    params, opt = state["params"], tr.opt
+    gen = torch.Generator(tr.device).manual_seed(29)
+    grads = {n: (torch.randn(p.shape, generator=gen, device=tr.device)
+                 * 1e-3).to(torch.bfloat16) for n, p in params.items()}
+    out = {"update_8bit_ms": cuda_ms(lambda: opt.update(
+        dict(grads), state["opt"], params), iters=3),
+        "compress_ms": cuda_ms(lambda: compress_with_error_feedback(
+            grads, state["ef"], opt.groups), iters=3)}
+    adamw = AdamW(opt.lr_fn)
+    moments = adamw.init(params)
+    out["update_adamw_ms"] = cuda_ms(lambda: adamw.update(
+        dict(grads), moments, params), iters=3)
+    m, v = moments.m, moments.v
+    b1, b2 = opt.b1, opt.b2
+
+    def update(fused: bool):
+        with torch.no_grad():
+            for n, g in grads.items():
+                gf = g.float()
+                if fused:
+                    m[n].mul_(b1).add_(gf, alpha=1 - b1)
+                    v[n].mul_(b2).addcmul_(gf, gf, value=1 - b2)
+                else:
+                    m[n].mul_(b1).add_(gf * (1 - b1))
+                    v[n].mul_(b2).add_((gf * (1 - b2)).mul_(gf))
+    out["moments_rounded_ms"] = cuda_ms(lambda: update(False), iters=3)
+    out["moments_fused_ms"] = cuda_ms(lambda: update(True), iters=3)
     return out
 
 
@@ -3995,6 +4358,7 @@ def run_child(phase: str, *args) -> dict:
                              f"{out.returncode})")
     info = json.loads(out.stdout.strip().splitlines()[-1])
     info["process_s"] = time.perf_counter() - t0
+    SHAPE_LAUNCHES.update(info.pop("shape_launches", {}))
     return info
 
 
@@ -4002,7 +4366,8 @@ def child_main(phase: str, *args) -> int:
     """A phase in a process of its own: the chaos phase, one dense target
     (``dense <arch>``), training, whisper-medium, sequence-parallel Mamba2
     or one of its ranks (``seqpar-rank <backend> <n> <rank> <store>
-    <out>``); prints its result as one JSON line."""
+    <out>``), or phase 13's solo path n times (``phi-draft <n>``); prints
+    its result as one JSON line."""
     if phase == "train":   # cuBLAS's workspace for deterministic algorithms
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
@@ -4020,6 +4385,8 @@ def child_main(phase: str, *args) -> int:
         info = dense_phase(dev, arch, layers, seed)
     elif phase == "train":
         info = train_child(dev)
+    elif phase == "phi-draft":
+        info = phi_draft_child(dev, int(args[0]))
     elif phase == "whisper":
         info = whisper_child(dev)
     elif phase == "seqpar":
@@ -4029,6 +4396,7 @@ def child_main(phase: str, *args) -> int:
         info = seqpar_rank(backend, int(n), int(rank), store, out)
     else:
         raise ValueError(f"no phase {phase!r}")
+    info["shape_launches"] = dict(SHAPE_LAUNCHES)
     info["process_peaks"] = {
         "device_max_allocated_bytes": script_peak(),
         "host_max_rss_bytes":
@@ -4318,8 +4686,11 @@ def main() -> int:
                 "launches": phi_info["launches_solo_path"][name],
                 "launches_host": phi_info["launches_solo_path"]["host"][name],
                 "launches_draft": phi_info["draft_launches"][
-                    "draft_moe_calls" if name == "cache_moe_gate_up"
-                    else "draft_down_calls"],
+                    "draft_calls_trace" if name == "cache_moe_gate_up"
+                    else "draft_down_calls_trace"],
+                "launches_draft_host": phi_info["draft_launches"][
+                    "draft_calls_host" if name == "cache_moe_gate_up"
+                    else "draft_down_calls_host"],
                 "row": "draft" if draft_row else "target",
                 "T": T, "k": PHI_K, "pool": PHI_E,
                 "f": PHI_DRAFT_F if draft_row else PHI_F,
@@ -4349,6 +4720,30 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
             "library_device_ms": t["library_device_ms"]})
+    # flash and flash-decode at head shapes no model has (EXTRA_SHAPES),
+    # flash at S 512 and flash-decode at 543 of 576 keys; launches: the
+    # wrapper's at that head shape over every main path of this run
+    for m, H, Hkv, D in EXTRA_SHAPES:
+        for name, t, source, line in (
+                ("flash_attention", fa_timing.get(f"512_{m}"),
+                 "flash_attention.cu", "flash_attention.py:27"),
+                ("decode_attention", dec_timing[m],
+                 "decode_attention.cu", "decode_attention.py:26")):
+            if t is None:
+                continue
+            kernels.append({
+                "name": f"{name}_{m}", "route": "cuda",
+                "source": f"src/repro_torch/csrc/{source}",
+                "replaces": f"src/repro/kernels/{line}",
+                "launches": SHAPE_LAUNCHES[f"{name} {H}/{Hkv}/{D}"],
+                "launches_note": "the wrapper's launches at this head "
+                "shape over every main path of this run (no model of the "
+                "run has it)", "H": H, "Hkv": Hkv, "D": D,
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"]})
     # the SSD kernel at the shard shapes of phase 19 (one rank's sequence
     # of 32768 over 2 and 4 ranks); launches: each rank's, all equal
     for backend, n in SEQPAR_RUNS[1:]:

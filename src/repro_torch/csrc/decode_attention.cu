@@ -19,7 +19,8 @@
 //
 // Grid.  One thread-block cluster per (batch row, kv head, group of at most
 // 16 of the kv head's q heads: one group for rep <= 16, three for
-// granite-20b's 48 : 1, each reading the kv head's keys); its blocks are
+// granite-20b's 48 : 1, five for falcon-7b's 71 : 1, each reading the kv
+// head's keys; any rep); its blocks are
 // the splits of the cache, at most kMaxSplits = 16, and their count comes
 // from S alone (num_splits), never from the live length, so a decode step's
 // launch shape does not depend on its position: a captured CUDA graph replays
@@ -67,12 +68,19 @@
 // tensor-core path keeps two 64-key stages, 32 KB each, in flight: a third
 // made it slower); and rank 0 reads each peer's m and l once per row, not
 // once per element.
-// Head dims.  D = 112 (zamba2-7b) is carried as 128 columns in shared memory:
-// its tensor maps have D 112 and the boxes reach 128, so TMA writes zeros
-// past 112 (they add nothing to q k^T; their output columns are not stored);
-// 112 = 7 x 16 would fit the products, but its rows fill no swizzle span.
-// D = 192 (nemotron-4-340b) is three 64-column boxes, its O 96 registers a
-// thread: one block per SM.
+// Head dims.  Every D that is a multiple of 8 from 8 to 256 runs, in the
+// smallest instance width W in {16, 32, 64, 80, 96, 112, 128, 192, 256}
+// that holds it: the tensor maps have the true D columns and the boxes reach
+// W, so TMA writes zeros past D (they add nothing to q k^T; their output
+// columns are not stored; no byte past D is read from device memory), and
+// the q rows are zero past D in shared memory.  W = 112 (zamba2-7b) is
+// carried as 128 columns: 112 = 7 x 16 would fit the products, but its rows
+// fill no swizzle span.  The tensor-core path reads boxes of 64 columns, or
+// of 32 (W 96) or 16 (W 80, whose last 16 columns are one k16 product);
+// W = 192 and 256 (nemotron-4-340b, gemma-7b) hold O in 96 / 128 registers
+// a thread: one block per SM.  The FMA path gives a lane ceil(W / 32) output
+// columns (those past W own nothing).  The softmax scale is the caller's,
+// 1/sqrt(D) of the true D.
 //
 // Layout.  K and V are read in place through their strides in the cache's
 // [B, S, Hkv, D] layout: no transpose copy (the reference builds [B*Hkv, S,
@@ -125,17 +133,17 @@ constexpr int kRingBytes = 64 * 1024;          // the ring's shared memory
 constexpr int kMaxStages = 8;                  // tiles in flight per block
 constexpr int kMaxSplits = 16;                 // blocks per cluster
 constexpr int kSpanUnit = 64;                  // a split's keys: a multiple
-constexpr int kMaxRep = 48;                    // q heads per kv head
 constexpr int kMmaRows = 16;                   // the products' m (q rows)
 // q rows per cluster: a kv head with more q heads (rep > 16) is split into
 // groups of 16, a cluster each (granite-20b's 48 : 1 is three)
 constexpr int kGroupRows = kMmaRows;
 
-// The head dim a kernel computes with: D = 112 is kept as 128 columns in
-// shared memory, where TMA writes zeros past the tensor maps' 112 (they add
-// nothing to q k^T, and give output columns that are not stored).
-__host__ __device__ constexpr int padded_dim(int D) {
-  return D == 112 ? 128 : D;
+// The columns an instance of width W computes with: W = 112 is kept as 128
+// columns in shared memory, where TMA writes zeros past the tensor maps'
+// true D (they add nothing to q k^T, and give output columns that are not
+// stored).
+__host__ __device__ constexpr int padded_dim(int W) {
+  return W == 112 ? 128 : W;
 }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -212,8 +220,8 @@ struct Block {
   unsigned char* smem;
   uint32_t* released;       // per stage: warps done with it, ever
   // rep: the q rows of this block's group (at most kGroupRows); row0: the
-  // group's first q head
-  int kStages, split, b, kvh, len, span, begin, end, ntiles, rep, row0;
+  // group's first q head; dt: the true head dim (the columns of q and out)
+  int kStages, split, b, kvh, len, span, begin, end, ntiles, rep, row0, dt;
 
   __device__ __forceinline__ uint32_t full(int s) const { return base + 8 * s; }
   __device__ __forceinline__ uint32_t empty(int s) const {
@@ -294,7 +302,7 @@ __device__ __forceinline__ void merge_and_store(cg::cluster_group& cluster,
     for (int i = threadIdx.x; i < rep * Dp; i += kThreads) {
       const int r = i / Dp;
       const int c = i - r * Dp;
-      if (Dp != D && c >= D) continue;           // a padding column
+      if (c >= blk.dt) continue;                 // a padding column
       float os[kMaxSplits];
 #pragma unroll
       for (int s = 0; s < kMaxSplits; ++s)
@@ -303,7 +311,8 @@ __device__ __forceinline__ void merge_and_store(cg::cluster_group& cluster,
 #pragma unroll
       for (int s = 0; s < kMaxSplits; ++s)
         if (s < nlive) O = fmaf(os[s], weight[s * rep + r], O);
-      out[r * D + c] = from_f<T>(nlive ? O / fmaxf(lsum[r], 1e-30f) : 0.f);
+      out[r * blk.dt + c] =
+          from_f<T>(nlive ? O / fmaxf(lsum[r], 1e-30f) : 0.f);
     }
   }
   cluster.sync();                                // peers' partials stay
@@ -332,7 +341,7 @@ __device__ __forceinline__ void release(const Block& blk, int t,
 template <typename T, int D, int kQRows, int kAlign, typename Load>
 __device__ __forceinline__ Block start_block(const T* q, const int* lengths,
                                              int S, int Hkv, int rep,
-                                             int groups,
+                                             int groups, int dt,
                                              long long q_sb, long long q_sh,
                                              int kStages,
                                              unsigned char* smem_raw,
@@ -355,6 +364,7 @@ __device__ __forceinline__ Block start_block(const T* q, const int* lengths,
   blk.end = min(blk.len, blk.begin + blk.span);
   blk.ntiles = blk.end > blk.begin ? (blk.end - blk.begin + tile - 1) / tile : 0;
   blk.rep = min(kGroupRows, rep - grp * kGroupRows);
+  blk.dt = dt;
   __shared__ uint32_t released[kMaxStages];
   blk.released = released;
   if (threadIdx.x == 0) {
@@ -366,13 +376,13 @@ __device__ __forceinline__ Block start_block(const T* q, const int* lengths,
     hopper::mbar_init_fence();
     for (int t = 0; t < min(blk.ntiles, kStages); ++t) load(blk, t);
   }
-  // q rows [kQRows, Dp] in f32, zero past the group's rows and past D
+  // q rows [kQRows, Dp] in f32, zero past the group's rows and past dt
   constexpr int Dp = padded_dim(D);
   float* qs = reinterpret_cast<float*>(blk.smem + 16 * kStages);
   for (int i = threadIdx.x; i < kQRows * Dp; i += kThreads) {
     const int r = i / Dp;
     const int c = i - r * Dp;
-    qs[i] = r < blk.rep && c < D
+    qs[i] = r < blk.rep && c < dt
                 ? to_f(q[blk.b * q_sb + (blk.row0 + r) * q_sh + c])
                 : 0.f;
   }
@@ -418,15 +428,15 @@ decode_fma(const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v,
            const float* __restrict__ q, const int* __restrict__ lengths,
            float* __restrict__ out, int S, int Hkv, int rep, int groups,
-           long long q_sb, long long q_sh, float scale) {
+           int dt, long long q_sb, long long q_sh, float scale) {
   using T = float;
   constexpr int Dp = padded_dim(D);
   using L = FmaLayout<D, kRep>;
   constexpr int kRowBytes = Dp * 4;
   constexpr int kE = Dp / kLanesPerKey;          // a lane's share of a key
-  constexpr int kLE = kE < 4 ? kE : 4;           // floats per load
+  constexpr int kLE = kE % 4 == 0 ? 4 : (kE % 2 == 0 ? 2 : 1);  // per load
   constexpr int kLoads = kE / kLE;
-  constexpr int kCols = Dp >= 32 ? Dp / 32 : 1;  // PV columns per lane
+  constexpr int kCols = (Dp + 31) / 32;          // PV columns per lane
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // one TMA load each for a tile's K and V rows (rows past S arrive as
   // zeros; rows past the length are read but never used)
@@ -444,14 +454,15 @@ decode_fma(const __grid_constant__ CUtensorMap tm_k,
     hopper::prefetch_tensor_map(&tm_v);
   }
   const Block blk = start_block<T, D, kRep, 128>(
-      q, lengths, S, Hkv, rep, groups, q_sb, q_sh, L::kStages, smem_raw,
+      q, lengths, S, Hkv, rep, groups, dt, q_sb, q_sh, L::kStages, smem_raw,
       load, kTile);
   const int rows = blk.rep;
   const float* qs = reinterpret_cast<const float*>(blk.smem + L::kQ);
   unsigned char* ring = blk.smem + L::kRing;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const bool col_lane = lane * kCols < Dp;       // lane owns PV columns
+  // column c of the lane's PV columns lies in the row (W 80: lanes own 3)
+  const auto col_in = [&](int c) { return lane * kCols + c < Dp; };
 
   float m[kRep], l[kRep], acc[kRep][kCols];
 #pragma unroll
@@ -541,7 +552,7 @@ decode_fma(const __grid_constant__ CUtensorMap tm_k,
         float vv[kCols];
 #pragma unroll
         for (int c = 0; c < kCols; ++c)
-          vv[c] = col_lane ? vt[(key0 + j) * Dp + lane * kCols + c] : 0.f;
+          vv[c] = col_in(c) ? vt[(key0 + j) * Dp + lane * kCols + c] : 0.f;
 #pragma unroll
         for (int r = 0; r < kRep; ++r) {
           const float pj = __shfl_sync(0xffffffffu, p[r], j * kLanesPerKey);
@@ -560,11 +571,9 @@ decode_fma(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
   for (int r = 0; r < kRep; ++r) {
     if (r >= rows) break;
-    if (col_lane) {
 #pragma unroll
-      for (int c = 0; c < kCols; ++c)
-        wacc[(warp * rows + r) * Dp + lane * kCols + c] = acc[r][c];
-    }
+    for (int c = 0; c < kCols; ++c)
+      if (col_in(c)) wacc[(warp * rows + r) * Dp + lane * kCols + c] = acc[r][c];
     if (lane == 0) {
       wm[warp * rows + r] = m[r];
       wl[warp * rows + r] = l[r];
@@ -574,7 +583,7 @@ decode_fma(const __grid_constant__ CUtensorMap tm_k,
   merge_and_store<T, D>(cluster, blk, wacc,
                         reinterpret_cast<float*>(blk.smem + L::kPart),
                         out + (static_cast<size_t>(blk.b) * Hkv * rep +
-                               blk.row0) * D);
+                               blk.row0) * dt);
 }
 
 // ---------------------------------------------------------------------------
@@ -597,7 +606,8 @@ static_assert(kSpanUnit % kMmaTile == 0, "a split is whole tiles");
 
 template <int D>
 struct MmaTile {
-  static constexpr int kChunk = D < 64 ? D : 64;   // elements per row
+  // elements per row of a box: 64, or 32 / 16 where D is no multiple of 64
+  static constexpr int kChunk = D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);
   static constexpr int kRowBytes = kChunk * 2;     // one swizzle span
   static constexpr int kChunks = D / kChunk;
   static constexpr int kBoxBytes = kMmaTile * kRowBytes;
@@ -672,9 +682,11 @@ decode_mma(const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v,
            const __nv_bfloat16* __restrict__ q,
            const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
-           int S, int Hkv, int rep, int groups, long long q_sb, long long q_sh,
-           float scale) {
+           int S, int Hkv, int rep, int groups, int dt, long long q_sb,
+           long long q_sh, float scale) {
   constexpr int Dp = padded_dim(D);
+  constexpr int kFull = Dp / 32;                 // 32-column steps, then
+  constexpr bool kTail = Dp % 32 != 0;           // one of 16 (W 16, 80)
   using L = MmaLayout<D, kRows>;
   using Tl = MmaTile<Dp>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -697,7 +709,7 @@ decode_mma(const __grid_constant__ CUtensorMap tm_k,
     hopper::prefetch_tensor_map(&tm_v);
   }
   const Block blk = start_block<__nv_bfloat16, D, kRows, 1024>(
-      q, lengths, S, Hkv, rep, groups, q_sb, q_sh, L::kStages, smem_raw,
+      q, lengths, S, Hkv, rep, groups, dt, q_sb, q_sh, L::kStages, smem_raw,
       load, kMmaTile);
   const int rows = blk.rep;
   const float* qs = reinterpret_cast<const float*>(blk.smem + L::kQ);
@@ -750,18 +762,17 @@ decode_mma(const __grid_constant__ CUtensorMap tm_k,
       // S = Q K^T: the warp's 8 keys, D in steps of 16
       float sc[4] = {0.f, 0.f, 0.f, 0.f};
       const int lr = key0 + (lane & 7);          // ldmatrix row of this lane
-      if constexpr (Dp == 16) {
-        uint32_t kb[2];
-        ldsm_x2(kb, kst + Tl::at(lr, (lane >> 3) & 1));
-        mma_k16(sc, qa[0], kb[0], kb[1]);
-      } else {
 #pragma unroll
-        for (int p = 0; p < Dp / 32; ++p) {
-          uint32_t kb[4];
-          ldsm_x4(kb, kst + Tl::at(lr, 4 * p + (lane >> 3)));
-          mma_k16(sc, qa[2 * p], kb[0], kb[1]);
-          mma_k16(sc, qa[2 * p + 1], kb[2], kb[3]);
-        }
+      for (int p = 0; p < kFull; ++p) {
+        uint32_t kb[4];
+        ldsm_x4(kb, kst + Tl::at(lr, 4 * p + (lane >> 3)));
+        mma_k16(sc, qa[2 * p], kb[0], kb[1]);
+        mma_k16(sc, qa[2 * p + 1], kb[2], kb[3]);
+      }
+      if constexpr (kTail) {
+        uint32_t kb[2];
+        ldsm_x2(kb, kst + Tl::at(lr, 4 * kFull + ((lane >> 3) & 1)));
+        mma_k16(sc, qa[2 * kFull], kb[0], kb[1]);
       }
       // the online softmax, rows g (r = 0) and g + 8 (r = 1)
       uint32_t pa[2] = {0u, 0u};
@@ -787,19 +798,18 @@ decode_mma(const __grid_constant__ CUtensorMap tm_k,
         pa[r] = pack_bf16(x0, x1);               // p rounded to bf16
       }
       // O += P V, 8 columns of D per product
-      if constexpr (Dp == 16) {
+#pragma unroll
+      for (int p = 0; p < kFull; ++p) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, vst + Tl::at(lr, 4 * p + (lane >> 3)));
+#pragma unroll
+        for (int m = 0; m < 4; ++m) mma_k8(o[4 * p + m], pa[0], pa[1], vb[m]);
+      }
+      if constexpr (kTail) {
         uint32_t vb[2];
-        ldsm_x2_trans(vb, vst + Tl::at(lr, (lane >> 3) & 1));
-        mma_k8(o[0], pa[0], pa[1], vb[0]);
-        mma_k8(o[1], pa[0], pa[1], vb[1]);
-      } else {
-#pragma unroll
-        for (int p = 0; p < Dp / 32; ++p) {
-          uint32_t vb[4];
-          ldsm_x4_trans(vb, vst + Tl::at(lr, 4 * p + (lane >> 3)));
-#pragma unroll
-          for (int m = 0; m < 4; ++m) mma_k8(o[4 * p + m], pa[0], pa[1], vb[m]);
-        }
+        ldsm_x2_trans(vb, vst + Tl::at(lr, 4 * kFull + ((lane >> 3) & 1)));
+        mma_k8(o[4 * kFull], pa[0], pa[1], vb[0]);
+        mma_k8(o[4 * kFull + 1], pa[0], pa[1], vb[1]);
       }
       if (nvalid < kMmaKeys)                     // the zeros, before TMA
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -833,7 +843,7 @@ decode_mma(const __grid_constant__ CUtensorMap tm_k,
   cg::cluster_group cluster = cg::this_cluster();
   merge_and_store<__nv_bfloat16, D>(
       cluster, blk, wacc, reinterpret_cast<float*>(blk.smem + L::kPart),
-      out + (static_cast<size_t>(blk.b) * Hkv * rep + blk.row0) * D);
+      out + (static_cast<size_t>(blk.b) * Hkv * rep + blk.row0) * dt);
 }
 
 // ---------------------------------------------------------------------------
@@ -873,11 +883,11 @@ int launch_cluster(int smem, int clusters, int S, cudaStream_t stream,
 
 // One cluster per (batch row, kv head, group of at most kGroupRows q heads):
 // bf16 on the tensor cores (8 or 16 rows a product), f32 on FMA (4 or 16
-// rows in registers).
+// rows in registers).  D: the instance's width; dt: the true head dim.
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* out, int B, int S, int Hkv, int rep, const Strides& st,
-           float scale, cudaStream_t stream) {
+           void* out, int B, int S, int Hkv, int rep, int dt,
+           const Strides& st, float scale, cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int Dp = padded_dim(D);
   const CUtensorMapDataType dtype = kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
@@ -885,7 +895,8 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   const int groups = (rep + kGroupRows - 1) / kGroupRows;
   const int rows = rep < kGroupRows ? rep : kGroupRows;
   // the tensor-core path reads swizzled column boxes of 64 keys, the FMA
-  // path plain rows of 32 keys; either reaches past D = 112 to 128 columns
+  // path plain rows of 32 keys; either reaches past the maps' dt columns to
+  // Dp, where TMA writes zeros
   const int box_d = kBf16 ? MmaTile<Dp>::kChunk : Dp;
   const int box_s = kBf16 ? kMmaTile : kTile;
   const CUtensorMapSwizzle swizzle =
@@ -896,10 +907,10 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
                            ? CU_TENSOR_MAP_SWIZZLE_64B
                            : CU_TENSOR_MAP_SWIZZLE_32B));
   CUtensorMap mk, mv;
-  int rc = hopper::tensor_map(&mk, dtype, sizeof(T), k, B, S, Hkv, D, st.kb,
+  int rc = hopper::tensor_map(&mk, dtype, sizeof(T), k, B, S, Hkv, dt, st.kb,
                               st.ks, st.kh, box_d, box_s, swizzle);
   if (rc == 0)
-    rc = hopper::tensor_map(&mv, dtype, sizeof(T), v, B, S, Hkv, D, st.vb,
+    rc = hopper::tensor_map(&mv, dtype, sizeof(T), v, B, S, Hkv, dt, st.vb,
                             st.vs, st.vh, box_d, box_s, swizzle);
   if (rc) return rc;
   const auto* qp = static_cast<const T*>(q);
@@ -910,18 +921,18 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
     if (rows <= 8)
       return launch_cluster<decode_mma<D, 8>>(
           MmaLayout<D, 8>::kBytes, clusters, S, stream, mk, mv, qp, lp, op, S,
-          Hkv, rep, groups, st.qb, st.qh, scale);
+          Hkv, rep, groups, dt, st.qb, st.qh, scale);
     return launch_cluster<decode_mma<D, 16>>(
         MmaLayout<D, 16>::kBytes, clusters, S, stream, mk, mv, qp, lp, op, S,
-        Hkv, rep, groups, st.qb, st.qh, scale);
+        Hkv, rep, groups, dt, st.qb, st.qh, scale);
   } else {
     if (rows <= 4)
       return launch_cluster<decode_fma<D, 4>>(
           FmaLayout<D, 4>::kBytes, clusters, S, stream, mk, mv, qp, lp, op, S,
-          Hkv, rep, groups, st.qb, st.qh, scale);
+          Hkv, rep, groups, dt, st.qb, st.qh, scale);
     return launch_cluster<decode_fma<D, kGroupRows>>(
         FmaLayout<D, kGroupRows>::kBytes, clusters, S, stream, mk, mv, qp, lp,
-        op, S, Hkv, rep, groups, st.qb, st.qh, scale);
+        op, S, Hkv, rep, groups, dt, st.qb, st.qh, scale);
   }
 }
 
@@ -929,28 +940,24 @@ template <typename T>
 int dispatch(int D, const void* q, const void* k, const void* v,
              const void* lengths, void* out, int B, int S, int Hkv, int rep,
              const Strides& st, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, lengths, out, B, S, Hkv, rep, st, scale,
-                           stream);
-    case 32:
-      return launch<T, 32>(q, k, v, lengths, out, B, S, Hkv, rep, st, scale,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, lengths, out, B, S, Hkv, rep, st, scale,
-                           stream);
-    case 112:
-      return launch<T, 112>(q, k, v, lengths, out, B, S, Hkv, rep, st, scale,
-                            stream);
-    case 128:
-      return launch<T, 128>(q, k, v, lengths, out, B, S, Hkv, rep, st, scale,
-                            stream);
-    case 192:
-      return launch<T, 192>(q, k, v, lengths, out, B, S, Hkv, rep, st, scale,
-                            stream);
+#define REPRO_DECODE_WIDTH(W)                                              \
+  case W:                                                                  \
+    return launch<T, W>(q, k, v, lengths, out, B, S, Hkv, rep, D, st,      \
+                        scale, stream);
+  switch (hopper::attention_width(D)) {
+    REPRO_DECODE_WIDTH(16)
+    REPRO_DECODE_WIDTH(32)
+    REPRO_DECODE_WIDTH(64)
+    REPRO_DECODE_WIDTH(80)
+    REPRO_DECODE_WIDTH(96)
+    REPRO_DECODE_WIDTH(112)
+    REPRO_DECODE_WIDTH(128)
+    REPRO_DECODE_WIDTH(192)
+    REPRO_DECODE_WIDTH(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_DECODE_WIDTH
 }
 
 }  // namespace
@@ -960,19 +967,17 @@ extern "C" int decode_attention_splits(int S) {
   return S > 0 ? num_splits(S) : 0;
 }
 
-extern "C" int decode_attention_max_rep() { return kMaxRep; }
-
 // dtype: 0 = float32, 1 = bfloat16.  q [B, H, D], k/v [B, S, Hkv, D] through
 // strides (qb, qh, kb, ks, kh, vb, vs, vh; unit stride over D, k and v
-// 16-byte aligned), lengths [B] int32, out [B, H, D] contiguous.
+// 16-byte aligned), lengths [B] int32, out [B, H, D] contiguous.  D a
+// multiple of 8 from 8 to 256, H any multiple of Hkv; `scale` is 1/sqrt(D).
 extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k,
                                     const void* v, const void* lengths,
                                     void* out, int B, int S, int H, int Hkv,
                                     int D, const long long* strides,
                                     float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (Hkv <= 0 || H % Hkv || H / Hkv > kMaxRep)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (Hkv <= 0 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{strides[0], strides[1], strides[2], strides[3],
                    strides[4], strides[5], strides[6], strides[7]};
   const auto s = static_cast<cudaStream_t>(stream);

@@ -66,14 +66,25 @@
 //     that one's softmax runs while the other's products hold the tensor
 //     cores.  The masks are computed only on the tiles that straddle the
 //     diagonal, the window edge or the end of the keys.
-//   The longest q tiles are launched first.  Every D in {16, 32, 64, 112,
-//   128, 192} takes this path: a row of D = 16 / 32 fills a 32 / 64-byte
-//   swizzle, and D = 128 is two 64-element column boxes per tile, D = 192
-//   three.  D = 112 is 7 x 16, which wgmma takes, but its 224-byte rows fill
-//   no swizzle span: its tiles are D = 128's, the second column box reaching
-//   past the tensor maps' 112 columns, where TMA writes zeros.  D = 192 does
-//   not fit Q and three stages of 128-key K and V tiles (48 + 288 KB), nor
-//   O (96 registers) beside the 128-key S: it takes 64-key tiles.
+//   The longest q tiles are launched first.
+// Head dims.  Every D that is a multiple of 8 from 8 to 256 runs, in the
+// smallest of the instances W in {16, 32, 64, 80, 96, 112, 128, 192, 256}
+// that holds it; the tensor maps have the true D columns and the boxes
+// reach W (or past it), so TMA writes zeros past D: they add nothing to
+// Q K^T, give output columns that are not stored, and no byte past D is
+// read from device memory.  The softmax scale is 1/sqrt(D) of the true D.
+// A row of 16 / 32 / 64 elements fills a 32 / 64 / 128-byte swizzle span:
+// D = 16 and 32 are one column box, 64, 128, 192 and 256 are boxes of 64,
+// 96 three boxes of 32 and 80 five boxes of 16 (the products over them are
+// one wgmma per box, N = the box's width).  D = 112 is 7 x 16, which wgmma
+// takes, but its 224-byte rows fill no swizzle span: its tiles are
+// D = 128's.  D = 192 does not fit Q and three stages of 128-key K and V
+// tiles (48 + 288 KB), nor O (96 registers) beside the 128-key S: it takes
+// 64-key tiles.  D = 256 takes 64-key tiles too, and a ring of two stages:
+// Q (64 KB) and three stages (192 KB) would pass the 227 KB a block may
+// have; O is 128 registers a thread beside S's 32.  Against D = 128 it gives
+// up a third of the ring (one tile in flight while the other is computed)
+// and half the keys per softmax step, and its P V is four N = 64 products.
 // f32 (flash_fwd, FMA on the CUDA cores; the tensor cores have no f32 product
 //   without TF32 rounding): 8 warps, warp w owns query rows 8 w .. 8 w + 7;
 //   for the scores a lane owns keys lane and lane + 32 of the tile, for the
@@ -164,20 +175,22 @@ __device__ __forceinline__ void store_f(float* p, const float (&in)[N]) {
   }
 }
 
-// Rows [row0, row0 + kRows) of one head of a [B, S, H, D] tensor into shared
-// memory with row pitch `ld` elements, as 16-byte vectors; rows at or past
-// `rows` are zero (a zero V row times p = 0 adds nothing).
+// Rows [row0, row0 + kRows) of one head of a [B, S, H, cols] tensor into
+// shared memory as D columns with row pitch `ld` elements, as 16-byte
+// vectors; rows at or past `rows` and columns at or past `cols` (the true
+// head dim, a multiple of 8) are zero (a zero V row times p = 0 adds
+// nothing, a zero column adds nothing to q k^T).
 template <typename T, int D, int kRows, int kNThreads = kThreads>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
                                           long long stride_s, int row0,
-                                          int rows) {
+                                          int rows, int cols) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kPerRow = D / kVec;
   for (int i = threadIdx.x; i < kRows * kPerRow; i += kNThreads) {
     const int r = i / kPerRow;
     const int c = (i - r * kPerRow) * kVec;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows)
+    if (row0 + r < rows && c < cols)
       v = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride_s + c);
     *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
   }
@@ -241,11 +254,13 @@ struct Smem {
   static constexpr size_t kBytes = kQ + kK + kV + kP;
 };
 
+// D: the instance's width; dt: the true head dim (dt <= D, a multiple of 8),
+// the columns of q, k, v and out; shared memory holds zeros past it.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ out, int Sq,
-          int Skv, int H, int rep, long long q_sb, long long q_ss,
+          int Skv, int H, int rep, int dt, long long q_sb, long long q_ss,
           long long q_sh, long long k_sb, long long k_ss, long long k_sh,
           long long v_sb, long long v_ss, long long v_sh, int causal,
           int has_window, int window, float scale) {
@@ -254,7 +269,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int kVec = L::kVec;
   constexpr int kLd = L::kLd;
   // output columns per lane: D / 32 rounded up to a vector (lanes past D
-  // own none: D 16 uses 16 lanes, D 112 28, D 192 24)
+  // own none: D 16 uses 16 lanes, D 80 20, D 112 28, D 192 24)
   constexpr int kCols = D <= 32 ? 1 : (D <= 64 ? 2 : (D <= 128 ? 4 : 8));
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
@@ -274,7 +289,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + hk * k_sh;
   const T* vb = v + b * v_sb + hk * v_sh;
-  load_tile<T, D, kBQ>(Qs, kLd, qb, q_ss, q0, Sq);
+  load_tile<T, D, kBQ>(Qs, kLd, qb, q_ss, q0, Sq, dt);
 
   int kt_begin, kt_end;
   kv_tiles(q0, kBQ, Sq, Skv, causal, has_window, window, kt_begin, kt_end);
@@ -294,8 +309,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();                     // last tile's readers are done
-    load_tile<T, D, kBK>(Ks, kLd, kb, k_ss, k0, Skv);
-    load_tile<T, D, kBK>(Vs, D, vb, v_ss, k0, Skv);
+    load_tile<T, D, kBK>(Ks, kLd, kb, k_ss, k0, Skv, dt);
+    load_tile<T, D, kBK>(Vs, D, vb, v_ss, k0, Skv, dt);
     __syncthreads();
 
     // scores of this warp's 8 rows against keys lane and lane + 32
@@ -364,7 +379,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     __syncwarp();
   }
 
-  if (col_lane) {
+  if (lane * kCols < dt) {             // the true columns only
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int row = q0 + row_base + r;
@@ -374,7 +389,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < kCols; ++j) o[j] = acc[r][j] * inv;
         store_f<kCols>(
-            out + ((static_cast<long long>(b) * Sq + row) * H + h) * D +
+            out + ((static_cast<long long>(b) * Sq + row) * H + h) * dt +
                 lane * kCols,
             o);
       }
@@ -387,7 +402,6 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 constexpr int kTQ = 128;                     // query rows per block
-constexpr int kStages = 3;                   // K/V ring depth
 constexpr int kWgThreads = 128;
 // two consumer warpgroups, one of whose threads also issues the loads: with
 // 8 warps ptxas may give a thread up to 255 registers, which the pipelined
@@ -541,23 +555,26 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 }
 
 
-// Shared memory of a block and the tile shapes of head dim D.  D = 112 is
-// kept as 128 columns (kDp): its tensor maps have D 112, and TMA fills the
-// 16 columns past it with zeros, which add nothing to Q K^T, and which give
-// zero output columns in P V that are not stored.  D = 192 takes 64-key
-// tiles (kTK), so that Q and a 3-stage K/V ring fit (48 + 144 KB) and the
-// accumulators (O 96, S 32 registers a thread) fit the register file; the
-// others take 128-key tiles, the reference's own blocks.
+// Shared memory of a block and the tile shapes of an instance of width D.
+// D = 112 is kept as 128 columns (kDp): TMA fills the 16 columns past it
+// (and past any true head dim under it) with zeros, which add nothing to
+// Q K^T, and which give zero output columns in P V that are not stored.
+// D > 128 takes 64-key tiles (kTK), so that Q and the K/V ring fit (D 192:
+// 48 + 144 KB in 3 stages; D 256: 64 + 128 KB in 2) and the accumulators
+// (O 96 / 128, S 32 registers a thread) fit the register file; the others
+// take 128-key tiles, the reference's own blocks.
 // Layout: Q [kTQ x kDp], then kStages K tiles and kStages V tiles [kTK x
 // kDp], then the mbarriers.  A tile is kDp / kChunk column boxes of its rows
-// x kChunk elements, each row one swizzle span (kRowBytes), so a box is the
-// canonical swizzled layout wgmma reads: 8-row atoms of 8 * kRowBytes bytes,
-// one after another.
+// x kChunk elements (64, or 32 / 16 where kDp is no multiple of 64), each
+// row one swizzle span (kRowBytes), so a box is the canonical swizzled
+// layout wgmma reads: 8-row atoms of 8 * kRowBytes bytes, one after another.
 template <int D>
 struct HopperSmem {
   static constexpr int kDp = D == 112 ? 128 : D;
   static constexpr int kTK = D > 128 ? 64 : 128;
-  static constexpr int kChunk = kDp < 64 ? kDp : 64;
+  static constexpr int kStages = D > 192 ? 2 : 3;     // K/V ring depth
+  static constexpr int kChunk =
+      kDp % 64 == 0 ? 64 : (kDp % 32 == 0 ? 32 : 16);
   static constexpr int kRowBytes = kChunk * 2;
   static constexpr int kChunks = kDp / kChunk;
   static constexpr int kQChunkBytes = kTQ * kRowBytes;
@@ -572,15 +589,17 @@ struct HopperSmem {
   static constexpr int kBar = kV + kStages * kTileBytes;
   static constexpr int kBars = 1 + 3 * kStages;      // q, full K / V, empty
   static constexpr size_t kBytes = 1024 + kBar + 8 * kBars;   // + alignment
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
-// O += P V for one 16-key slice, N = kDp: one product, or for kDp = 192
-// three of N = 64, one per column box (an m64n64 accumulator's registers
-// are the m64n192 one's 32 c .. 32 c + 31).
+// O += P V for one 16-key slice, N = kDp: one product, or (kDp 80, 96, 192,
+// 256) one per column box of N = kChunk (an m64nkChunk accumulator's
+// registers are the m64nkDp one's kChunk / 2 c .. kChunk / 2 (c + 1) - 1).
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[HopperSmem<D>::kDp / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
   using L = HopperSmem<D>;
+  constexpr int kN = L::kChunk;
   if constexpr (L::kDp == 16) {
     wgmma_rs_n16(d, a, b);
   } else if constexpr (L::kDp == 32) {
@@ -591,9 +610,16 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[HopperSmem<D>::kDp / 2],
     wgmma_rs_n128(d, a, b);
   } else {
 #pragma unroll
-    for (int c = 0; c < L::kChunks; ++c)
-      wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(d + 32 * c), a,
-                   b + ((c * L::kChunkBytes) >> 4));
+    for (int c = 0; c < L::kChunks; ++c) {
+      float(&dc)[kN / 2] = *reinterpret_cast<float(*)[kN / 2]>(d + kN / 2 * c);
+      const uint64_t bc = b + ((c * L::kChunkBytes) >> 4);
+      if constexpr (kN == 64)
+        wgmma_rs_n64(dc, a, bc);
+      else if constexpr (kN == 32)
+        wgmma_rs_n32(dc, a, bc);
+      else
+        wgmma_rs_n16(dc, a, bc);
+    }
   }
 }
 
@@ -708,10 +734,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
                 __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
-                int rep, int causal, int has_window, int window,
+                int rep, int dt, int causal, int has_window, int window,
                 float scale_log2) {
   using L = HopperSmem<D>;
   constexpr int kTK = L::kTK;
+  constexpr int kStages = L::kStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = base + L::kBar;
@@ -875,11 +902,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       if (row < Sq) {
         const float inv = 1.f / fmaxf(l, 1e-30f);
         __nv_bfloat16* dst =
-            out + ((static_cast<long long>(b) * Sq + row) * H + h) * D + 2 * tq;
+            out + ((static_cast<long long>(b) * Sq + row) * H + h) * dt + 2 * tq;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)          // D, not kDp: the real columns
-          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-              pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+        for (int j = 0; j < L::kDp / 8; ++j)
+          if (8 * j < dt)                        // the true columns only
+            *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+                pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
       }
     }
   }
@@ -889,14 +917,15 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 // host side
 // ---------------------------------------------------------------------------
 
+// D: the instance's width; dt: the true head dim, the tensors' columns.
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int B, int Sq, int Skv, int H, int Hkv, const long long* st,
-                 int causal, int has_window, int window, float scale,
-                 cudaStream_t stream) {
+                 int B, int Sq, int Skv, int H, int Hkv, int dt,
+                 const long long* st, int causal, int has_window, int window,
+                 float scale, cudaStream_t stream) {
   using L = HopperSmem<D>;
   // boxes of kTQ (q) or kTK (k, v) rows x kChunk elements, one swizzle span
-  // per row; the maps have D columns, the boxes cover kDp
+  // per row; the maps have dt columns, the boxes cover kDp
   const CUtensorMapSwizzle swizzle =
       L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                           : (L::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -904,7 +933,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const auto map = [&](CUtensorMap* m, const void* p, int S, int Hx,
                        const long long* s3, int box_s) {
     return hopper::tensor_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p, B, S,
-                              Hx, D, s3[0], s3[1], s3[2], L::kChunk, box_s,
+                              Hx, dt, s3[0], s3[1], s3[2], L::kChunk, box_s,
                               swizzle);
   };
   CUtensorMap mq, mk, mv;
@@ -918,14 +947,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B * H, (Sq + kTQ - 1) / kTQ);
   flash_fwd_wgmma<D><<<grid, kHopperThreads, L::kBytes, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), Sq, Skv, H, H / Hkv,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), Sq, Skv, H, H / Hkv, dt,
       causal, has_window, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Skv, int H, int Hkv, const long long* st,
+               int Sq, int Skv, int H, int Hkv, int dt, const long long* st,
                int causal, int has_window, int window, float scale,
                cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
@@ -936,20 +965,20 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   flash_fwd<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H,
-      H / Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      causal, has_window, window, scale);
+      H / Hkv, dt, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], causal, has_window, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out,
-           int B, int Sq, int Skv, int H, int Hkv, const long long* st,
-           int causal, int has_window, int window, float scale,
-           cudaStream_t stream) {
+           int B, int Sq, int Skv, int H, int Hkv, int dt,
+           const long long* st, int causal, int has_window, int window,
+           float scale, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<D>(q, k, v, out, B, Sq, Skv, H, Hkv, st, causal,
+    return launch_f32<D>(q, k, v, out, B, Sq, Skv, H, Hkv, dt, st, causal,
                          has_window, window, scale, stream);
-  return launch_wgmma<D>(q, k, v, out, B, Sq, Skv, H, Hkv, st, causal,
+  return launch_wgmma<D>(q, k, v, out, B, Sq, Skv, H, Hkv, dt, st, causal,
                          has_window, window, scale, stream);
 }
 
@@ -958,8 +987,8 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
 // dtype: 0 = float32, 1 = bfloat16.  q [B, Sq, H, D], k/v [B, Skv, Hkv, D],
 // each with unit stride over D and the (batch, sequence, head) strides in
 // `strides` (q's three, then k's, then v's, in elements; 16-byte multiples);
-// out is a contiguous [B, Sq, H, D].  D in {16, 32, 64, 112, 128, 192}; H a
-// multiple of Hkv.
+// out is a contiguous [B, Sq, H, D].  D a multiple of 8 from 8 to 256
+// (hopper::attention_width); H a multiple of Hkv; `scale` is 1/sqrt(D).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* out, int B, int Sq,
                                    int Skv, int H, int Hkv, int D,
@@ -969,28 +998,24 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
   if (Sq <= 0 || Skv <= 0 || B <= 0) return 0;
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch<16>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, strides,
-                        causal, has_window, window, scale, s);
-    case 32:
-      return launch<32>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, strides,
-                        causal, has_window, window, scale, s);
-    case 64:
-      return launch<64>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, strides,
-                        causal, has_window, window, scale, s);
-    case 112:
-      return launch<112>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, strides,
-                         causal, has_window, window, scale, s);
-    case 128:
-      return launch<128>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, strides,
-                         causal, has_window, window, scale, s);
-    case 192:
-      return launch<192>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, strides,
-                         causal, has_window, window, scale, s);
+#define REPRO_FLASH_WIDTH(W)                                               \
+  case W:                                                                  \
+    return launch<W>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, D, strides, \
+                     causal, has_window, window, scale, s);
+  switch (hopper::attention_width(D)) {
+    REPRO_FLASH_WIDTH(16)
+    REPRO_FLASH_WIDTH(32)
+    REPRO_FLASH_WIDTH(64)
+    REPRO_FLASH_WIDTH(80)
+    REPRO_FLASH_WIDTH(96)
+    REPRO_FLASH_WIDTH(112)
+    REPRO_FLASH_WIDTH(128)
+    REPRO_FLASH_WIDTH(192)
+    REPRO_FLASH_WIDTH(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_FLASH_WIDTH
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

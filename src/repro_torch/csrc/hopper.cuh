@@ -257,6 +257,18 @@ inline int tensor_map(CUtensorMap* out, CUtensorMapDataType dtype, int elem,
   return 0;
 }
 
+// The instance width an attention kernel runs head dim D in: the smallest
+// of the widths flash and flash-decode are built for that holds D, for every
+// multiple of 8 from 8 to 256 (past D the kernels' own loads fill zeros);
+// 0 for any other D.
+inline int attention_width(int D) {
+  static const int kWidths[] = {16, 32, 64, 80, 96, 112, 128, 192, 256};
+  if (D < 8 || D > 256 || D % 8) return 0;
+  for (const int w : kWidths)
+    if (D <= w) return w;
+  return 0;
+}
+
 inline const char* error_string(int code) {
   if (code >= kEncodeError)
     return "cuTensorMapEncodeTiled refused a tensor (the code less 10000 is "

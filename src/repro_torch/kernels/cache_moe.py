@@ -20,7 +20,8 @@ its input lies on the CPU; on a CUDA tensor it launches the kernel or raises.
 Under autograd every wrapper raises, on the CPU too (``kernels/guard.py``).
 ``gate_up.launches`` / ``up_gelu.launches`` / ``down.launches`` count the
 launches; a call inside a CUDA graph capture records its kernel into the
-graph and launches nothing, so it does not count.
+graph and launches nothing, so it does not count there but in
+``captured`` (each replay of that graph launches the kernel again).
 """
 from __future__ import annotations
 
@@ -174,12 +175,15 @@ def gate_up(x: torch.Tensor, g: SlotGroups, wg: torch.Tensor,
         d, f, wg.shape[0], g.row_tok.shape[0], g.grp_slot.shape[0],
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise(lib, "cache_moe_gate_up", rc)
-    if not torch.cuda.is_current_stream_capturing():
+    if torch.cuda.is_current_stream_capturing():
+        gate_up.captured += 1
+    else:
         gate_up.launches += 1
     return h
 
 
 gate_up.launches = 0
+gate_up.captured = 0
 
 
 def up_gelu(x: torch.Tensor, g: SlotGroups, wu: torch.Tensor) -> torch.Tensor:
@@ -205,12 +209,15 @@ def up_gelu(x: torch.Tensor, g: SlotGroups, wu: torch.Tensor) -> torch.Tensor:
         g.row_tok.shape[0], g.grp_slot.shape[0],
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise(lib, "cache_moe_up_gelu", rc)
-    if not torch.cuda.is_current_stream_capturing():
+    if torch.cuda.is_current_stream_capturing():
+        up_gelu.captured += 1
+    else:
         up_gelu.launches += 1
     return h
 
 
 up_gelu.launches = 0
+up_gelu.captured = 0
 
 
 def down(h: torch.Tensor, g: SlotGroups, wd: torch.Tensor) -> torch.Tensor:
@@ -235,12 +242,15 @@ def down(h: torch.Tensor, g: SlotGroups, wd: torch.Tensor) -> torch.Tensor:
         g.row_tok.shape[0], g.grp_slot.shape[0],
         torch.cuda.current_stream(h.device).cuda_stream)
     _raise(lib, "cache_moe_down", rc)
-    if not torch.cuda.is_current_stream_capturing():
+    if torch.cuda.is_current_stream_capturing():
+        down.captured += 1
+    else:
         down.launches += 1
     return y
 
 
 down.launches = 0
+down.captured = 0
 
 
 def cache_moe(x: torch.Tensor, slot_ids: torch.Tensor, weights: torch.Tensor,

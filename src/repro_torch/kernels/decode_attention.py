@@ -11,19 +11,23 @@ on a CPU tensor it runs the plain version ``ref.decode_attention_ref``.  The
 call allocates its output only, and its launch shape depends on S and the
 widths alone, so a CUDA graph can capture it and replay it with ``lengths``
 changed in place.  ``decode_attention.launches`` counts the calls that
-launched the kernel (not those inside a capture, which launch nothing).
+launched the kernel (not those inside a capture, which launch nothing),
+and ``decode_attention.shapes`` the same calls by head shape (H, Hkv, D).
 
-What the kernel takes: float32 or bfloat16, D in ``HEAD_DIMS`` (112 is
-zamba2-7b's, 192 nemotron-4-340b's), H a multiple of Hkv with at most 48 q
-heads per kv head (granite-20b's 48 : 1; more than 16 run as clusters of 16
-rows each), unit stride over D, k and v
-16-byte aligned (pointers and their other strides), any S.  The
+What the kernel takes: float32 or bfloat16, any head dim D that is a
+multiple of 8 from 8 to 256 (``flash_attention.check_head_dim``; it runs in
+the smallest of its instance widths that holds D, zero-filled past D inside
+its own loads), H any multiple of Hkv (more than 16 q heads per kv head run
+as clusters of 16 rows each: granite-20b's 48 : 1 three, falcon-7b's 71 : 1
+five), unit stride over D, k and v 16-byte aligned (pointers and their
+other strides), any S.  The
 lengths stay on the device (nothing here reads them back) and must lie in
 [1, S]; the kernel reads only keys [0, min(length, S)).  The reference's
 ``S % block_k == 0`` assert is a TPU tiling rule and is not carried over.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -31,12 +35,11 @@ import torch
 
 from repro_torch.kernels import ref as R
 from repro_torch.kernels._build import load_library
+from repro_torch.kernels.flash_attention import check_head_dim
 from repro_torch.kernels.guard import refuse_autograd
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
-HEAD_DIMS = (16, 32, 64, 112, 128, 192)
-MAX_REP = 48                           # csrc: kMaxRep
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -50,12 +53,8 @@ def _lib() -> ctypes.CDLL:
         lib.decode_attention_fwd.restype = _I
         lib.decode_attention_splits.argtypes = [_I]
         lib.decode_attention_splits.restype = _I
-        lib.decode_attention_max_rep.restype = _I
         lib.decode_attention_error_string.argtypes = [_I]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
-        if lib.decode_attention_max_rep() != MAX_REP:
-            raise RuntimeError("decode_attention.cu and its wrapper disagree "
-                               "on kMaxRep")
         lib._repro_bound = True
     return lib
 
@@ -80,12 +79,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          f"in batch or head dim")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    check_head_dim(D)
     Hkv = k.shape[2]
-    if H % Hkv or H // Hkv > MAX_REP:
-        raise ValueError(f"{H} q heads over {Hkv} kv heads: need a multiple "
-                         f"of at most {MAX_REP}")
+    if H % Hkv:
+        raise ValueError(f"{H} q heads are not a multiple of {Hkv} kv "
+                         f"heads")
     if lengths.shape != (B,) or lengths.dtype != torch.int32 \
             or lengths.device != q.device:
         raise ValueError(f"lengths: need int32 [{B}] on {q.device}, got "
@@ -129,7 +127,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"decode_attention launch failed: {msg} ({rc})")
     if not torch.cuda.is_current_stream_capturing():
         decode_attention.launches += 1
+        decode_attention.shapes[(H, Hkv, D)] += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.shapes = collections.Counter()

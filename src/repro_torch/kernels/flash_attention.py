@@ -8,15 +8,20 @@ and sliding-window masking and GQA, the port of
 length must be a multiple of its block, capped at the length.  On a CUDA
 tensor it launches the hand-written kernel ``csrc/flash_attention.cu``
 (bf16: 128 x 128 tiles loaded by TMA into a wgmma pipeline, 128 x 64 at
-D 192; f32: 64 x 64 tiles on FMA; the kernel tiles itself, the blocks only
-fix the precondition), on a CPU tensor it runs the plain version
+D > 128; f32: 64 x 64 tiles on FMA; the kernel tiles itself, the blocks
+only fix the precondition) at any head dim D that is a multiple of 8 from
+8 to 256 (``D_MIN``, ``D_MAX``; it runs in the smallest of its instance
+widths that holds D, zero-filled past D inside its own loads) and any
+number of q heads per kv head; on a CPU tensor it runs the plain version
 ``ref.flash_attention_ref`` with the reference's blocks.  A launch or a
 tensor-map encode that fails raises.  ``flash_attention.launches`` counts
 the launches (not a call inside a CUDA graph capture, which launches
-nothing).
+nothing), and ``flash_attention.shapes`` the same launches by head shape
+(H, Hkv, D).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import Optional
@@ -29,7 +34,7 @@ from repro_torch.kernels.guard import refuse_autograd
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
-HEAD_DIMS = (16, 32, 64, 112, 128, 192)   # 112: zamba2-7b, 192: nemotron
+D_MIN, D_MAX, D_STEP = 8, 256, 8      # the head dims the kernel takes
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -48,9 +53,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def check_head_dim(D: int):
+    """Raise ``ValueError`` for a head dim the attention kernels do not
+    take: anything but a multiple of 8 from 8 to 256."""
+    if not (D_MIN <= D <= D_MAX and D % D_STEP == 0):
+        raise ValueError(f"head dim {D}: the attention kernels take a "
+                         f"multiple of {D_STEP} from {D_MIN} to {D_MAX}")
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """What the kernel takes: float32 or bfloat16 on one card, the same
-    dtype throughout, D in HEAD_DIMS, H a multiple of Hkv, unit stride over
+    dtype throughout, D a multiple of 8 from 8 to 256 (``check_head_dim``),
+    H a multiple of Hkv, unit stride over
     D, the other strides and the data pointers 16-byte aligned."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
@@ -68,8 +82,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          f"in batch or head dim")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    check_head_dim(D)
     if H % k.shape[2]:
         raise ValueError(f"{H} q heads are not a multiple of {k.shape[2]} "
                          f"kv heads")
@@ -116,7 +129,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention launch failed: {msg} ({rc})")
     if not torch.cuda.is_current_stream_capturing():
         flash_attention.launches += 1
+        flash_attention.shapes[(H, Hkv, D)] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.shapes = collections.Counter()

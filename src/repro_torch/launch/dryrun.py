@@ -97,11 +97,13 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import placement as P
 from repro_torch.models import sharding as SH
+from repro_torch.models.convert import stack_groups
 from repro_torch.models.costmodel import roofline_terms
 from repro_torch.models.mamba_sp import seq_parallel_forward
 from repro_torch.models.registry import build_model, input_specs
 from repro_torch.models.train import make_train_step
-from repro_torch.optim.optimizer import make_optimizer, warmup_cosine
+from repro_torch.optim.optimizer import (QBLOCK, make_optimizer,
+                                         warmup_cosine)
 
 # collective op name (functional or c10d) -> family, as costmodel names them
 _FAMILIES = (("all_gather", "all_gather"), ("allgather", "all_gather"),
@@ -417,7 +419,8 @@ def lower_cell(arch: str, shape_name: str, mesh, *, optimizer: str = "adamw",
         if shape.kind == "train":
             micro = plan_microbatch(cfg, shape, mesh)
             run = RunConfig(microbatch=micro, optimizer=optimizer)
-            opt = make_optimizer(optimizer, warmup_cosine(3e-4, 100, 10000))
+            opt = make_optimizer(optimizer, warmup_cosine(3e-4, 100, 10000),
+                                 groups=stack_groups(params, QBLOCK))
             # the step count is a host value the update reads: a Python int
             # here (a tensor made under the fake mode has no value)
             state = opt.init(params)._replace(step=0)

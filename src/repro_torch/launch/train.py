@@ -36,10 +36,12 @@ from repro_torch.data.pipeline import make_pipeline
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import placement as P
 from repro_torch.models import sharding as SH
+from repro_torch.models.convert import stack_groups
 from repro_torch.models.registry import build_model
 from repro_torch.models.train import make_train_step
 from repro_torch.optim.grad_compress import init_error_feedback
-from repro_torch.optim.optimizer import make_optimizer, warmup_cosine
+from repro_torch.optim.optimizer import (QBLOCK, make_optimizer,
+                                         warmup_cosine)
 from repro_torch.runtime.fault_tolerance import Heartbeat, StragglerDetector
 
 
@@ -75,10 +77,7 @@ class Trainer:
             device = _mesh_device(mesh, device)
         self.device = resolve_device(device)
         self.seed = seed
-        self.opt = make_optimizer(
-            run.optimizer, warmup_cosine(run.learning_rate, run.warmup_steps,
-                                         run.total_steps),
-            weight_decay=run.weight_decay, grad_clip=run.grad_clip)
+        self.opt = self._optimizer()
         self.grad_compress = grad_compress
         self.model = None
         self.step_fn = None
@@ -88,6 +87,16 @@ class Trainer:
         self.step_ms: List[float] = []
         self.step_s: List[float] = []
         self.metrics: List[Dict[str, Any]] = []
+
+    def _optimizer(self, groups=None):
+        """The run's optimizer; ``groups``: the model's int8 stacks
+        (``convert.stack_groups``), known once the model is built."""
+        run = self.run
+        return make_optimizer(
+            run.optimizer, warmup_cosine(run.learning_rate, run.warmup_steps,
+                                         run.total_steps),
+            weight_decay=run.weight_decay, grad_clip=run.grad_clip,
+            groups=groups)
 
     def init_state(self, seed: Optional[int] = None) -> Dict[str, Any]:
         """A fresh model from ``seed`` (default: the trainer's), its
@@ -107,6 +116,7 @@ class Trainer:
             params = P.place_params(self.model, specs, self.mesh,
                                     requires_grad=True, fsdp=True)
             P.pin_residual(self.model, self.mesh)
+        self.opt = self._optimizer(stack_groups(params, QBLOCK))
         self.step_fn = make_train_step(self.model, self.cfg, self.run,
                                        self.opt,
                                        grad_compress=self.grad_compress)

@@ -14,7 +14,7 @@ path.  bf16 leaves (numpy dtype name ``bfloat16``) are read through a
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -22,6 +22,33 @@ import torch
 # top-level subtree -> number of stacked leading axes
 STACKED = {"layers": 1, "dense_layers": 1, "tail": 1, "mamba_groups": 2,
            "enc": 1, "dec": 1}
+
+
+def stack_groups(params: Mapping[str, torch.Tensor], block: int
+                 ) -> Dict[str, List[str]]:
+    """The reference's stacked leaves whose ``block``-element blocks (of
+    the flattened leaf) straddle the port's per-layer tensors: ``{group
+    key: member names}``, the members in the order the reference flattens
+    its stack (row-major over the stacked axes of ``STACKED``:
+    ``mamba_groups.<g>.<i>`` runs over i inside g).  The key puts ``*``
+    for each stacked index (``layers.*.mamba.A_log``), so no parameter has
+    it.  A stack whose layer tensors are a whole number of blocks each
+    (every weight matrix at 256), or that has one layer, is not a group:
+    its layers' own blocks are the stack's."""
+    stacks: Dict[str, list] = {}
+    for name, p in params.items():
+        top, _, rest = name.partition(".")
+        depth = STACKED.get(top, 0)
+        parts = rest.split(".")
+        if not depth or len(parts) <= depth or \
+                not all(i.isdigit() for i in parts[:depth]):
+            continue
+        key = ".".join([top] + ["*"] * depth + parts[depth:])
+        stacks.setdefault(key, []).append(
+            (tuple(int(i) for i in parts[:depth]), name, p.numel()))
+    return {key: [n for _, n, _ in sorted(members)]
+            for key, members in stacks.items()
+            if len(members) > 1 and members[0][2] % block}
 
 
 def _tensor(a: Any) -> torch.Tensor:

@@ -28,7 +28,9 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models.convert import stack_groups
 from repro_torch.optim.grad_compress import compress_with_error_feedback
+from repro_torch.optim.optimizer import QBLOCK
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -96,8 +98,10 @@ def make_train_step(model, cfg: ModelConfig, run: RunConfig, optimizer,
     to bf16 whatever the parameter dtype, the loss averaged and ``ce`` /
     ``aux_loss`` taken from the last microbatch (all as the reference
     does).  ``grad_compress`` applies int8 error-feedback compression to the
-    gradients before the update."""
+    gradients before the update, in the reference's stacked blocks
+    (``convert.stack_groups``, worked out once here)."""
     loss_fn = make_loss_fn(model, cfg)
+    groups = stack_groups(dict(model.named_parameters()), QBLOCK)
 
     def grads_of(loss: torch.Tensor, params: Tensors) -> Tensors:
         gs = torch.autograd.grad(loss, list(params.values()),
@@ -140,7 +144,8 @@ def make_train_step(model, cfg: ModelConfig, run: RunConfig, optimizer,
                    ef_state=None):
         loss, aux, grads = compute_grads(params, batch)
         if grad_compress:
-            grads, ef_state = compress_with_error_feedback(grads, ef_state)
+            grads, ef_state = compress_with_error_feedback(grads, ef_state,
+                                                           groups)
         params, opt_state, om = optimizer.update(grads, opt_state, params)
         metrics = {"loss": loss, **aux, **om}
         if grad_compress:

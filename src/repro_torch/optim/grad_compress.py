@@ -9,15 +9,20 @@ The transform is applied where a data-parallel reduction would sit, as in
 the reference (after the gradients are reduced to their parameters'
 layout, on a mesh too: the blocks are the global tensor's, see
 ``optimizer.quantize_i8``), and ``compressed_bytes_fraction`` gives the
-bytes it would save.
+bytes it would save.  The blocks are the reference's stacked leaves': the
+gradients of a group (``models/convert.py::stack_groups``, given by the
+train step) are quantized as one flattened concatenation
+(``optimizer.block_units``, ``quantize_stack``); each parameter keeps its
+own f32 residual.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.optim.optimizer import dequantize_i8, quantize_i8
+from repro_torch.optim.optimizer import (Groups, block_units,
+                                         dequantize_stack, quantize_stack)
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -29,21 +34,21 @@ def init_error_feedback(params: Tensors) -> Tensors:
 
 
 @torch.no_grad()
-def compress_with_error_feedback(grads: Tensors, ef_state: Tensors
+def compress_with_error_feedback(grads: Tensors, ef_state: Tensors,
+                                 groups: Optional[Groups] = None
                                  ) -> Tuple[Tensors, Tensors]:
     """grads -> (compressed-roundtrip grads in each gradient's dtype, new
-    error-feedback residuals in f32).  ``grads`` is left as it is; the
-    residuals are updated in place (``ef_state`` is returned), so a step
-    holds one set of them."""
+    error-feedback residuals in f32), each of ``groups`` quantized as one.
+    ``grads`` is left as it is; the residuals are updated in place
+    (``ef_state`` is returned), so a step holds one set of them."""
     newg = {}
-    for name, g in grads.items():
-        e = ef_state[name]
-        gf = g.float() + e
-        q, s = quantize_i8(gf)
-        deq = dequantize_i8(q, s, gf.shape, like=gf)
-        newg[name] = deq.to(g.dtype)
-        e.copy_(gf.sub_(deq))
-    return newg, ef_state
+    for names in block_units(grads, groups).values():
+        gfs = [grads[n].float() + ef_state[n] for n in names]
+        q, s = quantize_stack(gfs)
+        for name, gf, deq in zip(names, gfs, dequantize_stack(q, s, gfs)):
+            newg[name] = deq.to(grads[name].dtype)
+            ef_state[name].copy_(gf.sub_(deq))
+    return {n: newg[n] for n in grads}, ef_state
 
 
 def compressed_bytes_fraction() -> float:

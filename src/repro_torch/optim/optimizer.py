@@ -11,17 +11,30 @@ rate at ``step + 1``.  The step count is a 0-d int32 tensor on the host, so
 the learning rate and the bias corrections are host scalars (f32 arithmetic,
 as the reference's) and an update reads nothing back from the device.
 
+The int8 blocks of 256 are the reference's: it quantizes each leaf of its
+tree, and a stacked leaf ``[L, ...]`` holds every layer's tensor,
+flattened in layer order.  Where a layer's tensor is a whole number of
+blocks, its own blocks are the stack's; the other stacks (the SSD
+families' per-head vectors, narrow norms) are given as ``groups``
+(``models/convert.py::stack_groups``, worked out once from the model's
+parameters by the train step and the ``Trainer``), quantized as one
+flattened concatenation of their layers' tensors under the group's key
+(``layers.*.mamba.A_log``), and split back into the parameters before the
+update.  Without groups each parameter is quantized alone.
+
 On a mesh (``launch/train.py::Trainer(mesh=...)``) parameters, gradients
 and f32 moments are DTensors laid out alike, and every op above computes
 what it computes on the global tensors: the global norm sums every shard
 (DTensor reduces the partial sums), and the int8 blocks of 256 are those
-of the global flattened tensor, as in the reference (``quantize_i8``).
+of the global flattened tensor, as in the reference (``quantize_i8``; a
+group's members are gathered whole, ``quantize_stack``).
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, NamedTuple, Tuple
+from dataclasses import dataclass, field
+from typing import (Callable, Dict, Iterable, List, Mapping, NamedTuple,
+                    Optional, Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -30,6 +43,7 @@ from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 
 Tensors = Dict[str, torch.Tensor]
+Groups = Mapping[str, Sequence[str]]   # group key -> member names
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +166,56 @@ def dequantize_i8(q: torch.Tensor, scale: torch.Tensor, shape,
     return flat[:n].reshape(shape).to(dtype)
 
 
+def block_units(params: Mapping[str, torch.Tensor],
+                groups: Optional[Groups] = None) -> Dict[str, List[str]]:
+    """The tensors quantized together, under the keys the int8 state keeps
+    them: each parameter alone under its own name, then ``groups``."""
+    groups = groups or {}
+    grouped = {n for names in groups.values() for n in names}
+    return {**{n: [n] for n in params if n not in grouped},
+            **{k: list(names) for k, names in groups.items()}}
+
+
+def quantize_stack(xs: Sequence[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_i8`` of the tensors flattened and concatenated in order
+    (a unit of ``block_units``; one tensor is quantized as it is).  The
+    DTensors of a group are gathered whole first, and the blocks split
+    over every mesh dim, as ``quantize_i8`` lays out the blocks of a
+    tensor it cannot quantize on its shards."""
+    if len(xs) == 1:
+        return quantize_i8(xs[0])
+    if isinstance(xs[0], DTensor):
+        mesh = xs[0].device_mesh
+        return tuple(distribute_tensor(t, mesh, [Shard(0)] * mesh.ndim,
+                                       src_data_rank=None)
+                     for t in quantize_stack([x.full_tensor() for x in xs]))
+    return quantize_i8(torch.cat([x.reshape(-1) for x in xs]))
+
+
+def dequantize_stack(q: torch.Tensor, scale: torch.Tensor,
+                     likes: Sequence[torch.Tensor],
+                     dtype: torch.dtype = torch.float32
+                     ) -> List[torch.Tensor]:
+    """The tensors that ``quantize_stack`` gave (q, scale), each shaped and
+    (a DTensor) laid out as its member of ``likes`` (tensors or shapes)."""
+    if len(likes) == 1:
+        x = likes[0]
+        return [dequantize_i8(q, scale, getattr(x, "shape", x), dtype,
+                              like=x)]
+    if isinstance(q, DTensor):
+        whole = dequantize_stack(q.full_tensor(), scale.full_tensor(),
+                                 [x.shape for x in likes], dtype)
+        return [distribute_tensor(t, x.device_mesh, x.placements,
+                                  src_data_rank=None)
+                for t, x in zip(whole, likes)]
+    shapes = [torch.Size(x) if not isinstance(x, torch.Tensor) else x.shape
+              for x in likes]
+    sizes = [math.prod(s) for s in shapes]
+    flat = dequantize_i8(q, scale, (sum(sizes),), dtype)
+    return [t.reshape(s) for t, s in zip(torch.split(flat, sizes), shapes)]
+
+
 def _bias_corrections(b1: float, b2: float, step: int) -> Tuple[float, float]:
     """1 - b^step for both betas, in f32."""
     f32 = np.float32
@@ -234,16 +298,21 @@ class Adam8bitState(NamedTuple):
 
 @dataclass(frozen=True)
 class AdamW8bit:
+    """AdamW with int8 moments in 256-blocks; ``groups``: the stacks
+    quantized as one (``models/convert.py::stack_groups``)."""
     lr_fn: Callable[[int], float]
     b1: float = 0.9
     b2: float = 0.95
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
+    groups: Groups = field(default_factory=dict)
 
     def init(self, params: Tensors) -> Adam8bitState:
-        qs = {n: quantize_i8(torch.zeros_like(p, dtype=torch.float32))
-              for n, p in params.items()}
+        qs = {key: quantize_stack([torch.zeros_like(params[n],
+                                                    dtype=torch.float32)
+                                   for n in names])
+              for key, names in block_units(params, self.groups).items()}
         mq = {n: q for n, (q, _) in qs.items()}
         ms = {n: s for n, (_, s) in qs.items()}
         return Adam8bitState(torch.zeros((), dtype=torch.int32), mq, ms,
@@ -254,34 +323,41 @@ class AdamW8bit:
     def update(self, grads: Tensors, state: Adam8bitState, params: Tensors):
         """-> (params, state, {"grad_norm", "lr"}); params, grads and the
         state's dicts are updated in place (each moment requantized into
-        new tensors that replace the old ones one parameter at a time)."""
+        new tensors that replace the old ones one unit of ``block_units``
+        at a time)."""
         grads, gnorm = clip_by_global_norm(grads, self.grad_clip)
         step = int(state.step) + 1
         lr = self.lr_fn(step)
         b1c, b2c = _bias_corrections(self.b1, self.b2, step)
         mq, ms, vq, vs = state.m_q, state.m_s, state.v_q, state.v_s
-        for name, p in params.items():
-            gf = grads[name].float()
-            m = dequantize_i8(mq[name], ms[name], p.shape, like=p)
-            v = dequantize_i8(vq[name], vs[name], p.shape, like=p)
-            m.mul_(self.b1).add_(gf, alpha=1 - self.b1)
-            v.mul_(self.b2).addcmul_(gf, gf, value=1 - self.b2)
-            del gf
-            v.clamp_(min=0.0)    # the reference's maximum(v2, 0): a no-op,
-            #                      v2 is never negative
-            _apply(p, m, v, b1c, b2c, self.eps, self.weight_decay, lr)
-            mq[name], ms[name] = quantize_i8(m)
-            vq[name], vs[name] = quantize_i8(v)
+        for key, names in block_units(params, self.groups).items():
+            ps = [params[n] for n in names]
+            m_all = dequantize_stack(mq[key], ms[key], ps)
+            v_all = dequantize_stack(vq[key], vs[key], ps)
+            for name, p, m, v in zip(names, ps, m_all, v_all):
+                # the reference's b m + (1 - b) g and b v + (1 - b) g g,
+                # each product and sum rounded on its own (no fused
+                # multiply-add), so that its int8 moments come out
+                gf = grads[name].float()     # (the gradient itself if f32)
+                m.mul_(self.b1).add_(gf * (1 - self.b1))
+                v.mul_(self.b2).add_((gf * (1 - self.b2)).mul_(gf))
+                del gf
+                v.clamp_(min=0.0)  # the reference's maximum(v2, 0): a
+                #                    no-op, v2 is never negative
+                _apply(p, m, v, b1c, b2c, self.eps, self.weight_decay, lr)
+            mq[key], ms[key] = quantize_stack(m_all)
+            vq[key], vs[key] = quantize_stack(v_all)
         return params, Adam8bitState(torch.tensor(step, dtype=torch.int32),
                                      mq, ms, vq, vs), {
             "grad_norm": gnorm, "lr": lr}
 
 
 def make_optimizer(name: str, lr_fn, weight_decay: float = 0.1,
-                   grad_clip: float = 1.0):
+                   grad_clip: float = 1.0, groups: Optional[Groups] = None):
+    """``groups`` (the int8 stacks) is AdamW8bit's; AdamW has no blocks."""
     if name == "adamw":
         return AdamW(lr_fn, weight_decay=weight_decay, grad_clip=grad_clip)
     if name == "adamw8bit":
         return AdamW8bit(lr_fn, weight_decay=weight_decay,
-                         grad_clip=grad_clip)
+                         grad_clip=grad_clip, groups=dict(groups or {}))
     raise ValueError(name)

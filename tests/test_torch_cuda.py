@@ -372,6 +372,16 @@ def test_ffn_refuses_bf16_rows_it_cannot_copy(cuda):
     (48, 1, 128, 4112, (4096, 64, 65), 13),    # granite-20b's 48 : 1
     (48, 1, 192, 200, (200, 1, 129), 4),       # 48 : 1 at D 192
     (16, 16, 64, 192, (192, 129, 160), 3),     # whisper-medium's steps
+    (32, 32, 80, 576, (543, 1, 77), 9),        # phi-2's heads, D 80
+    (32, 32, 96, 576, (543, 1, 77), 9),        # phi-3-mini's, D 96
+    (16, 16, 256, 576, (543, 1, 77), 9),       # gemma-7b's, D 256
+    (71, 1, 64, 576, (543, 1, 77), 9),         # falcon-7b's 71 : 1
+    (64, 1, 256, 200, (200, 1, 129), 4),       # 64 : 1 at D 256
+    (8, 2, 24, 100, (100, 3, 64), 2),          # D 24: runs in 32
+    (8, 2, 40, 100, (100, 3, 64), 2),          # D 40: runs in 64
+    (8, 4, 72, 100, (100, 3, 64), 2),          # D 72: runs in 80
+    (4, 4, 200, 100, (100, 3, 64), 2),         # D 200: runs in 256
+    (4, 4, 8, 40, (40, 1, 17), 1),             # D 8: runs in 16
 ])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
@@ -410,7 +420,9 @@ def test_decode_kernel_matches_plain_and_is_batch_invariant(
 
 
 @pytest.mark.parametrize("H,Hkv,D", [(24, 8, 128),
-                                     (32, 32, 112)])   # zamba2-7b's
+                                     (32, 32, 112),    # zamba2-7b's
+                                     (71, 1, 64),      # falcon-7b's
+                                     (8, 8, 40)])      # a padded width
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_kernel_replays_in_a_cuda_graph(cuda, dtype, H, Hkv, D):
     """One flash-decode call captured in a CUDA graph: its launch shape is
@@ -442,16 +454,19 @@ def test_decode_kernel_refuses_what_it_does_not_take(cuda):
         DA.decode_attention(q.half(), k.half(), k.half(), lens)
     with pytest.raises(TypeError):
         DA.decode_attention(q, k.bfloat16(), k, lens)
-    with pytest.raises(ValueError):                  # head dim 24
-        DA.decode_attention(torch.zeros((1, 4, 24), device=cuda),
-                            torch.zeros((1, 8, 2, 24), device=cuda),
-                            torch.zeros((1, 8, 2, 24), device=cuda), lens)
+    for D in (20, 264):                              # head dims refused
+        with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+            DA.decode_attention(torch.zeros((1, 4, D), device=cuda),
+                                torch.zeros((1, 8, 2, D), device=cuda),
+                                torch.zeros((1, 8, 2, D), device=cuda), lens)
     with pytest.raises(ValueError):                  # 3 heads over 2
         DA.decode_attention(torch.zeros((1, 3, 16), device=cuda), k, k,
                             lens)
-    with pytest.raises(ValueError):                  # 64 q heads per kv
-        DA.decode_attention(torch.zeros((1, 64, 16), device=cuda),
-                            k[:, :, :1], k[:, :, :1], lens)
+    # head dim 24 and 64 q heads per kv head are taken
+    for H, Hkv, D in ((4, 2, 24), (64, 1, 16)):
+        kv = torch.zeros((1, 8, Hkv, D), device=cuda)
+        DA.decode_attention(torch.zeros((1, H, D), device=cuda), kv, kv,
+                            lens)
     with pytest.raises(ValueError):                  # int64 lengths
         DA.decode_attention(q, k, k, lens.long())
     with pytest.raises(ValueError):                  # one length per row
@@ -695,6 +710,18 @@ def test_deepseek_fused_round_equals_solo_blocks_on_the_card(cuda):
     (1, 256, 256, 48, 1, 128, None),     # granite-20b's 48 : 1
     (1, 128, 128, 16, 16, 64, None),     # whisper-medium's served prefill
     (2, 512, 512, 16, 16, 64, None),     # whisper-medium, two rows
+    (1, 256, 256, 32, 32, 80, None),     # phi-2's heads, D 80
+    (1, 256, 256, 32, 32, 96, None),     # phi-3-mini's, D 96
+    (1, 384, 384, 16, 16, 256, None),    # gemma-7b's, D 256: 2 stages
+    (2, 96, 160, 8, 2, 256, 48),         # D 256, window, ragged
+    (1, 128, 512, 8, 1, 256, None),      # D 256, Sq < Skv
+    (1, 256, 256, 71, 1, 64, None),      # falcon-7b's 71 : 1
+    (1, 256, 256, 8, 8, 24, None),       # D 24: runs in 32
+    (2, 96, 160, 8, 2, 40, 48),          # D 40: runs in 64, window
+    (1, 256, 256, 8, 4, 72, None),       # D 72: runs in 80
+    (1, 256, 256, 8, 8, 104, None),      # D 104: runs in 112 (128)
+    (1, 256, 256, 4, 4, 200, None),      # D 200: runs in 256
+    (1, 64, 64, 4, 4, 8, 7),             # D 8: runs in 16
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])

@@ -75,6 +75,12 @@ def _np(t):
     (2, 32, 4, 2, 112, 8),            # zamba2-7b's head dim
     (1, 32, 4, 2, 192, 16),           # nemotron-4-340b's head dim
     (2, 32, 48, 1, 16, 8),            # granite-20b's 48 q heads per kv head
+    (2, 32, 4, 2, 24, 8),             # a padded width (runs in 32 on a card)
+    (1, 32, 4, 4, 80, 16),            # phi-2's head dim
+    (2, 32, 4, 2, 96, 8),             # phi-3-mini's
+    (1, 32, 2, 2, 256, 16),           # gemma-7b's
+    (2, 32, 64, 1, 16, 8),            # 64 q heads per kv head
+    (1, 32, 71, 1, 64, 16),           # falcon-7b's 71 : 1
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_matches_jax_kernel(B, S, H, Hkv, D, bk, dtype):
@@ -100,23 +106,29 @@ def test_ops_decode_routes_cpu_tensors_to_the_plain_version():
 
 
 def test_decode_wrapper_refuses_what_it_does_not_take():
-    """The checks run before the library loads (no card needed)."""
+    """The checks run before the library loads (no card needed).  The
+    kernel takes every head dim that is a multiple of 8 from 8 to 256 and
+    any number of q heads per kv head; D 20 and D 264 raise, naming the
+    limit."""
     q, k = torch.zeros((1, 4, 16)), torch.zeros((1, 8, 2, 16))
     lens = torch.ones(1, dtype=torch.int32)
     with pytest.raises(TypeError):
         DA._check(q.half(), k.half(), k.half(), lens)
-    with pytest.raises(ValueError):                  # head dim 24
-        DA._check(torch.zeros((1, 4, 24)), torch.zeros((1, 8, 2, 24)),
-                  torch.zeros((1, 8, 2, 24)), lens)
+    for D in (20, 264, 4):
+        with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+            DA._check(torch.zeros((1, 4, D)), torch.zeros((1, 8, 2, D)),
+                      torch.zeros((1, 8, 2, D)), lens)
     with pytest.raises(ValueError):                  # 3 heads over 2
         DA._check(torch.zeros((1, 3, 16)), k, k, lens)
-    with pytest.raises(ValueError):                  # 64 q heads per kv
-        DA._check(torch.zeros((1, 64, 16)), k[:, :, :1], k[:, :, :1], lens)
     with pytest.raises(ValueError):                  # int64 lengths
         DA._check(q, k, k, lens.long())
     DA._check(q, k, k, lens)
-    # the registered configs' head shapes: zamba2-7b, nemotron, granite
-    for H, Hkv, D in ((32, 32, 112), (96, 8, 192), (48, 1, 128)):
+    # the registered configs' head shapes (zamba2-7b, nemotron, granite),
+    # a padded width, phi-2's, phi-3-mini's, gemma-7b's, 64 and falcon-7b's
+    # 71 q heads per kv head
+    for H, Hkv, D in ((32, 32, 112), (96, 8, 192), (48, 1, 128),
+                      (4, 2, 24), (4, 2, 8), (32, 32, 80), (32, 32, 96),
+                      (16, 16, 256), (64, 1, 16), (71, 1, 64)):
         kv = torch.zeros((1, 8, Hkv, D))
         DA._check(torch.zeros((1, H, D)), kv, kv, lens)
 

@@ -70,6 +70,12 @@ def _np(t):
     (1, 16, 16, 4, 2, 112, 8, 8),     # zamba2-7b's head dim
     (1, 16, 16, 2, 2, 192, 8, 8),     # nemotron-4-340b's head dim
     (1, 16, 16, 48, 1, 16, 8, 8),     # granite-20b's 48 q heads per kv head
+    (1, 16, 16, 4, 2, 24, 8, 8),      # a padded width (runs in 32 on a card)
+    (1, 16, 16, 2, 2, 80, 8, 8),      # phi-2's head dim
+    (1, 16, 16, 4, 4, 96, 8, 8),      # phi-3-mini's
+    (1, 16, 16, 2, 2, 256, 8, 8),     # gemma-7b's
+    (1, 16, 16, 64, 1, 16, 8, 8),     # 64 q heads per kv head
+    (1, 16, 16, 71, 1, 64, 8, 8),     # falcon-7b's 71 : 1
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_ref_matches_jax_kernel(B, Sq, Skv, H, Hkv, D, bq, bk, dtype):
@@ -127,19 +133,27 @@ def test_block_precondition_is_the_references():
 
 
 def test_kernel_wrapper_refuses_what_it_does_not_take():
-    """The checks run before the library loads (no card needed)."""
+    """The checks run before the library loads (no card needed).  The
+    kernel takes every head dim that is a multiple of 8 from 8 to 256 and
+    any number of q heads per kv head; D 20 and D 264 raise, naming the
+    limit."""
     q = torch.zeros((1, 8, 4, 16), dtype=torch.float16)
     with pytest.raises(TypeError):
         FA._check(q, q, q)
-    q = torch.zeros((1, 8, 4, 24))
-    with pytest.raises(ValueError):
-        FA._check(q, q, q)                       # head dim 24
+    for D in (20, 264, 4, 0):
+        q = torch.zeros((1, 8, 4, D))
+        with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+            FA._check(q, q, q)
     q = torch.zeros((1, 8, 3, 16))
     k = torch.zeros((1, 8, 2, 16))
     with pytest.raises(ValueError):
         FA._check(q, k, k)                       # 3 heads over 2 kv heads
-    # the registered configs' head shapes: zamba2-7b, nemotron, granite
-    for H, Hkv, D in ((32, 32, 112), (96, 8, 192), (48, 1, 128)):
+    # the registered configs' head shapes (zamba2-7b, nemotron, granite),
+    # a padded width, phi-2's, phi-3-mini's, gemma-7b's, 64 and falcon-7b's
+    # 71 q heads per kv head
+    for H, Hkv, D in ((32, 32, 112), (96, 8, 192), (48, 1, 128),
+                      (4, 4, 24), (4, 4, 8), (32, 32, 80), (32, 32, 96),
+                      (16, 16, 256), (64, 1, 64), (71, 1, 64)):
         k = torch.zeros((1, 8, Hkv, D))
         FA._check(torch.zeros((1, 8, H, D)), k, k)
 

@@ -47,12 +47,14 @@ from repro.optim.optimizer import make_optimizer as jax_optimizer
 from repro.optim.optimizer import warmup_cosine as jax_warmup_cosine
 from repro_torch.configs.base import RunConfig
 from repro_torch.configs.registry import get_config
-from repro_torch.models.convert import load_jax_params, params_from_jax
+from repro_torch.models.convert import (load_jax_params, params_from_jax,
+                                        stack_groups)
 from repro_torch.models.registry import build_model
 from repro_torch.models.train import make_train_step
 from repro_torch.optim.grad_compress import init_error_feedback
-from repro_torch.optim.optimizer import (dequantize_i8, make_optimizer,
-                                         warmup_cosine)
+from repro_torch.optim.optimizer import (QBLOCK, block_units,
+                                         dequantize_stack,
+                                         make_optimizer, warmup_cosine)
 
 torch.set_num_threads(1)  # pytest -n: several processes share the cores
 
@@ -101,7 +103,9 @@ def _run_port(tm, cfg, microbatch, opt_name, compress, batch, remat=None):
     if remat is not None:
         tm.cfg = dataclasses.replace(cfg, remat=remat[0],
                                      remat_policy=remat[1])
-    opt = make_optimizer(opt_name, warmup_cosine(LR, 2, 100))
+    opt = make_optimizer(opt_name, warmup_cosine(LR, 2, 100),
+                         groups=stack_groups(dict(tm.named_parameters()),
+                                             QBLOCK))
     step = make_train_step(tm, tm.cfg, RunConfig(microbatch=microbatch), opt,
                            grad_compress=compress)
     params = dict(tm.named_parameters())
@@ -172,10 +176,11 @@ def test_optimizer_state_matches_the_reference(stepped):
     largest compressed gradient of the leaf over 127), which moves m by
     (1 - b1) and v by (1 - b2) times its effect; the residuals within
     one quantum.  AdamW8bit: the dequantised moments within one quantum
-    of the block scale (the reference quantizes a stacked [L, ...] leaf
-    over the whole stack, the port each layer's tensor: where a layer's
-    size is not a multiple of 256 their blocks differ, so the bound is the
-    leaf's largest magnitude over 127)."""
+    of the leaf's largest magnitude over 127 (the blocks are the
+    reference's stacked [L, ...] leaves' own: a layer whose tensor is no
+    whole number of 256-blocks is quantized with the other layers of its
+    stack, ``convert.stack_groups``, and dequantized through its
+    group)."""
     jstate, state = stepped["jout"][1], stepped["out"][1]
     assert int(state.step) == int(jstate.step) == 1
     if stepped["opt"] == "adamw":
@@ -199,13 +204,18 @@ def test_optimizer_state_matches_the_reference(stepped):
             _close(state.m[n].numpy(), want_m[n].numpy(), bm, n)
             _close(state.v[n].numpy(), want_v[n].numpy(), bv, n)
         return
+    units = block_units(stepped["out"][0],
+                        stack_groups(stepped["out"][0], QBLOCK))
     for qf, sf in (("m_q", "m_s"), ("v_q", "v_s")):
         want = params_from_jax(stepped["jdeq"][qf])
         bound = _bound(stepped["jdeq"][qf], 1 / 127 * (1 + 1e-4))
+        q, s = getattr(state, qf), getattr(state, sf)
+        got = {}
+        for key, names in units.items():
+            got.update(zip(names, dequantize_stack(
+                q[key], s[key], [want[n] for n in names])))
         for n, w in want.items():
-            got = dequantize_i8(getattr(state, qf)[n], getattr(state, sf)[n],
-                                w.shape).numpy()
-            _close(got, w.numpy(), bound[n].numpy() + 1e-12, n)
+            _close(got[n].numpy(), w.numpy(), bound[n].numpy() + 1e-12, n)
 
 
 def test_parameters_after_the_step_match_the_reference(stepped):

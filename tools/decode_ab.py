@@ -6,9 +6,11 @@
 Builds each OTHER.cu (a version of ``src/repro_torch/csrc/
 decode_attention.cu``, named by its directory) with the repository's nvcc
 flags, then calls the tree's kernel and each other version through the
-port's wrapper at three shapes (bf16, one row, 24 / 8 heads x 128 at length
-543 of a 576-slot cache; 32 / 8 heads x 128 at 4096 and at 100 of 4112), in
-the order versions, tree, tree, reversed versions.  A version whose
+port's wrapper at the served shapes (bf16, one row, 24 / 8 heads x 128 at
+length 543 of a 576-slot cache; 32 / 8 heads x 128 at 4096 and at 100 of
+4112; at 543 of 576 zamba2-7b's 32 / 32 x 112, nemotron-4-340b's 96 / 8 x
+192 and granite-20b's 48 / 1 x 128; whisper-medium's 16 / 16 x 64 at 192 of
+192), in the order versions, tree, tree, reversed versions.  A version whose
 ``decode_attention_fwd`` takes three scratch buffers (the two-pass kernels,
 whose source names ``part_m``) is called through a shim that allocates them
 per call, as their wrapper did.  For each it prints the event time per call
@@ -28,7 +30,11 @@ from ab_common import ROOT, build, card, time_call
 
 SHAPES = (("24x8x128 len 543 of 576", 24, 8, 128, 576, 543),
           ("32x8x128 len 4096 of 4112", 32, 8, 128, 4112, 4096),
-          ("32x8x128 len 100 of 4112", 32, 8, 128, 4112, 100))
+          ("32x8x128 len 100 of 4112", 32, 8, 128, 4112, 100),
+          ("32x32x112 len 543 of 576", 32, 32, 112, 576, 543),
+          ("96x8x192 len 543 of 576", 96, 8, 192, 576, 543),
+          ("48x1x128 len 543 of 576", 48, 1, 128, 576, 543),
+          ("16x16x64 len 192 of 192", 16, 16, 64, 192, 192))
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -49,7 +55,6 @@ class ScratchShim:
         lib.decode_attention_splits.argtypes = [_I]
         lib.decode_attention_splits.restype = _I
         self.decode_attention_error_string = lib.decode_attention_error_string
-        self.decode_attention_max_rep = lib.decode_attention_max_rep
 
     def decode_attention_fwd(self, dtype, q, k, v, lengths, out, B, S, H,
                              Hkv, D, strides, scale, stream):
@@ -66,7 +71,6 @@ def bind(lib: ctypes.CDLL, src: Path):
     from repro_torch.kernels import decode_attention as DA
     lib.decode_attention_error_string.argtypes = [_I]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
-    lib.decode_attention_max_rep.restype = _I
     if "part_m" in src.read_text():
         return ScratchShim(lib)
     lib.decode_attention_fwd.argtypes = DA._lib().decode_attention_fwd.argtypes

@@ -6,9 +6,11 @@
 Builds each OTHER.cu (a version of ``src/repro_torch/csrc/
 flash_attention.cu`` with the same C interface, named by its directory)
 with the repository's nvcc flags, then calls the tree's kernel and each
-other version through the port's wrapper at three shapes (bf16, B 1,
-causal, D 128: 32 / 8 heads at S 512 and 2048, the mixtral draft's prefill;
-24 / 8 heads at S 512, the llama3.2-3b draft's), in the order versions,
+other version through the port's wrapper at the served shapes (bf16, B 1,
+causal: 32 / 8 x 128 at S 512 and 2048, the mixtral draft's prefill;
+24 / 8 x 128 at S 512, the llama3.2-3b draft's; at S 512 zamba2-7b's 32 /
+32 x 112, nemotron-4-340b's 96 / 8 x 192 and whisper-medium's 16 / 16 x
+64), in the order versions,
 tree, tree, reversed versions.  For each it prints the event time per call
 (which the host's issue time can set), the device time and device kernels
 per call from ``torch.profiler``, and the largest difference from the plain
@@ -24,9 +26,12 @@ from pathlib import Path
 
 from ab_common import ROOT, build, card, time_call
 
-SHAPES = (("B1 S512 32x8x128 causal", 512, 32, 8),
-          ("B1 S2048 32x8x128 causal", 2048, 32, 8),
-          ("B1 S512 24x8x128 causal", 512, 24, 8))
+SHAPES = (("B1 S512 32x8x128 causal", 512, 32, 8, 128),
+          ("B1 S2048 32x8x128 causal", 2048, 32, 8, 128),
+          ("B1 S512 24x8x128 causal", 512, 24, 8, 128),
+          ("B1 S512 32x32x112 causal", 512, 32, 32, 112),
+          ("B1 S512 96x8x192 causal", 512, 96, 8, 192),
+          ("B1 S512 16x16x64 causal", 512, 16, 16, 64))
 
 
 def main() -> int:
@@ -50,9 +55,9 @@ def main() -> int:
     order = others + [("tree", tree_lib), ("tree", tree_lib)] + others[::-1]
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
-    for name, S, H, Hkv in SHAPES:
-        q = torch.randn((1, S, H, 128), generator=gen, device=dev).bfloat16()
-        k, v = [torch.randn((1, S, Hkv, 128), generator=gen, device=dev)
+    for name, S, H, Hkv, D in SHAPES:
+        q = torch.randn((1, S, H, D), generator=gen, device=dev).bfloat16()
+        k, v = [torch.randn((1, S, Hkv, D), generator=gen, device=dev)
                 .bfloat16() for _ in range(2)]
         want = R.flash_attention_ref(q, k, v).float()
         scale = want.abs().amax(dim=-1).clamp_min(1e-30)
