@@ -65,7 +65,17 @@ Phases (each raises on failure):
      phi-2's 32 / 32 x 80, phi-3-mini's 32 / 32 x 96, gemma-7b's 16 / 16 x
      256, falcon-7b's 71 / 1 x 64 (flash-decode only) and 32 / 8 x 40, a
      width padded in the kernels' loads), flash timed at S 512 and
-     flash-decode at 543 of 576; a head dim of 20 or 264 must raise
+     flash-decode at 543 of 576; the attention kernels' CUDA-core instance
+     at head dims 4, 20, 100, 264, 320 and 512 with 1, 4 and 8 q heads per
+     kv head (flash at S 256, causal and with a 100 window; flash-decode
+     at 543 / 1 / 77 of 576 keys and three mixed rows), timed at 32 / 8
+     heads; the SSD scan also at mamba2's widths at chunk 256 (S 512 and
+     300), chunks 160 and 131 and states of 160 and 256 columns, and from a
+     given state (two halves, the second from the first's final state,
+     against the whole), each timed; the expert FFN also at widths whose
+     bf16 rows are no whole number of 16 bytes (d 100 / f 204 and d 4092 /
+     f 14332, swiglu, and gelu's up stage at the first); head dim 0 and a
+     chunk that does not divide S must raise
   3. solo serving with a tight cache (12 slots): misses, prefetches,
      evictions
   4. solo serving with an ample cache (32 slots): the fast path, <=2 host
@@ -102,6 +112,11 @@ Phases (each raises on failure):
      step timed alone and traced with ``torch.profiler`` (the device's
      kernels, their busy time with the SSD scan's apart, its idle share;
      the traced SSD kernels must be three per mamba layer)
+  8b. mamba2-780m again at Mamba2's published chunk 256, the same prompts:
+     48 SSD launches per prefill (a 512-token prompt in two chunks of
+     256), its teacher-forced logits against the plain scan's at chunk 256
+     and its tokens against phase 8's where the top-2 margin is clear; its
+     prefill timed beside phase 8's
   9. zamba2-7b serving, one 512-token prompt, the same way (10 launches),
      under ``attn_impl="kernel"``: its shared attention block (32 / 32 heads
      x 112) runs flash attention in the prefill and flash-decode in every
@@ -346,8 +361,20 @@ EXTRA_SHAPES = (("phi-2", 32, 32, 80), ("phi-3-mini", 32, 32, 96),
                 ("gemma-7b", 16, 16, 256), ("falcon-7b", 71, 1, 64),
                 ("padded-40", 32, 8, 40))
 FA_EXTRA = tuple(x for x in EXTRA_SHAPES if x[0] != "falcon-7b")
-# head dims the kernels refuse (ValueError on the card, never a silent mha)
-REFUSED_HEAD_DIMS = (20, 264)
+# head dims no TMA instance takes, which run in the attention kernels'
+# CUDA-core instance (csrc/attention_any.cuh): rows TMA cannot load (bf16
+# rows of 8, 40 and 200 bytes) and D past 256 (128-column output slices).
+# Each with ANY_REPS q heads per kv head (8 q heads), causal and with an
+# ANY_WINDOW window (flash at S ANY_S; flash-decode at 543, 1 and 77 of 576
+# keys), bf16 and f32, against the plain versions at the served shapes'
+# tolerances; timed (bf16) at 32 / 8 heads, flash at S 512 and flash-decode
+# at 543 of 576.  No model path launches them: their rows in the kernels
+# line have the wrappers' launches at those shapes over every main path (0).
+# D 0 must still raise.
+ANY_HEAD_DIMS = (4, 20, 100, 264, 320, 512)
+ANY_REPS = (1, 4, 8)
+ANY_S, ANY_WINDOW = 256, 100
+ANY_TIMED = (32, 8)                   # timed heads: q, kv
 # lossless check: the engine (5-token verify blocks, f32 expert combine) and
 # the resident reference (one teacher-forced forward, bf16 combine) round
 # the bf16 residual stream at different places; a token that is not the
@@ -360,21 +387,56 @@ CONC_PROMPT, CONC_NEW, CONC_REQS = 512, 32, 4     # phase 5
 CHAOS_SLOTS, CHAOS_NEW, CHAOS_IO_NEW = 12, 32, 8
 CHAOS = {"seed": 7, "fetch_error_rate": 0.1, "corrupt_rate": 0.05,
          "spike_rate": 0.05}
-# SSD scan: (model, heads, head dim p, state n, sequence lengths); a length
-# past 128 that 128 does not divide is padded at the end with dt = 0, as
-# mamba_forward pads it.  Tolerance of y relative to its max |value|: f32
+# SSD scan: (name, heads, head dim p, state n, chunk, sequence lengths); the
+# chunk of a length is min(chunk, S), and a length past it that it does
+# not divide is padded at the end with dt = 0, as mamba_forward pads it.
+# Past the served widths (mamba2 and zamba2 at chunk 128): mamba2 at
+# Mamba2's published chunk 256 (state-spaces/mamba's Mamba2 and Hugging
+# Face's Mamba2Config), chunks 160 and 131 (prime) that the kernel's
+# 128-row tiles cut raggedly, and states of 160 and 256 columns (its
+# 128-column blocks).  Tolerance of y relative to its max |value|: f32
 # differs from the plain version in summation order and in how the prefix
 # sums of dt*A are taken; bf16 also in y's one rounding (2^-8 of an
 # element).  The final state is f32 in both types: 1e-4.
-SSD_SHAPES = (("mamba2", 48, 64, 128, (77, 300, 512, 2048)),
-              ("zamba2", 112, 64, 64, (512, 300)))
+SSD_SHAPES = (("mamba2", 48, 64, 128, 128, (77, 300, 512, 2048)),
+              ("zamba2", 112, 64, 64, 128, (512, 300)),
+              ("mamba2-c256", 48, 64, 128, 256, (512, 300)),
+              ("c160", 8, 64, 64, 160, (320,)),
+              ("c131", 8, 64, 64, 131, (262,)),
+              ("n160", 8, 64, 160, 128, (512,)),
+              ("n256", 8, 64, 256, 256, (512,)))
 SSD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 SSD_STATE_TOL = 1e-4
-# timed (bf16): (model, S); a call is three device kernels (each chunk's end
-# state, the carry from chunk to chunk, y)
-SSD_TIMED = (("mamba2", 512), ("mamba2", 2048), ("zamba2", 512))
+# timed (bf16): (name, S); a call is three device kernels (each tile's end
+# state, the carry from tile to tile, y)
+SSD_TIMED = (("mamba2", 512), ("mamba2", 2048), ("zamba2", 512),
+             ("mamba2-c256", 512), ("c160", 320), ("c131", 262),
+             ("n160", 512), ("n256", 512))
+# from a given state: the sequence scanned in two halves, the second from
+# the first's final state, against one scan of the whole (name, S)
+SSD_INIT = (("mamba2", 512), ("mamba2-c256", 512), ("c131", 262),
+            ("n256", 512))
 SSD_KERNELS_PER_CALL = 3
 SSM_PROMPTS, SSM_NEW = (512, 512, 300), 32            # phase 7
+# phase 8b: mamba2-780m served again at Mamba2's published chunk 256
+# (state-spaces/mamba's Mamba2 module, Hugging Face's Mamba2Config; the
+# repository's configs use 128): the same prompts, its 512-token ones
+# prefilled as two chunks of 256.  Its teacher-forced logits through the
+# SSD kernel against those through the plain scan at chunk 256 (the
+# model's train route, ``ssd_ref``): within SSM_C256_TOL logits, the deep
+# stacks' margin (bf16 through 48 layers, where the kernel's f32 summation
+# order alone moved logits by up to 0.31); and its tokens against the chunk
+# 128 run's, up to the first that differs, which must be a near tie (top-2
+# margin of the teacher-forced logits within SSM_MARGIN).
+SSM_CHUNK = 256
+# the expert FFN at widths whose bf16 rows are no whole number of 16 bytes
+# (the element-load FMA body): d 100 / f 204, and mixtral's widths less 4
+# (d 4092, f 14332), swiglu experts (gate_up, down) at both and gelu
+# experts' up stage at the first; checked at T 1 / 5 / 64 / 512 in bf16
+# and f32 with the batch-invariance check, timed (bf16) at T 5 and T 512.
+# No model path launches them: their rows in the kernels line have the
+# stages' launches at those widths over every main path (0).
+FFN_ANY = ((100, 204), (4092, 14332))
 ZAMBA_LAYERS = 12                                     # phase 8
 # lossless check of the SSD families: the engine (chunked prefill, then the
 # recurrent step in f32 with its own conv) and the teacher-forced forward
@@ -385,6 +447,7 @@ ZAMBA_LAYERS = 12                                     # phase 8
 # tokens must be the exact argmax, so that a wrong recurrent step, whose
 # tokens would fall near the top of random-weight logits, cannot pass.
 SSM_MARGIN, SSM_MIN_EXACT = 0.5, 0.8
+SSM_C256_TOL = SSM_MARGIN                             # phase 8b
 # flash-decode: (model, q heads, kv heads, head dim) and (cache length,
 # three mixed lengths, the model timed at the first of them).  Tolerance:
 # the reference's own sweep (tests/test_kernels.py), atol 2e-5 f32 / 2e-2
@@ -397,10 +460,16 @@ DECODE_WIDTHS = (("llama3.2-3b", 24, 8, 128),
 DECODE_CACHES = ((576, (543, 1, 77), ("llama3.2-3b", "zamba2-7b",
                                       "nemotron-4-340b", "granite-20b",
                                       "command-r-35b",
-                                      *(x[0] for x in EXTRA_SHAPES))),
+                                      *(x[0] for x in EXTRA_SHAPES),
+                                      *(f"D{D}" for D in ANY_HEAD_DIMS))),
                  (4112, (4096, 1, 512), ("mistral-7b-draft",)),
                  # whisper-medium's served steps: lengths 129..192 of 192
                  (192, (192, 129, 160), ("whisper-medium",)))
+# the CUDA-core instance's widths, in the 576-key cache only: timed at
+# ANY_TIMED heads, checked also at each of ANY_REPS
+DECODE_ANY = (*((f"D{D}", *ANY_TIMED, D) for D in ANY_HEAD_DIMS),
+              *((f"D{D}-{r}to1", 8, 8 // r, D) for D in ANY_HEAD_DIMS
+                for r in ANY_REPS if r != ANY_TIMED[0] // ANY_TIMED[1]))
 DECODE_LENGTHS = (1, 77, 512, 543, 4096)
 DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DECODE_RTOL = 1e-2
@@ -593,19 +662,28 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return a.elapsed_time(b) / iters
 
 
+# what was timed by CUDA events because the profiler saw nothing of it,
+# printed with the timing lines (``profiler_fallbacks``)
+PROFILER_FALLBACKS: list = []
+_PROFILER_COLD = [False]     # the last window came back empty
+
+
 def device_spans(fn, iters: int, keep=None, tries: int = 5):
     """Durations (us) of the device activities ``torch.profiler`` saw over
     ``iters`` warm calls of ``fn``, those whose names ``keep`` accepts where
-    it is given.  A window can come back without them (seen right after a
-    plain version's thousands of launches, and in the phi expert-FFN
-    timing): it is traced again, after a pause that doubles each time,
-    before failing."""
+    it is given.  A window can come back with no device activity at all
+    (seen right after a plain version's thousands of launches, and in the
+    phi expert-FFN timing just after the deepseek paths' traces of 100 000
+    to 300 000 activities): it is traced again, after a pause that doubles
+    each time.  After ``tries`` empty windows, ``[]``; while the profiler
+    stays blind, a later call traces two windows only."""
     import time
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    tries = 2 if _PROFILER_COLD[0] else tries
     for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -614,42 +692,60 @@ def device_spans(fn, iters: int, keep=None, tries: int = 5):
         seen = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         spans = [e.time_range.end - e.time_range.start for e in seen
                  if keep is None or keep(e.name)]
+        _PROFILER_COLD[0] = not seen
         if spans:
             return spans
         log(f"the profiler saw none of the device activity sought (window "
             f"{attempt + 1} of {tries}; {len(seen)} other activities, "
-            f"{sorted({e.name[:60] for e in seen})[:3]}); tracing again")
-        time.sleep(0.5 * 2 ** attempt)
+            f"{sorted({e.name[:60] for e in seen})[:3]})")
+        if attempt + 1 < tries:
+            time.sleep(0.5 * 2 ** attempt)
     return []
 
 
-def traced(fn, iters: int = 50):
+def fall_back(fn, iters: int, what: str) -> float:
+    """Where the profiler saw no device activity of ``fn``: its CUDA-event
+    time per call over ``iters`` calls instead (it holds every launch of
+    the call and the host's issue time between them), noted in
+    ``PROFILER_FALLBACKS``."""
+    ms = cuda_ms(fn, iters)
+    PROFILER_FALLBACKS.append({"what": what, "event_ms": ms})
+    log(f"{what}: the profiler saw no device activity; timed by CUDA "
+        f"events instead, {ms:.4f} ms")
+    return ms
+
+
+def traced(fn, iters: int = 50, what: str = "a call"):
     """Device time per call of ``fn`` in ms, the summed durations of the
     kernels and copies ``torch.profiler`` saw over ``iters`` warm calls
     (unlike ``cuda_ms``, not set by the host's issue time), and the device
-    activities per call."""
+    activities per call.  Where the profiler saw none, the CUDA-event time
+    (``fall_back``) and ``None`` activities."""
     spans = device_spans(fn, iters)
     if not spans:
-        raise AssertionError("the profiler saw no device activity")
+        return fall_back(fn, iters, what), None
     # the profiler may drop an event or two of a long window: count whole
     # activities per call, and time them by the mean of those it kept
     per_call = max(1, round(len(spans) / iters))
     return sum(spans) / len(spans) * per_call / 1e3, per_call
 
 
-def traced_ms(fn, iters: int = 50) -> float:
-    return traced(fn, iters)[0]
+def traced_ms(fn, iters: int = 50, what: str = "a call") -> float:
+    return traced(fn, iters, what)[0]
 
 
 def kernel_device_ms(fn, prefix: str, iters: int = 10) -> float:
     """Device time per call of ``fn``'s kernels whose names start with
     ``prefix`` (one kernel of several that a call launches), from
-    ``torch.profiler``."""
+    ``torch.profiler``; where it saw no device activity, ``fn``'s
+    CUDA-event time (``fall_back``)."""
     spans = device_spans(
         fn, iters, lambda name: name.split("<")[0].split("::")[-1]
         .split("(")[0].removeprefix("void ").startswith(prefix))
     if not spans:
-        raise AssertionError(f"the profiler saw no {prefix} kernel")
+        if not _PROFILER_COLD[0]:
+            raise AssertionError(f"the profiler saw no {prefix} kernel")
+        return fall_back(fn, iters, prefix)
     return sum(spans) / len(spans) / 1e3          # one such kernel a call
 
 
@@ -659,13 +755,15 @@ def kernel_device_ms(fn, prefix: str, iters: int = 10) -> float:
 
 def kernel_phase(dev, d: int, f: int, gelu: bool = False, k: int = K_TOP,
                  pool: int = S_POOL, prefill_slots: int = 8, seed: int = 0,
-                 timed=(BLOCK_T, CONC_PROMPT)):
+                 timed=(BLOCK_T, CONC_PROMPT),
+                 dtypes=("bfloat16", "float32")):
     """The expert-FFN stages against their plain versions at T 1 / 5 / 64 /
-    512, bf16 and f32, with a batch-invariance check: swiglu experts
-    (gate_up, then down), or with ``gelu`` the gelu experts' route (up_gelu,
-    then down).  Each token takes ``k`` slots of a ``pool``-slot pool; the
-    T 512 call (a prefill block) routes into its first ``prefill_slots``.
-    The bf16 calls at the row counts ``timed`` are timed."""
+    512, in each of ``dtypes``, with a batch-invariance check: swiglu
+    experts (gate_up, then down), or with ``gelu`` the gelu experts' route
+    (up_gelu, then down).  Each token takes ``k`` slots of a ``pool``-slot
+    pool; the T 512 call (a prefill block) routes into its first
+    ``prefill_slots``.  The bf16 calls at the row counts ``timed`` are
+    timed."""
     import torch
     from repro_torch.kernels import cache_moe as K
     from repro_torch.kernels import ref as R
@@ -673,8 +771,9 @@ def kernel_phase(dev, d: int, f: int, gelu: bool = False, k: int = K_TOP,
     experts = "gelu" if gelu else "swiglu"
     gen = torch.Generator(dev).manual_seed(seed)
     rows, main = [], {}
-    for dt_name, dt in (("bfloat16", torch.bfloat16),
-                        ("float32", torch.float32)):
+    for dt_name in dtypes:
+        dt = getattr(torch, dt_name)
+
         def w(shape, fan):
             return (torch.randn(shape, generator=gen, device=dev)
                     * fan ** -0.5).to(dt)
@@ -813,7 +912,8 @@ def time_kernels(m, d: int, f: int, gelu: bool = False):
         out[name] = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
                      "library_ms": cuda_ms(lib),
                      "device_ms": kernel_device_ms(kern, "slot_ffn"),
-                     "library_device_ms": traced_ms(lib, iters=10),
+                     "library_device_ms": traced_ms(
+                         lib, iters=10, what=f"bmm for {name} T{x.shape[0]}"),
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "touched_slots": len(touched), "rows": rows_n,
@@ -840,10 +940,13 @@ def flash_phase(dev):
     mixtral draft's prefill (32 / 8 heads) and the llama3.2-3b draft's (24 /
     8), and at the head shapes of FA_SHAPES (zamba2-7b's D 112, nemotron's
     D 192, granite's 48 : 1, whisper-medium's 16 / 16 x 64, also at its
-    served prefill's S 128), bf16 and f32; timed (bf16) at S 512 and 2048
-    (32 heads), S 512 (24 heads), S 512 of each FA_SHAPES model and S 128
-    of whisper-medium: event time, and device time from the profiler for
-    the kernel, the plain version and SDPA."""
+    served prefill's S 128), and at every head dim of ANY_HEAD_DIMS (the
+    CUDA-core instance) with each of ANY_REPS q heads per kv head, causal
+    and windowed, bf16 and f32; timed (bf16) at S 512 and 2048 (32 heads),
+    S 512 (24 heads), S 512 of each FA_SHAPES model and of each
+    ANY_HEAD_DIMS width (32 / 8 heads) and S 128 of whisper-medium: event
+    time, and device time from the profiler for the kernel, the plain
+    version and SDPA.  Head dim 0 must raise."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref as R
@@ -862,7 +965,12 @@ def flash_phase(dev):
             *((512, None, both, (h, hkv, d, m))
               for m, h, hkv, d in FA_SHAPES + FA_EXTRA),
             (128, None, both, FA_WHISPER[1:] + FA_WHISPER[:1]),
-            (384, 100, both, FA_SHAPES[1][1:] + (None,))):
+            (384, 100, both, FA_SHAPES[1][1:] + (None,)),
+            *((512, None, ("bfloat16",), (*ANY_TIMED, D, f"D{D}"))
+              for D in ANY_HEAD_DIMS),
+            *((ANY_S, w, both, (8, 8 // r, D, None))
+              for D in ANY_HEAD_DIMS for r in ANY_REPS
+              for w in (None, ANY_WINDOW))):
         for dt_name in dtypes:
             dt = getattr(torch, dt_name)
             q, k, v = [torch.randn((1, S, h, D), generator=gen,
@@ -898,30 +1006,34 @@ def flash_phase(dev):
                 F = torch.nn.functional
                 sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     qt, kt, vt, is_causal=True, enable_gqa=True)
-                dev_ms, per_call = traced(kern)
-                if per_call != 1:
+                sdpa()                  # the yardstick at this head dim
+                dev_ms, per_call = traced(kern, what=f"flash S{S} D{D}")
+                if per_call not in (None, 1):
                     raise AssertionError(f"flash_attention S={S}: {per_call} "
                                          f"device kernels per call, not 1")
                 key = S if (H, D) == (FA_HEADS, FA_DIM) else \
                     f"{S}_{model}" if model else f"{S}_h{H}"
+                # at ANY_HEAD_DIMS the plain version and SDPA take event
+                # times only (the script's time)
+                served = D not in ANY_HEAD_DIMS
                 timing[key] = {
                     "H": H, "Hkv": Hkv, "D": D, "ms": cuda_ms(kern),
                     "plain_ms": cuda_ms(plain, iters=2),
                     "library_ms": cuda_ms(sdpa),
                     "device_ms": dev_ms,
-                    "plain_device_ms": traced_ms(plain, iters=2),
-                    "library_device_ms": traced_ms(sdpa),
+                    "plain_device_ms": traced_ms(plain, iters=2)
+                    if served else None,
+                    "library_device_ms": traced_ms(sdpa) if served else None,
                     "bound_ms": bound, "bound_by": by, "max_abs_err": err}
             del q, k, v, got, want
-    for D in REFUSED_HEAD_DIMS:
-        q = torch.zeros((1, 128, 4, D), dtype=torch.bfloat16, device=dev)
-        try:
-            FA.flash_attention(q, q, q)
-        except ValueError as e:
-            rows.append({"kernel": "flash_attention", "D": D,
-                         "refused": str(e), "ok": True})
-        else:
-            raise AssertionError(f"flash_attention took head dim {D}")
+    q = torch.zeros((1, 128, 4, 0), dtype=torch.bfloat16, device=dev)
+    try:
+        FA.flash_attention(q, q, q)
+    except ValueError as e:
+        rows.append({"kernel": "flash_attention", "D": 0,
+                     "refused": str(e), "ok": True})
+    else:
+        raise AssertionError("flash_attention took head dim 0")
     torch.cuda.empty_cache()
     return rows, timing
 
@@ -940,12 +1052,14 @@ def decode_bound(B: int, H: int, Hkv: int, D: int, lengths, el: int):
 
 def decode_phase(dev):
     """The flash-decode kernel against its plain version at the llama3.2-3b
-    and mixtral-draft widths and the head shapes of FA_SHAPES, bf16 and
-    f32: one row at each length that fits the cache, and three rows of
+    and mixtral-draft widths and the head shapes of FA_SHAPES, and in the
+    576-key cache at the CUDA-core instance's widths (``DECODE_ANY``), bf16
+    and f32: one row at each length that fits the cache, and three rows of
     mixed lengths whose every row must equal its own one-row call bit for
     bit.  Timed (bf16, one row) at length 543 of 576 (llama3.2-3b,
-    zamba2-7b, the dense targets), 4096 of 4112 (mixtral draft) and 192 of
-    192 (whisper-medium's last served step)."""
+    zamba2-7b, the dense targets, ANY_HEAD_DIMS at 32 / 8 heads), 4096 of
+    4112 (mixtral draft) and 192 of 192 (whisper-medium's last served
+    step).  Head dim 0 must raise."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
@@ -973,8 +1087,10 @@ def decode_phase(dev):
                                  f"{excess} over atol + rtol |want|")
         return got, lens
 
-    for model, H, Hkv, D in DECODE_WIDTHS:
-        for S, mixed, timed in DECODE_CACHES:
+    for (model, H, Hkv, D), caches in (
+            *((w, DECODE_CACHES) for w in DECODE_WIDTHS),
+            *((w, DECODE_CACHES[:1]) for w in DECODE_ANY)):
+        for S, mixed, timed in caches:
             for dt_name in ("bfloat16", "float32"):
                 dt = getattr(torch, dt_name)
                 q = torch.randn((3, H, D), generator=gen, device=dev).to(dt)
@@ -1020,29 +1136,31 @@ def decode_phase(dev):
                     # hides in "ms" at these sizes, and the others'; the
                     # kernel is one device kernel per call
                     dev_ms, per_call = traced(lambda: DA.decode_attention(
-                        q1, k1, v1, l1))
-                    if per_call != 1:
+                        q1, k1, v1, l1), what=f"decode {model}")
+                    if per_call not in (None, 1):
                         raise AssertionError(f"decode_attention: {per_call} "
                                              f"device kernels per call")
+                    served = D not in ANY_HEAD_DIMS
                     timing[model].update(
                         device_ms=dev_ms, kernels_per_call=per_call,
                         plain_device_ms=traced_ms(
-                            lambda: R.decode_attention_ref(q1, k1, v1, l1)),
+                            lambda: R.decode_attention_ref(q1, k1, v1, l1))
+                        if served else None,
                         library_device_ms=traced_ms(
                             lambda: F.scaled_dot_product_attention(
-                                qs, ks, vs, enable_gqa=True)))
+                                qs, ks, vs, enable_gqa=True))
+                        if served else None)
                 del q, k, v, got
     lens = torch.ones(1, dtype=torch.int32, device=dev)
-    for D in REFUSED_HEAD_DIMS:
-        q = torch.zeros((1, 4, D), dtype=torch.bfloat16, device=dev)
-        kv = torch.zeros((1, 64, 2, D), dtype=torch.bfloat16, device=dev)
-        try:
-            DA.decode_attention(q, kv, kv, lens)
-        except ValueError as e:
-            rows.append({"kernel": "decode_attention", "D": D,
-                         "refused": str(e), "ok": True})
-        else:
-            raise AssertionError(f"decode_attention took head dim {D}")
+    q = torch.zeros((1, 4, 0), dtype=torch.bfloat16, device=dev)
+    kv = torch.zeros((1, 64, 2, 0), dtype=torch.bfloat16, device=dev)
+    try:
+        DA.decode_attention(q, kv, kv, lens)
+    except ValueError as e:
+        rows.append({"kernel": "decode_attention", "D": 0,
+                     "refused": str(e), "ok": True})
+    else:
+        raise AssertionError("decode_attention took head dim 0")
     torch.cuda.empty_cache()
     return rows, timing
 
@@ -1063,10 +1181,15 @@ def ssd_inputs(gen, dev, S: int, h: int, p: int, n: int, dtype):
 
 def ssd_bound(S: int, Q: int, h: int, p: int, n: int, el: int):
     """Least time for one SSD call at batch 1: the per-head chunked
-    algorithm's operations, 2 (Q^2 n + Q^2 p + 2 Q n p) per head and chunk,
-    at the bf16 tensor rate, against x, y, B and C (``el`` bytes each), dt,
-    A and the f32 final state moved once at the memory rate."""
-    flops = h * (S // Q) * 2 * (Q * Q * n + Q * Q * p + 2 * Q * n * p)
+    algorithm's operations, 2 (q^2 n + q^2 p + 2 q n p) per head and tile
+    of q rows (the kernel's tiles: the chunk Q up to 128 rows, else 128
+    with a ragged last one; the result does not depend on the chunk), at
+    the bf16 tensor rate, against x, y, B and C (``el`` bytes each), dt, A
+    and the f32 final state moved once at the memory rate."""
+    tile = min(Q, 128)
+    tiles = [tile] * (S // tile) + ([S % tile] if S % tile else [])
+    flops = h * sum(2 * (q * q * n + q * q * p + 2 * q * n * p)
+                    for q in tiles)
     nbytes = (2 * S * h * p + 2 * S * n) * el + (S * h + h + h * p * n) * 4
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
@@ -1074,20 +1197,40 @@ def ssd_bound(S: int, Q: int, h: int, p: int, n: int, el: int):
 
 
 def ssd_phase(dev):
-    """The SSD-scan kernel against its plain version at the mamba2 and
-    zamba2 widths, bf16 and f32, y and final state; a padded length also
-    against the plain version of the unpadded sequence (its state must not
-    move over the pad).  Timed (bf16) at ``SSD_TIMED``: event time, device
-    time and kernels per call from the profiler."""
+    """The SSD-scan kernel against its plain version at ``SSD_SHAPES`` (the
+    mamba2 and zamba2 widths, chunk 256, 160 and 131, n 160 and 256), bf16
+    and f32, y and final state; a padded length also against the plain
+    version of the unpadded sequence (its state must not move over the
+    pad); from a given state (``SSD_INIT``).  Timed (bf16) at
+    ``SSD_TIMED``: event time, device time and kernels per call from the
+    profiler."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import ssd_scan as SSD
     gen = torch.Generator(dev).manual_seed(3)
     rows, timing = [], {}
-    for model, h, p, n, lengths in SSD_SHAPES:
+
+    def held(model, dt_name, S, Q, padded, what, got, want, tol):
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        ok = torch.isfinite(got).all().item() and \
+            err <= tol * max(scale, 1e-6)
+        rows.append({"kernel": "ssd_scan", "model": model,
+                     "dtype": dt_name, "S": S, "chunk": Q,
+                     "padded_to": padded, "output": what,
+                     "max_abs_err": err,
+                     "max_rel_err": err / max(scale, 1e-30),
+                     "tol_rel": tol, "ok": bool(ok)})
+        if not ok:
+            raise AssertionError(f"ssd_scan {model} {dt_name} S={S} "
+                                 f"chunk={Q} {what}: max abs err {err} vs "
+                                 f"scale {scale}")
+        return err
+
+    for model, h, p, n, chunk, lengths in SSD_SHAPES:
         for S in lengths:
-            Q = min(128, S)
+            Q = min(chunk, S)
             pad = (-S) % Q
             for dt_name in ("bfloat16", "float32"):
                 dtype = getattr(torch, dt_name)
@@ -1106,30 +1249,44 @@ def ssd_phase(dev):
                     checks += [("y_unpadded", y[:, :S], yu,
                                 SSD_TOL[dt_name]),
                                ("state_unpadded", st, su, SSD_STATE_TOL)]
+                if (model, S) in SSD_INIT:
+                    # from a state: the whole against the plain version
+                    # from the same state, and two halves against the whole
+                    init = torch.randn((1, h, p, n), generator=gen,
+                                       device=dev)
+                    yi, si = SSD.ssd_scan(x, dt, A, B, C, Q, init)
+                    yi_ref, si_ref = R.ssd_ref(x, dt, A, B, C, Q, init)
+                    half = (S + pad) // 2
+                    Qh = Q if half % Q == 0 else half
+                    parts = [[t[:, a:b].contiguous() for t in (x, dt, B, C)]
+                             for a, b in ((0, half), (half, S + pad))]
+                    y1, s1 = SSD.ssd_scan(parts[0][0], parts[0][1], A,
+                                          parts[0][2], parts[0][3], Qh)
+                    y2, s2 = SSD.ssd_scan(parts[1][0], parts[1][1], A,
+                                          parts[1][2], parts[1][3], Qh, s1)
+                    checks += [("y_from_state", yi, yi_ref,
+                                SSD_TOL[dt_name]),
+                               ("state_from_state", si, si_ref,
+                                SSD_STATE_TOL),
+                               ("y_two_halves", torch.cat([y1, y2], 1), y,
+                                SSD_TOL[dt_name]),
+                               ("state_two_halves", s2, st, SSD_STATE_TOL)]
                 for what, got, want, tol in checks:
-                    err = (got.float() - want.float()).abs().max().item()
-                    scale = want.float().abs().max().item()
-                    ok = torch.isfinite(got).all().item() and \
-                        err <= tol * max(scale, 1e-6)
-                    rows.append({"kernel": "ssd_scan", "model": model,
-                                 "dtype": dt_name, "S": S, "chunk": Q,
-                                 "padded_to": S + pad, "output": what,
-                                 "max_abs_err": err,
-                                 "max_rel_err": err / max(scale, 1e-30),
-                                 "tol_rel": tol, "ok": bool(ok)})
-                    if not ok:
-                        raise AssertionError(
-                            f"ssd_scan {model} {dt_name} S={S} {what}: max "
-                            f"abs err {err} vs scale {scale}")
+                    err = held(model, dt_name, S, Q, S + pad, what, got,
+                               want, tol)
+                    if what == "y":
+                        y_err = err
                 if dt_name == "bfloat16" and (model, S) in SSD_TIMED:
-                    bound, by, flops, nbytes = ssd_bound(S, Q, h, p, n, 2)
+                    bound, by, flops, nbytes = ssd_bound(S + pad, Q, h, p, n,
+                                                         2)
                     dev_ms, per_call = traced(
-                        lambda: SSD.ssd_scan(x, dt, A, B, C, Q))
-                    if per_call != SSD_KERNELS_PER_CALL:
+                        lambda: SSD.ssd_scan(x, dt, A, B, C, Q),
+                        what=f"ssd_scan {model} S{S}")
+                    if per_call not in (None, SSD_KERNELS_PER_CALL):
                         raise AssertionError(f"ssd_scan: {per_call} device "
                                              f"kernels per call")
                     timing[f"{model}_S{S}"] = {
-                        "h": h, "p": p, "n": n, "chunk": Q,
+                        "h": h, "p": p, "n": n, "chunk": Q, "S": S + pad,
                         "ms": cuda_ms(lambda: SSD.ssd_scan(x, dt, A, B, C,
                                                            Q)),
                         "device_ms": dev_ms, "kernels_per_call": per_call,
@@ -1137,8 +1294,18 @@ def ssd_phase(dev):
                             lambda: R.ssd_ref(x, dt, A, B, C, Q), iters=3),
                         "library_ms": None, "bound_ms": bound,
                         "bound_by": by, "flops": flops, "bytes": nbytes,
-                        "max_abs_err": rows[-2]["max_abs_err"]}
+                        "max_abs_err": y_err}
                 del x, dt, A, B, C, raw, y, st, y_ref, st_ref, checks
+    # what still raises: a chunk that does not divide s, chunk 0
+    x, dt, A, B, C = ssd_inputs(gen, dev, 262, 2, 64, 64, torch.bfloat16)
+    for bad in (128, 0):
+        try:
+            SSD.ssd_scan(x, dt, A, B, C, bad)
+        except ValueError as e:
+            rows.append({"kernel": "ssd_scan", "S": 262, "chunk": bad,
+                         "refused": str(e), "ok": True})
+        else:
+            raise AssertionError(f"ssd_scan took chunk {bad} at S 262")
     torch.cuda.empty_cache()
     return rows, timing
 
@@ -1169,19 +1336,30 @@ def host_launches():
 
 _PATH = {}                      # the device trace of the path being driven
 # the attention wrappers' launches by head shape over every main path of
-# this run, its children's included: "<wrapper> H/Hkv/D" -> launches
+# this run, its children's included: "<wrapper> H/Hkv/D" -> launches; the
+# expert-FFN stages' by width, "cache_moe_<stage> d<d>/f<f>", and the SSD
+# scan's by chunk and state width, "ssd_scan chunk<Q>/n<n>"
 SHAPE_LAUNCHES = collections.Counter()
 
 
 def fold_shape_launches():
     """Just after a main path: add the attention wrappers' launches by
-    head shape (``flash_attention.shapes``, ``decode_attention.shapes``,
-    set to 0 by ``reset_launches``) to ``SHAPE_LAUNCHES``."""
+    head shape (``flash_attention.shapes``, ``decode_attention.shapes``),
+    the expert-FFN stages' by width (``gate_up.shapes`` ...) and the SSD
+    scan's by chunk and state width (``ssd_scan.shapes``), all set to 0 by
+    ``reset_launches``, to ``SHAPE_LAUNCHES``."""
+    from repro_torch.kernels import cache_moe as K
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
     for w in (FA.flash_attention, DA.decode_attention):
         for (H, Hkv, D), n in w.shapes.items():
             SHAPE_LAUNCHES[f"{w.__name__} {H}/{Hkv}/{D}"] += n
+    for w in (K.gate_up, K.up_gelu, K.down):
+        for (d, f), n in w.shapes.items():
+            SHAPE_LAUNCHES[f"cache_moe_{w.__name__} d{d}/f{f}"] += n
+    for (chunk, n), c in SSD.ssd_scan.shapes.items():
+        SHAPE_LAUNCHES[f"ssd_scan chunk{chunk}/n{n}"] += c
 
 
 def reset_launches(trace: bool = True):
@@ -1203,6 +1381,8 @@ def reset_launches(trace: bool = True):
     FA.flash_attention.launches = DA.decode_attention.launches = 0
     FA.flash_attention.shapes.clear()
     DA.decode_attention.shapes.clear()
+    for w in (K.gate_up, K.up_gelu, K.down, SSD.ssd_scan):
+        w.shapes.clear()
     SSD.ssd_scan.launches = 0
     _PATH["prof"] = profile(activities=[ProfilerActivity.CUDA]) \
         if trace else None
@@ -2029,7 +2209,8 @@ def device_profile(fn, ms: float, focus=FOCUS_SSD, tries: int = 5):
     issue time included) and the share of that span in which the device
     was idle, all from that one call.  ``ms``, the mean event time of
     untraced calls, stands beside them as ``event_ms``.  A trace that comes
-    back empty is taken again, after a pause, before failing."""
+    back empty is taken again, after a pause that doubles each time, before
+    failing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     name, pattern, wrappers = focus
@@ -2052,7 +2233,7 @@ def device_profile(fn, ms: float, focus=FOCUS_SSD, tries: int = 5):
             break
         log(f"the profiler saw no device activity of a traced call (window "
             f"{attempt + 1} of {tries}); tracing again")
-        time.sleep(0.5)
+        time.sleep(0.5 * 2 ** attempt)
     else:
         raise AssertionError("the profiler saw no device activity of a "
                              "traced call")
@@ -2088,14 +2269,16 @@ def mamba_layers(cfg) -> int:
 
 
 def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int,
-              kernels=("ssd_scan",)):
+              kernels=("ssd_scan",), profile: bool = True, check=None):
     """Greedy x none serving of an ssm / hybrid model through
     ``Engine.submit``, with the launch counts set to 0 just before and read
     just after (each of ``kernels`` must have run; the SSD scan once per
     mamba layer per prefill); then the model's prefill and one decode step
-    timed alone, and every emitted token teacher-forced
-    (``teacher_force``: ``score``, whose mamba layers run the SSD kernel as
-    the prefill does, over the sequence padded for flash attention)."""
+    timed alone (and traced, with ``profile``), and every emitted token
+    teacher-forced (``teacher_force``: ``score``, whose mamba layers run
+    the SSD kernel as the prefill does, over the sequence padded for flash
+    attention).  ``check(target, results) -> dict``, where given, runs last
+    on the served model; its result is the info's ``check``."""
     import torch
     from repro_torch.core.engine import Engine, EngineConfig, Request
     from repro_torch.models.registry import build_model
@@ -2129,16 +2312,18 @@ def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int,
     _, cache = target.prefill(p0, max_seq)
     tok = p0[:, -1:]
     step_ms = cuda_ms(lambda: target.decode_step(cache, tok, p0.shape[1]))
-    prefill_prof = device_profile(lambda: target.prefill(p0, max_seq),
-                                  prefill_ms)
-    # the profiler's focus must see every kernel of every SSD call
-    want_traced = mamba_layers(cfg) * SSD_KERNELS_PER_CALL
-    if prefill_prof["ssd_kernels"] != want_traced:
-        raise AssertionError(f"{name}: the traced prefill holds "
-                             f"{prefill_prof['ssd_kernels']} SSD kernels, "
-                             f"expected {want_traced}")
-    step_prof = device_profile(
-        lambda: target.decode_step(cache, tok, p0.shape[1]), step_ms)
+    prefill_prof = step_prof = None
+    if profile:
+        prefill_prof = device_profile(lambda: target.prefill(p0, max_seq),
+                                      prefill_ms)
+        # the profiler's focus must see every kernel of every SSD call
+        want_traced = mamba_layers(cfg) * SSD_KERNELS_PER_CALL
+        if prefill_prof["ssd_kernels"] != want_traced:
+            raise AssertionError(f"{name}: the traced prefill holds "
+                                 f"{prefill_prof['ssd_kernels']} SSD "
+                                 f"kernels, expected {want_traced}")
+        step_prof = device_profile(
+            lambda: target.decode_step(cache, tok, p0.shape[1]), step_ms)
     loss = lossless_phase(target, [(p, r.tokens) for p, r in
                                    zip(prompts, results)], dev,
                           margin=SSM_MARGIN)
@@ -2156,9 +2341,12 @@ def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int,
             "decode_step_profile": step_prof,
             "launches": launches["ssd_scan"],
             "host_launches": launches["host"]["ssd_scan"],
-            "attn_impl": cfg.attn_impl,
+            "attn_impl": cfg.attn_impl, "ssm_chunk": cfg.ssm_chunk,
             "kernel_launches": {k: launches[k] for k in kernels},
             "lossless": loss}
+    if check is not None:
+        info["check"] = check(target, results)
+    info["_tokens"] = [r.tokens for r in results]     # popped by main
     requests = [{"id": r.request_id, "prompt": p.shape[1],
                  "tokens": len(r.tokens), "tpot_wall_s": r.metrics.tpot_wall,
                  "finish_reason": r.finish_reason}
@@ -2167,6 +2355,62 @@ def ssm_phase(name: str, cfg, dev, prompts, new_tokens: int,
     gc.collect()
     torch.cuda.empty_cache()
     return requests, info
+
+
+def chunk_check(prompts, reference, dev):
+    """The chunk-256 run's check (phase 8b), for ``ssm_phase(check=)``:
+    each request's teacher-forced logits through the SSD kernel (``score``)
+    against the plain scan's (``forward``, the train route: ``ssd_ref`` at
+    the config's chunk) over the same stream, within SSM_C256_TOL; and its
+    tokens against ``reference`` (the chunk-128 run's, one list a request)
+    up to the first that differs, which must be a near tie."""
+    import torch
+
+    def check(target, results):
+        worst, same, clear = 0.0, 0, 0
+        for prompt, res, ref in zip(prompts, results, reference):
+            seq = torch.cat([prompt[0].to(dev),
+                             torch.tensor(res.tokens[:-1], device=dev)])[None]
+            S = seq.shape[1]
+            kern = teacher_force(target, seq)[0, prompt.shape[1] - 1:]
+            with torch.no_grad():
+                plain = target.forward(seq)[0][0, prompt.shape[1] - 1:S]
+            diff = (kern.float() - plain.float()).abs().max().item()
+            worst = max(worst, diff)
+            if not diff <= SSM_C256_TOL:
+                raise AssertionError(f"chunk {SSM_CHUNK}: teacher-forced "
+                                     f"logits {diff} from the plain scan's")
+            top2 = kern.float().topk(2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1]).tolist()
+            for t, (a, b) in enumerate(zip(res.tokens, ref)):
+                if a != b:
+                    if margin[t] > SSM_MARGIN:
+                        raise AssertionError(
+                            f"chunk {SSM_CHUNK}: token {t} is {a}, the "
+                            f"chunk-128 run's {b}, at a top-2 margin of "
+                            f"{margin[t]}")
+                    break
+                same += 1
+                clear += margin[t] > SSM_MARGIN
+        # the prefill of the first prompt at this chunk and at 128 on the
+        # same model, in turns (the phases' own prefill times are taken
+        # minutes apart, where the host's issue time moves them)
+        p0 = prompts[0].to(dev)
+        base = target.cfg
+        turns = {SSM_CHUNK: [], 128: []}
+        for chunk in (SSM_CHUNK, 128, 128, SSM_CHUNK) * 2:
+            target.cfg = dataclasses.replace(base, ssm_chunk=chunk)
+            turns[chunk].append(cuda_ms(
+                lambda: target.prefill(p0, p0.shape[1] + 8), iters=3))
+        target.cfg = base
+        return {"max_abs_logit_diff_vs_plain_scan": worst,
+                "tol_abs": SSM_C256_TOL,
+                "tokens_equal_to_chunk128_run": same,
+                "of_which_top2_margin_clear": clear,
+                "tokens": sum(len(r.tokens) for r in results),
+                "prefill_ms_in_turns": {f"chunk{c}": t
+                                        for c, t in turns.items()}}
+    return check
 
 
 def gelu_phase(dev):
@@ -4456,10 +4700,25 @@ def main() -> int:
     rows, main_k = kernel_phase(dev, mixtral.d_model, mixtral.moe_d_ff)
     gelu_rows, gelu_k = kernel_phase(dev, mixtral.d_model, mixtral.moe_d_ff,
                                      gelu=True, seed=4)
+    log("[2] expert FFN checked")
     fa_rows, fa_timing = flash_phase(dev)
+    log("[2] flash checked")
     dec_rows, dec_timing = decode_phase(dev)
+    log("[2] flash-decode checked")
     ssd_rows, ssd_timing = ssd_phase(dev)
     rows += gelu_rows + fa_rows + dec_rows + ssd_rows
+    log("[2] SSD scan checked")
+    ffn_any = {}
+    for i, (d, f) in enumerate(FFN_ANY):
+        # f32 at the small width only: mixtral's widths less 4 hold 8.4 GB
+        # of f32 weights, and f32 is served by no model
+        any_rows, ffn_any[(d, f)] = kernel_phase(
+            dev, d, f, seed=6 + i,
+            dtypes=("bfloat16",) if d > 1024 else ("bfloat16", "float32"))
+        rows += any_rows
+        log(f"[2] expert FFN at d {d} / f {f} checked")
+    any_rows, gelu_any = kernel_phase(dev, *FFN_ANY[0], gelu=True, seed=8)
+    rows += any_rows
     log(f"[2] kernels match their plain versions ({len(rows)} checks); "
         f"flash {fa_timing}; decode {dec_timing}; ssd {ssd_timing}")
 
@@ -4531,6 +4790,15 @@ def main() -> int:
     mamba_reqs, mamba_info = ssm_phase("mamba2", mcfg, dev, ssm_prompts,
                                        SSM_NEW)
     log(f"[8] mamba2-780m serving ok: {mamba_info}")
+    # phase 8b: the same model and prompts at Mamba2's published chunk 256
+    c256_reqs, c256_info = ssm_phase(
+        "mamba2-c256", dataclasses.replace(mcfg, ssm_chunk=SSM_CHUNK), dev,
+        ssm_prompts, SSM_NEW, profile=False,
+        check=chunk_check(ssm_prompts, mamba_info.pop("_tokens"), dev))
+    c256_info.pop("_tokens")
+    log(f"[8b] mamba2-780m at chunk {SSM_CHUNK} ok: prefill "
+        f"{c256_info['prefill_ms']:.3f} ms (chunk 128: "
+        f"{mamba_info['prefill_ms']:.3f} ms), {c256_info['check']}")
     # zamba2-7b's shared attention block (32 / 32 heads x 112) through the
     # flash kernel in every prefill and flash-decode in every greedy step
     zcfg = dataclasses.replace(get_config("zamba2-7b"),
@@ -4539,6 +4807,7 @@ def main() -> int:
         "zamba2", zcfg, dev, [torch.randint(0, zcfg.vocab_size, (1, 512),
                                             generator=gen)], SSM_NEW,
         kernels=("ssd_scan", "flash_attention", "decode_attention"))
+    zamba_info.pop("_tokens")
     log(f"[9] zamba2-7b serving ok: {zamba_info}")
 
     # phase 11: the dense target at full width and depth, greedy and sd
@@ -4744,6 +5013,74 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], "device_ms": t["device_ms"],
                 "library_device_ms": t["library_device_ms"]})
+    # the attention kernels' CUDA-core instance at ANY_HEAD_DIMS (32 / 8
+    # heads; flash at S 512, flash-decode at 543 of 576 keys); launches:
+    # the wrapper's at that head shape over every main path of this run
+    H, Hkv = ANY_TIMED
+    for D in ANY_HEAD_DIMS:
+        for name, t, source, line in (
+                ("flash_attention", fa_timing[f"512_D{D}"],
+                 "flash_attention.cu", "flash_attention.py:27"),
+                ("decode_attention", dec_timing[f"D{D}"],
+                 "decode_attention.cu", "decode_attention.py:26")):
+            kernels.append({
+                "name": f"{name}_D{D}", "route": "cuda",
+                "source": f"src/repro_torch/csrc/{source}",
+                "instance": "src/repro_torch/csrc/attention_any.cuh",
+                "replaces": f"src/repro/kernels/{line}",
+                "launches": SHAPE_LAUNCHES[f"{name} {H}/{Hkv}/{D}"],
+                "launches_note": "the wrapper's launches at this head "
+                "shape over every main path of this run (no model of the "
+                "run has it)", "H": H, "Hkv": Hkv, "D": D,
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"]})
+    # the expert FFN at FFN_ANY's widths (the element-load body), T 5 and
+    # T 512; launches: the stage's at that width over every main path
+    any_ffn = [(d, f, name, line, tm)
+               for (d, f), tm in ffn_any.items()
+               for name, line in (("cache_moe_gate_up", 28),
+                                  ("cache_moe_down", 47))]
+    any_ffn.append((*FFN_ANY[0], "cache_moe_up_gelu", 120, gelu_any))
+    for d, f, name, line, tm in any_ffn:
+        for T, suffix in ((BLOCK_T, ""), (CONC_PROMPT, f"_t{CONC_PROMPT}")):
+            t = tm[T]["timing"][name]
+            file = "cache_moe" if name.endswith("gelu") else "moe_gemm"
+            kernels.append({
+                "name": f"{name}_d{d}_f{f}{suffix}", "route": "cuda",
+                "source": "src/repro_torch/csrc/cache_moe.cu",
+                "replaces": f"src/repro/kernels/{file}.py:{line}",
+                "launches": SHAPE_LAUNCHES[f"{name} d{d}/f{f}"],
+                "launches_note": "the stage's launches at this width over "
+                "every main path of this run (no model of the run has "
+                "it)", "d": d, "f": f, "T": T,
+                "max_abs_err": tm[T]["err"][name],
+                "ms": t["ms"], "kernel_ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"]})
+    # the SSD scan past the served widths (chunk 256: phase 8b's path;
+    # chunks 160 and 131, n 160 and 256: no model path); launches: the
+    # wrapper's at that chunk and state width over every main path
+    for model, h, p, n, chunk, lengths in SSD_SHAPES[2:]:
+        S = lengths[0]
+        t = ssd_timing[f"{model}_S{S}"]
+        kernels.append({
+            "name": f"ssd_scan_{model}_S{S}", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:26",
+            "launches": SHAPE_LAUNCHES[f"ssd_scan chunk{chunk}/n{n}"],
+            "launches_note": "the wrapper's launches at this chunk and "
+            "state width over every main path of this run",
+            "h": h, "p": p, "n": n, "chunk": chunk, "S": S,
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "kernels_per_call": t["kernels_per_call"]})
     # the SSD kernel at the shard shapes of phase 19 (one rank's sequence
     # of 32768 over 2 and 4 ranks); launches: each rank's, all equal
     for backend, n in SEQPAR_RUNS[1:]:
@@ -4790,8 +5127,12 @@ def main() -> int:
         "tight": tight_tot, "ample": ample_tot,
         "ample_steady_after_reset": ample_info["steady"],
         "concurrent": conc_info, "lossless": loss}))
-    print(json.dumps({"ssm_requests": mamba_reqs + zamba_reqs,
-                      "mamba2": mamba_info, "zamba2": zamba_info}))
+    print(json.dumps({"ssm_requests": mamba_reqs + c256_reqs + zamba_reqs,
+                      "mamba2": mamba_info,
+                      f"mamba2_chunk{SSM_CHUNK}": {
+                          **c256_info, "prefill_ms_chunk128":
+                          mamba_info["prefill_ms"]},
+                      "zamba2": zamba_info}))
     print(json.dumps({"gelu_requests": gelu_info}))
     print(json.dumps({"dense_requests": dense_info}))
     print(json.dumps({"dense_targets": dense_targets}))
@@ -4837,6 +5178,7 @@ def main() -> int:
                     "engine_setup_tight": tight_info["setup_s"],
                     "engine_setup_ample": ample_info["setup_s"],
                     "total": time.perf_counter() - t_start}}))
+    print(json.dumps({"profiler_fallbacks": PROFILER_FALLBACKS}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

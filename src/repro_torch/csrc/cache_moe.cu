@@ -21,8 +21,9 @@
 // @ wu[s]) = 0.5 a (1 + tanh(sqrt(2/pi) (a + 0.044715 a^3))) with tanhf (what
 // jax.nn.gelu computes by default), in x's dtype (f32 accumulators, as the
 // Pallas kernels' h_ref.dtype); stage 2 writes y[p] = h[p] @ wd[s].  The three
-// are one template per route (slot_ffn_tc for bf16, slot_ffn for f32) with
-// the epilogue as its parameter.  The weights are read straight out of the [S, d, f] / [S, f, d] slot pool: nothing gathers
+// are one template per route (slot_ffn_tc for bf16, slot_ffn for f32 and
+// for bf16 at widths the tensor-core body does not take) with the epilogue
+// as its parameter.  The weights are read straight out of the [S, d, f] / [S, f, d] slot pool: nothing gathers
 // or copies a weight row.  Groups with no rows exit at once, so misses and
 // unoccupied slots cost nothing.
 //
@@ -39,8 +40,9 @@
 // 0.281 ms against 0.243 / 0.122 ms of operations) if each slot's weights
 // are read once.
 //
-// bf16 (slot_ffn_tc): the weights stream through a TMA ring and the rows
-// meet them on the tensor cores.
+// bf16 (slot_ffn_tc) at d and f multiples of 8 (every served width): the
+// weights stream through a TMA ring and the rows meet them on the tensor
+// cores.
 //   * A block owns 64 (or 128) output columns of one group: grid
 //     (ceil(N / 64), groups), so stage 2's 4096 columns give 64 blocks per
 //     slot and every SM streams (the FMA kernel had 16 column tiles of 256).
@@ -84,6 +86,12 @@
 // element is applied to up to kRows rows of its slot, and the reduction is
 // split over the block's 8 warps in a fixed pattern added in warp order:
 // the same batch invariance.
+// Any other width (bf16 d or f not a multiple of 8: a row that is no whole
+// number of 16 bytes, which neither the TMA ring nor the 16-byte row copies
+// can move; f32 N not a multiple of 4): the same slot_ffn body with its
+// weights loaded element by element (zeros past the row) and converted to
+// f32, the same f32 accumulation and order, each output rounded once.  No
+// tensor cores there: PERF.md has its times against the bound.
 //
 // C interface (bound with ctypes): every pointer is a device pointer, the
 // stream is the caller's current stream, nothing is allocated on the device
@@ -126,29 +134,54 @@ struct Traits;
 
 template <>
 struct Traits<float> {
-  static constexpr int kVec = 4;         // 16 bytes
   __device__ static float to_f(float v) { return v; }
   __device__ static float from_f(float v) { return v; }
-  __device__ static void load(const float* p, float (&v)[4]) {
+};
+template <>
+struct Traits<__nv_bfloat16> {
+  __device__ static float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+  __device__ static __nv_bfloat16 from_f(float v) {
+    return __float2bfloat16(v);
+  }
+};
+
+constexpr int kLaneCols = 4;             // output columns a lane owns
+
+// A lane's kLaneCols weights of one row at p, the first n of them in the
+// row: one 16-byte load (kVecW: f32 rows of a multiple of 4 elements), or
+// element by element with zeros past the row (any width, either dtype).
+template <typename T, bool kVecW>
+__device__ __forceinline__ void load_w(const T* p, int n,
+                                       float (&v)[kLaneCols]) {
+  if constexpr (kVecW) {
     const float4 a = __ldg(reinterpret_cast<const float4*>(p));
     v[0] = a.x;
     v[1] = a.y;
     v[2] = a.z;
     v[3] = a.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kLaneCols; ++i)
+      v[i] = i < n ? Traits<T>::to_f(p[i]) : 0.f;
   }
-};
+}
 
 // out[p, :N] for the rows p of group blockIdx.y, columns of tile blockIdx.x,
 // with the epilogue kAct (kLinear, kSwiglu or kGelu) applied to the f32 sums.
-// in_row is in[row_map[p]] when row_map is given, else in[p].
-template <typename T, int kAct>
+// in_row is in[row_map[p]] when row_map is given, else in[p].  kVecW: the
+// weights in 16-byte loads (f32, N a multiple of 4); else element by element
+// (the route of any width: f32 rows of another width, and bf16 rows that
+// are no whole number of 16 bytes, which the tensor-core body's TMA ring and
+// cp.async copies cannot take).  Either way each output is the same f32
+// sum in the same order, a function of K and N alone.
+template <typename T, int kAct, bool kVecW>
 __global__ void __launch_bounds__(kThreads)
 slot_ffn(const T* __restrict__ in, const int* __restrict__ row_map,
          const T* __restrict__ w1, const T* __restrict__ w2,
          const int* __restrict__ grp_slot, const int* __restrict__ grp_start,
          const int* __restrict__ grp_count, T* __restrict__ out, int K, int N) {
   using Tr = Traits<T>;
-  constexpr int V = Tr::kVec;
+  constexpr int V = kLaneCols;
   constexpr int kCols = 32 * V;
   constexpr bool kGated = kAct == kSwiglu;
   constexpr int kAcc = kGated ? 2 : 1;
@@ -197,9 +230,9 @@ slot_ffn(const T* __restrict__ in, const int* __restrict__ row_map,
         for (int kk = 0; kk < kn; ++kk) {
           const size_t off = static_cast<size_t>(kb + kk) * N;
           float a[V];
-          Tr::load(a_base + off, a);
+          load_w<T, kVecW>(a_base + off, N - j, a);
           float b[V];
-          if constexpr (kGated) Tr::load(b_base + off, b);
+          if constexpr (kGated) load_w<T, kVecW>(b_base + off, N - j, b);
 #pragma unroll
           for (int r = 0; r < kRows; ++r) {
             if (r < nrows) {
@@ -593,16 +626,23 @@ template <typename T, int kAct>
 int launch(const void* in, const void* row_map, const void* w1, const void* w2,
            const void* grp_slot, const void* grp_start, const void* grp_count,
            void* out, int K, int N, int groups, void* stream) {
-  constexpr int kCols = 32 * Traits<T>::kVec;
+  constexpr int kCols = 32 * kLaneCols;
   if (groups <= 0) return 0;
   const dim3 grid((N + kCols - 1) / kCols, groups);
-  slot_ffn<T, kAct><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = sizeof(T) == 4 && N % 4 == 0
+                          ? &slot_ffn<T, kAct, sizeof(T) == 4>
+                          : &slot_ffn<T, kAct, false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(in), static_cast<const int*>(row_map),
       static_cast<const T*>(w1), static_cast<const T*>(w2),
       static_cast<const int*>(grp_slot), static_cast<const int*>(grp_start),
       static_cast<const int*>(grp_count), static_cast<T*>(out), K, N);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Whether bf16 rows of K and N elements take the tensor-core body: its TMA
+// weight ring and cp.async row copies move 16-byte pieces.
+inline bool tc_widths(int K, int N) { return K % 8 == 0 && N % 8 == 0; }
 
 // The weights of a [slots, K, N] pool as a tensor map, read in tiles of
 // kTcK rows x kTcCols columns with the 128-byte swizzle.
@@ -663,8 +703,9 @@ int launch_tc(const void* in, const void* row_map, const void* w1,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  x [T, d], row_tok [P], wg/wu [S, d, f]
-// with S = slots, grp_* [groups] -> h [P, f] with P = rows.  bf16 needs d
-// and f to be multiples of 8 (16-byte rows).
+// with S = slots, grp_* [groups] -> h [P, f] with P = rows.  Any d and f:
+// bf16 at d and f multiples of 8 (16-byte rows) on the tensor-core body,
+// at any other width on the element-load FMA body (slot_ffn).
 extern "C" int cache_moe_gate_up(int dtype, const void* x, const void* row_tok,
                                  const void* wg, const void* wu,
                                  const void* grp_slot, const void* grp_start,
@@ -674,10 +715,14 @@ extern "C" int cache_moe_gate_up(int dtype, const void* x, const void* row_tok,
   if (dtype == 0)
     return launch<float, kSwiglu>(x, row_tok, wg, wu, grp_slot, grp_start,
                                   grp_count, h, d, f, groups, stream);
-  if (dtype == 1)
+  if (dtype == 1 && tc_widths(d, f))
     return launch_tc<kSwiglu>(x, row_tok, wg, wu, grp_slot, grp_start,
                               grp_count, h, d, f, slots, groups, rows,
                               stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kSwiglu>(x, row_tok, wg, wu, grp_slot,
+                                          grp_start, grp_count, h, d, f,
+                                          groups, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -690,9 +735,13 @@ extern "C" int cache_moe_up_gelu(int dtype, const void* x, const void* row_tok,
   if (dtype == 0)
     return launch<float, kGelu>(x, row_tok, wu, nullptr, grp_slot, grp_start,
                                 grp_count, h, d, f, groups, stream);
-  if (dtype == 1)
+  if (dtype == 1 && tc_widths(d, f))
     return launch_tc<kGelu>(x, row_tok, wu, nullptr, grp_slot, grp_start,
                             grp_count, h, d, f, slots, groups, rows, stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kGelu>(x, row_tok, wu, nullptr, grp_slot,
+                                        grp_start, grp_count, h, d, f, groups,
+                                        stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -705,10 +754,14 @@ extern "C" int cache_moe_down(int dtype, const void* h, const void* wd,
     return launch<float, kLinear>(h, nullptr, wd, nullptr, grp_slot,
                                   grp_start, grp_count, y, f, d, groups,
                                   stream);
-  if (dtype == 1)
+  if (dtype == 1 && tc_widths(f, d))
     return launch_tc<kLinear>(h, nullptr, wd, nullptr, grp_slot, grp_start,
                               grp_count, y, f, d, slots, groups, rows,
                               stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kLinear>(h, nullptr, wd, nullptr, grp_slot,
+                                          grp_start, grp_count, y, f, d,
+                                          groups, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

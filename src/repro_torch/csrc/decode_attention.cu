@@ -68,19 +68,24 @@
 // tensor-core path keeps two 64-key stages, 32 KB each, in flight: a third
 // made it slower); and rank 0 reads each peer's m and l once per row, not
 // once per element.
-// Head dims.  Every D that is a multiple of 8 from 8 to 256 runs, in the
-// smallest instance width W in {16, 32, 64, 80, 96, 112, 128, 192, 256}
-// that holds it: the tensor maps have the true D columns and the boxes reach
+// Head dims.  Every D >= 1 runs.  A D that is a multiple of 8 from 8 to 256
+// with k and v 16-byte aligned (pointers and strides; every served shape) runs
+// in the smallest instance width W in {16, 32, 64, 80, 96, 112, 128, 192, 256}
+// that holds it; any other D (a row TMA cannot load, or O past the registers at
+// D > 256) and any unaligned cache run in the CUDA-core instance of
+// attention_any.cuh (one block per batch row, kv head and group of 8 q heads
+// walks the row's live keys, a grid axis over 128-column slices of O: no
+// cluster, no split, so a row's bits still depend on its own inputs alone).  In
+// the TMA instances the tensor maps have the true D columns and the boxes reach
 // W, so TMA writes zeros past D (they add nothing to q k^T; their output
-// columns are not stored; no byte past D is read from device memory), and
-// the q rows are zero past D in shared memory.  W = 112 (zamba2-7b) is
-// carried as 128 columns: 112 = 7 x 16 would fit the products, but its rows
-// fill no swizzle span.  The tensor-core path reads boxes of 64 columns, or
-// of 32 (W 96) or 16 (W 80, whose last 16 columns are one k16 product);
-// W = 192 and 256 (nemotron-4-340b, gemma-7b) hold O in 96 / 128 registers
-// a thread: one block per SM.  The FMA path gives a lane ceil(W / 32) output
-// columns (those past W own nothing).  The softmax scale is the caller's,
-// 1/sqrt(D) of the true D.
+// columns are not stored; no byte past D is read from device memory), and the q
+// rows are zero past D in shared memory.  W = 112 (zamba2-7b) is carried as 128
+// columns: 112 = 7 x 16 would fit the products, but its rows fill no swizzle
+// span.  The tensor-core path reads boxes of 64 columns, or of 32 (W 96) or 16
+// (W 80, whose last 16 columns are one k16 product); W = 192 and 256
+// (nemotron-4-340b, gemma-7b) hold O in 96 / 128 registers a thread: one block
+// per SM.  The FMA path gives a lane ceil(W / 32) output columns (those past W
+// own nothing).  The softmax scale is the caller's, 1/sqrt(D) of the true D.
 //
 // Layout.  K and V are read in place through their strides in the cache's
 // [B, S, Hkv, D] layout: no transpose copy (the reference builds [B*Hkv, S,
@@ -115,6 +120,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attention_any.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -960,34 +966,54 @@ int dispatch(int D, const void* q, const void* k, const void* v,
 #undef REPRO_DECODE_WIDTH
 }
 
+// Any head dim, any strides: the CUDA-core instance (attention_any.cuh).
+template <typename T>
+int launch_any(const void* q, const void* k, const void* v,
+               const void* lengths, void* out, int B, int S, int H, int Hkv,
+               int D, const Strides& st, float scale, cudaStream_t stream) {
+  const attn_any::Args<T> a{
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<const int*>(lengths), B, 1, S, H, Hkv, D, st.qb, 0, st.qh,
+      st.kb, st.ks, st.kh, st.vb, st.vs, st.vh, 0, 0, 0, scale};
+  return attn_any::launch<T, true>(a, stream);
+}
+
 }  // namespace
 
-// Splits (blocks per cluster) for a cache of S keys.
+// Splits (blocks per cluster) for a cache of S keys (of the TMA instances;
+// the CUDA-core instance takes one block per row and head group).
 extern "C" int decode_attention_splits(int S) {
   return S > 0 ? num_splits(S) : 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  q [B, H, D], k/v [B, S, Hkv, D] through
-// strides (qb, qh, kb, ks, kh, vb, vs, vh; unit stride over D, k and v
-// 16-byte aligned), lengths [B] int32, out [B, H, D] contiguous.  D a
-// multiple of 8 from 8 to 256, H any multiple of Hkv; `scale` is 1/sqrt(D).
+// strides (qb, qh, kb, ks, kh, vb, vs, vh; unit stride over D), lengths [B]
+// int32, out [B, H, D] contiguous.  Any D >= 1 (see "Head dims"), H any
+// multiple of Hkv; `scale` is 1/sqrt(D).
 extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k,
                                     const void* v, const void* lengths,
                                     void* out, int B, int S, int H, int Hkv,
                                     int D, const long long* strides,
                                     float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (Hkv <= 0 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
+  if (Hkv <= 0 || H % Hkv || D < 1 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{strides[0], strides[1], strides[2], strides[3],
                    strides[4], strides[5], strides[6], strides[7]};
   const auto s = static_cast<cudaStream_t>(stream);
+  const void* kv[2] = {k, v};
+  if (!attn_any::aligned_rows(dtype == 0 ? 4 : 2, kv, 2, strides + 2, 6) ||
+      hopper::attention_width(D) == 0)
+    return dtype == 0 ? launch_any<float>(q, k, v, lengths, out, B, S, H,
+                                          Hkv, D, st, scale, s)
+                      : launch_any<__nv_bfloat16>(q, k, v, lengths, out, B,
+                                                  S, H, Hkv, D, st, scale, s);
   if (dtype == 0)
     return dispatch<float>(D, q, k, v, lengths, out, B, S, Hkv, H / Hkv, st,
                            scale, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k, v, lengths, out, B, S, Hkv,
-                                   H / Hkv, st, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<__nv_bfloat16>(D, q, k, v, lengths, out, B, S, Hkv,
+                                 H / Hkv, st, scale, s);
 }
 
 extern "C" const char* decode_attention_error_string(int code) {

@@ -67,24 +67,28 @@
 //     cores.  The masks are computed only on the tiles that straddle the
 //     diagonal, the window edge or the end of the keys.
 //   The longest q tiles are launched first.
-// Head dims.  Every D that is a multiple of 8 from 8 to 256 runs, in the
-// smallest of the instances W in {16, 32, 64, 80, 96, 112, 128, 192, 256}
-// that holds it; the tensor maps have the true D columns and the boxes
-// reach W (or past it), so TMA writes zeros past D: they add nothing to
-// Q K^T, give output columns that are not stored, and no byte past D is
-// read from device memory.  The softmax scale is 1/sqrt(D) of the true D.
-// A row of 16 / 32 / 64 elements fills a 32 / 64 / 128-byte swizzle span:
-// D = 16 and 32 are one column box, 64, 128, 192 and 256 are boxes of 64,
-// 96 three boxes of 32 and 80 five boxes of 16 (the products over them are
-// one wgmma per box, N = the box's width).  D = 112 is 7 x 16, which wgmma
-// takes, but its 224-byte rows fill no swizzle span: its tiles are
-// D = 128's.  D = 192 does not fit Q and three stages of 128-key K and V
-// tiles (48 + 288 KB), nor O (96 registers) beside the 128-key S: it takes
-// 64-key tiles.  D = 256 takes 64-key tiles too, and a ring of two stages:
-// Q (64 KB) and three stages (192 KB) would pass the 227 KB a block may
-// have; O is 128 registers a thread beside S's 32.  Against D = 128 it gives
-// up a third of the ring (one tile in flight while the other is computed)
-// and half the keys per softmax step, and its P V is four N = 64 products.
+// Head dims.  Every D >= 1 runs.  A D that is a multiple of 8 from 8 to 256,
+// with 16-byte aligned pointers and strides (every served shape), runs in the
+// smallest of the instances W in {16, 32, 64, 80, 96, 112, 128, 192, 256} that
+// holds it; any other D (one that leaves a row unaligned, or past 256: O would
+// not fit the registers) and any unaligned tensor run in the CUDA-core instance
+// of attention_any.cuh (element loads, a grid axis over 128-column slices of
+// O).  In the TMA instances the tensor maps have the true D columns and the
+// boxes reach W (or past it), so TMA writes zeros past D: they add nothing to Q
+// K^T, give output columns that are not stored, and no byte past D is read from
+// device memory.  The softmax scale is 1/sqrt(D) of the true D. A row of 16 /
+// 32 / 64 elements fills a 32 / 64 / 128-byte swizzle span: D = 16 and 32 are
+// one column box, 64, 128, 192 and 256 are boxes of 64, 96 three boxes of 32
+// and 80 five boxes of 16 (the products over them are one wgmma per box, N =
+// the box's width).  D = 112 is 7 x 16, which wgmma takes, but its 224-byte
+// rows fill no swizzle span: its tiles are D = 128's.  D = 192 does not fit Q
+// and three stages of 128-key K and V tiles (48 + 288 KB), nor O (96 registers)
+// beside the 128-key S: it takes 64-key tiles.  D = 256 takes 64-key tiles too,
+// and a ring of two stages: Q (64 KB) and three stages (192 KB) would pass the
+// 227 KB a block may have; O is 128 registers a thread beside S's 32.  Against
+// D = 128 it gives up a third of the ring (one tile in flight while the other
+// is computed) and half the keys per softmax step, and its P V is four N = 64
+// products.
 // f32 (flash_fwd, FMA on the CUDA cores; the tensor cores have no f32 product
 //   without TF32 rounding): 8 warps, warp w owns query rows 8 w .. 8 w + 7;
 //   for the scores a lane owns keys lane and lane + 32 of the tile, for the
@@ -107,6 +111,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attention_any.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -982,13 +987,30 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
                          has_window, window, scale, stream);
 }
 
+// Any head dim, any strides: the CUDA-core instance (attention_any.cuh).
+template <typename T>
+int launch_any(const void* q, const void* k, const void* v, void* out, int B,
+               int Sq, int Skv, int H, int Hkv, int D, const long long* st,
+               int causal, int has_window, int window, float scale,
+               cudaStream_t stream) {
+  const attn_any::Args<T> a{
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), nullptr, B, Sq, Skv,
+      H, Hkv, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], causal, has_window, window, scale};
+  return attn_any::launch<T, false>(a, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q [B, Sq, H, D], k/v [B, Skv, Hkv, D],
 // each with unit stride over D and the (batch, sequence, head) strides in
-// `strides` (q's three, then k's, then v's, in elements; 16-byte multiples);
-// out is a contiguous [B, Sq, H, D].  D a multiple of 8 from 8 to 256
-// (hopper::attention_width); H a multiple of Hkv; `scale` is 1/sqrt(D).
+// `strides` (q's three, then k's, then v's, in elements); out is a
+// contiguous [B, Sq, H, D].  Any D >= 1; H a multiple of Hkv; `scale` is
+// 1/sqrt(D).  A D that is a multiple of 8 from 8 to 256
+// (hopper::attention_width) with 16-byte aligned pointers and strides runs
+// in the TMA instances (the wgmma pipeline for bf16, FMA for f32); any
+// other shape in the CUDA-core instance of attention_any.cuh.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* out, int B, int Sq,
                                    int Skv, int H, int Hkv, int D,
@@ -996,8 +1018,19 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    int has_window, int window, float scale,
                                    void* stream) {
   if (Sq <= 0 || Skv <= 0 || B <= 0) return 0;
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if ((dtype != 0 && dtype != 1) || D < 1 || Hkv < 1 || H % Hkv)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
+  const void* ptrs[3] = {q, k, v};
+  if (!attn_any::aligned_rows(dtype == 0 ? 4 : 2, ptrs, 3, strides, 9) ||
+      hopper::attention_width(D) == 0)
+    return dtype == 0
+               ? launch_any<float>(q, k, v, out, B, Sq, Skv, H, Hkv, D,
+                                   strides, causal, has_window, window, scale,
+                                   s)
+               : launch_any<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, Hkv,
+                                           D, strides, causal, has_window,
+                                           window, scale, s);
 #define REPRO_FLASH_WIDTH(W)                                               \
   case W:                                                                  \
     return launch<W>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, D, strides, \

@@ -4,11 +4,13 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan.py::_ssd_kernel
 // (ssd_scan.py:26, pallas_call at ssd_scan.py:81).  It computes what the
 // plain version repro_torch/kernels/ref.py::ssd_ref computes, for x
-// [b, s, h, p], dt [b, s, h] f32, A [h] f32, B and C [b, s, n], cut into
-// chunks of Q rows (s % Q == 0, Q <= 128, n <= 128), from a zero state:
+// [b, s, h, p], dt [b, s, h] f32, A [h] f32, B and C [b, s, n], at any
+// chunk that divides s and any state width n, from a given initial state
+// [b, h, p, n] f32 or from zero:
 //
 //   per chunk c and head, with cum = inclusive prefix sum of dt * A over
-//   the chunk and S_{c-1} the state before the chunk,
+//   the chunk and S_{c-1} the state before the chunk (S_{-1} the initial
+//   state),
 //   y   = (C B^T o L) diag(dt) X + diag(exp(cum)) C S_{c-1}^T
 //                      L[i][j] = exp(cum_i - cum_j) for j <= i, exactly 0
 //                      above the diagonal (never exp(cum_i) exp(-cum_j),
@@ -21,21 +23,41 @@
 // and writes y in x's dtype and the final state [b, h, p, n] f32 (the
 // layout of ssd_ref), so that a prefill takes both from one call.
 //
-// Structure (arXiv:2405.21060, section 6): only the carry of the state from
-// chunk to chunk is sequential, so a call is three launches whose grids and
-// blocks depend on the shapes alone (a CUDA graph can capture the call):
-//   1. ssd_state_*: one block per (chunk, p tile, head) computes cum (kept
-//      in a [b, h, s] f32 scratch) and the chunk's own end state
-//      X^T diag(w) B, w = dt exp(cum_last - cum), into a [b, s/Q, h, p, n]
-//      f32 scratch (6.3 MB at mamba2-780m's widths and s = 512: it stays in
-//      L2);
-//   2. ssd_state_pass: one thread per four state elements walks the chunks
-//      in order, writing over each chunk's end state the state before it
-//      (S = S exp(cum_last) + end state; for bf16 each element's hi and lo
-//      bf16 parts in its 4 bytes), and writes the final state;
-//   3. ssd_scan_*: one block per (chunk, p tile, head) computes y.  C B^T
+// Chunk and tile.  y and the final state depend on the chunk only through
+// rounding (arXiv:2405.21060, section 6), so the kernel cuts the sequence
+// into tiles of its own: the caller's chunk where it is at most kMaxQ =
+// 128 rows (every chunk a model serves: 128, and the tests' 77), else 128
+// rows with a ragged last tile (chunk 256 at s 512: four tiles, the very
+// launches of chunk 128; chunk 131 at s 262: 128, 128, 6).  A ragged tile
+// is padded with zeros in shared memory like any tile shorter than 128.
+//
+// State width.  n up to 128 (mamba2 128, zamba2 64) runs the instances
+// below as they are; a wider state runs the same kernels in their sliced
+// instance (kSliced), which walks n in blocks of 128 columns inside the
+// block: the end state stores each block's columns from the same A
+// fragments, the scan sums C S^T and C B^T block by block into its f32
+// accumulators (C B^T o L o dt, split into bf16 hi + lo, meets x once per
+// block: a sum over n-blocks of exact products), and its state term stays
+// in an accumulator of its own until the last block, then is scaled by
+// exp(cum) once.  One block per SM there (more registers a thread).
+//
+// Structure: only the carry of the state from chunk to chunk is
+// sequential, so a call is three launches whose grids and blocks depend on
+// the shapes alone (a CUDA graph can capture the call):
+//   1. ssd_state_*: one block per (tile, p tile, head) computes cum (kept
+//      in a [b, h, s] f32 scratch) and the tile's own end state
+//      X^T diag(w) B, w = dt exp(cum_last - cum), into a [b, tiles, h, p,
+//      n] f32 scratch (6.3 MB at mamba2-780m's widths and s = 512: it stays
+//      in L2);
+//   2. ssd_state_pass: one thread per four state elements walks the tiles
+//      in order from the initial state (or zero), writing over each tile's
+//      end state the state before it (S = S exp(cum_last) + end state; for
+//      bf16 each element's hi and lo bf16 parts in its 4 bytes), and writes
+//      the final state;
+//   3. ssd_scan_*: one block per (tile, p tile, head) computes y.  C B^T
 //      is made inside the block, 16 columns at a time, and never goes
-//      through device memory.
+//      through device memory.  The first tile adds exp(cum) C S^T only
+//      when an initial state is given (kInit); from zero it is skipped.
 // Both scratch buffers come from the wrapper (torch.empty); nothing is
 // allocated here, and no sum uses atomics: two calls give the same bits.
 //
@@ -97,8 +119,15 @@ constexpr int kPT = 64;                // columns of p per block
 constexpr int kThreads = 256;          // 8 warps
 constexpr int kPassThreads = 256;
 
-// flags of a call: which tiles may be copied in 16-byte pieces
-constexpr int kVecX = 1, kVecBC = 2, kVecS = 4;
+// flags of a call: which tiles may be copied in 16-byte pieces, and
+// whether the scan starts from a given state
+constexpr int kVecX = 1, kVecBC = 2, kVecS = 4, kInit = 8;
+
+// The kernel's tile for a caller's chunk: the chunk itself up to kMaxQ
+// rows, else kMaxQ (the sequence's last tile may then be shorter).
+__host__ __device__ constexpr int tile_rows(int chunk) {
+  return chunk <= kMaxQ ? chunk : kMaxQ;
+}
 
 __host__ __device__ constexpr int pad16(int v) { return (v + 15) & ~15; }
 
@@ -288,43 +317,52 @@ __device__ __forceinline__ void load_tile_sw128(unsigned char* dst,
   }
 }
 
-// 1. The chunk's end state, bf16.  Grid (s/Q * p tiles, H, Bsz): a block
+// 1. The tile's end state, bf16.  Grid (tiles * p tiles, H, Bsz): a block
 // owns 64 rows (p) and every column (n) of the state; warpgroup g the
-// columns 64 g .. 64 g + 63, and its warp i the rows 16 i ..:
-// states[p][n] = sum_l (x[l][p] w_l) B[l][n], the first factor hi + lo from
-// registers, B from the swizzled tile, wgmma m64n64k16.
+// columns 64 g .. 64 g + 63 of each block of 128, and its warp i the rows
+// 16 i ..: states[p][n] = sum_l (x[l][p] w_l) B[l][n], the first factor
+// hi + lo from registers (made once, for every n-block), B from the
+// swizzled tile, wgmma m64n64k16.
+template <bool kSliced>
 __global__ void __launch_bounds__(kThreads, 2)
     ssd_state_mma(const bf16* __restrict__ x, const float* __restrict__ dt,
                   const float* __restrict__ A, const bf16* __restrict__ Bm,
                   float* __restrict__ states, float* __restrict__ cum_out,
-                  int S, int H, int P, int N, int Q, int flags) {
+                  int S, int H, int P, int N, int QT, int flags) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;
-  const StateSmem L(Q, N);
+  const StateSmem L(QT, N);
   unsigned char* Bs = smem + L.b;
   bf16* Xs = reinterpret_cast<bf16*>(smem + L.x);
   float* dts = reinterpret_cast<float*>(smem + L.f);
   float* cum = dts + kMaxQ;
   float* wgt = cum + kMaxQ;
   float* tot = wgt + kMaxQ;
-  const int Qp = pad16(Q), Np = pad16(N), Nb = (N + 63) & ~63;
-  const int ptiles = (P + kPT - 1) / kPT, nc = S / Q;
+  const int ptiles = (P + kPT - 1) / kPT, nc = (S + QT - 1) / QT;
   const int c = blockIdx.x / ptiles, p0 = (blockIdx.x % ptiles) * kPT;
   const int h = blockIdx.y, b = blockIdx.z;
   const int pv = min(kPT, P - p0);
-  const size_t t0 = static_cast<size_t>(b) * S + static_cast<size_t>(c) * Q;
+  const int Q = min(QT, S - c * QT);     // this tile's rows
+  const int Qp = pad16(Q), Np = pad16(N);
+  const size_t t0 = static_cast<size_t>(b) * S + static_cast<size_t>(c) * QT;
+  // one block of at most kMaxN columns of B, from column n0
+  const auto load_b = [&](int n0) {
+    const int nw = min(kMaxN, N - n0);
+    load_tile_sw128(Bs, Bm + t0 * N + n0, N, Q, nw, Qp, (nw + 63) & ~63,
+                    flags & kVecBC);
+  };
 
   load_tile(Xs, L.xp, x + (t0 * H + h) * P + p0, static_cast<size_t>(H) * P,
             Q, pv, Qp, kPT, flags & kVecX);
-  load_tile_sw128(Bs, Bm + t0 * N, N, Q, N, Qp, Nb, flags & kVecBC);
+  load_b(0);
   cp_async_commit();
   chunk_cumsum(dt + t0 * H + h, H, A[h], Q, dts, cum, tot);
   const int t = threadIdx.x;
   const float clast = cum[Q - 1];
   if (t < Q && p0 == 0)
-    cum_out[(static_cast<size_t>(b) * H + h) * S + static_cast<size_t>(c) * Q +
-            t] = cum[t];
+    cum_out[(static_cast<size_t>(b) * H + h) * S +
+            static_cast<size_t>(c) * QT + t] = cum[t];
   if (t < kMaxQ) wgt[t] = t < Q ? dts[t] * expf(clast - cum[t]) : 0.f;
   cp_async_wait<0>();
   hopper::fence_proxy_async();       // B, written by cp.async, read by wgmma
@@ -332,7 +370,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const int lane = t % 32, warp = t / 32, g = lane / 4, i4 = lane % 4;
   const int wi = warp % 4, wg = warp / 4;
-  if (64 * wg >= Np) return;         // the whole warpgroup
+  if (!kSliced && 64 * wg >= Np) return;   // the whole warpgroup
   // A = (x o w)^T [16 p x 16 l] from the [l][p] tile, transposed, as hi and
   // lo fragments for every 16 rows of l
   uint32_t ahi[kMaxQ / 16][4], alo[kMaxQ / 16][4];
@@ -355,62 +393,89 @@ __global__ void __launch_bounds__(kThreads, 2)
             alo[ks][r]);
     }
   }
-  float acc[32];
-#pragma unroll
-  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
-  const uint64_t bd = hopper::gmma_desc(smem_addr(Bs + wg * Qp * 128),
-                                        Qp * 128, 1024, 1);
-  hopper::fence_regs(ahi);           // every A fragment is made first
-  hopper::fence_regs(alo);
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int ks = 0; ks < kMaxQ / 16; ++ks) {
-    if (16 * ks >= Qp) continue;
-    const uint64_t bk = bd + ((ks * 16 * 128) >> 4);   // 16 rows of l on
-    wgmma_rs_n64(acc, ahi[ks], bk);
-    wgmma_rs_n64(acc, alo[ks], bk);
-  }
-  hopper::wgmma_commit();
-  hopper::wgmma_wait<0>();
-  hopper::fence_regs(acc);           // read after the wait, and the A
-  hopper::fence_regs(ahi);           // registers kept until it
-  hopper::fence_regs(alo);
-
   float* out = states + ((static_cast<size_t>(b) * nc + c) * H + h) *
                             static_cast<size_t>(P) * N;
+  const uint64_t bd = hopper::gmma_desc(smem_addr(Bs + wg * Qp * 128),
+                                        Qp * 128, 1024, 1);
+  for (int n0 = 0; n0 < N; n0 += kMaxN) {
+    if (kSliced && n0 > 0) {
+      __syncthreads();               // every wgmma of the last block is done
+      load_b(n0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      hopper::fence_proxy_async();
+      __syncthreads();
+    }
+    if (64 * wg >= pad16(min(kMaxN, N - n0))) continue;
+    float acc[32];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int n = 64 * wg + 8 * nt + 2 * i4;
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    hopper::fence_regs(ahi);         // every A fragment is made first
+    hopper::fence_regs(alo);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int pr = 16 * wi + g + 8 * half;
-      if (pr >= pv) continue;
-      float* row = out + static_cast<size_t>(p0 + pr) * N;
-      const float v0 = acc[4 * nt + 2 * half], v1 = acc[4 * nt + 2 * half + 1];
-      if (n + 1 < N && N % 2 == 0) {
-        *reinterpret_cast<float2*>(row + n) = make_float2(v0, v1);
-      } else {
-        if (n < N) row[n] = v0;
-        if (n + 1 < N) row[n + 1] = v1;
+    for (int ks = 0; ks < kMaxQ / 16; ++ks) {
+      if (16 * ks >= Qp) continue;
+      const uint64_t bk = bd + ((ks * 16 * 128) >> 4);   // 16 rows of l on
+      wgmma_rs_n64(acc, ahi[ks], bk);
+      wgmma_rs_n64(acc, alo[ks], bk);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);         // read after the wait, and the A
+    hopper::fence_regs(ahi);         // registers kept until it
+    hopper::fence_regs(alo);
+
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int n = n0 + 64 * wg + 8 * nt + 2 * i4;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int pr = 16 * wi + g + 8 * half;
+        if (pr >= pv) continue;
+        float* row = out + static_cast<size_t>(p0 + pr) * N;
+        const float v0 = acc[4 * nt + 2 * half];
+        const float v1 = acc[4 * nt + 2 * half + 1];
+        if (n + 1 < N && N % 2 == 0) {
+          *reinterpret_cast<float2*>(row + n) = make_float2(v0, v1);
+        } else {
+          if (n < N) row[n] = v0;
+          if (n + 1 < N) row[n + 1] = v1;
+        }
       }
     }
   }
 }
 
-// 3. y, bf16.  Grid (s/Q * p tiles, H, Bsz).  Warp w owns chunk rows
-// 16 w .. 16 w + 15 and the tile's 64 columns of p:
-//   acc  = exp(cum_i) (C S^T)        (chunk 0: S = 0, skipped), while B
-//                                    comes in where C was
+// acc[pt] += C S^T (the hi or the lo part of S) for one 16-wide slice of
+// n: the warp's C rows as the A fragment, S^T as B.
+__device__ __forceinline__ void state_mma(float (&acc)[kPT / 8][4],
+                                          const uint32_t (&a)[4],
+                                          const uint32_t (&s)[kPT / 8][2],
+                                          int pv) {
+#pragma unroll
+  for (int pt = 0; pt < kPT / 8; ++pt)
+    if (8 * pt < pv) mma(acc[pt], a, s[pt][0], s[pt][1]);
+}
+
+// 3. y, bf16.  Grid (tiles * p tiles, H, Bsz).  Warp w owns tile rows
+// 16 w .. 16 w + 15 and the tile's 64 columns of p; per block of at most
+// 128 columns of n:
+//   acc  = exp(cum_i) (C S^T)        (the first tile from zero: S = 0,
+//                                    skipped), while B comes in where C
+//                                    was (sliced: into accs, scaled once
+//                                    after the last block)
 //   acc += (C B^T o L o dt) x        16 columns of C B^T at a time, up to
 //                                    the warp's diagonal tile
-__global__ void __launch_bounds__(kThreads, 2)
+template <bool kSliced>
+__global__ void __launch_bounds__(kThreads, kSliced ? 1 : 2)
     ssd_scan_mma(const bf16* __restrict__ x, const float* __restrict__ dt,
                  const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
                  const uint32_t* __restrict__ prev,
                  const float* __restrict__ cum_in, bf16* __restrict__ y,
-                 int S, int H, int P, int N, int Q, int flags) {
+                 int S, int H, int P, int N, int QT, int flags) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const ScanSmem L(Q, N);
+  const ScanSmem L(QT, min(N, kMaxN));
   bf16* Cs = reinterpret_cast<bf16*>(smem + L.c);
   bf16* Bs = Cs;                     // once C is in registers
   bf16* Xs = reinterpret_cast<bf16*>(smem + L.x);
@@ -418,21 +483,29 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* dts = reinterpret_cast<float*>(smem + L.f);
   float* cums = dts + kMaxQ;
   float* bds = cums + kMaxQ;
-  const int Qp = pad16(Q), Np = pad16(N);
-  const int ptiles = (P + kPT - 1) / kPT, nc = S / Q;
+  const int ptiles = (P + kPT - 1) / kPT, nc = (S + QT - 1) / QT;
   const int c = blockIdx.x / ptiles, p0 = (blockIdx.x % ptiles) * kPT;
   const int h = blockIdx.y, b = blockIdx.z;
   const int pv = min(kPT, P - p0);
-  const size_t t0 = static_cast<size_t>(b) * S + static_cast<size_t>(c) * Q;
+  const int Q = min(QT, S - c * QT);     // this tile's rows
+  const int Qp = pad16(Q);
+  const size_t t0 = static_cast<size_t>(b) * S + static_cast<size_t>(c) * QT;
+  const bool carry = c > 0 || (flags & kInit);
+  const uint32_t* sblk = prev + ((static_cast<size_t>(b) * nc + c) * H + h) *
+                                    static_cast<size_t>(P) * N +
+                         static_cast<size_t>(p0) * N;
+  // C and the carried state of the n-block from column n0
+  const auto load_cs = [&](int n0) {
+    const int Np = pad16(min(kMaxN, N - n0));
+    load_tile(Cs, L.cp, Cm + t0 * N + n0, N, Q, min(kMaxN, N - n0), Qp, Np,
+              flags & kVecBC);
+    if (carry)
+      load_tile(Sp, L.sp, sblk + n0, N, pv, min(kMaxN, N - n0), kPT, Np,
+                flags & kVecS);
+  };
 
   // C and the carried state first, then x, then (in C's place) B
-  load_tile(Cs, L.cp, Cm + t0 * N, N, Q, N, Qp, Np, flags & kVecBC);
-  if (c > 0)
-    load_tile(Sp, L.sp,
-              prev + ((static_cast<size_t>(b) * nc + c) * H + h) *
-                         static_cast<size_t>(P) * N +
-                  static_cast<size_t>(p0) * N,
-              N, pv, N, kPT, Np, flags & kVecS);
+  load_cs(0);
   cp_async_commit();
   load_tile(Xs, L.xp, x + (t0 * H + h) * P + p0, static_cast<size_t>(H) * P,
             Q, pv, Qp, kPT, flags & kVecX);
@@ -440,7 +513,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int t = threadIdx.x;
   if (t < kMaxQ) {
     const float* cq = cum_in + (static_cast<size_t>(b) * H + h) * S +
-                      static_cast<size_t>(c) * Q;
+                      static_cast<size_t>(c) * QT;
     dts[t] = t < Q ? dt[(t0 + t) * H + h] : 0.f;
     cums[t] = cq[min(t, Q - 1)];
   }
@@ -455,24 +528,28 @@ __global__ void __launch_bounds__(kThreads, 2)
   const bool active = i0 < Qp;
   uint32_t ca[kMaxN / 16][4];        // this warp's C rows, A fragments
   float acc[kPT / 8][4];
+  float accs[kPT / 8][4];             // sliced: the state term apart
 #pragma unroll
   for (int a = 0; a < kPT / 8; ++a)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[a][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[a][e] = accs[a][e] = 0.f;
   const float ci0 = cums[min(i0 + g, kMaxQ - 1)];
   const float ci1 = cums[min(i0 + g + 8, kMaxQ - 1)];
-  if (active) {
+  const int r0 = i0 + g, r1 = r0 + 8;
+  for (int n0 = 0;;) {
+    const int Np = pad16(min(kMaxN, N - n0));
+    if (active) {
 #pragma unroll
-    for (int ns = 0; ns < kMaxN / 16; ++ns)
-      if (16 * ns < Np)
-        ldsm_x4(ca[ns], smem_addr(Cs + (i0 + (lane & 15)) * L.cp + 16 * ns +
-                                  (lane >> 4) * 8));
-  }
-  __syncthreads();                   // every warp's C rows are read
-  load_tile(Bs, L.cp, Bm + t0 * N, N, Q, N, Qp, Np, flags & kVecBC);
-  cp_async_commit();
-  if (active) {
-    if (c > 0) {
+      for (int ns = 0; ns < kMaxN / 16; ++ns)
+        if (16 * ns < Np)
+          ldsm_x4(ca[ns], smem_addr(Cs + (i0 + (lane & 15)) * L.cp +
+                                    16 * ns + (lane >> 4) * 8));
+    }
+    __syncthreads();                 // every warp's C rows are read
+    load_tile(Bs, L.cp, Bm + t0 * N + n0, N, Q, min(kMaxN, N - n0), Qp, Np,
+              flags & kVecBC);
+    cp_async_commit();
+    if (active && carry) {
 #pragma unroll
       for (int ns = 0; ns < kMaxN / 16; ++ns) {
         if (16 * ns >= Np) continue;
@@ -489,103 +566,123 @@ __global__ void __launch_bounds__(kThreads, 2)
             sl[pt][k] = __byte_perm(w.x, w.y, 0x7632);
           }
         }
-#pragma unroll
-        for (int pt = 0; pt < kPT / 8; ++pt)
-          if (8 * pt < pv) mma(acc[pt], ca[ns], sh[pt][0], sh[pt][1]);
-#pragma unroll
-        for (int pt = 0; pt < kPT / 8; ++pt)
-          if (8 * pt < pv) mma(acc[pt], ca[ns], sl[pt][0], sl[pt][1]);
+        if constexpr (kSliced) {
+          state_mma(accs, ca[ns], sh, pv);
+          state_mma(accs, ca[ns], sl, pv);
+        } else {
+          state_mma(acc, ca[ns], sh, pv);
+          state_mma(acc, ca[ns], sl, pv);
+        }
       }
-      const float e0 = expf(ci0), e1 = expf(ci1);
+      if (!kSliced) {
+        const float e0 = expf(ci0), e1 = expf(ci1);
 #pragma unroll
-      for (int pt = 0; pt < kPT / 8; ++pt) {
-        acc[pt][0] *= e0;
-        acc[pt][1] *= e0;
-        acc[pt][2] *= e1;
-        acc[pt][3] *= e1;
+        for (int pt = 0; pt < kPT / 8; ++pt) {
+          acc[pt][0] *= e0;
+          acc[pt][1] *= e0;
+          acc[pt][2] *= e1;
+          acc[pt][3] *= e1;
+        }
       }
     }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  if (!active) return;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (!kSliced && !active) return;
 
-  const int r0 = i0 + g, r1 = r0 + 8;
-  for (int kk = 0; kk <= warp && 16 * kk < Qp; ++kk) {
-    // C B^T for columns 16 kk .. 16 kk + 15 (two n-tiles), the even and
-    // the odd 16-wide slices of n summed apart: four independent chains
-    float gp[2][2][4];
+    for (int kk = 0; active && kk <= warp && 16 * kk < Qp; ++kk) {
+      // C B^T for columns 16 kk .. 16 kk + 15 (two n-tiles), the even and
+      // the odd 16-wide slices of n summed apart: four independent chains
+      float gp[2][2][4];
 #pragma unroll
-    for (int a = 0; a < 2; ++a)
+      for (int a = 0; a < 2; ++a)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) gp[a][e / 4][e % 4] = 0.f;
+        for (int e = 0; e < 8; ++e) gp[a][e / 4][e % 4] = 0.f;
 #pragma unroll
-    for (int ns = 0; ns < kMaxN / 16; ++ns) {
-      if (16 * ns >= Np) continue;
-      uint32_t bb[4];
-      ldsm_x4(bb, smem_addr(Bs + (16 * kk + (lane & 7) + (lane >> 4) * 8) *
-                                     L.cp +
-                            16 * ns + ((lane >> 3) & 1) * 8));
-      mma(gp[ns & 1][0], ca[ns], bb[0], bb[1]);
-      mma(gp[ns & 1][1], ca[ns], bb[2], bb[3]);
-    }
-    float gt[2][4];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      gt[e / 4][e % 4] = gp[0][e / 4][e % 4] + gp[1][e / 4][e % 4];
-    // o L o dt, then hi + lo A fragments of the [16 x 16] factor
-    uint32_t ahi[4], alo[4];
-    if (kk < warp) {
-      // below the diagonal, L = exp(cum_i - c) exp(c - cum_j) with c the
-      // cum of the tile's last column: every i lies below it, every j at or
-      // above it, so both factors are <= 1
-      const float cl = cums[16 * kk + 15];
-      const float a0 = expf(ci0 - cl), a1 = expf(ci1 - cl);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int j = 16 * kk + 8 * nt + 2 * i4;
-        const float b0 = bds[j], b1 = bds[j + 1];
-        split(gt[nt][0] * a0 * b0, gt[nt][1] * a0 * b1, ahi[2 * nt],
-              alo[2 * nt]);
-        split(gt[nt][2] * a1 * b0, gt[nt][3] * a1 * b1, ahi[2 * nt + 1],
-              alo[2 * nt + 1]);
+      for (int ns = 0; ns < kMaxN / 16; ++ns) {
+        if (16 * ns >= Np) continue;
+        uint32_t bb[4];
+        ldsm_x4(bb, smem_addr(Bs + (16 * kk + (lane & 7) + (lane >> 4) * 8) *
+                                       L.cp +
+                              16 * ns + ((lane >> 3) & 1) * 8));
+        mma(gp[ns & 1][0], ca[ns], bb[0], bb[1]);
+        mma(gp[ns & 1][1], ca[ns], bb[2], bb[3]);
       }
-    } else {
-      // the diagonal tile: exp(cum_i - cum_j) element by element, and
-      // exactly 0 above the diagonal
+      float gt[2][4];
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int j = 16 * kk + 8 * nt + 2 * i4;
-        const float cj0 = cums[j], cj1 = cums[j + 1];
-        const float d0 = dts[j], d1 = dts[j + 1];
-        const float m00 = j <= r0 ? gt[nt][0] * expf(ci0 - cj0) * d0 : 0.f;
-        const float m01 =
-            j + 1 <= r0 ? gt[nt][1] * expf(ci0 - cj1) * d1 : 0.f;
-        const float m10 = j <= r1 ? gt[nt][2] * expf(ci1 - cj0) * d0 : 0.f;
-        const float m11 =
-            j + 1 <= r1 ? gt[nt][3] * expf(ci1 - cj1) * d1 : 0.f;
-        split(m00, m01, ahi[2 * nt], alo[2 * nt]);
-        split(m10, m11, ahi[2 * nt + 1], alo[2 * nt + 1]);
+      for (int e = 0; e < 8; ++e)
+        gt[e / 4][e % 4] = gp[0][e / 4][e % 4] + gp[1][e / 4][e % 4];
+      // o L o dt, then hi + lo A fragments of the [16 x 16] factor
+      uint32_t ahi[4], alo[4];
+      if (kk < warp) {
+        // below the diagonal, L = exp(cum_i - c) exp(c - cum_j) with c the
+        // cum of the tile's last column: every i lies below it, every j at
+        // or above it, so both factors are <= 1
+        const float cl = cums[16 * kk + 15];
+        const float a0 = expf(ci0 - cl), a1 = expf(ci1 - cl);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int j = 16 * kk + 8 * nt + 2 * i4;
+          const float b0 = bds[j], b1 = bds[j + 1];
+          split(gt[nt][0] * a0 * b0, gt[nt][1] * a0 * b1, ahi[2 * nt],
+                alo[2 * nt]);
+          split(gt[nt][2] * a1 * b0, gt[nt][3] * a1 * b1, ahi[2 * nt + 1],
+                alo[2 * nt + 1]);
+        }
+      } else {
+        // the diagonal tile: exp(cum_i - cum_j) element by element, and
+        // exactly 0 above the diagonal
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int j = 16 * kk + 8 * nt + 2 * i4;
+          const float cj0 = cums[j], cj1 = cums[j + 1];
+          const float d0 = dts[j], d1 = dts[j + 1];
+          const float m00 = j <= r0 ? gt[nt][0] * expf(ci0 - cj0) * d0 : 0.f;
+          const float m01 =
+              j + 1 <= r0 ? gt[nt][1] * expf(ci0 - cj1) * d1 : 0.f;
+          const float m10 = j <= r1 ? gt[nt][2] * expf(ci1 - cj0) * d0 : 0.f;
+          const float m11 =
+              j + 1 <= r1 ? gt[nt][3] * expf(ci1 - cj1) * d1 : 0.f;
+          split(m00, m01, ahi[2 * nt], alo[2 * nt]);
+          split(m10, m11, ahi[2 * nt + 1], alo[2 * nt + 1]);
+        }
       }
-    }
-    // B [16 j x 16 p] from the [j][p] tile of x, transposed
-    uint32_t xb[kPT / 16][4];
-#pragma unroll
-    for (int pp = 0; pp < kPT / 16; ++pp)
-      if (16 * pp < pv)
-        ldsm_x4_trans(xb[pp], smem_addr(Xs + (16 * kk + (lane & 7) +
-                                              ((lane >> 3) & 1) * 8) *
-                                                 L.xp +
-                                        16 * pp + (lane >> 4) * 8));
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
+      // B [16 j x 16 p] from the [j][p] tile of x, transposed
+      uint32_t xb[kPT / 16][4];
 #pragma unroll
       for (int pp = 0; pp < kPT / 16; ++pp)
-        if (16 * pp < pv) {
-          const uint32_t(&a)[4] = half ? alo : ahi;
-          mma(acc[2 * pp], a, xb[pp][0], xb[pp][1]);
-          mma(acc[2 * pp + 1], a, xb[pp][2], xb[pp][3]);
-        }
+        if (16 * pp < pv)
+          ldsm_x4_trans(xb[pp], smem_addr(Xs + (16 * kk + (lane & 7) +
+                                                ((lane >> 3) & 1) * 8) *
+                                                   L.xp +
+                                          16 * pp + (lane >> 4) * 8));
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int pp = 0; pp < kPT / 16; ++pp)
+          if (16 * pp < pv) {
+            const uint32_t(&a)[4] = half ? alo : ahi;
+            mma(acc[2 * pp], a, xb[pp][0], xb[pp][1]);
+            mma(acc[2 * pp + 1], a, xb[pp][2], xb[pp][3]);
+          }
+    }
+    n0 += kMaxN;
+    if (!kSliced || n0 >= N) break;
+    __syncthreads();                 // every warp is done with B and S
+    load_cs(n0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  if (!active) return;
+  if (kSliced && carry) {
+    const float e0 = expf(ci0), e1 = expf(ci1);
+#pragma unroll
+    for (int pt = 0; pt < kPT / 8; ++pt) {
+      acc[pt][0] += accs[pt][0] * e0;
+      acc[pt][1] += accs[pt][1] * e0;
+      acc[pt][2] += accs[pt][2] * e1;
+      acc[pt][3] += accs[pt][3] * e1;
+    }
   }
 
 #pragma unroll
@@ -645,86 +742,105 @@ struct ScanSmemF {
   }
 };
 
-// 1. The chunk's end state, f32.  Thread (warp, lane) owns state rows
-// warp + 8 v and columns lane + 32 u of the block's tile.
+// 1. The tile's end state, f32.  Thread (warp, lane) owns state rows
+// warp + 8 v and columns lane + 32 u of each block of 128 columns of n.
+template <bool kSliced>
 __global__ void __launch_bounds__(kThreads)
     ssd_state_fma(const float* __restrict__ x, const float* __restrict__ dt,
                   const float* __restrict__ A, const float* __restrict__ Bm,
                   float* __restrict__ states, float* __restrict__ cum_out,
-                  int S, int H, int P, int N, int Q, int flags) {
+                  int S, int H, int P, int N, int QT, int flags) {
   extern __shared__ __align__(16) float smf[];
-  const StateSmemF L(Q, N);
+  const StateSmemF L(QT, min(N, kMaxN));
   float* Xs = smf + L.x;
   float* Bs = smf + L.b;
   float* dts = smf + L.f;
   float* cum = dts + kMaxQ;
   float* wgt = cum + kMaxQ;
   float* tot = wgt + kMaxQ;
-  const int Qp = pad16(Q), Np = pad16(N);
-  const int ptiles = (P + kPT - 1) / kPT, nc = S / Q;
+  const int ptiles = (P + kPT - 1) / kPT, nc = (S + QT - 1) / QT;
   const int c = blockIdx.x / ptiles, p0 = (blockIdx.x % ptiles) * kPT;
   const int h = blockIdx.y, b = blockIdx.z;
   const int pv = min(kPT, P - p0);
-  const size_t t0 = static_cast<size_t>(b) * S + static_cast<size_t>(c) * Q;
+  const int Q = min(QT, S - c * QT);     // this tile's rows
+  const int Qp = pad16(Q);
+  const size_t t0 = static_cast<size_t>(b) * S + static_cast<size_t>(c) * QT;
+  const auto load_b = [&](int n0) {
+    const int nw = min(kMaxN, N - n0);
+    load_tile(Bs, L.bp, Bm + t0 * N + n0, N, Q, nw, Qp, pad16(nw),
+              flags & kVecBC);
+  };
 
   load_tile(Xs, L.xp, x + (t0 * H + h) * P + p0, static_cast<size_t>(H) * P,
             Q, pv, Qp, kPT, flags & kVecX);
-  load_tile(Bs, L.bp, Bm + t0 * N, N, Q, N, Qp, Np, flags & kVecBC);
+  load_b(0);
   cp_async_commit();
   chunk_cumsum(dt + t0 * H + h, H, A[h], Q, dts, cum, tot);
   const int t = threadIdx.x;
   const float clast = cum[Q - 1];
   if (t < Q && p0 == 0)
-    cum_out[(static_cast<size_t>(b) * H + h) * S + static_cast<size_t>(c) * Q +
-            t] = cum[t];
+    cum_out[(static_cast<size_t>(b) * H + h) * S +
+            static_cast<size_t>(c) * QT + t] = cum[t];
   if (t < kMaxQ) wgt[t] = t < Q ? dts[t] * expf(clast - cum[t]) : 0.f;
   cp_async_wait<0>();
   __syncthreads();
 
   const int lane = t % 32, warp = t / 32;
-  float acc[8][4];
-#pragma unroll
-  for (int v = 0; v < 8; ++v)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc[v][u] = 0.f;
-  for (int l = 0; l < Q; ++l) {
-    const float w = wgt[l];
-    float xv[8], bv[4];
-#pragma unroll
-    for (int v = 0; v < 8; ++v) xv[v] = Xs[l * L.xp + warp + 8 * v] * w;
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      bv[u] = lane + 32 * u < Np ? Bs[l * L.bp + lane + 32 * u] : 0.f;
+  float* out = states + ((static_cast<size_t>(b) * nc + c) * H + h) *
+                            static_cast<size_t>(P) * N;
+  for (int n0 = 0; n0 < N; n0 += kMaxN) {
+    if (kSliced && n0 > 0) {
+      __syncthreads();               // every read of the last block is done
+      load_b(n0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    const int Np = pad16(min(kMaxN, N - n0));
+    float acc[8][4];
 #pragma unroll
     for (int v = 0; v < 8; ++v)
 #pragma unroll
-      for (int u = 0; u < 4; ++u) acc[v][u] = fmaf(xv[v], bv[u], acc[v][u]);
-  }
-  float* out = states + ((static_cast<size_t>(b) * nc + c) * H + h) *
-                            static_cast<size_t>(P) * N;
+      for (int u = 0; u < 4; ++u) acc[v][u] = 0.f;
+    for (int l = 0; l < Q; ++l) {
+      const float w = wgt[l];
+      float xv[8], bv[4];
 #pragma unroll
-  for (int v = 0; v < 8; ++v) {
-    const int pr = warp + 8 * v;
-    if (pr >= pv) continue;
+      for (int v = 0; v < 8; ++v) xv[v] = Xs[l * L.xp + warp + 8 * v] * w;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int n = lane + 32 * u;
-      if (n < N) out[static_cast<size_t>(p0 + pr) * N + n] = acc[v][u];
+      for (int u = 0; u < 4; ++u)
+        bv[u] = lane + 32 * u < Np ? Bs[l * L.bp + lane + 32 * u] : 0.f;
+#pragma unroll
+      for (int v = 0; v < 8; ++v)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[v][u] = fmaf(xv[v], bv[u], acc[v][u]);
+    }
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      const int pr = warp + 8 * v;
+      if (pr >= pv) continue;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int n = n0 + lane + 32 * u;
+        if (n < N) out[static_cast<size_t>(p0 + pr) * N + n] = acc[v][u];
+      }
     }
   }
 }
 
 // 3. y, f32.  First the block's C B^T o L o dt into shared memory (thread
-// (ty, tx) of 16 x 16 owns rows ty + 16 a, columns tx + 16 e), then thread
-// t owns chunk row t / 2 and 32 columns of the tile.
+// (ty, tx) of 16 x 16 owns rows ty + 16 a, columns tx + 16 e; C B^T summed
+// over the n-blocks), then thread t owns tile row t / 2 and 32 columns of
+// the p tile.
+template <bool kSliced>
 __global__ void __launch_bounds__(kThreads)
     ssd_scan_fma(const float* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ Bm, const float* __restrict__ Cm,
                  const float* __restrict__ states,
                  const float* __restrict__ cum_in, float* __restrict__ y,
-                 int S, int H, int P, int N, int Q, int flags) {
+                 int S, int H, int P, int N, int QT, int flags) {
   extern __shared__ __align__(16) float smf[];
-  const ScanSmemF L(Q, N);
+  const ScanSmemF L(QT, min(N, kMaxN));
   float* Cs = smf + L.c;
   float* Bs = smf + L.r;
   float* Xs = smf + L.x;
@@ -732,20 +848,35 @@ __global__ void __launch_bounds__(kThreads)
   float* Ms = smf + L.m;
   float* dts = smf + L.f;
   float* cums = dts + kMaxQ;
-  const int Qp = pad16(Q), Np = pad16(N);
-  const int ptiles = (P + kPT - 1) / kPT, nc = S / Q;
+  const int ptiles = (P + kPT - 1) / kPT, nc = (S + QT - 1) / QT;
   const int c = blockIdx.x / ptiles, p0 = (blockIdx.x % ptiles) * kPT;
   const int h = blockIdx.y, b = blockIdx.z;
   const int pv = min(kPT, P - p0);
-  const size_t t0 = static_cast<size_t>(b) * S + static_cast<size_t>(c) * Q;
+  const int Q = min(QT, S - c * QT);     // this tile's rows
+  const int Qp = pad16(Q);
+  const size_t t0 = static_cast<size_t>(b) * S + static_cast<size_t>(c) * QT;
   const int t = threadIdx.x;
+  const bool carry = c > 0 || (flags & kInit);
+  const float* sblk = states + ((static_cast<size_t>(b) * nc + c) * H + h) *
+                                   static_cast<size_t>(P) * N +
+                      static_cast<size_t>(p0) * N;
+  // the n-block from column n0 of C (with_b: and of B; else of the
+  // carried state, where the scan carries one)
+  const auto load_block = [&](int n0, bool with_b) {
+    const int nw = min(kMaxN, N - n0), Np = pad16(nw);
+    load_tile(Cs, L.cp, Cm + t0 * N + n0, N, Q, nw, Qp, Np, flags & kVecBC);
+    if (with_b)
+      load_tile(Bs, L.cp, Bm + t0 * N + n0, N, Q, nw, Qp, Np,
+                flags & kVecBC);
+    else if (carry)
+      load_tile(Ss, L.sp, sblk + n0, N, pv, nw, kPT, Np, flags & kVecS);
+  };
 
-  load_tile(Cs, L.cp, Cm + t0 * N, N, Q, N, Qp, Np, flags & kVecBC);
-  load_tile(Bs, L.cp, Bm + t0 * N, N, Q, N, Qp, Np, flags & kVecBC);
+  load_block(0, true);
   cp_async_commit();
   if (t < kMaxQ) {
     const float* cq = cum_in + (static_cast<size_t>(b) * H + h) * S +
-                      static_cast<size_t>(c) * Q;
+                      static_cast<size_t>(c) * QT;
     dts[t] = t < Q ? dt[(t0 + t) * H + h] : 0.f;
     cums[t] = cq[min(t, Q - 1)];
   }
@@ -758,18 +889,29 @@ __global__ void __launch_bounds__(kThreads)
     for (int a = 0; a < 8; ++a)
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[a][e] = 0.f;
-    for (int k = 0; k < Np; ++k) {
-      float cv[8], bv[8];
+    for (int n0 = 0; n0 < N; n0 += kMaxN) {
+      if (kSliced && n0 > 0) {
+        __syncthreads();             // every read of the last block is done
+        load_block(n0, true);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      const int Np = pad16(min(kMaxN, N - n0));
+      for (int k = 0; k < Np; ++k) {
+        float cv[8], bv[8];
 #pragma unroll
-      for (int a = 0; a < 8; ++a)
-        cv[a] = ty + 16 * a < Qp ? Cs[(ty + 16 * a) * L.cp + k] : 0.f;
+        for (int a = 0; a < 8; ++a)
+          cv[a] = ty + 16 * a < Qp ? Cs[(ty + 16 * a) * L.cp + k] : 0.f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        bv[e] = tx + 16 * e < Qp ? Bs[(tx + 16 * e) * L.cp + k] : 0.f;
+        for (int e = 0; e < 8; ++e)
+          bv[e] = tx + 16 * e < Qp ? Bs[(tx + 16 * e) * L.cp + k] : 0.f;
 #pragma unroll
-      for (int a = 0; a < 8; ++a)
+        for (int a = 0; a < 8; ++a)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[a][e] = fmaf(cv[a], bv[e], acc[a][e]);
+          for (int e = 0; e < 8; ++e)
+            acc[a][e] = fmaf(cv[a], bv[e], acc[a][e]);
+      }
     }
 #pragma unroll
     for (int a = 0; a < 8; ++a) {
@@ -784,35 +926,45 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  __syncthreads();                   // every read of B is done
+  __syncthreads();                   // every read of B (and of C) is done
   load_tile(Xs, kPT, x + (t0 * H + h) * P + p0, static_cast<size_t>(H) * P,
             Q, pv, Qp, kPT, flags & kVecX);
-  if (c > 0)
-    load_tile(Ss, L.sp,
-              states + ((static_cast<size_t>(b) * nc + c) * H + h) *
-                           static_cast<size_t>(P) * N +
-                  static_cast<size_t>(p0) * N,
-              N, pv, N, kPT, Np, flags & kVecS);
+  if (kSliced)
+    load_block(0, false);            // C's first block again, its state
+  else if (carry)
+    load_tile(Ss, L.sp, sblk, N, pv, N, kPT, pad16(N), flags & kVecS);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
   const int row = t / 2, c0 = (t % 2) * 32;
-  if (row >= Q) return;
+  const bool live = row < Q;
   float acc[32];
 #pragma unroll
   for (int u = 0; u < 32; ++u) acc[u] = 0.f;
-  if (c > 0) {
-    for (int k = 0; k < N; ++k) {
-      const float cv = Cs[row * L.cp + k];
+  if (carry) {
+    for (int n0 = 0; n0 < N; n0 += kMaxN) {
+      if (kSliced && n0 > 0) {
+        __syncthreads();             // every read of the last block is done
+        load_block(n0, false);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      const int nw = min(kMaxN, N - n0);
+      if (!live) continue;
+      for (int k = 0; k < nw; ++k) {
+        const float cv = Cs[row * L.cp + k];
 #pragma unroll
-      for (int u = 0; u < 32; ++u)
-        acc[u] = fmaf(cv, Ss[(c0 + u) * L.sp + k], acc[u]);
+        for (int u = 0; u < 32; ++u)
+          acc[u] = fmaf(cv, Ss[(c0 + u) * L.sp + k], acc[u]);
+      }
     }
     const float e = expf(cums[row]);
 #pragma unroll
     for (int u = 0; u < 32; ++u) acc[u] *= e;
   }
+  if (!live) return;
   for (int j = 0; j <= row; ++j) {
     const float m = Ms[row * L.mp + j];
 #pragma unroll
@@ -829,9 +981,9 @@ __global__ void __launch_bounds__(kThreads)
 // 2. the state carry (both dtypes)
 // ---------------------------------------------------------------------------
 
-// The state before chunk c (c >= 1), written over the chunk's end state
-// where the scan of T reads it: f32, or each element's bf16 (hi, lo) pair
-// in its 4 bytes for the tensor-core scan.
+// The state before tile c, written over the tile's end state where the
+// scan of T reads it: f32, or each element's bf16 (hi, lo) pair in its 4
+// bytes for the tensor-core scan.
 __device__ __forceinline__ uint32_t f32_bits(float v) {
   return __float_as_uint(v);
 }
@@ -843,33 +995,51 @@ __device__ __forceinline__ uint32_t split_bits(float v) {
 }
 
 // Grid (ceil(P N / (4 kPassThreads)), H, Bsz): thread t owns state elements
-// 4 t .. 4 t + 3 of one head and walks the chunks in order, four at a time
-// (their loads in flight together), replacing each chunk's end state by the
-// state before it.
+// 4 t .. 4 t + 3 of one head and walks the tiles in order, four at a time
+// (their loads in flight together), from the initial state (init, [Bsz, H,
+// P, N] f32) or from zero, replacing each tile's end state by the state
+// before it (tile 0's only from a given state: from zero its scan reads
+// none).
 template <typename T>
 __global__ void __launch_bounds__(kPassThreads)
     ssd_state_pass(float* __restrict__ states,
                    const float* __restrict__ cum,
+                   const float* __restrict__ init,
                    float* __restrict__ final_state, int S, int H, int P,
-                   int N, int Q) {
-  const int nc = S / Q, h = blockIdx.y, b = blockIdx.z;
+                   int N, int QT) {
+  const int nc = (S + QT - 1) / QT, h = blockIdx.y, b = blockIdx.z;
   const size_t PN = static_cast<size_t>(P) * N;
   const size_t e = (static_cast<size_t>(blockIdx.x) * kPassThreads +
                     threadIdx.x) * 4;
   if (e >= PN) return;
   const int cnt = PN - e < 4 ? static_cast<int>(PN - e) : 4;
   const bool vec = cnt == 4 && PN % 4 == 0;
-  const float* cl = cum + (static_cast<size_t>(b) * H + h) * S + (Q - 1);
+  const float* cb = cum + (static_cast<size_t>(b) * H + h) * S;
   float* base = states + (static_cast<size_t>(b) * nc * H + h) * PN + e;
   const size_t step = static_cast<size_t>(H) * PN;
+  const size_t own = (static_cast<size_t>(b) * H + h) * PN + e;
   float s[4] = {0.f, 0.f, 0.f, 0.f};
+  if (init != nullptr) {
+    if (vec) {
+      const float4 q = *reinterpret_cast<const float4*>(init + own);
+      s[0] = q.x;
+      s[1] = q.y;
+      s[2] = q.z;
+      s[3] = q.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) s[u] = u < cnt ? init[own + u] : 0.f;
+    }
+  }
   for (int c0 = 0; c0 < nc; c0 += 4) {
     float v[4][4], d[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int c = c0 + k;
       if (c >= nc) continue;
-      d[k] = expf(cl[static_cast<size_t>(c) * Q]);
+      // the cum of the tile's last row
+      d[k] = expf(cb[min(static_cast<size_t>(c + 1) * QT,
+                         static_cast<size_t>(S)) - 1]);
       const float* src = base + c * step;
       if (vec) {
         const float4 q = *reinterpret_cast<const float4*>(src);
@@ -886,7 +1056,7 @@ __global__ void __launch_bounds__(kPassThreads)
     for (int k = 0; k < 4; ++k) {
       const int c = c0 + k;
       if (c >= nc) continue;
-      if (c > 0) {                   // chunk 0's scan reads no state
+      if (c > 0 || init != nullptr) {   // from zero tile 0 reads no state
         uint32_t w[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u)
@@ -904,7 +1074,7 @@ __global__ void __launch_bounds__(kPassThreads)
       for (int u = 0; u < 4; ++u) s[u] = s[u] * d[k] + v[k][u];
     }
   }
-  float* out = final_state + (static_cast<size_t>(b) * H + h) * PN + e;
+  float* out = final_state + own;
 #pragma unroll
   for (int u = 0; u < 4; ++u)
     if (u < cnt) out[u] = s[u];
@@ -918,43 +1088,53 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// Once per kernel, before any capture: the most shared memory any shape
+// asks for.
+template <auto kKernel>
+cudaError_t allow_smem(int bytes) {
+  static const cudaError_t ready = cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return ready;
+}
+
 // The three launches of one dtype: T the element type of x, B, C and y,
-// SL / CL the shared-memory layouts of its state and scan kernels, and ST
-// the scan's view of the carried state (f32, or packed (hi, lo) bf16).
+// SL / CL the shared-memory layouts of its state and scan kernels, ST the
+// scan's view of the carried state (f32, or packed (hi, lo) bf16), and the
+// kernels' instances for n <= 128 and their sliced ones for wider states.
 template <typename T, typename ST, typename SL, typename CL, auto kState,
-          auto kScan>
+          auto kScan, auto kStateSliced, auto kScanSliced>
 int launch(const void* x, const void* dt, const void* A, const void* Bm,
-           const void* Cm, void* states, void* cum, void* y,
-           void* final_state, int Bsz, int S, int H, int P, int N, int Q,
-           void* stream) {
-  if (Q < 1 || Q > kMaxQ || N < 1 || N > kMaxN || S % Q || P < 1)
+           const void* Cm, const void* init, void* states, void* cum,
+           void* y, void* final_state, int Bsz, int S, int H, int P, int N,
+           int chunk, void* stream) {
+  if (chunk < 1 || S % chunk || N < 1 || P < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  // once per dtype, before any capture: the most shared memory any shape
-  // asks for
-  static const cudaError_t ready = [] {
-    cudaError_t e = cudaFuncSetAttribute(
-        kState, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SL(kMaxQ, kMaxN).bytes);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kScan,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               CL(kMaxQ, kMaxN).bytes);
-    return e;
-  }();
-  if (ready != cudaSuccess) return static_cast<int>(ready);
+  const int QT = tile_rows(chunk);
+  const bool sliced = N > kMaxN;
+  const int state_bytes = SL(kMaxQ, kMaxN).bytes;
+  const int scan_bytes = CL(kMaxQ, kMaxN).bytes;
+  cudaError_t e = sliced ? allow_smem<kStateSliced>(state_bytes)
+                         : allow_smem<kState>(state_bytes);
+  if (e == cudaSuccess)
+    e = sliced ? allow_smem<kScanSliced>(scan_bytes)
+               : allow_smem<kScan>(scan_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
   constexpr int E = 16 / sizeof(T);
   int flags = 0;
   if (P % E == 0 && aligned16(x)) flags |= kVecX;
   if (N % E == 0 && aligned16(Bm) && aligned16(Cm)) flags |= kVecBC;
   if (N % 4 == 0 && aligned16(states)) flags |= kVecS;
+  if (init != nullptr) flags |= kInit;
   const auto strm = static_cast<cudaStream_t>(stream);
-  const dim3 grid(S / Q * ((P + kPT - 1) / kPT), H, Bsz);
-  kState<<<grid, kThreads, SL(Q, N).bytes, strm>>>(
+  const int tiles = (S + QT - 1) / QT, NB = N < kMaxN ? N : kMaxN;
+  const dim3 grid(tiles * ((P + kPT - 1) / kPT), H, Bsz);
+  const auto state_kernel = sliced ? kStateSliced : kState;
+  state_kernel<<<grid, kThreads, SL(QT, NB).bytes, strm>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(Bm),
-      static_cast<float*>(states), static_cast<float*>(cum), S, H, P, N, Q,
+      static_cast<float*>(states), static_cast<float*>(cum), S, H, P, N, QT,
       flags);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long pn4 = (static_cast<long long>(P) * N + 3) / 4;
   const dim3 pass_grid(static_cast<unsigned>((pn4 + kPassThreads - 1) /
@@ -962,44 +1142,55 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
                        H, Bsz);
   ssd_state_pass<T><<<pass_grid, kPassThreads, 0, strm>>>(
       static_cast<float*>(states), static_cast<const float*>(cum),
-      static_cast<float*>(final_state), S, H, P, N, Q);
+      static_cast<const float*>(init), static_cast<float*>(final_state), S,
+      H, P, N, QT);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  kScan<<<grid, kThreads, CL(Q, N).bytes, strm>>>(
+  const auto scan_kernel = sliced ? kScanSliced : kScan;
+  scan_kernel<<<grid, kThreads, CL(QT, NB).bytes, strm>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const T*>(Bm), static_cast<const T*>(Cm),
       static_cast<const ST*>(states), static_cast<const float*>(cum),
-      static_cast<T*>(y), S, H, P, N, Q, flags);
+      static_cast<T*>(y), S, H, P, N, QT, flags);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// The kernel's tile for a caller's chunk (the scratch `states` has
+// ceil(S / tile) tiles).
+extern "C" int ssd_scan_tile(int chunk) { return tile_rows(chunk); }
+
 // dtype: 0 = float32, 1 = bfloat16 (of x, B, C and y).  x [Bsz, S, H, P],
-// dt [Bsz, S, H] f32, A [H] f32, B/C [Bsz, S, N], y like x, final_state
-// [Bsz, H, P, N] f32; scratch: states [Bsz, S/Q, H, P, N] f32 and cum
-// [Bsz, H, S] f32; all contiguous.  1 <= Q <= 128, S % Q == 0,
-// 1 <= N <= 128.
+// dt [Bsz, S, H] f32, A [H] f32, B/C [Bsz, S, N], init [Bsz, H, P, N] f32
+// or null (a zero initial state), y like x, final_state [Bsz, H, P, N] f32;
+// scratch: states [Bsz, ceil(S / ssd_scan_tile(chunk)), H, P, N] f32 and
+// cum [Bsz, H, S] f32; all contiguous.  chunk >= 1 divides S; any N >= 1.
 extern "C" int ssd_scan_fwd(int dtype, const void* x, const void* dt,
                             const void* A, const void* Bm, const void* Cm,
-                            void* states, void* cum, void* y,
-                            void* final_state, int Bsz, int S, int H, int P,
-                            int N, int Q, void* stream) {
+                            const void* init, void* states, void* cum,
+                            void* y, void* final_state, int Bsz, int S, int H,
+                            int P, int N, int chunk, void* stream) {
   if (Bsz <= 0 || S <= 0 || H <= 0) return 0;
   if (dtype == 0)
-    return launch<float, float, StateSmemF, ScanSmemF, ssd_state_fma,
-                  ssd_scan_fma>(x, dt, A, Bm, Cm, states, cum, y, final_state,
-                                Bsz, S, H, P, N, Q, stream);
+    return launch<float, float, StateSmemF, ScanSmemF,
+                  &ssd_state_fma<false>, &ssd_scan_fma<false>,
+                  &ssd_state_fma<true>, &ssd_scan_fma<true>>(
+        x, dt, A, Bm, Cm, init, states, cum, y, final_state, Bsz, S, H, P, N,
+        chunk, stream);
   if (dtype == 1)
-    return launch<bf16, uint32_t, StateSmem, ScanSmem, ssd_state_mma,
-                  ssd_scan_mma>(x, dt, A, Bm, Cm, states, cum, y, final_state,
-                                Bsz, S, H, P, N, Q, stream);
+    return launch<bf16, uint32_t, StateSmem, ScanSmem,
+                  &ssd_state_mma<false>, &ssd_scan_mma<false>,
+                  &ssd_state_mma<true>, &ssd_scan_mma<true>>(
+        x, dt, A, Bm, Cm, init, states, cum, y, final_state, Bsz, S, H, P, N,
+        chunk, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The entry point's version: 2 takes the states and cum scratch buffers
-// (the first version took a C B^T scratch and had no such symbol).
-extern "C" int ssd_scan_interface() { return 2; }
+// The entry point's version: 3 takes an initial state (null for zero) and
+// any chunk (2 took the states and cum scratch buffers; the first version
+// took a C B^T scratch and had no such symbol).
+extern "C" int ssd_scan_interface() { return 3; }
 
 extern "C" const char* ssd_scan_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -11,20 +11,24 @@ is fixed-shape torch ops on the device (``slot_groups``): no host sync, so
 the fast verify path keeps its ≤2-syncs-per-block contract.  The two GEMM
 stages are the hand-written CUDA kernel ``csrc/cache_moe.cu`` (``gate_up`` or
 ``up_gelu``, then ``down``), which reads the weights straight out of the
-[S, ...] slot pool (bf16: a TMA weight ring feeding wgmma row products;
-f32: FMA).  The combine is in f32, in each token's choice order,
+[S, ...] slot pool (bf16 at d and f multiples of 8: a TMA weight ring
+feeding wgmma row products; f32, and bf16 at any other width: FMA, the
+weights loaded in 16-byte pieces where the rows allow it, else element by
+element).  The combine is in f32, in each token's choice order,
 outside the kernel (as the reference keeps it outside Pallas).
 
 Each wrapper takes the kernel's plain version (``kernels/ref.py``) only when
 its input lies on the CPU; on a CUDA tensor it launches the kernel or raises.
 Under autograd every wrapper raises, on the CPU too (``kernels/guard.py``).
 ``gate_up.launches`` / ``up_gelu.launches`` / ``down.launches`` count the
-launches; a call inside a CUDA graph capture records its kernel into the
-graph and launches nothing, so it does not count there but in
-``captured`` (each replay of that graph launches the kernel again).
+launches, and their ``shapes`` the same launches by expert width (d, f); a
+call inside a CUDA graph capture records its kernel into the graph and
+launches nothing, so it does not count there but in ``captured`` (each
+replay of that graph launches the kernel again).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import NamedTuple, Optional
 
@@ -112,26 +116,38 @@ def slot_groups(slot_ids: torch.Tensor, num_slots: int) -> SlotGroups:
         valid=valid.reshape(T, k))
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int):
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+           aligned: bool):
+    """``aligned``: the route reads ``t`` in 16-byte pieces (its pointer
+    must be 16-byte aligned)."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if t.dim() != ndim or not t.is_contiguous():
         raise ValueError(f"{name}: need a contiguous {ndim}-d tensor, got "
                          f"shape {tuple(t.shape)}")
-    if t.data_ptr() % 16:
+    if aligned and t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer is not 16-byte aligned")
+
+
+def _routes(dtype: torch.dtype, K: int, N: int):
+    """Which of a stage's tensors its route reads in 16-byte pieces, for a
+    [K] -> [N] stage (the kernel picks the route from the widths alone, so
+    that each sum's order is a function of d and f): bf16 at K and N
+    multiples of 8 takes the tensor-core body (every tensor), f32 at N a
+    multiple of 4 the FMA body's vector weight loads (the weights); any
+    other width loads element by element.  -> (rows, weights)."""
+    if dtype == torch.bfloat16:
+        tc = K % 8 == 0 and N % 8 == 0
+        return tc, tc
+    return False, N % _VEC[dtype] == 0
 
 
 def _check_call(x: torch.Tensor, g: SlotGroups, *weights: torch.Tensor):
     """What both stages take: float32 or bfloat16 on the input's device,
-    contiguous int32 groups; bf16 also rows of a multiple of 8 elements (the
-    tensor-core body copies 16-byte pieces of them)."""
+    any width, contiguous int32 groups."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"cache_moe kernel takes float32 or bfloat16, "
                         f"not {x.dtype}")
-    if x.dtype == torch.bfloat16 and x.dim() == 2 and x.shape[1] % 8:
-        raise ValueError(f"bf16 rows of {x.shape[1]} elements: need a "
-                         f"multiple of 8")
     for w in weights:
         if w.device != x.device:
             raise ValueError("weights and activations on different devices")
@@ -159,11 +175,12 @@ def gate_up(x: torch.Tensor, g: SlotGroups, wg: torch.Tensor,
         return R.slot_gate_up_ref(x, g.row_tok, wg, wu, g.grp_slot,
                                   g.grp_start, g.grp_count)
     _check_call(x, g, wg, wu)
-    d, f = x.shape[1], wg.shape[2]
-    _check("x", x, x.dtype, 2)
-    _check("wg", wg, x.dtype, 3)
-    _check("wu", wu, x.dtype, 3)
-    if wg.shape[1] != d or wu.shape != wg.shape or f % _VEC[x.dtype]:
+    d, f = x.shape[-1], wg.shape[-1]
+    rows_al, w_al = _routes(x.dtype, d, f)
+    _check("x", x, x.dtype, 2, rows_al)
+    _check("wg", wg, x.dtype, 3, w_al)
+    _check("wu", wu, x.dtype, 3, w_al)
+    if wg.shape[1] != d or wu.shape != wg.shape:
         raise ValueError(f"gate_up shapes: x {tuple(x.shape)}, "
                          f"wg {tuple(wg.shape)}, wu {tuple(wu.shape)}")
     h = torch.zeros((g.row_tok.shape[0], f), dtype=x.dtype, device=x.device)
@@ -179,11 +196,13 @@ def gate_up(x: torch.Tensor, g: SlotGroups, wg: torch.Tensor,
         gate_up.captured += 1
     else:
         gate_up.launches += 1
+        gate_up.shapes[(d, f)] += 1
     return h
 
 
 gate_up.launches = 0
 gate_up.captured = 0
+gate_up.shapes = collections.Counter()
 
 
 def up_gelu(x: torch.Tensor, g: SlotGroups, wu: torch.Tensor) -> torch.Tensor:
@@ -194,10 +213,11 @@ def up_gelu(x: torch.Tensor, g: SlotGroups, wu: torch.Tensor) -> torch.Tensor:
         return R.slot_up_gelu_ref(x, g.row_tok, wu, g.grp_slot, g.grp_start,
                                   g.grp_count)
     _check_call(x, g, wu)
-    d, f = x.shape[1], wu.shape[2]
-    _check("x", x, x.dtype, 2)
-    _check("wu", wu, x.dtype, 3)
-    if wu.shape[1] != d or f % _VEC[x.dtype]:
+    d, f = x.shape[-1], wu.shape[-1]
+    rows_al, w_al = _routes(x.dtype, d, f)
+    _check("x", x, x.dtype, 2, rows_al)
+    _check("wu", wu, x.dtype, 3, w_al)
+    if wu.shape[1] != d:
         raise ValueError(f"up_gelu shapes: x {tuple(x.shape)}, "
                          f"wu {tuple(wu.shape)}")
     h = torch.zeros((g.row_tok.shape[0], f), dtype=x.dtype, device=x.device)
@@ -213,11 +233,13 @@ def up_gelu(x: torch.Tensor, g: SlotGroups, wu: torch.Tensor) -> torch.Tensor:
         up_gelu.captured += 1
     else:
         up_gelu.launches += 1
+        up_gelu.shapes[(d, f)] += 1
     return h
 
 
 up_gelu.launches = 0
 up_gelu.captured = 0
+up_gelu.shapes = collections.Counter()
 
 
 def down(h: torch.Tensor, g: SlotGroups, wd: torch.Tensor) -> torch.Tensor:
@@ -227,10 +249,11 @@ def down(h: torch.Tensor, g: SlotGroups, wd: torch.Tensor) -> torch.Tensor:
     if h.device.type == "cpu":
         return R.slot_down_ref(h, wd, g.grp_slot, g.grp_start, g.grp_count)
     _check_call(h, g, wd)
-    f, d = h.shape[1], wd.shape[2]
-    _check("h", h, h.dtype, 2)
-    _check("wd", wd, h.dtype, 3)
-    if wd.shape[1] != f or d % _VEC[h.dtype]:
+    f, d = h.shape[-1], wd.shape[-1]
+    rows_al, w_al = _routes(h.dtype, f, d)
+    _check("h", h, h.dtype, 2, rows_al)
+    _check("wd", wd, h.dtype, 3, w_al)
+    if wd.shape[1] != f:
         raise ValueError(f"down shapes: h {tuple(h.shape)}, "
                          f"wd {tuple(wd.shape)}")
     y = torch.zeros((h.shape[0], d), dtype=h.dtype, device=h.device)
@@ -246,11 +269,13 @@ def down(h: torch.Tensor, g: SlotGroups, wd: torch.Tensor) -> torch.Tensor:
         down.captured += 1
     else:
         down.launches += 1
+        down.shapes[(d, f)] += 1
     return y
 
 
 down.launches = 0
 down.captured = 0
+down.shapes = collections.Counter()
 
 
 def cache_moe(x: torch.Tensor, slot_ids: torch.Tensor, weights: torch.Tensor,

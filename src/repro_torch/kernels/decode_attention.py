@@ -14,13 +14,16 @@ changed in place.  ``decode_attention.launches`` counts the calls that
 launched the kernel (not those inside a capture, which launch nothing),
 and ``decode_attention.shapes`` the same calls by head shape (H, Hkv, D).
 
-What the kernel takes: float32 or bfloat16, any head dim D that is a
-multiple of 8 from 8 to 256 (``flash_attention.check_head_dim``; it runs in
-the smallest of its instance widths that holds D, zero-filled past D inside
-its own loads), H any multiple of Hkv (more than 16 q heads per kv head run
-as clusters of 16 rows each: granite-20b's 48 : 1 three, falcon-7b's 71 : 1
-five), unit stride over D, k and v 16-byte aligned (pointers and their
-other strides), any S.  The
+What the kernel takes: float32 or bfloat16, any head dim D >= 1
+(``flash_attention.check_head_dim``), H any multiple of Hkv, unit stride
+over D, any S.  A D that is a multiple of 8 from 8 to 256 with k and v
+16-byte aligned (pointers and their other strides; every served shape) runs
+in the TMA instances above, in the smallest of their widths that holds D
+(zero-filled past D inside their own loads; more than 16 q heads per kv
+head run as clusters of 16 rows each: granite-20b's 48 : 1 three,
+falcon-7b's 71 : 1 five); any other D or stride in the CUDA-core instance
+(``csrc/attention_any.cuh``: one block per row, kv head and group of 8 q
+heads walks the live keys, output columns in slices of 128).  The
 lengths stay on the device (nothing here reads them back) and must lie in
 [1, S]; the kernel reads only keys [0, min(length, S)).  The reference's
 ``S % block_k == 0`` assert is a TPU tiling rule and is not carried over.
@@ -39,7 +42,6 @@ from repro_torch.kernels.flash_attention import check_head_dim
 from repro_torch.kernels.guard import refuse_autograd
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -95,11 +97,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: need unit stride over D, got strides "
                              f"{t.stride()}")
-    vec = _VEC[q.dtype]
-    for name, t in (("k", k), ("v", v)):
-        if any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name}: need 16-byte aligned rows, got "
-                             f"strides {t.stride()}")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

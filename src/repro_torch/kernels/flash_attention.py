@@ -6,18 +6,20 @@ and sliding-window masking and GQA, the port of
 (q [B, Sq, H, D], k/v [B, Skv, Hkv, D] -> [B, Sq, H, D]; ``causal``,
 ``window``, ``block_q``, ``block_k``) and its precondition: each sequence
 length must be a multiple of its block, capped at the length.  On a CUDA
-tensor it launches the hand-written kernel ``csrc/flash_attention.cu``
-(bf16: 128 x 128 tiles loaded by TMA into a wgmma pipeline, 128 x 64 at
-D > 128; f32: 64 x 64 tiles on FMA; the kernel tiles itself, the blocks
-only fix the precondition) at any head dim D that is a multiple of 8 from
-8 to 256 (``D_MIN``, ``D_MAX``; it runs in the smallest of its instance
-widths that holds D, zero-filled past D inside its own loads) and any
-number of q heads per kv head; on a CPU tensor it runs the plain version
-``ref.flash_attention_ref`` with the reference's blocks.  A launch or a
-tensor-map encode that fails raises.  ``flash_attention.launches`` counts
-the launches (not a call inside a CUDA graph capture, which launches
-nothing), and ``flash_attention.shapes`` the same launches by head shape
-(H, Hkv, D).
+tensor it launches the hand-written kernel ``csrc/flash_attention.cu`` at
+any head dim D >= 1 and any number of q heads per kv head: a D that is a
+multiple of 8 from 8 to 256 with 16-byte aligned rows (every served shape)
+in its TMA instances (bf16: 128 x 128 tiles loaded by TMA into a wgmma
+pipeline, 128 x 64 at D > 128; f32: 64 x 64 tiles on FMA; each in the
+smallest of its instance widths that holds D, zero-filled past D inside
+its own loads), any other D or stride in its CUDA-core instance
+(``csrc/attention_any.cuh``: element loads, output columns in slices of
+128); the kernel tiles itself, the blocks only fix the precondition.  On a
+CPU tensor it runs the plain version ``ref.flash_attention_ref`` with the
+reference's blocks.  A launch or a tensor-map encode that fails raises.
+``flash_attention.launches`` counts the launches (not a call inside a CUDA
+graph capture, which launches nothing), and ``flash_attention.shapes`` the
+same launches by head shape (H, Hkv, D).
 """
 from __future__ import annotations
 
@@ -33,8 +35,6 @@ from repro_torch.kernels._build import load_library
 from repro_torch.kernels.guard import refuse_autograd
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
-D_MIN, D_MAX, D_STEP = 8, 256, 8      # the head dims the kernel takes
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -55,17 +55,17 @@ def _lib() -> ctypes.CDLL:
 
 def check_head_dim(D: int):
     """Raise ``ValueError`` for a head dim the attention kernels do not
-    take: anything but a multiple of 8 from 8 to 256."""
-    if not (D_MIN <= D <= D_MAX and D % D_STEP == 0):
-        raise ValueError(f"head dim {D}: the attention kernels take a "
-                         f"multiple of {D_STEP} from {D_MIN} to {D_MAX}")
+    take: anything below 1."""
+    if D < 1:
+        raise ValueError(f"head dim {D}: the attention kernels take any "
+                         f"head dim from 1")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """What the kernel takes: float32 or bfloat16 on one card, the same
-    dtype throughout, D a multiple of 8 from 8 to 256 (``check_head_dim``),
-    H a multiple of Hkv, unit stride over
-    D, the other strides and the data pointers 16-byte aligned."""
+    dtype throughout, any D >= 1 (``check_head_dim``), H a multiple of Hkv,
+    unit stride over D (any other strides and pointers: an unaligned one
+    takes the CUDA-core instance)."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
                         f"not {q.dtype}")
@@ -88,13 +88,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
                          f"kv heads")
     if B * H > 65535:
         raise ValueError("too many (batch, head) pairs for one launch")
-    vec = _VEC[q.dtype]
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]):
-            raise ValueError(f"{name}: need unit stride over D and 16-byte "
-                             f"aligned rows, got strides {t.stride()}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: data pointer is not 16-byte aligned")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: need unit stride over D, got strides "
+                             f"{t.stride()}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

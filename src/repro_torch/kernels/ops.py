@@ -20,7 +20,8 @@ from repro_torch.kernels.decode_attention import \
 # Prefill attention, q [B,Sq,H,D], k/v [B,Skv,Hkv,D] -> [B,Sq,H,D]:
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 # Mamba2 chunked SSD scan (every mamba layer's full-sequence path),
-# x [b,s,h,p], dt [b,s,h], A [h], B/C [b,s,n] -> (y, final state [b,h,p,n]):
+# x [b,s,h,p], dt [b,s,h], A [h], B/C [b,s,n], chunk, init_state [b,h,p,n]
+# or None -> (y, final state [b,h,p,n]):
 from repro_torch.kernels.ssd_scan import ssd_scan as ssd  # noqa: F401
 
 

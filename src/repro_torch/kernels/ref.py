@@ -279,7 +279,7 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     before the first token (zeros when omitted)."""
     b, s, h, p = x.shape
     n = B.shape[-1]
-    if s % chunk:
+    if chunk < 1 or s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of the "
                          f"chunk {chunk}")
     nc = s // chunk

@@ -93,7 +93,8 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def mamba_forward(p: Mamba, x: torch.Tensor, cfg: ModelConfig,
-                  with_cache: bool = False, train: bool = False
+                  with_cache: bool = False, train: bool = False,
+                  init_state: Optional[torch.Tensor] = None
                   ) -> Union[torch.Tensor, Tuple[torch.Tensor, Cache]]:
     """x: [B,S,d] -> [B,S,d] (full-sequence SSD).  With ``with_cache`` also
     the decode cache after the sequence: ``{"ssm": final state [B,H,P,N]
@@ -101,6 +102,9 @@ def mamba_forward(p: Mamba, x: torch.Tensor, cfg: ModelConfig,
     same scan.  The scan is ``ops.ssd`` (the kernel on the card), or with
     ``train`` the plain ``ref.ssd_ref``, which autograd differentiates
     (the train route, chosen by the caller's mode, not on failure).
+    ``init_state`` [B,H,P,N] f32 is the SSD state before the first token
+    (zeros when omitted), as in the reference's ``mamba_forward``; the
+    causal conv starts from zeros either way, as there.
 
     The chunk is ``min(ssm_chunk, S)``; a longer S that it does not divide
     is padded at the end with dt = 0, which leaves the state unchanged."""
@@ -122,7 +126,7 @@ def mamba_forward(p: Mamba, x: torch.Tensor, cfg: ModelConfig,
         ins = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in ins]
     xp, dtp, Bp, Cp = (t.contiguous() for t in ins)
     scan = R.ssd_ref if train else ops.ssd
-    y, state = scan(xp, dtp, A, Bp, Cp, chunk)
+    y, state = scan(xp, dtp, A, Bp, Cp, chunk, init_state)
     y = y[:, :S] + xh * p.D[:, None]
     y = y.reshape(Bsz, S, d_in).to(x.dtype)
     y = L.rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)

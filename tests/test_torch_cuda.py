@@ -1,7 +1,10 @@
 """PyTorch port on a card: the hand-written CUDA kernels (expert FFN with
 swiglu and gelu experts, also at deepseek-v2-lite-16b's widths and top-6
 and at phi-3.5-moe's and phi-mini-moe's, flash attention, flash-decode, SSD
-scan) against their plain versions, ``moe_global`` through the expert-FFN
+scan; also past the served shapes: attention at any head dim and from
+unaligned rows, the expert FFN at any width, the SSD scan at any chunk and
+state width and from a given state) against their plain versions, and
+what they still refuse, ``moe_global`` through the expert-FFN
 kernel with no host sync, the offload engine serving through them (mixtral,
 deepseek, and phi with its MoE draft), solo and in
 fused cross-session rounds and under seeded I/O faults, back-to-back
@@ -103,6 +106,8 @@ def test_kernel_matches_plain_and_is_batch_invariant(cuda, dtype, tol):
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
+    """float16 and mismatched shapes raise; any width is taken (d 60: bf16
+    rows of 120 bytes run on the element-load FMA body)."""
     g = K.slot_groups(torch.zeros((2, 2), dtype=torch.int32, device=cuda), 4)
     x = torch.zeros((2, 64), dtype=torch.float16, device=cuda)
     w = torch.zeros((4, 64, 64), dtype=torch.float16, device=cuda)
@@ -112,6 +117,12 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         K.up_gelu(x, g, w)
     with pytest.raises(ValueError):
         K.up_gelu(x.float(), g, w.float()[:, :32])   # wu's d is not x's
+    with pytest.raises(ValueError):                   # wu's d is not x's
+        K.up_gelu(x.float(), g, torch.zeros((4, 32, 64), device=cuda))
+    for dt in (torch.bfloat16, torch.float32):
+        h = K.up_gelu(torch.zeros((2, 60), dtype=dt, device=cuda), g,
+                      torch.zeros((4, 60, 60), dtype=dt, device=cuda))
+        assert h.shape == (4, 60) and not h.any()
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -344,17 +355,64 @@ def test_phi_engine_on_the_card_matches_its_greedy(cuda, slots):
 
 
 def test_ffn_refuses_bf16_rows_it_cannot_copy(cuda):
-    """The tensor-core body copies 16-byte pieces of each row: bf16 rows of
-    d or f elements need d and f to be multiples of 8."""
+    """The tensor-core body (bf16, d and f multiples of 8) copies 16-byte
+    pieces of each row: there a pointer that is not 16-byte aligned raises.
+    Rows of any other width take the element-load body, from any
+    pointer."""
     g = K.slot_groups(torch.zeros((2, 2), dtype=torch.int32, device=cuda), 4)
-    x = torch.zeros((2, 60), dtype=torch.bfloat16, device=cuda)
-    w = torch.zeros((4, 60, 64), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError):
-        K.gate_up(x, g, w, w)
-    h = torch.zeros((4, 60), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError):
-        K.down(h, g, torch.zeros((4, 60, 64), dtype=torch.bfloat16,
-                                 device=cuda))
+    bf = torch.bfloat16
+    xa = torch.zeros((2 * 64 + 4,), dtype=bf, device=cuda)[4:].view(2, 64)
+    w = torch.zeros((4, 64, 64), dtype=bf, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.gate_up(xa, g, w, w)
+    ha = torch.zeros((4 * 64 + 4,), dtype=bf, device=cuda)[4:].view(4, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.down(ha, g, w)
+    xu = torch.zeros((2 * 60 + 2,), dtype=bf, device=cuda)[2:].view(2, 60)
+    wu = torch.randn((4, 60, 68), device=cuda).to(bf)
+    h = K.gate_up(xu, g, wu, wu)
+    want = R.slot_gate_up_ref(xu, g.row_tok, wu, wu, g.grp_slot,
+                              g.grp_start, g.grp_count)
+    assert torch.equal(h, want)                   # zeros in, zeros out
+
+
+@pytest.mark.parametrize("d,f", [(100, 204), (36, 60), (4092, 14332)])
+@pytest.mark.parametrize("T", [5, 512])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_ffn_kernel_matches_plain_at_any_width(cuda, d, f, T, dtype, tol):
+    """bf16 rows that are no whole number of 16 bytes (d 100 / f 204, and
+    mixtral's widths less 4) and f32 rows of odd widths, swiglu through
+    ``cache_moe`` and gelu's up stage, against their plain versions (the
+    served widths' tolerances), and each row of the T-token call equal to
+    the same row alone, bit for bit."""
+    gen = torch.Generator(cuda).manual_seed(4)
+    S = 4 if d > 1024 else 12
+    wg, wu = [(torch.randn((S, d, f), generator=gen, device=cuda)
+               * d ** -0.5).to(dtype) for _ in range(2)]
+    wd = (torch.randn((S, f, d), generator=gen, device=cuda)
+          * f ** -0.5).to(dtype)
+    x = torch.randn((T, d), generator=gen, device=cuda).to(dtype)
+    si = torch.randint(-1, S, (T, 2), generator=gen, device=cuda
+                       ).to(torch.int32)
+    w = torch.rand((T, 2), generator=gen, device=cuda).to(dtype)
+    before = K.gate_up.launches, K.down.launches
+    got = K.cache_moe(x, si, w, wu, wd, wg)
+    assert (K.gate_up.launches, K.down.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = R.cache_moe_ref(x, si, w, wu, wd, wg)
+    scale = want.float().abs().max().item()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+    g = K.slot_groups(si, S)
+    h = K.up_gelu(x, g, wu)
+    h_ref = R.slot_up_gelu_ref(x, g.row_tok, wu, g.grp_slot, g.grp_start,
+                               g.grp_count)
+    scale = h_ref.float().abs().max().item()
+    assert (h.float() - h_ref.float()).abs().max().item() <= tol * scale
+    for t in range(0, T, max(1, T // 5)):
+        one = K.cache_moe(x[t:t + 1], si[t:t + 1], w[t:t + 1], wu, wd, wg)
+        assert torch.equal(one, got[t:t + 1])
 
 
 @pytest.mark.parametrize("H,Hkv,D,S,lengths,splits", [
@@ -382,6 +440,14 @@ def test_ffn_refuses_bf16_rows_it_cannot_copy(cuda):
     (8, 4, 72, 100, (100, 3, 64), 2),          # D 72: runs in 80
     (4, 4, 200, 100, (100, 3, 64), 2),         # D 200: runs in 256
     (4, 4, 8, 40, (40, 1, 17), 1),             # D 8: runs in 16
+    # the CUDA-core instance (one block per row and head group walks the
+    # live keys; its launch shape follows S too)
+    (4, 4, 4, 100, (100, 3, 64), 2),           # D 4
+    (8, 2, 20, 576, (543, 1, 77), 9),          # D 20, 4 : 1
+    (8, 1, 100, 300, (300, 1, 129), 5),        # D 100, 8 : 1
+    (8, 8, 264, 200, (200, 1, 129), 4),        # D 264: three slices
+    (8, 2, 320, 576, (543, 1, 77), 9),         # D 320
+    (8, 1, 512, 200, (200, 1, 129), 4),        # D 512, 8 : 1
 ])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
@@ -454,11 +520,16 @@ def test_decode_kernel_refuses_what_it_does_not_take(cuda):
         DA.decode_attention(q.half(), k.half(), k.half(), lens)
     with pytest.raises(TypeError):
         DA.decode_attention(q, k.bfloat16(), k, lens)
-    for D in (20, 264):                              # head dims refused
-        with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
-            DA.decode_attention(torch.zeros((1, 4, D), device=cuda),
-                                torch.zeros((1, 8, 2, D), device=cuda),
-                                torch.zeros((1, 8, 2, D), device=cuda), lens)
+    with pytest.raises(ValueError, match="any head dim from 1"):
+        DA.decode_attention(torch.zeros((1, 4, 0), device=cuda),
+                            torch.zeros((1, 8, 2, 0), device=cuda),
+                            torch.zeros((1, 8, 2, 0), device=cuda), lens)
+    for D in (20, 264):                              # now taken
+        out = DA.decode_attention(torch.zeros((1, 4, D), device=cuda),
+                                  torch.zeros((1, 8, 2, D), device=cuda),
+                                  torch.zeros((1, 8, 2, D), device=cuda),
+                                  lens)
+        assert out.shape == (1, 4, D) and not out.any()
     with pytest.raises(ValueError):                  # 3 heads over 2
         DA.decode_attention(torch.zeros((1, 3, 16), device=cuda), k, k,
                             lens)
@@ -748,6 +819,58 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, D, window,
     assert bool((err <= tol * scale).all())
 
 
+@pytest.mark.parametrize("D", [4, 20, 100, 264, 320, 512])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("Sq,window", [(256, None), (256, 100),
+                                       (128, None)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_flash_kernel_matches_plain_at_any_head_dim(cuda, D, rep, Sq, window,
+                                                   dtype, tol):
+    """The head dims no TMA instance takes (rows of 8, 40 and 200 bytes,
+    and D past 256: 128-column output slices), which run in the CUDA-core
+    instance, with 1, 4 and 8 q heads per kv head, causal, windowed, and
+    Sq < Skv (256 keys), against the plain version at the reference's
+    blocks of 128, where both round p (the served shapes' tolerance)."""
+    gen = torch.Generator(cuda).manual_seed(D + rep)
+    H, Skv = 8, 256
+    q = torch.randn((1, Sq, H, D), generator=gen, device=cuda).to(dtype)
+    k, v = [torch.randn((1, Skv, H // rep, D), generator=gen, device=cuda
+                        ).to(dtype) for _ in range(2)]
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=True, window=window)
+    assert FA.flash_attention.launches == before + 1
+    want = R.flash_attention_ref(q, k, v, causal=True, window=window)
+    err = (got.float() - want.float()).abs().amax(dim=-1)
+    scale = want.float().abs().amax(dim=-1)
+    assert torch.isfinite(got).all()
+    assert bool((err <= tol * scale).all())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_attention_kernels_take_unaligned_rows(cuda, dtype, tol):
+    """k and v as views one element into wider rows (pointers and strides
+    off 16 bytes) at D 64, a width of the TMA instances: both kernels take
+    them through the CUDA-core instance and match their plain versions."""
+    gen = torch.Generator(cuda).manual_seed(11)
+    D, H, Hkv, S = 64, 8, 2, 256
+    q = torch.randn((1, S, H, D), generator=gen, device=cuda).to(dtype)
+    k, v = [torch.randn((1, S, Hkv, D + 1), generator=gen, device=cuda
+                        ).to(dtype)[..., 1:] for _ in range(2)]
+    assert k.data_ptr() % 16 and k.stride(2) % 8
+    got = FA.flash_attention(q, k, v, causal=True)
+    want = R.flash_attention_ref(q, k, v, causal=True)
+    err = (got.float() - want.float()).abs().amax(dim=-1)
+    assert bool((err <= tol * want.float().abs().amax(dim=-1)).all())
+    lens = torch.tensor([200], dtype=torch.int32, device=cuda)
+    got = DA.decode_attention(q[:, 0], k, v, lens)
+    want = R.decode_attention_ref(q[:, 0], k, v, lens)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=2e-2 if dtype == torch.bfloat16
+                               else 2e-5, rtol=1e-2)
+
+
 def test_fused_round_logits_equal_solo_fast_blocks_on_the_card(cuda):
     """One all-hit fused round (reduced mixtral in bf16, flash-attention
     draft prefill) gives each session the logits of its solo fast block on
@@ -815,6 +938,11 @@ def _ssd_inputs(dev, b, s, h, p, n, dtype, seed=0):
     (1, 384, 5, 64, 64, 128),            # zamba2 widths, carried state
     (1, 2048, 48, 64, 128, 128),         # mamba2-780m: 16 chunks; slow
                                          # heads carry the state across all
+    (1, 512, 48, 64, 128, 256),          # mamba2-780m at Mamba2's chunk
+    (2, 320, 4, 64, 64, 160),            # chunk 160: tiles 128 + 32
+    (1, 262, 4, 64, 64, 131),            # a prime chunk: 128 + 3
+    (1, 384, 4, 64, 160, 128),           # n 160: blocks 128 + 32
+    (1, 512, 4, 64, 256, 256),           # n 256, chunk 256
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
@@ -831,6 +959,39 @@ def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype, tol):
     y_ref, state_ref = R.ssd_ref(x, dt, A, B, C, chunk)
     assert y.dtype == dtype and state.dtype == torch.float32
     for got, want, t in ((y, y_ref, tol), (state, state_ref, 1e-4)):
+        assert torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= t * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("s,h,n,chunk", [(512, 48, 128, 128),
+                                          (512, 48, 128, 256),
+                                          (262, 4, 64, 131),
+                                          (512, 4, 256, 128)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_ssd_kernel_from_a_state_matches_plain(cuda, s, h, n, chunk, dtype,
+                                               tol):
+    """From a given initial state: against ``ref.ssd_ref`` from the same
+    state, and the sequence scanned in two halves, the second from the
+    first's final state, against one scan of the whole (y and state; the
+    served tolerances)."""
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, s, h, 64, n, dtype)
+    init = torch.randn((1, h, 64, n), generator=torch.Generator(
+        cuda).manual_seed(9), device=cuda)
+    y, state = SSD.ssd_scan(x, dt, A, B, C, chunk, init)
+    y_ref, state_ref = R.ssd_ref(x, dt, A, B, C, chunk, init)
+    half = s // 2
+    parts = [[t[:, a:b].contiguous() for t in (x, dt, B, C)]
+             for a, b in ((0, half), (half, s))]
+    c2 = chunk if half % chunk == 0 else half
+    y1, s1 = SSD.ssd_scan(parts[0][0], parts[0][1], A, parts[0][2],
+                          parts[0][3], c2)
+    y2, s2 = SSD.ssd_scan(parts[1][0], parts[1][1], A, parts[1][2],
+                          parts[1][3], c2, s1)
+    yw, sw = SSD.ssd_scan(x, dt, A, B, C, c2)
+    for got, want, t in ((y, y_ref, tol), (state, state_ref, 1e-4),
+                         (torch.cat([y1, y2], 1), yw, tol), (s2, sw, 1e-4)):
         assert torch.isfinite(got).all()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= t * want.float().abs().max().item()
@@ -888,10 +1049,11 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
     x, dt, A, B, C = _ssd_inputs(cuda, 1, 64, 2, 16, 16, torch.float32)
     with pytest.raises(ValueError):
         SSD.ssd_scan(x, dt, A, B, C, 24)              # 64 % 24
-    x2, dt2, A2, B2, C2 = _ssd_inputs(cuda, 1, 256, 2, 16, 16,
-                                      torch.float32)
     with pytest.raises(ValueError):
-        SSD.ssd_scan(x2, dt2, A2, B2, C2, 256)        # chunk > 128
+        SSD.ssd_scan(x, dt, A, B, C, 0)               # chunk 0
+    with pytest.raises(ValueError):                   # a wrong state
+        SSD.ssd_scan(x, dt, A, B, C, 16, torch.zeros((1, 2, 16, 8),
+                                                      device=cuda))
     with pytest.raises(TypeError):
         SSD.ssd_scan(x.half(), dt, A, B.half(), C.half(), 16)
     with pytest.raises(TypeError):
@@ -899,9 +1061,9 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         SSD.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
                      B, C, 16)
-    wide = torch.zeros((1, 64, 256), device=cuda)
-    with pytest.raises(ValueError):
-        SSD.ssd_scan(x, dt, A, wide, wide, 16)       # n > 128
+    wide = torch.zeros((1, 64, 256), device=cuda)     # n 256: taken
+    y, st = SSD.ssd_scan(x, dt, A, wide, wide, 64)
+    assert st.shape == (1, 2, 16, 256) and not y.any() and not st.any()
 
 
 @pytest.mark.parametrize("arch,over", [

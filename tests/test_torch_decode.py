@@ -81,6 +81,12 @@ def _np(t):
     (1, 32, 2, 2, 256, 16),           # gemma-7b's
     (2, 32, 64, 1, 16, 8),            # 64 q heads per kv head
     (1, 32, 71, 1, 64, 16),           # falcon-7b's 71 : 1
+    # head dims no TMA instance takes (the CUDA-core instance on a card):
+    (2, 32, 4, 4, 4, 8),              # bf16 rows of 8 bytes
+    (2, 32, 8, 2, 20, 8),             # 40-byte rows, 4 : 1
+    (1, 32, 8, 1, 100, 16),           # 200-byte rows, 8 : 1
+    (1, 32, 2, 2, 264, 16),           # past 256: three output slices
+    (2, 32, 4, 1, 320, 8),            # past 256, 4 : 1
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_matches_jax_kernel(B, S, H, Hkv, D, bk, dtype):
@@ -107,30 +113,27 @@ def test_ops_decode_routes_cpu_tensors_to_the_plain_version():
 
 def test_decode_wrapper_refuses_what_it_does_not_take():
     """The checks run before the library loads (no card needed).  The
-    kernel takes every head dim that is a multiple of 8 from 8 to 256 and
-    any number of q heads per kv head; D 20 and D 264 raise, naming the
-    limit."""
+    kernel takes every head dim from 1 (D 4, 20, 100, 264, 320 and 512
+    too: the CUDA-core instance), unaligned cache rows and any number of q
+    heads per kv head; D 0, a wrong dtype, a head count that is no multiple
+    of the kv heads and lengths that are not int32 still raise."""
     q, k = torch.zeros((1, 4, 16)), torch.zeros((1, 8, 2, 16))
     lens = torch.ones(1, dtype=torch.int32)
     with pytest.raises(TypeError):
         DA._check(q.half(), k.half(), k.half(), lens)
-    for D in (20, 264, 4):
-        with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
-            DA._check(torch.zeros((1, 4, D)), torch.zeros((1, 8, 2, D)),
-                      torch.zeros((1, 8, 2, D)), lens)
+    with pytest.raises(ValueError, match="any head dim from 1"):
+        DA._check(torch.zeros((1, 4, 0)), torch.zeros((1, 8, 2, 0)),
+                  torch.zeros((1, 8, 2, 0)), lens)
+    for D in (4, 20, 100, 264, 320, 512):
+        DA._check(torch.zeros((1, 4, D)), torch.zeros((1, 8, 2, D)),
+                  torch.zeros((1, 8, 2, D)), lens)
+    ku = torch.zeros((1, 8, 2, 20))[..., 2:18]       # 40-byte rows, offset
+    DA._check(q, ku, ku, lens)
     with pytest.raises(ValueError):                  # 3 heads over 2
         DA._check(torch.zeros((1, 3, 16)), k, k, lens)
     with pytest.raises(ValueError):                  # int64 lengths
         DA._check(q, k, k, lens.long())
     DA._check(q, k, k, lens)
-    # the registered configs' head shapes (zamba2-7b, nemotron, granite),
-    # a padded width, phi-2's, phi-3-mini's, gemma-7b's, 64 and falcon-7b's
-    # 71 q heads per kv head
-    for H, Hkv, D in ((32, 32, 112), (96, 8, 192), (48, 1, 128),
-                      (4, 2, 24), (4, 2, 8), (32, 32, 80), (32, 32, 96),
-                      (16, 16, 256), (64, 1, 16), (71, 1, 64)):
-        kv = torch.zeros((1, 8, Hkv, D))
-        DA._check(torch.zeros((1, H, D)), kv, kv, lens)
 
 
 def _attn_params(d, H, Hkv, hd, seed):

@@ -76,6 +76,12 @@ def _np(t):
     (1, 16, 16, 2, 2, 256, 8, 8),     # gemma-7b's
     (1, 16, 16, 64, 1, 16, 8, 8),     # 64 q heads per kv head
     (1, 16, 16, 71, 1, 64, 8, 8),     # falcon-7b's 71 : 1
+    # head dims no TMA instance takes (the CUDA-core instance on a card):
+    (1, 16, 16, 4, 4, 4, 8, 8),       # bf16 rows of 8 bytes
+    (1, 16, 16, 8, 2, 20, 8, 8),      # 40-byte rows, 4 : 1
+    (1, 16, 16, 8, 1, 100, 8, 8),     # 200-byte rows, 8 : 1
+    (1, 16, 16, 2, 2, 264, 8, 8),     # past 256: three output slices
+    (1, 16, 16, 4, 1, 320, 8, 8),     # past 256, 4 : 1
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_ref_matches_jax_kernel(B, Sq, Skv, H, Hkv, D, bq, bk, dtype):
@@ -134,28 +140,36 @@ def test_block_precondition_is_the_references():
 
 def test_kernel_wrapper_refuses_what_it_does_not_take():
     """The checks run before the library loads (no card needed).  The
-    kernel takes every head dim that is a multiple of 8 from 8 to 256 and
-    any number of q heads per kv head; D 20 and D 264 raise, naming the
-    limit."""
+    kernel takes every head dim from 1 (D 4, 20, 100, 264, 320 and 512
+    too: the CUDA-core instance), any strides with unit stride over D and
+    any number of q heads per kv head; D 0, a wrong dtype, a head count
+    that is no multiple of the kv heads and a strided D still raise."""
     q = torch.zeros((1, 8, 4, 16), dtype=torch.float16)
     with pytest.raises(TypeError):
         FA._check(q, q, q)
-    for D in (20, 264, 4, 0):
-        q = torch.zeros((1, 8, 4, D))
-        with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
-            FA._check(q, q, q)
+    q = torch.zeros((1, 8, 4, 0))
+    with pytest.raises(ValueError, match="any head dim from 1"):
+        FA._check(q, q, q)
     q = torch.zeros((1, 8, 3, 16))
     k = torch.zeros((1, 8, 2, 16))
     with pytest.raises(ValueError):
         FA._check(q, k, k)                       # 3 heads over 2 kv heads
+    q = torch.zeros((1, 8, 4, 32))[..., ::2]
+    with pytest.raises(ValueError, match="unit stride over D"):
+        FA._check(q, q, q)
     # the registered configs' head shapes (zamba2-7b, nemotron, granite),
     # a padded width, phi-2's, phi-3-mini's, gemma-7b's, 64 and falcon-7b's
-    # 71 q heads per kv head
+    # 71 q heads per kv head; then the widths no TMA instance takes, and
+    # rows of a strided (unaligned) view
     for H, Hkv, D in ((32, 32, 112), (96, 8, 192), (48, 1, 128),
                       (4, 4, 24), (4, 4, 8), (32, 32, 80), (32, 32, 96),
-                      (16, 16, 256), (64, 1, 64), (71, 1, 64)):
+                      (16, 16, 256), (64, 1, 64), (71, 1, 64),
+                      (8, 8, 4), (8, 2, 20), (8, 1, 100), (4, 4, 264),
+                      (8, 1, 320), (4, 4, 512), (4, 4, 1)):
         k = torch.zeros((1, 8, Hkv, D))
         FA._check(torch.zeros((1, 8, H, D)), k, k)
+    k = torch.zeros((1, 8, 2, 20))[:, :, :, 2:18]
+    FA._check(torch.zeros((1, 8, 4, 16)), k, k)
 
 
 def _attn_params(d, H, Hkv, hd, seed):

@@ -150,3 +150,70 @@ def test_kernel_rejects_unsupported_dtypes_on_cuda_tensors():
     g = K.slot_groups(torch.zeros((2, 2), dtype=torch.int32), 2)
     with pytest.raises(TypeError):
         K._check_call(x, g)
+
+
+@pytest.mark.parametrize("gated", [True, False])
+def test_cache_moe_matches_jax_kernel_at_any_width(gated):
+    """d 36 and f 60: bf16 rows of 72 and 120 bytes, no whole number of 16
+    (the card's FMA instance with element loads takes them), swiglu and
+    gelu experts, against the JAX Pallas kernel in interpret mode; each
+    stage's plain version as the wrappers route it."""
+    slot_ids = np.random.default_rng(9).integers(-1, 6, (5, 2))
+    a = _inputs(5, 2, 6, 36, 60, 12, slot_ids)
+    wg = a["wg"] if gated else None
+    want = np.asarray(jax_cache_moe(
+        jnp.asarray(a["x"]), jnp.asarray(a["slot_ids"]),
+        jnp.asarray(a["weights"]), jnp.asarray(a["wu"]),
+        jnp.asarray(a["wd"]), None if wg is None else jnp.asarray(wg),
+        interpret=True))
+    t = _torch(a)
+    wg_t = t["wg"] if gated else None
+    got = K.cache_moe(t["x"], t["slot_ids"], t["weights"], t["wu"], t["wd"],
+                      wg_t)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+    g = K.slot_groups(t["slot_ids"], 6)
+    h = K.gate_up(t["x"], g, wg_t, t["wu"]) if gated \
+        else K.up_gelu(t["x"], g, t["wu"])
+    assert h.shape == (10, 60) and K.down(h, g, t["wd"]).shape == (10, 36)
+
+
+def test_moe_gemm_matches_the_reference_at_any_width():
+    """``ops.moe_gemm`` at d 36, f 60 against the reference's
+    ``ops.moe_gemm`` in interpret mode."""
+    from repro.kernels import ops as jax_ops
+    rng = np.random.default_rng(13)
+    E, C, d, f = 3, 8, 36, 60
+    xg, wg, wu = (rng.standard_normal(s).astype(np.float32) * 0.3
+                  for s in ((E, C, d), (E, d, f), (E, d, f)))
+    wd = rng.standard_normal((E, f, d)).astype(np.float32) * 0.3
+    valid = rng.random((E, C)) < 0.7
+    want = jax_ops.moe_gemm(*(jnp.asarray(a) for a in (xg, wg, wu, wd,
+                                                      valid)),
+                            impl="interpret")
+    got = ops.moe_gemm(*(torch.from_numpy(a) for a in (xg, wg, wu, wd,
+                                                     valid)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+
+
+def test_wrappers_take_any_width_and_ask_alignment_only_of_their_route():
+    """The checks run before the library loads (no card needed): bf16 at
+    d 36 / f 60 passes from an offset (unaligned) row; at d and f multiples
+    of 8 (the tensor-core body's 16-byte pieces) an unaligned pointer
+    raises."""
+    g = K.slot_groups(torch.zeros((2, 2), dtype=torch.int32), 2)
+    bf = torch.bfloat16
+    x = torch.zeros((3, 36), dtype=bf)[1:]            # 72 bytes in
+    w = torch.zeros((2, 36, 60), dtype=bf)
+    for name, t, ndim, (rows, wts) in (
+            ("x", x, 2, K._routes(bf, 36, 60)),
+            ("wu", w, 3, K._routes(bf, 36, 60))):
+        assert not rows and not wts
+        K._check(name, t, bf, ndim, rows if ndim == 2 else wts)
+    assert K._routes(bf, 32, 64) == (True, True)
+    assert K._routes(torch.float32, 36, 60) == (False, True)
+    assert K._routes(torch.float32, 36, 62) == (False, False)
+    xa = torch.zeros((2 * 32 + 4,), dtype=bf)[4:].view(2, 32)   # 8 bytes in
+    with pytest.raises(ValueError, match="16-byte"):
+        K._check("x", xa, bf, 2, True)
+    K._check("x", xa, bf, 2, False)

@@ -104,6 +104,34 @@ def test_mamba_block_forward_and_prefill_cache_match_jax(block):
     _close(cache["conv"], jcache["conv"])
 
 
+@pytest.mark.parametrize("S,chunk", [(21, 16), (48, 48), (40, 8)])
+def test_mamba_block_forward_from_a_state_matches_jax(block, S, chunk):
+    """``mamba_forward(init_state=...)`` against the reference's, f32 at
+    1e-5: a ragged length padded to the chunk, one whole chunk, several;
+    the train route (the plain scan) gives the same."""
+    import dataclasses
+    cfg, jp, mod = block
+    cfg = dataclasses.replace(cfg, ssm_chunk=chunk)
+    jcfg = dataclasses.replace(
+        jax_config("mamba2-780m").reduced(dtype="float32"), ssm_chunk=chunk)
+    rng = np.random.default_rng(S)
+    x = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    _, H, N, _ = M.dims(cfg)
+    st = rng.standard_normal((2, H, cfg.ssm_head_dim, N)).astype(np.float32)
+    want = jax_mamba_forward(jp, jnp.asarray(x), jcfg, jnp.asarray(st))
+    got = M.mamba_forward(mod, torch.from_numpy(x), cfg,
+                          init_state=torch.from_numpy(st))
+    _close(got, want, atol=1e-5)
+    got_train = M.mamba_forward(mod, torch.from_numpy(x), cfg, train=True,
+                                init_state=torch.from_numpy(st))
+    _close(got_train, want, atol=1e-5)
+    # and a zero state is no state
+    zero = M.mamba_forward(mod, torch.from_numpy(x), cfg,
+                           init_state=torch.zeros(st.shape))
+    torch.testing.assert_close(zero, M.mamba_forward(
+        mod, torch.from_numpy(x), cfg), atol=0, rtol=0)
+
+
 def test_mamba_block_decode_matches_jax(block):
     cfg, jp, mod = block
     jcfg = jax_config("mamba2-780m").reduced(dtype="float32")

@@ -156,3 +156,90 @@ def test_plain_version_refuses_a_length_the_chunk_does_not_divide():
     ins = _torch(_inputs(1, 30, 2, 8, 4)[:5])
     with pytest.raises(ValueError):
         R.ssd_ref(*ins, 8)
+
+
+# chunks and state widths past the kernel's 128-row tile and 128-column
+# block (it scans a chunk past 128 in 128-row tiles with a ragged last one,
+# and a state past 128 in 128-column blocks): Mamba2's published chunk 256,
+# 160 (tiles 128 + 32), a prime 131 (128 + 3), and n 160 and 256.
+WIDE = [(1, 512, 2, 8, 16, 256), (2, 320, 2, 8, 16, 160),
+        (1, 262, 2, 8, 4, 131), (1, 256, 2, 8, 160, 128),
+        (1, 256, 2, 8, 256, 64)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", WIDE)
+def test_ssd_ref_matches_jax_at_any_chunk_and_state_width(b, s, h, p, n,
+                                                          chunk):
+    """y and state against the reference's ``ssd_ref``, y against its
+    Pallas kernel in interpret mode, from zero and from an initial
+    state."""
+    x, dt, A, B, C, st = _inputs(b, s, h, p, n, seed=6, init=True)
+    ins = [x, dt, A, B, C]
+    ky = jax_ssd_scan(*_jax(ins), chunk, interpret=True)
+    for init in (None, st):
+        jy, jst = jax_ssd_ref(*_jax(ins), chunk, *_jax([init]))
+        ty, tst = SSD.ssd_scan(*_torch(ins), chunk, *_torch([init]))
+        assert tst.shape == (b, h, p, n)
+        _close(ty, jy)
+        _close(tst, jst)
+    _close(R.ssd_ref(*_torch(ins), chunk)[0], ky)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", WIDE)
+def test_the_chunk_moves_the_result_only_by_rounding(b, s, h, p, n, chunk):
+    """What lets the kernel scan in tiles of its own: the scan at the
+    caller's chunk against the same scan in chunks of 1 (f32, the served
+    widths' tolerance)."""
+    x, dt, A, B, C, st = _inputs(b, s, h, p, n, seed=7, init=True)
+    ins = _torch([x, dt, A, B, C])
+    init = torch.from_numpy(st)
+    y, s_end = R.ssd_ref(*ins, chunk, init)
+    y1, s1 = R.ssd_ref(*ins, 1, init)
+    torch.testing.assert_close(y, y1, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(s_end, s1, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("chunk", [128, 256, 131])
+def test_ssd_scan_from_a_state_matches_the_reference(chunk):
+    """``ssd_scan(..., init_state=)`` (the CPU route) against the
+    reference's ``ssd_ref`` from the same state, f32 at 1e-5; and the two
+    halves of a sequence, the second from the first's final state, against
+    one scan of the whole."""
+    s = 2 * chunk
+    x, dt, A, B, C, st = _inputs(1, s, 2, 8, 16, seed=8, init=True)
+    dt = dt * 0.05                      # states that carry across chunks
+    ins = [x, dt, A, B, C]
+    jy, jst = jax_ssd_ref(*_jax(ins), chunk, jnp.asarray(st))
+    ty, tst = ops.ssd(*_torch(ins), chunk, torch.from_numpy(st))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(tst.numpy(), np.asarray(jst), atol=1e-5,
+                               rtol=1e-5)
+    first = [a[:, :chunk] if a.ndim > 1 else a for a in ins]
+    second = [a[:, chunk:] if a.ndim > 1 else a for a in ins]
+    y1, s1 = ops.ssd(*_torch(first), chunk)
+    y2, s2 = ops.ssd(*_torch(second), chunk, s1)
+    yw, sw = ops.ssd(*_torch(ins), chunk)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), yw, **TOL)
+    torch.testing.assert_close(s2, sw, **TOL)
+
+
+def test_kernel_wrapper_takes_any_chunk_and_width_and_refuses_the_rest():
+    """The checks run before the library loads (no card needed): any chunk
+    that divides s, any n and a [b, h, p, n] f32 initial state pass; a
+    chunk that does not divide s, chunk 0, a wrong initial state or dtype
+    raise."""
+    ins = _torch(_inputs(1, 262, 2, 8, 256)[:5])
+    for chunk in (1, 2, 131, 262):
+        SSD._check(*ins, chunk, None)
+    SSD._check(*ins, 131, torch.zeros((1, 2, 8, 256)))
+    for chunk in (0, 128, 256):
+        with pytest.raises(ValueError):
+            SSD._check(*ins, chunk, None)
+    with pytest.raises(ValueError):
+        SSD._check(*ins, 131, torch.zeros((1, 2, 8, 255)))
+    with pytest.raises(TypeError):
+        SSD._check(*ins, 131, torch.zeros((1, 2, 8, 256),
+                                          dtype=torch.float64))
+    with pytest.raises(TypeError):
+        SSD._check(ins[0].double(), *ins[1:], 131, None)

@@ -13,7 +13,10 @@ reversed versions.  The inputs are drawn as ``chip_smoke.py`` draws them (dt
 log-uniform in [1e-3, 1e-1], A = -(1..h)).  A version without
 ``ssd_scan_interface`` (whose entry point takes a [b, S/Q, Q, Q] C B^T
 scratch instead of the tree's scratch buffers) is called through a
-shim that allocates that scratch on every call, as its own wrapper did.  For
+shim that allocates that scratch on every call, as its own wrapper did; a
+version of interface 2 (no initial state, chunks of at most 128 rows, no
+``ssd_scan_tile``) through a shim that drops the initial state, which
+these calls leave at zero.  For
 each it prints the event time per call (which the host's issue time can
 set), the device time of the call's kernels and their count per call from
 ``torch.profiler``, and the largest difference of y and of the final state
@@ -54,19 +57,50 @@ class CbShim:
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         self.ssd_scan_error_string = lib.ssd_scan_error_string
 
-    def ssd_scan_fwd(self, code, x, dt, A, B, C, states, cum, y, state, b, s,
-                     h, p, n, q, stream):
+    @staticmethod
+    def ssd_scan_tile(chunk):
+        return chunk
+
+    def ssd_scan_fwd(self, code, x, dt, A, B, C, init, states, cum, y,
+                     state, b, s, h, p, n, q, stream):
         import torch
+        assert init is None
         cb = torch.empty((b, s // q, q, q), dtype=torch.float32,
                          device="cuda")
         return self.lib.ssd_scan_fwd(code, x, dt, A, B, C, cb.data_ptr(), y,
                                      state, b, s, h, p, n, q, stream)
 
 
+class InitShim:
+    """The tree's interface over a version of interface 2, whose entry
+    point takes no initial state and whose tile is the chunk."""
+
+    _repro_bound = True
+
+    def __init__(self, lib: ctypes.CDLL):
+        self.lib = lib
+        lib.ssd_scan_fwd.argtypes = [_I] + [_P] * 9 + [_I] * 6 + [_P]
+        lib.ssd_scan_fwd.restype = _I
+        lib.ssd_scan_error_string.argtypes = [_I]
+        lib.ssd_scan_error_string.restype = ctypes.c_char_p
+        self.ssd_scan_error_string = lib.ssd_scan_error_string
+
+    @staticmethod
+    def ssd_scan_tile(chunk):
+        return chunk
+
+    def ssd_scan_fwd(self, code, x, dt, A, B, C, init, *rest):
+        assert init is None
+        return self.lib.ssd_scan_fwd(code, x, dt, A, B, C, *rest)
+
+
 def bind(lib: ctypes.CDLL, tree_lib: ctypes.CDLL):
     if not hasattr(lib, "ssd_scan_interface"):
         return CbShim(lib)
-    for name in ("ssd_scan_fwd", "ssd_scan_error_string"):
+    lib.ssd_scan_interface.restype = _I
+    if lib.ssd_scan_interface() == 2:
+        return InitShim(lib)
+    for name in ("ssd_scan_fwd", "ssd_scan_error_string", "ssd_scan_tile"):
         fn = getattr(lib, name)
         fn.argtypes = getattr(tree_lib, name).argtypes
         fn.restype = getattr(tree_lib, name).restype
