@@ -65,16 +65,20 @@ Phases (each raises on failure):
      phi-2's 32 / 32 x 80, phi-3-mini's 32 / 32 x 96, gemma-7b's 16 / 16 x
      256, falcon-7b's 71 / 1 x 64 (flash-decode only) and 32 / 8 x 40, a
      width padded in the kernels' loads), flash timed at S 512 and
-     flash-decode at 543 of 576; the attention kernels' CUDA-core instance
-     at head dims 4, 20, 100, 264, 320 and 512 with 1, 4 and 8 q heads per
-     kv head (flash at S 256, causal and with a 100 window; flash-decode
-     at 543 / 1 / 77 of 576 keys and three mixed rows), timed at 32 / 8
-     heads; the SSD scan also at mamba2's widths at chunk 256 (S 512 and
+     flash-decode at 543 of 576; attention at head dims 4, 20, 100, 264,
+     320 and 512 (bf16 flash on wgmma: narrow copies up to 256, the wide
+     instance past it; f32 flash and flash-decode in the CUDA-core
+     instance) with 1, 4 and 8 q heads per kv head (flash at S 256, causal
+     and with a 100 window; flash-decode at 543 / 1 / 77 of 576 keys and
+     three mixed rows), timed at 32 / 8 heads, and flash on unaligned
+     views at D 64 and 128 (bit for bit the aligned call); the SSD scan also at mamba2's widths at chunk 256 (S 512 and
      300), chunks 160 and 131 and states of 160 and 256 columns, and from a
      given state (two halves, the second from the first's final state,
      against the whole), each timed; the expert FFN also at widths whose
      bf16 rows are no whole number of 16 bytes (d 100 / f 204 and d 4092 /
-     f 14332, swiglu, and gelu's up stage at the first); head dim 0 and a
+     f 14332, swiglu, and gelu's up stage at the first: the tensor-core
+     body's narrow copies, the instance each ran in the kernels line); head
+     dim 0 and a
      chunk that does not divide S must raise
   3. solo serving with a tight cache (12 slots): misses, prefetches,
      evictions
@@ -361,9 +365,12 @@ EXTRA_SHAPES = (("phi-2", 32, 32, 80), ("phi-3-mini", 32, 32, 96),
                 ("gemma-7b", 16, 16, 256), ("falcon-7b", 71, 1, 64),
                 ("padded-40", 32, 8, 40))
 FA_EXTRA = tuple(x for x in EXTRA_SHAPES if x[0] != "falcon-7b")
-# head dims no TMA instance takes, which run in the attention kernels'
-# CUDA-core instance (csrc/attention_any.cuh): rows TMA cannot load (bf16
-# rows of 8, 40 and 200 bytes) and D past 256 (128-column output slices).
+# head dims no TMA instance takes: rows TMA cannot load (bf16 rows of 8, 40
+# and 200 bytes) and D past 256 (128-column output slices).  bf16 flash
+# runs them on wgmma (the TMA instance's kernel with narrow copies, and the
+# wide instance past 256; the kernels line names the instance that ran),
+# f32 flash and flash-decode in the CUDA-core instance
+# (csrc/attention_any.cuh).
 # Each with ANY_REPS q heads per kv head (8 q heads), causal and with an
 # ANY_WINDOW window (flash at S ANY_S; flash-decode at 543, 1 and 77 of 576
 # keys), bf16 and f32, against the plain versions at the served shapes'
@@ -430,7 +437,8 @@ SSM_PROMPTS, SSM_NEW = (512, 512, 300), 32            # phase 7
 # margin of the teacher-forced logits within SSM_MARGIN).
 SSM_CHUNK = 256
 # the expert FFN at widths whose bf16 rows are no whole number of 16 bytes
-# (the element-load FMA body): d 100 / f 204, and mixtral's widths less 4
+# (the tensor-core body's narrow copies; f32 on the FMA body): d 100 /
+# f 204, and mixtral's widths less 4
 # (d 4092, f 14332), swiglu experts (gate_up, down) at both and gelu
 # experts' up stage at the first; checked at T 1 / 5 / 64 / 512 in bf16
 # and f32 with the batch-invariance check, timed (bf16) at T 5 and T 512.
@@ -734,19 +742,59 @@ def traced_ms(fn, iters: int = 50, what: str = "a call") -> float:
     return traced(fn, iters, what)[0]
 
 
+def kernel_name(name: str, full: bool = False) -> str:
+    """A device kernel's name as the profiler gives it, without its
+    parameter list and namespaces: with ``full`` its template arguments
+    kept (which instance ran), else its base name."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    name = name.split("(")[0]
+    return name if full else name.split("<")[0].split("::")[-1]
+
+
 def kernel_device_ms(fn, prefix: str, iters: int = 10) -> float:
     """Device time per call of ``fn``'s kernels whose names start with
     ``prefix`` (one kernel of several that a call launches), from
     ``torch.profiler``; where it saw no device activity, ``fn``'s
     CUDA-event time (``fall_back``)."""
-    spans = device_spans(
-        fn, iters, lambda name: name.split("<")[0].split("::")[-1]
-        .split("(")[0].removeprefix("void ").startswith(prefix))
+    spans = device_spans(fn, iters,
+                         lambda name: kernel_name(name).startswith(prefix))
     if not spans:
         if not _PROFILER_COLD[0]:
             raise AssertionError(f"the profiler saw no {prefix} kernel")
         return fall_back(fn, iters, prefix)
     return sum(spans) / len(spans) / 1e3          # one such kernel a call
+
+
+def kernel_instances(fn, prefix: str, iters: int = 3):
+    """The full names (``kernel_name(..., full=True)``: which instance
+    ran) of ``fn``'s device kernels whose base names start with
+    ``prefix``, from one profiler window; ``None`` where the profiler saw
+    no device activity at all."""
+    spans = device_spans(fn, iters, keep=None, tries=2)
+    if not spans:
+        return None
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sorted({kernel_name(e.name, full=True) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and kernel_name(e.name).startswith(prefix)})
+
+
+def require_instance(names, pattern: str, what: str):
+    """Fail unless the instances the profiler saw (``kernel_instances``)
+    are all of ``pattern``: the route a call was meant to take.  A blind
+    profiler (``None``) is noted in ``PROFILER_FALLBACKS``."""
+    if names is None:
+        PROFILER_FALLBACKS.append({"what": f"instance of {what}",
+                                   "event_ms": None})
+        return
+    if not names or not all(re.search(pattern, n) for n in names):
+        raise AssertionError(f"{what} ran {names}, not {pattern}")
 
 
 # ---------------------------------------------------------------------------
@@ -909,7 +957,9 @@ def time_kernels(m, d: int, f: int, gelu: bool = False):
     for name, kern, plain, lib, nbytes, flops in cases:
         t_bytes = nbytes / HBM_BYTES_S * 1e3
         t_ops = flops / BF16_FLOPS * 1e3
-        out[name] = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+        out[name] = {"instances": kernel_instances(kern, "slot_ffn")
+                     if (d, f) in FFN_ANY else None,
+                     "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
                      "library_ms": cuda_ms(lib),
                      "device_ms": kernel_device_ms(kern, "slot_ffn"),
                      "library_device_ms": traced_ms(
@@ -940,9 +990,11 @@ def flash_phase(dev):
     mixtral draft's prefill (32 / 8 heads) and the llama3.2-3b draft's (24 /
     8), and at the head shapes of FA_SHAPES (zamba2-7b's D 112, nemotron's
     D 192, granite's 48 : 1, whisper-medium's 16 / 16 x 64, also at its
-    served prefill's S 128), and at every head dim of ANY_HEAD_DIMS (the
-    CUDA-core instance) with each of ANY_REPS q heads per kv head, causal
-    and windowed, bf16 and f32; timed (bf16) at S 512 and 2048 (32 heads),
+    served prefill's S 128), and at every head dim of ANY_HEAD_DIMS (bf16:
+    the narrow copies and the wide instance; f32: the CUDA-core instance)
+    with each of ANY_REPS q heads per kv head, causal and windowed, bf16
+    and f32, and on unaligned views (the narrow copies against the TMA
+    route, bit for bit); timed (bf16) at S 512 and 2048 (32 heads),
     S 512 (24 heads), S 512 of each FA_SHAPES model and of each
     ANY_HEAD_DIMS width (32 / 8 heads) and S 128 of whisper-medium: event
     time, and device time from the profiler for the kernel, the plain
@@ -1017,7 +1069,9 @@ def flash_phase(dev):
                 # times only (the script's time)
                 served = D not in ANY_HEAD_DIMS
                 timing[key] = {
-                    "H": H, "Hkv": Hkv, "D": D, "ms": cuda_ms(kern),
+                    "H": H, "Hkv": Hkv, "D": D,
+                    "instances": kernel_instances(kern, "flash_fwd"),
+                    "ms": cuda_ms(kern),
                     "plain_ms": cuda_ms(plain, iters=2),
                     "library_ms": cuda_ms(sdpa),
                     "device_ms": dev_ms,
@@ -1026,6 +1080,29 @@ def flash_phase(dev):
                     "library_device_ms": traced_ms(sdpa) if served else None,
                     "bound_ms": bound, "bound_by": by, "max_abs_err": err}
             del q, k, v, got, want
+    # unaligned views (bf16, 32 / 8 heads, S 512, causal): q, k and v one
+    # element into wider rows (strides and pointers off 16 bytes) take the
+    # narrow copies of the TMA instance at D 64 and 128, and give the
+    # aligned call's bits
+    for D in (64, 128):
+        q, k, v = [torch.randn((1, 512, h, D + 1), generator=gen,
+                               device=dev).bfloat16()[..., 1:]
+                   for h in (FA_HEADS, FA_KV_HEADS, FA_KV_HEADS)]
+        got = FA.flash_attention(q, k, v)
+        same = torch.equal(got, FA.flash_attention(
+            *(t.contiguous() for t in (q, k, v))))
+        names = kernel_instances(lambda: FA.flash_attention(q, k, v),
+                                 "flash_fwd")
+        require_instance(names, rf"^flash_fwd_wgmma<{D}, true>$",
+                         f"flash on unaligned views at D {D}")
+        rows.append({"kernel": "flash_attention", "check": "unaligned_views",
+                     "route": FA.route(q, k, v), "instances": names,
+                     "dtype": "bfloat16", "S": 512, "D": D,
+                     "equal_to_aligned": same, "ok": same})
+        if not same:
+            raise AssertionError(f"flash on unaligned views at D {D} differs "
+                                 f"from the aligned call")
+        del q, k, v, got
     q = torch.zeros((1, 128, 4, 0), dtype=torch.bfloat16, device=dev)
     try:
         FA.flash_attention(q, q, q)
@@ -2476,6 +2553,43 @@ def gelu_phase(dev):
     return info
 
 
+def traced_request(eng, kind: str, prompt, new: int, path: str, kernels,
+                   check, tries: int = 3):
+    """Serve one request of ``new`` tokens on ``eng`` under a trace and
+    count its kernels (``read_launches``); ``check(res, launches, builds)``
+    raises where the counts are wrong, ``builds`` being the graphs of key
+    ``kind`` captured meanwhile.  The profiler's trace of a long path can
+    lose records (PERF.md §7: one of six granite-20b sd traces held 34 642
+    of its 418 369 device activities), so a request whose count fails is
+    served and traced again, at most ``tries`` times in all, and must give
+    the same tokens; its last failure raises.  Returns the result, the
+    counts and the traced wall seconds."""
+    import torch
+    from repro_torch.core.engine import Request
+    first = None
+    for attempt in range(1, tries + 1):
+        builds = eng.graphs.builds[kind]
+        reset_launches()
+        t0 = time.perf_counter()
+        res = eng.submit(Request(prompt=prompt, max_new_tokens=new,
+                                 request_id=path.replace(" ", "-")))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if first is not None and res.tokens != first:
+            raise AssertionError(f"{path}: traced again, {res.tokens} and "
+                                 f"not {first}")
+        first = res.tokens
+        try:
+            launches = read_launches(path, kernels)
+            check(res, launches, eng.graphs.builds[kind] - builds)
+            return res, launches, wall
+        except AssertionError as e:
+            if attempt == tries:
+                raise
+            log(f"{path}: {e} (trace {attempt} of {tries}); serving and "
+                f"tracing the request again")
+
+
 @contextlib.contextmanager
 def attention_shapes():
     """Record the (kernel, q heads, kv heads, head dim) of every call of
@@ -2544,25 +2658,48 @@ def dense_phase(dev, arch: str = "llama3.2-3b", layers=None,
     sd = Engine(EngineConfig(model=cfg, draft=dcfg, decode="sd",
                              draft_len=4, max_seq=DENSE_MAX_SEQ),
                 target, draft)
+    # one kernel per layer per one-token step, as the traces count them:
+    # the target's steps (greedy) and the draft's (sd; a step after a draft
+    # block accepted whole skips a position and takes the masked route).
+    # Every step is a replay of a captured step, which runs the kernels
+    # without their wrappers; each build's eager warm-up runs them once
+    # more, through the wrappers.  Flash: one prefill of the target (and
+    # in sd of the draft) a request
+    def greedy_counts(res, n, builds):
+        dec = n["decode_attention"]
+        if dec != cfg.num_layers * (DENSE_NEW - 1 + builds):
+            raise AssertionError(f"{arch} greedy: {dec} flash-decode "
+                                 f"launches, expected {cfg.num_layers} × "
+                                 f"{DENSE_NEW - 1 + builds}")
+        if dec - n["host"]["decode_attention"] != \
+                cfg.num_layers * (DENSE_NEW - 1):
+            raise AssertionError(f"{arch} greedy: the replays ran "
+                                 f"{dec - n['host']['decode_attention']} "
+                                 f"flash-decode kernels, not one per layer "
+                                 f"per step")
+        if n["flash_attention"] != cfg.num_layers:
+            raise AssertionError(f"{arch} greedy: {n['flash_attention']} "
+                                 f"flash launches, not {cfg.num_layers}")
+
+    def sd_counts(res, n, builds):
+        dec, drafted = n["decode_attention"], res.metrics.drafted
+        steps = drafted + 4 * builds
+        if not 0 < dec <= dcfg.num_layers * steps or dec % dcfg.num_layers:
+            raise AssertionError(f"{arch} sd: {dec} flash-decode launches "
+                                 f"for {drafted} draft steps of "
+                                 f"{dcfg.num_layers} layers")
+        if n["flash_attention"] != cfg.num_layers + dcfg.num_layers:
+            raise AssertionError(f"{arch} sd: {n['flash_attention']} flash "
+                                 f"launches, not {cfg.num_layers} + "
+                                 f"{dcfg.num_layers} (the two prefills)")
+
     with attention_shapes() as shapes:
-        reset_launches()
-        t0 = time.perf_counter()
-        res_g = greedy.submit(Request(prompt=prompts[0],
-                                      max_new_tokens=DENSE_NEW,
-                                      request_id=f"{arch}-greedy"))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        g_launches = read_launches(f"{arch} greedy",
-                                   ("flash_attention", "decode_attention"))
-        reset_launches()
-        t1s = time.perf_counter()
-        res_s = sd.submit(Request(prompt=prompts[1],
-                                  max_new_tokens=DENSE_NEW,
-                                  request_id=f"{arch}-sd"))
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        s_launches = read_launches(f"{arch} sd",
-                                   ("flash_attention", "decode_attention"))
+        res_g, g_launches, g_wall = traced_request(
+            greedy, "greedy", prompts[0], DENSE_NEW, f"{arch} greedy",
+            ("flash_attention", "decode_attention"), greedy_counts)
+        res_s, s_launches, s_wall = traced_request(
+            sd, "sd", prompts[1], DENSE_NEW, f"{arch} sd",
+            ("flash_attention", "decode_attention"), sd_counts)
     # the same two requests again, untraced: TPOT as served (traced, a
     # replay runs 1.8-4.9x slower), and the same tokens
     again = [eng.submit(Request(prompt=p, max_new_tokens=DENSE_NEW))
@@ -2585,35 +2722,10 @@ def dense_phase(dev, arch: str = "llama3.2-3b", layers=None,
             raise AssertionError(f"{res.request_id}: ended "
                                  f"{res.finish_reason} after "
                                  f"{len(res.tokens)} tokens")
-    # one kernel per layer per one-token step, as the traces count them:
-    # the target's steps (greedy) and the draft's (sd; a step after a draft
-    # block accepted whole skips a position and takes the masked route).
-    # Every step is a replay of a captured step, which runs the kernels
-    # without their wrappers; each build's eager warm-up runs them once
-    # more, through the wrappers
     g_dec = g_launches["decode_attention"]
     s_dec = s_launches["decode_attention"]
-    g_steps = DENSE_NEW - 1 + greedy.graphs.builds["greedy"]
-    if g_dec != cfg.num_layers * g_steps:
-        raise AssertionError(f"{arch} greedy: {g_dec} flash-decode "
-                             f"launches, expected "
-                             f"{cfg.num_layers * g_steps}")
     g_replayed = g_dec - g_launches["host"]["decode_attention"]
-    if g_replayed != cfg.num_layers * (DENSE_NEW - 1):
-        raise AssertionError(f"{arch} greedy: the replays ran {g_replayed} "
-                             f"flash-decode kernels, not one per layer per "
-                             f"step")
     drafted = res_s.metrics.drafted
-    s_steps = drafted + 4 * sd.graphs.builds["sd"]
-    if not 0 < s_dec <= dcfg.num_layers * s_steps or s_dec % dcfg.num_layers:
-        raise AssertionError(f"{arch} sd: {s_dec} flash-decode launches for "
-                             f"{drafted} draft steps of {dcfg.num_layers} "
-                             f"layers")
-    want_flash = 2 * cfg.num_layers + dcfg.num_layers
-    if launches["flash_attention"] != want_flash:
-        raise AssertionError(f"{arch}: {launches['flash_attention']} flash "
-                             f"launches, expected {want_flash} (the two "
-                             f"target prefills and the draft's)")
     p0 = prompts[0].to(dev)
     _, cache = target.prefill(p0, DENSE_MAX_SEQ)
     tok = p0[:, -1:]
@@ -2640,13 +2752,13 @@ def dense_phase(dev, arch: str = "llama3.2-3b", layers=None,
             "params": sum(t.numel() for t in target.parameters()),
             "draft_params": sum(t.numel() for t in draft.parameters()),
             "model_init_s": init_s,
-            "greedy": {"wall_s": t1 - t0, "tpot_wall_s":
+            "greedy": {"wall_s": g_wall, "tpot_wall_s":
                        res_g.metrics.tpot_wall,
                        "tpot_wall_s_untraced": again[0].metrics.tpot_wall,
                        "decode_attention_launches": g_dec,
                        "decode_attention_replayed": g_replayed,
                        "host_launches": g_launches["host"]},
-            "sd": {"wall_s": t2 - t1s, "tpot_wall_s": res_s.metrics.tpot_wall,
+            "sd": {"wall_s": s_wall, "tpot_wall_s": res_s.metrics.tpot_wall,
                    "tpot_wall_s_untraced": again[1].metrics.tpot_wall,
                    "iterations": res_s.metrics.iterations,
                    "drafted": drafted, "accepted": res_s.metrics.accepted,
@@ -5013,8 +5125,8 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], "device_ms": t["device_ms"],
                 "library_device_ms": t["library_device_ms"]})
-    # the attention kernels' CUDA-core instance at ANY_HEAD_DIMS (32 / 8
-    # heads; flash at S 512, flash-decode at 543 of 576 keys); launches:
+    # attention at ANY_HEAD_DIMS (32 / 8 heads; flash at S 512 on wgmma,
+    # flash-decode at 543 of 576 keys in the CUDA-core instance); launches:
     # the wrapper's at that head shape over every main path of this run
     H, Hkv = ANY_TIMED
     for D in ANY_HEAD_DIMS:
@@ -5023,10 +5135,19 @@ def main() -> int:
                  "flash_attention.cu", "flash_attention.py:27"),
                 ("decode_attention", dec_timing[f"D{D}"],
                  "decode_attention.cu", "decode_attention.py:26")):
+            if name == "flash_attention":
+                # bf16: the wgmma instance with narrow copies (D up to 256)
+                # or the wide instance (past 256), never attention_any
+                require_instance(
+                    t["instances"], r"^flash_fwd_wgmma<\d+, true>$"
+                    if D <= 256 else r"^flash_fwd_wide$", f"flash at D {D}")
+                instance = t["instances"]
+            else:
+                instance = "src/repro_torch/csrc/attention_any.cuh"
             kernels.append({
                 "name": f"{name}_D{D}", "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
-                "instance": "src/repro_torch/csrc/attention_any.cuh",
+                "instance": instance,
                 "replaces": f"src/repro/kernels/{line}",
                 "launches": SHAPE_LAUNCHES[f"{name} {H}/{Hkv}/{D}"],
                 "launches_note": "the wrapper's launches at this head "
@@ -5037,8 +5158,9 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], "device_ms": t["device_ms"],
                 "library_device_ms": t["library_device_ms"]})
-    # the expert FFN at FFN_ANY's widths (the element-load body), T 5 and
-    # T 512; launches: the stage's at that width over every main path
+    # the expert FFN at FFN_ANY's widths (the tensor-core body's narrow
+    # copies, slot_ffn_tc<..., true>), T 5 and T 512; launches: the stage's
+    # at that width over every main path
     any_ffn = [(d, f, name, line, tm)
                for (d, f), tm in ffn_any.items()
                for name, line in (("cache_moe_gate_up", 28),
@@ -5047,10 +5169,13 @@ def main() -> int:
     for d, f, name, line, tm in any_ffn:
         for T, suffix in ((BLOCK_T, ""), (CONC_PROMPT, f"_t{CONC_PROMPT}")):
             t = tm[T]["timing"][name]
+            require_instance(t["instances"], r"^slot_ffn_tc<\d, \d+, \d, \d, "
+                             r"true>$", f"{name} at d {d} / f {f}, T {T}")
             file = "cache_moe" if name.endswith("gelu") else "moe_gemm"
             kernels.append({
                 "name": f"{name}_d{d}_f{f}{suffix}", "route": "cuda",
                 "source": "src/repro_torch/csrc/cache_moe.cu",
+                "instance": t["instances"],
                 "replaces": f"src/repro/kernels/{file}.py:{line}",
                 "launches": SHAPE_LAUNCHES[f"{name} d{d}/f{f}"],
                 "launches_note": "the stage's launches at this width over "

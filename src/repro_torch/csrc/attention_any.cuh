@@ -1,9 +1,11 @@
 // Attention at any head dim, on the CUDA cores: the instance of the two
-// attention kernels (flash_attention.cu, decode_attention.cu) for the
-// shapes their TMA / tensor-core instances do not take.
+// attention kernels for the shapes their TMA / tensor-core instances do not
+// take.  It now serves f32 flash (flash_attention.cu) and flash-decode in
+// both dtypes (decode_attention.cu) at those shapes; bf16 flash runs them
+// on wgmma (flash_attention.cu's narrow copies and flash_fwd_wide).
 //
-// Those instances load rows by TMA (bf16 and f32 flash, both flash-decode
-// paths), which needs 16-byte global strides and pointers, and hold O in
+// Those instances load rows by TMA (f32 flash, both flash-decode paths),
+// which needs 16-byte global strides and pointers, and hold O in
 // registers up to D 256.  So a head dim that leaves a row unaligned (bf16 D
 // not a multiple of 8, f32 D not a multiple of 4: D 4, 20, 100), any D past
 // 256 (264, 320, 512), and tensors whose strides or pointers are not

@@ -21,9 +21,8 @@
 // @ wu[s]) = 0.5 a (1 + tanh(sqrt(2/pi) (a + 0.044715 a^3))) with tanhf (what
 // jax.nn.gelu computes by default), in x's dtype (f32 accumulators, as the
 // Pallas kernels' h_ref.dtype); stage 2 writes y[p] = h[p] @ wd[s].  The three
-// are one template per route (slot_ffn_tc for bf16, slot_ffn for f32 and
-// for bf16 at widths the tensor-core body does not take) with the epilogue
-// as its parameter.  The weights are read straight out of the [S, d, f] / [S, f, d] slot pool: nothing gathers
+// are one template per route (slot_ffn_tc for bf16 at every width,
+// slot_ffn for f32) with the epilogue as its parameter.  The weights are read straight out of the [S, d, f] / [S, f, d] slot pool: nothing gathers
 // or copies a weight row.  Groups with no rows exit at once, so misses and
 // unoccupied slots cost nothing.
 //
@@ -40,9 +39,8 @@
 // 0.281 ms against 0.243 / 0.122 ms of operations) if each slot's weights
 // are read once.
 //
-// bf16 (slot_ffn_tc) at d and f multiples of 8 (every served width): the
-// weights stream through a TMA ring and the rows meet them on the tensor
-// cores.
+// bf16 (slot_ffn_tc), at every d and f: the weights stream through a ring of
+// stages and the rows meet them on the tensor cores.
 //   * A block owns 64 (or 128) output columns of one group: grid
 //     (ceil(N / 64), groups), so stage 2's 4096 columns give 64 blocks per
 //     slot and every SM streams (the FMA kernel had 16 column tiles of 256).
@@ -80,18 +78,42 @@
 //   (the copies, not the products or the weights, set its time: four warps
 //   took swiglu's T 512 call from 1.48 to 0.88 ms); N = 128 for every call
 //   spent ~40 us of a verify block's 0.36 ms on products of empty rows.
+//   * How the stages are filled.  Where the pool's rows are a whole number
+//     of 16 bytes and its pointer 16-byte aligned, and so are the input's
+//     (every served width), TMA brings the weight tiles and the producers
+//     copy the rows in 16-byte pieces, as above.  Anywhere else (d or f not
+//     a multiple of 8, or an offset pointer) the same kernel runs with
+//     narrow copies (kNarrow): the producer warps fill the same 64 x 64
+//     weight tiles, in the 128-byte swizzle TMA writes, and the rows' tile,
+//     by cp.async of the widest piece each tensor's rows and pointer allow
+//     (8 bytes at widths that are multiples of 4, 4 at even widths) or, at
+//     odd widths, 2-byte loads and st.shared; zeros past K and N (cp.async
+//     with a source size of 0), as TMA fills them.  Each lane arrives twice
+//     on the stage's full barrier (hopper::copies_arrive): once for its
+//     st.shared, fenced for the async proxy, once by the hardware when its
+//     cp.async land.  The consumers are the same code: an output is the
+//     same f32 sum of the same tiles, so the route is a function of the
+//     widths alone (tensor cores for bf16) and the copy width, which may
+//     follow the pointers, changes no bit (tests/test_torch_cuda.py holds
+//     a pool at an 8- and a 2-byte offset to the same pool aligned).
+//   The narrow route is bound like the TMA route (bytes at T 5, the
+//   operations and the bytes near each other at T 512), but the producers
+//   issue 16-64 copies a lane per tile where TMA issues one per box.  What
+//   the A/B runs showed (tools/moe_ab.py --widths, against the FMA body
+//   with element loads that bf16 took at these widths before): d 4092 /
+//   f 14332, T 5 gate_up 825 -> 718 us, down 431 -> 367 (torch.bmm 735 /
+//   322, bound 560 / 280); T 512 gate_up 17.2 -> 2.47 ms (bmm 1.76),
+//   down 8.24 -> 1.05; d 100 / f 204, T 512 gate_up 357 -> 13.6 us.
+//   Whatever the warps and blocks (see TcLayout), the 8-byte cp.async
+//   stream near 2 TB/s over the card: it, not the tensor cores, sets the
+//   narrow route's time.
 // f32 (slot_ffn): FMA on the CUDA cores (the tensor cores have no f32
 // product without TF32 rounding).  Neighbouring threads own neighbouring
-// output columns (one 16-byte load of a weight row each), each weight
-// element is applied to up to kRows rows of its slot, and the reduction is
-// split over the block's 8 warps in a fixed pattern added in warp order:
-// the same batch invariance.
-// Any other width (bf16 d or f not a multiple of 8: a row that is no whole
-// number of 16 bytes, which neither the TMA ring nor the 16-byte row copies
-// can move; f32 N not a multiple of 4): the same slot_ffn body with its
-// weights loaded element by element (zeros past the row) and converted to
-// f32, the same f32 accumulation and order, each output rounded once.  No
-// tensor cores there: PERF.md has its times against the bound.
+// output columns (one 16-byte load of a weight row each, or element loads
+// with zeros past the row where N is no multiple of 4), each weight element
+// is applied to up to kRows rows of its slot, and the reduction is split
+// over the block's 8 warps in a fixed pattern added in warp order: the
+// same batch invariance.
 //
 // C interface (bound with ctypes): every pointer is a device pointer, the
 // stream is the caller's current stream, nothing is allocated on the device
@@ -137,19 +159,12 @@ struct Traits<float> {
   __device__ static float to_f(float v) { return v; }
   __device__ static float from_f(float v) { return v; }
 };
-template <>
-struct Traits<__nv_bfloat16> {
-  __device__ static float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ static __nv_bfloat16 from_f(float v) {
-    return __float2bfloat16(v);
-  }
-};
 
 constexpr int kLaneCols = 4;             // output columns a lane owns
 
 // A lane's kLaneCols weights of one row at p, the first n of them in the
-// row: one 16-byte load (kVecW: f32 rows of a multiple of 4 elements), or
-// element by element with zeros past the row (any width, either dtype).
+// row: one 16-byte load (kVecW: rows of a multiple of 4 elements), or
+// element by element with zeros past the row (any other width).
 template <typename T, bool kVecW>
 __device__ __forceinline__ void load_w(const T* p, int n,
                                        float (&v)[kLaneCols]) {
@@ -169,11 +184,10 @@ __device__ __forceinline__ void load_w(const T* p, int n,
 // out[p, :N] for the rows p of group blockIdx.y, columns of tile blockIdx.x,
 // with the epilogue kAct (kLinear, kSwiglu or kGelu) applied to the f32 sums.
 // in_row is in[row_map[p]] when row_map is given, else in[p].  kVecW: the
-// weights in 16-byte loads (f32, N a multiple of 4); else element by element
-// (the route of any width: f32 rows of another width, and bf16 rows that
-// are no whole number of 16 bytes, which the tensor-core body's TMA ring and
-// cp.async copies cannot take).  Either way each output is the same f32
-// sum in the same order, a function of K and N alone.
+// weights in 16-byte loads (N a multiple of 4); else element by element.
+// Either way each output is the same f32 sum in the same order, a function
+// of K and N alone.  Instantiated for f32 only: bf16 at every width runs
+// on the tensor cores (slot_ffn_tc).
 template <typename T, int kAct, bool kVecW>
 __global__ void __launch_bounds__(kThreads)
 slot_ffn(const T* __restrict__ in, const int* __restrict__ row_map,
@@ -299,7 +313,7 @@ constexpr int kWTile = kTcK * kTcCols * 2;     // one weight tile, 8 KB
 // (two accumulators of 64 registers), the one-matrix stages as two of 256
 // rows on 128 columns, which halves the rows' copies a column sees and
 // doubles the weight bytes a stage holds.
-template <int kAct, int kN, int kWG, int kCG>
+template <int kAct, int kN, int kWG, int kCG, bool kNarrow>
 struct TcLayout {
   static constexpr int kMats = kAct == kSwiglu ? 2 : 1;
   static constexpr int kBN = kTcCols * kCG;              // columns per block
@@ -308,15 +322,32 @@ struct TcLayout {
   static constexpr int kXTile = kPass * kTcK * 2;        // the rows' tile
   static constexpr int kXAlloc = kXTile < 1024 ? 1024 : kXTile;
   static constexpr int kStage = kMats * kWBytes + kXAlloc;
-  static constexpr int kBlocks = kPass <= 16 ? 2 : 1;    // per SM
-  static constexpr int kStages = (kBlocks == 2 ? 96 : 200) * 1024 / kStage;
+  // per SM: the narrow copies' small shape runs three blocks of eight
+  // producer warps for swiglu's two matrices and four of four for one
+  // (more blocks stream more; tools/moe_ab.py at d 4092 / f 14332, T 5:
+  // gate_up 792 us at two blocks, 713 at three; down 487 at two or three,
+  // 368 at four blocks of four warps, up_gelu 435 -> 395)
+  static constexpr int kBlocks =
+      kPass <= 16 ? (kNarrow ? (kMats == 2 ? 3 : 4) : 2) : 1;
+  static constexpr int kStages =
+      (kBlocks == 4 ? 48 : kBlocks == 3 ? 64 : kBlocks == 2 ? 96 : 200) *
+      1024 / kStage;
   static constexpr int kBar = kStages * kStage;
   static constexpr int kBytes = 1024 + kBar + 16 * kStages;
   static constexpr int kConsumers = kWG * 128;
   // producer warps: the large shape copies ~128 rows a tile, which one warp
   // issued too slowly (tools/moe_ab.py: the copies, not the products or
-  // the weights, set its time)
-  static constexpr int kProducers = kPass <= 16 ? 1 : 4;
+  // the weights, set its time); the narrow copies move the weight tiles
+  // too: in the small shape eight warps for two matrices (four gave d
+  // 4092's T 5 gate_up 603 us, eight 487 before the copies kept a column;
+  // twelve and sixteen were slower) and four for one (see kBlocks), four
+  // in the large shape (its consumers' registers leave no room for more)
+  static constexpr int kProducers =
+      kPass <= 16 ? (kNarrow ? (kMats == 2 ? 8 : 4) : 1) : 4;
+  // the full barrier's arrivals: the weights' TMA bytes and each producer
+  // lane's rows, or two from each lane (hopper::copies_arrive)
+  static constexpr int kFullArrivals =
+      kNarrow ? 2 * 32 * kProducers : 1 + 32 * kProducers;
   static constexpr int kThreads = kConsumers + 32 * kProducers;
 };
 
@@ -438,17 +469,20 @@ __device__ __forceinline__ void wgmma_tn(float (&d)[128], uint64_t a,
 // warps.  The work of a block is `passes` passes over the group's rows, each
 // of ceil(K / 64) tiles; producer and consumers walk the same sequence of
 // tiles through the ring.
-template <int kAct, int kN, int kWG, int kCG>
-__global__ void __launch_bounds__(TcLayout<kAct, kN, kWG, kCG>::kThreads,
-                                  TcLayout<kAct, kN, kWG, kCG>::kBlocks)
+template <int kAct, int kN, int kWG, int kCG, bool kNarrow>
+__global__ void __launch_bounds__(
+    TcLayout<kAct, kN, kWG, kCG, kNarrow>::kThreads,
+    TcLayout<kAct, kN, kWG, kCG, kNarrow>::kBlocks)
 slot_ffn_tc(const __grid_constant__ CUtensorMap tm_w1,
             const __grid_constant__ CUtensorMap tm_w2,
             const __nv_bfloat16* __restrict__ in,
             const int* __restrict__ row_map, const int* __restrict__ grp_slot,
             const int* __restrict__ grp_start,
             const int* __restrict__ grp_count,
-            __nv_bfloat16* __restrict__ out, int K, int N) {
-  using L = TcLayout<kAct, kN, kWG, kCG>;
+            __nv_bfloat16* __restrict__ out, int K, int N,
+            const __nv_bfloat16* __restrict__ w1,
+            const __nv_bfloat16* __restrict__ w2, int w_piece, int x_piece) {
+  using L = TcLayout<kAct, kN, kWG, kCG, kNarrow>;
   constexpr bool kGated = kAct == kSwiglu;
   const int g = blockIdx.y;
   const int count = grp_count[g];
@@ -471,7 +505,7 @@ slot_ffn_tc(const __grid_constant__ CUtensorMap tm_w1,
   if (threadIdx.x == 0) {
     for (int s = 0; s < L::kStages; ++s) {
       // the weights' bytes, and each producer lane's rows
-      mbar_init(full(s), 1 + 32 * L::kProducers);
+      mbar_init(full(s), L::kFullArrivals);
       mbar_init(empty(s), L::kConsumers / 32);  // every consumer warp
     }
     hopper::mbar_init_fence();
@@ -490,58 +524,97 @@ slot_ffn_tc(const __grid_constant__ CUtensorMap tm_w1,
     // producer waits for them.
     constexpr int kLanes = 32 * L::kProducers;
     const int pl = threadIdx.x - L::kConsumers;
-    const bool issuer = pl == 0;
-    if (issuer) {
-      hopper::prefetch_tensor_map(&tm_w1);
-      if constexpr (kGated) hopper::prefetch_tensor_map(&tm_w2);
-    }
-    constexpr int kStep = kLanes / 8;        // rows between a lane's rows
-    constexpr int kPer = L::kPass / kStep;   // rows a lane copies per pass
-    const int c = pl & 7;
-    int src[kPer];                           // the lane's rows' input rows
-    int rows = 0;
-    for (int it = 0; it < total; ++it) {
-      const int s = it % L::kStages;
-      const int pass = it / ktiles;
-      const int kt = it - pass * ktiles;
-      if (kt == 0) {
-        rows = min(L::kPass, count - pass * L::kPass);
+    if constexpr (kNarrow) {
+      // Every producer lane fills its share of the stage's tiles with
+      // pieces of w_piece (weights) and x_piece (rows) elements: the
+      // weight tiles as TMA would write them (64 reduction rows x kBN
+      // columns of the slot's matrix, zeros past K and N), the pass's rows
+      // as the cp.async copies below (zeros past K; rows past the pass's
+      // not written).
+      const size_t plane = static_cast<size_t>(K) * N;
+      for (int it = 0; it < total; ++it) {
+        const int s = it % L::kStages;
+        const int pass = it / ktiles;
+        const int k0 = (it - pass * ktiles) * kTcK;
+        const int rows = min(L::kPass, count - pass * L::kPass);
+        if (it >= L::kStages) mbar_wait(empty(s), ((it / L::kStages) & 1) ^ 1);
+#pragma unroll
+        for (int m = 0; m < L::kMats; ++m) {
+          const __nv_bfloat16* wm = (m ? w2 : w1) + slot * plane + col0;
+          hopper::copy_tile_w<kTcK, L::kBN, kTcCols>(
+              w_piece, w1s(s) + m * L::kWBytes, kTcK, N - col0,
+              [&](int r) {
+                return k0 + r < K ? wm + static_cast<size_t>(k0 + r) * N
+                                  : nullptr;
+              },
+              pl, kLanes);
+        }
+        const int p0 = start + pass * L::kPass;
+        hopper::copy_tile_w<L::kPass, kTcK, kTcK>(
+            x_piece, xs(s), rows, K - k0,
+            [&](int r) {
+              const int p = p0 + r;
+              return in + static_cast<size_t>(row_map ? row_map[p] : p) * K +
+                     k0;
+            },
+            pl, kLanes);
+        hopper::copies_arrive(full(s));
+      }
+      return;
+    } else {
+      const bool issuer = pl == 0;
+      if (issuer) {
+        hopper::prefetch_tensor_map(&tm_w1);
+        if constexpr (kGated) hopper::prefetch_tensor_map(&tm_w2);
+      }
+      constexpr int kStep = kLanes / 8;        // rows between a lane's rows
+      constexpr int kPer = L::kPass / kStep;   // rows a lane copies per pass
+      const int c = pl & 7;
+      int src[kPer];                           // the lane's rows' input rows
+      int rows = 0;
+      for (int it = 0; it < total; ++it) {
+        const int s = it % L::kStages;
+        const int pass = it / ktiles;
+        const int kt = it - pass * ktiles;
+        if (kt == 0) {
+          rows = min(L::kPass, count - pass * L::kPass);
+#pragma unroll
+          for (int i = 0; i < kPer; ++i) {
+            const int r = (pl >> 3) + kStep * i;
+            if (r >= rows) break;
+            const int p = start + pass * L::kPass + r;
+            src[i] = row_map ? row_map[p] : p;
+          }
+        }
+        if (it >= L::kStages) mbar_wait(empty(s), ((it / L::kStages) & 1) ^ 1);
+        const int k0 = kt * kTcK;
+        if (issuer) {
+          mbar_expect_tx(full(s), L::kMats * L::kWBytes);
+#pragma unroll
+          for (int cb = 0; cb < kCG; ++cb) {
+            tma_load_4d(w1s(s) + cb * kWTile, &tm_w1, full(s),
+                        col0 + cb * kTcCols, 0, k0, slot);
+            if constexpr (kGated)
+              tma_load_4d(w1s(s) + L::kWBytes + cb * kWTile, &tm_w2, full(s),
+                          col0 + cb * kTcCols, 0, k0, slot);
+          }
+        }
+        // rows past the pass's are not copied: they are columns of B whose
+        // outputs are never stored; pieces past K are zeros
+        const int k = k0 + 8 * c;
+        const int nbytes = k < K ? 16 : 0;
+        const __nv_bfloat16* from = in + (k < K ? k : 0);
 #pragma unroll
         for (int i = 0; i < kPer; ++i) {
           const int r = (pl >> 3) + kStep * i;
-          if (r >= rows) break;
-          const int p = start + pass * L::kPass + r;
-          src[i] = row_map ? row_map[p] : p;
+          if (r >= rows) break;                // the pass's rows only
+          cp_async_16(xs(s) + r * 128 + ((c ^ (r & 7)) << 4),
+                      from + static_cast<size_t>(src[i]) * K, nbytes);
         }
+        hopper::cp_async_mbar_arrive(full(s));
       }
-      if (it >= L::kStages) mbar_wait(empty(s), ((it / L::kStages) & 1) ^ 1);
-      const int k0 = kt * kTcK;
-      if (issuer) {
-        mbar_expect_tx(full(s), L::kMats * L::kWBytes);
-#pragma unroll
-        for (int cb = 0; cb < kCG; ++cb) {
-          tma_load_4d(w1s(s) + cb * kWTile, &tm_w1, full(s),
-                      col0 + cb * kTcCols, 0, k0, slot);
-          if constexpr (kGated)
-            tma_load_4d(w1s(s) + L::kWBytes + cb * kWTile, &tm_w2, full(s),
-                        col0 + cb * kTcCols, 0, k0, slot);
-        }
-      }
-      // rows past the pass's are not copied: they are columns of B whose
-      // outputs are never stored; pieces past K are zeros
-      const int k = k0 + 8 * c;
-      const int nbytes = k < K ? 16 : 0;
-      const __nv_bfloat16* from = in + (k < K ? k : 0);
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int r = (pl >> 3) + kStep * i;
-        if (r >= rows) break;                // the pass's rows only
-        cp_async_16(xs(s) + r * 128 + ((c ^ (r & 7)) << 4),
-                    from + static_cast<size_t>(src[i]) * K, nbytes);
-      }
-      hopper::cp_async_mbar_arrive(full(s));
+      return;
     }
-    return;
   }
 
   // Consumers.  Warpgroup cg takes columns 64 (cg % kCG) + 0..63 and rows
@@ -629,9 +702,8 @@ int launch(const void* in, const void* row_map, const void* w1, const void* w2,
   constexpr int kCols = 32 * kLaneCols;
   if (groups <= 0) return 0;
   const dim3 grid((N + kCols - 1) / kCols, groups);
-  const auto kernel = sizeof(T) == 4 && N % 4 == 0
-                          ? &slot_ffn<T, kAct, sizeof(T) == 4>
-                          : &slot_ffn<T, kAct, false>;
+  const auto kernel = N % 4 == 0 ? &slot_ffn<T, kAct, true>
+                                 : &slot_ffn<T, kAct, false>;
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(in), static_cast<const int*>(row_map),
       static_cast<const T*>(w1), static_cast<const T*>(w2),
@@ -639,10 +711,6 @@ int launch(const void* in, const void* row_map, const void* w1, const void* w2,
       static_cast<const int*>(grp_count), static_cast<T*>(out), K, N);
   return static_cast<int>(cudaGetLastError());
 }
-
-// Whether bf16 rows of K and N elements take the tensor-core body: its TMA
-// weight ring and cp.async row copies move 16-byte pieces.
-inline bool tc_widths(int K, int N) { return K % 8 == 0 && N % 8 == 0; }
 
 // The weights of a [slots, K, N] pool as a tensor map, read in tiles of
 // kTcK rows x kTcCols columns with the 128-byte swizzle.
@@ -652,60 +720,93 @@ inline int weight_map(CUtensorMap* m, const void* w, int slots, int K, int N) {
                             kTcCols, kTcK, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int kAct, int kN, int kWG, int kCG>
+template <int kAct, int kN, int kWG, int kCG, bool kNarrow>
 int launch_shape(const CUtensorMap& m1, const CUtensorMap& m2,
                  const void* in, const void* row_map, const void* grp_slot,
                  const void* grp_start, const void* grp_count, void* out,
-                 int K, int N, int groups, void* stream) {
-  using L = TcLayout<kAct, kN, kWG, kCG>;
+                 int K, int N, int groups, const void* w1, const void* w2,
+                 int w_piece, int x_piece, void* stream) {
+  using L = TcLayout<kAct, kN, kWG, kCG, kNarrow>;
   static const cudaError_t ready = cudaFuncSetAttribute(
-      slot_ffn_tc<kAct, kN, kWG, kCG>,
+      slot_ffn_tc<kAct, kN, kWG, kCG, kNarrow>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (ready != cudaSuccess) return static_cast<int>(ready);
   const dim3 grid((N + L::kBN - 1) / L::kBN, groups);
-  slot_ffn_tc<kAct, kN, kWG, kCG><<<grid, L::kThreads, L::kBytes,
-                                    static_cast<cudaStream_t>(stream)>>>(
+  slot_ffn_tc<kAct, kN, kWG, kCG, kNarrow><<<grid, L::kThreads, L::kBytes,
+                                             static_cast<cudaStream_t>(
+                                                 stream)>>>(
       m1, m2, static_cast<const __nv_bfloat16*>(in),
       static_cast<const int*>(row_map), static_cast<const int*>(grp_slot),
       static_cast<const int*>(grp_start), static_cast<const int*>(grp_count),
-      static_cast<__nv_bfloat16*>(out), K, N);
+      static_cast<__nv_bfloat16*>(out), K, N,
+      static_cast<const __nv_bfloat16*>(w1),
+      static_cast<const __nv_bfloat16*>(w2), w_piece, x_piece);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kAct, bool kNarrow>
+int launch_rows(const CUtensorMap& m1, const CUtensorMap& m2, const void* in,
+                const void* row_map, const void* w1, const void* w2,
+                const void* grp_slot, const void* grp_start,
+                const void* grp_count, void* out, int K, int N, int groups,
+                int rows, int w_piece, int x_piece, void* stream) {
+  if (rows <= 64)
+    return launch_shape<kAct, 16, 1, 1, kNarrow>(
+        m1, m2, in, row_map, grp_slot, grp_start, grp_count, out, K, N,
+        groups, w1, w2, w_piece, x_piece, stream);
+  if constexpr (kAct == kSwiglu)
+    return launch_shape<kAct, 128, 2, 1, kNarrow>(
+        m1, m2, in, row_map, grp_slot, grp_start, grp_count, out, K, N,
+        groups, w1, w2, w_piece, x_piece, stream);
+  else
+    return launch_shape<kAct, 256, 2, 2, kNarrow>(
+        m1, m2, in, row_map, grp_slot, grp_start, grp_count, out, K, N,
+        groups, w1, w2, w_piece, x_piece, stream);
+}
+
+// The pieces (elements) the narrow copies read the rows' and the weights'
+// rows in; TMA takes the stage where both are 8 (16 bytes).
+inline void pieces(const void* in, const void* w1, const void* w2, int K,
+                   int N, int& x_piece, int& w_piece) {
+  w_piece = hopper::piece_elems(w1, N, nullptr, 0);
+  if (w2) w_piece = min(w_piece, hopper::piece_elems(w2, N, nullptr, 0));
+  x_piece = hopper::piece_elems(in, K, nullptr, 0);
 }
 
 // `rows` is the call's row count (T * k), which bounds every group's: up to
 // 64 rows (verify blocks and fused rounds: a few rows a slot) take the small
-// shape, more the large one.
+// shape, more the large one.  The weights come by TMA and the rows in
+// 16-byte copies where both allow it (16-byte aligned pointers, d and f
+// multiples of 8: every served width), else every tile by the narrow
+// copies, each tensor in the widest pieces its pointer and rows allow.
 template <int kAct>
 int launch_tc(const void* in, const void* row_map, const void* w1,
               const void* w2, const void* grp_slot, const void* grp_start,
               const void* grp_count, void* out, int K, int N, int slots,
               int groups, int rows, void* stream) {
   if (groups <= 0) return 0;
-  CUtensorMap m1, m2;
+  int x_piece, w_piece;
+  pieces(in, w1, w2, K, N, x_piece, w_piece);
+  CUtensorMap m1 = {}, m2 = {};
+  if (w_piece < 8 || x_piece < 8)
+    return launch_rows<kAct, true>(m1, m2, in, row_map, w1, w2, grp_slot,
+                                   grp_start, grp_count, out, K, N, groups,
+                                   rows, w_piece, x_piece, stream);
   int rc = weight_map(&m1, w1, slots, K, N);
   if (rc == 0) rc = w2 ? weight_map(&m2, w2, slots, K, N) : 0;
   if (rc) return rc;
   if (!w2) m2 = m1;
-  if (rows <= 64)
-    return launch_shape<kAct, 16, 1, 1>(m1, m2, in, row_map, grp_slot,
-                                        grp_start, grp_count, out, K, N,
-                                        groups, stream);
-  if constexpr (kAct == kSwiglu)
-    return launch_shape<kAct, 128, 2, 1>(m1, m2, in, row_map, grp_slot,
-                                         grp_start, grp_count, out, K, N,
-                                         groups, stream);
-  else
-    return launch_shape<kAct, 256, 2, 2>(m1, m2, in, row_map, grp_slot,
-                                         grp_start, grp_count, out, K, N,
-                                         groups, stream);
+  return launch_rows<kAct, false>(m1, m2, in, row_map, w1, w2, grp_slot,
+                                  grp_start, grp_count, out, K, N, groups,
+                                  rows, w_piece, x_piece, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  x [T, d], row_tok [P], wg/wu [S, d, f]
 // with S = slots, grp_* [groups] -> h [P, f] with P = rows.  Any d and f:
-// bf16 at d and f multiples of 8 (16-byte rows) on the tensor-core body,
-// at any other width on the element-load FMA body (slot_ffn).
+// bf16 on the tensor-core body (launch_tc: TMA or narrow copies), f32 on
+// the FMA body (slot_ffn).
 extern "C" int cache_moe_gate_up(int dtype, const void* x, const void* row_tok,
                                  const void* wg, const void* wu,
                                  const void* grp_slot, const void* grp_start,
@@ -715,14 +816,10 @@ extern "C" int cache_moe_gate_up(int dtype, const void* x, const void* row_tok,
   if (dtype == 0)
     return launch<float, kSwiglu>(x, row_tok, wg, wu, grp_slot, grp_start,
                                   grp_count, h, d, f, groups, stream);
-  if (dtype == 1 && tc_widths(d, f))
+  if (dtype == 1)
     return launch_tc<kSwiglu>(x, row_tok, wg, wu, grp_slot, grp_start,
                               grp_count, h, d, f, slots, groups, rows,
                               stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, kSwiglu>(x, row_tok, wg, wu, grp_slot,
-                                          grp_start, grp_count, h, d, f,
-                                          groups, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -735,13 +832,9 @@ extern "C" int cache_moe_up_gelu(int dtype, const void* x, const void* row_tok,
   if (dtype == 0)
     return launch<float, kGelu>(x, row_tok, wu, nullptr, grp_slot, grp_start,
                                 grp_count, h, d, f, groups, stream);
-  if (dtype == 1 && tc_widths(d, f))
+  if (dtype == 1)
     return launch_tc<kGelu>(x, row_tok, wu, nullptr, grp_slot, grp_start,
                             grp_count, h, d, f, slots, groups, rows, stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, kGelu>(x, row_tok, wu, nullptr, grp_slot,
-                                        grp_start, grp_count, h, d, f, groups,
-                                        stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -754,15 +847,24 @@ extern "C" int cache_moe_down(int dtype, const void* h, const void* wd,
     return launch<float, kLinear>(h, nullptr, wd, nullptr, grp_slot,
                                   grp_start, grp_count, y, f, d, groups,
                                   stream);
-  if (dtype == 1 && tc_widths(f, d))
+  if (dtype == 1)
     return launch_tc<kLinear>(h, nullptr, wd, nullptr, grp_slot, grp_start,
                               grp_count, y, f, d, slots, groups, rows,
                               stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, kLinear>(h, nullptr, wd, nullptr, grp_slot,
-                                          grp_start, grp_count, y, f, d,
-                                          groups, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// How a bf16 [K] -> [N] stage on rows `in` and pools w1 (and w2, or null)
+// runs: 0 by TMA, 1 by the narrow copies; the rows' and the weights'
+// pieces in bytes in x_bytes and w_bytes (tests hold the wrappers' _route
+// to it).
+extern "C" int cache_moe_route(const void* in, const void* w1, const void* w2,
+                               int K, int N, int* x_bytes, int* w_bytes) {
+  int x_piece, w_piece;
+  pieces(in, w1, w2, K, N, x_piece, w_piece);
+  *x_bytes = 2 * x_piece;
+  *w_bytes = 2 * w_piece;
+  return x_piece < 8 || w_piece < 8 ? 1 : 0;
 }
 
 // The C interface's version: 2 since the entry points take the pool size

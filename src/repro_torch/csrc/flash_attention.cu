@@ -70,10 +70,33 @@
 // Head dims.  Every D >= 1 runs.  A D that is a multiple of 8 from 8 to 256,
 // with 16-byte aligned pointers and strides (every served shape), runs in the
 // smallest of the instances W in {16, 32, 64, 80, 96, 112, 128, 192, 256} that
-// holds it; any other D (one that leaves a row unaligned, or past 256: O would
-// not fit the registers) and any unaligned tensor run in the CUDA-core instance
-// of attention_any.cuh (element loads, a grid axis over 128-column slices of
-// O).  In the TMA instances the tensor maps have the true D columns and the
+// holds it.  In bf16, any other D up to 256 (one that leaves a row no whole
+// number of 16 bytes: D 4, 20, 100) and any unaligned tensor run in the same
+// kernel at the W that holds D rounded up to 8, with its tiles filled by
+// narrow copies (kNarrow): warpgroup 1's 128 threads copy Q, K and V rows by
+// cp.async of the widest piece each tensor's rows, strides and pointer allow
+// (hopper::copy_tile: 16, 8 or 4 bytes, or 2-byte loads and st.shared),
+// into the very layout and swizzle TMA writes, zeros past D and past the
+// sequence; the wgmma, softmax and ping-pong code is the TMA instance's, so
+// at a D both take, the two give the same bits (tests/test_torch_cuda.py).
+// Warpgroup 1 issues the refills (see load_kv): no producer warp, for the
+// registers' sake as above.  Past D 256 (O would not fit the registers) bf16
+// runs in flash_fwd_wide: a grid axis over 128-column slices of O, Q K^T on
+// wgmma over the whole D in 64-column pieces, 128-key tiles (p rounded
+// where the reference rounds it: 64-key tiles put D 4's output 1.3 % of a
+// row's max from the plain version, PERF.md), narrow copies for every
+// tensor.  f32 at any D or stride the FMA instances do not take runs in the
+// CUDA-core instance of attention_any.cuh.
+// Bound at those shapes (S 512, 32 / 8 heads): D 4-100 by the bytes (q, k,
+// v and out are 0.3-5 MB), D 264-512 by the operations; the narrow route
+// pays its copies' issue, flash_fwd_wide a block barrier per 64 columns of
+// D and Q K^T once per output slice (D 512: four times).  What the A/B
+// runs showed (tools/flash_ab.py --dims, against the CUDA-core instance
+// that bf16 took at these shapes before; 32 / 8 heads, S 512, causal):
+// D 4 / 20 / 100 at 11.7 / 14.6 / 32.1 us (was 124 / 126 / 212; SDPA 23 /
+// 24 / 41), D 264 / 320 / 512 at 107 / 111 / 174 (was 873 / 954 / 1832;
+// SDPA 459 / 496 / 654); the TMA instances' times and bits unchanged.
+// In the TMA instances the tensor maps have the true D columns and the
 // boxes reach W (or past it), so TMA writes zeros past D: they add nothing to Q
 // K^T, give output columns that are not stored, and no byte past D is read from
 // device memory.  The softmax scale is 1/sqrt(D) of the true D. A row of 16 /
@@ -106,6 +129,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -733,14 +757,27 @@ __device__ __forceinline__ void rescale_and_pack(float (&o)[kCols / 2],
       pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
 }
 
-template <int D>
+// The tensors as the narrow copies read them: pointers, element strides
+// (q's batch, sequence and head strides, then k's, then v's) and each
+// tensor's piece width in elements (hopper::piece_elems).
+struct Rows {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  long long st[9];
+  int pq, pk, pv;
+};
+
+// kNarrow: the tiles are filled by the narrow copies from `rows` instead of
+// by TMA (see "Head dims" above); the tensor maps are then unused.
+template <int D, bool kNarrow>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
                 __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
                 int rep, int dt, int causal, int has_window, int window,
-                float scale_log2) {
+                float scale_log2, const Rows rows) {
   using L = HopperSmem<D>;
   constexpr int kTK = L::kTK;
   constexpr int kStages = L::kStages;
@@ -763,13 +800,47 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   // Thread 0 loads Q and the first kStages K/V tiles; after that, the last
   // warp to release a stage (counted in `released`) refills it at once,
   // so neither warpgroup waits for the other to issue a load.
+  // Narrow copies: warpgroup 1 (its 128 threads) fills every tile, Q and
+  // the first stages after the barriers are set up, then each stage as it
+  // releases it, once warpgroup 0 has released it too (its empty barrier).
+  // Warpgroup 1 is the second to issue its products in each step (the
+  // ping-pong below), so it is as a rule the second to release a stage and
+  // seldom waits there; its copies are issued while warpgroup 0's products
+  // hold the tensor cores.  A producer warp would cap the consumers'
+  // registers (see kHopperThreads).
   const int n_tiles = kt_end - kt_begin;
   __shared__ uint32_t released[kStages];
+  // rows row0 .. row0 + kRows - 1 of head hx of one tensor into a tile of
+  // kRows rows (Q's kTQ or a stage's kTK; zeros past S and past dt)
+  const auto copy_rows = [&](auto rows_c, uint32_t dst,
+                             const __nv_bfloat16* p, long long sb,
+                             long long ss, long long sh, int S, int hx,
+                             int row0, int piece) {
+    constexpr int kRows = decltype(rows_c)::value;
+    const __nv_bfloat16* head = p + b * sb + hx * sh;
+    hopper::copy_tile_w<kRows, L::kDp, L::kChunk>(
+        piece, dst, kRows, dt,
+        [&](int r) {
+          return row0 + r < S ? head + (row0 + r) * ss : nullptr;
+        },
+        static_cast<int>(threadIdx.x) - kWgThreads, kWgThreads);
+  };
+  using QRows = std::integral_constant<int, kTQ>;
+  using KRows = std::integral_constant<int, kTK>;
   const auto load_kv = [&](int i) {
     const int s = i % kStages;
     const int k0 = (kt_begin + i) * kTK;
     const uint32_t dk = base + L::kK + s * L::kTileBytes;
     const uint32_t dv = base + L::kV + s * L::kTileBytes;
+    if constexpr (kNarrow) {
+      copy_rows(KRows{}, dk, rows.k, rows.st[3], rows.st[4], rows.st[5], Skv,
+                hk, k0, rows.pk);
+      hopper::copies_arrive(full_k(s));
+      copy_rows(KRows{}, dv, rows.v, rows.st[6], rows.st[7], rows.st[8], Skv,
+                hk, k0, rows.pv);
+      hopper::copies_arrive(full_v(s));
+      return;
+    }
     mbar_expect_tx(full_k(s), L::kTileBytes);
 #pragma unroll
     for (int c = 0; c < L::kChunks; ++c)
@@ -785,6 +856,15 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   // with tile i + kStages by the last warp
   const auto release = [&](int i) {
     const int s = i % kStages;
+    if constexpr (kNarrow) {
+      if ((threadIdx.x & 31) == 0) mbar_arrive(empty(s));
+      if (threadIdx.x >= kWgThreads && i + kStages < n_tiles) {
+        mbar_wait(empty(s), (i / kStages) & 1);
+        load_kv(i + kStages);
+      }
+      __syncwarp();
+      return;
+    }
     if ((threadIdx.x & 31) == 0) {
       mbar_arrive(empty(s));
       if (i + kStages < n_tiles &&
@@ -797,22 +877,35 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     __syncwarp();
   };
   if (threadIdx.x == 0) {
-    mbar_init(bar_q, 1);
+    // a full barrier completes on TMA's bytes, or on two arrivals from
+    // each of warpgroup 1's threads (hopper::copies_arrive)
+    const int arrivals = kNarrow ? 2 * kWgThreads : 1;
+    mbar_init(bar_q, arrivals);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(full_k(s), 1);
-      mbar_init(full_v(s), 1);
+      mbar_init(full_k(s), arrivals);
+      mbar_init(full_v(s), arrivals);
       mbar_init(empty(s), kHopperThreads / 32);   // every warp
     }
     for (int s = 0; s < kStages; ++s) released[s] = 0;
     hopper::mbar_init_fence();
-    mbar_expect_tx(bar_q, L::kQBytes);
+    if constexpr (!kNarrow) {
+      mbar_expect_tx(bar_q, L::kQBytes);
 #pragma unroll
-    for (int c = 0; c < L::kChunks; ++c)
-      tma_load_4d(base + c * L::kQChunkBytes, &tm_q, bar_q, c * L::kChunk, h,
-                  q0, b);
-    for (int i = 0; i < min(n_tiles, kStages); ++i) load_kv(i);
+      for (int c = 0; c < L::kChunks; ++c)
+        tma_load_4d(base + c * L::kQChunkBytes, &tm_q, bar_q, c * L::kChunk,
+                    h, q0, b);
+      for (int i = 0; i < min(n_tiles, kStages); ++i) load_kv(i);
+    }
   }
   __syncthreads();
+  if constexpr (kNarrow) {
+    if (threadIdx.x >= kWgThreads) {
+      copy_rows(QRows{}, base, rows.q, rows.st[0], rows.st[1], rows.st[2], Sq,
+                h, q0, rows.pq);
+      hopper::copies_arrive(bar_q);
+      for (int i = 0; i < min(n_tiles, kStages); ++i) load_kv(i);
+    }
+  }
 
   {
     // warpgroup cw owns query rows 64 cw .. 64 cw + 63; in it, lane t of
@@ -860,6 +953,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     if (cw == 1) turn_pass();
     mbar_wait(bar_q, 0);
     mbar_wait(full_k(0), 0);
+    if constexpr (kNarrow) hopper::fence_proxy_async();   // the copies
     turn_take();
     issue_qk<D>(sc, q_wg, base + L::kK);
     turn_pass();
@@ -873,6 +967,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       const int sp = (j - 1) % kStages;
       mbar_wait(full_k(s), (j / kStages) & 1);
       mbar_wait(full_v(sp), ((j - 1) / kStages) & 1);
+      if constexpr (kNarrow) hopper::fence_proxy_async();
       turn_take();
       issue_qk<D>(sc, q_wg, base + L::kK + s * L::kTileBytes);
       issue_pv<D>(o, pa, base + L::kV + sp * L::kTileBytes);
@@ -890,6 +985,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     {
       const int sp = (n_tiles - 1) % kStages;
       mbar_wait(full_v(sp), ((n_tiles - 1) / kStages) & 1);
+      if constexpr (kNarrow) hopper::fence_proxy_async();
       turn_take();
       issue_pv<D>(o, pa, base + L::kV + sp * L::kTileBytes);
       if (cw == 0) turn_pass();
@@ -909,11 +1005,183 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         __nv_bfloat16* dst =
             out + ((static_cast<long long>(b) * Sq + row) * H + h) * dt + 2 * tq;
 #pragma unroll
-        for (int j = 0; j < L::kDp / 8; ++j)
-          if (8 * j < dt)                        // the true columns only
-            *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-                pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+        for (int j = 0; j < L::kDp / 8; ++j) {
+          const float o0 = o[4 * j + 2 * r] * inv;
+          const float o1 = o[4 * j + 2 * r + 1] * inv;
+          if constexpr (kNarrow) {
+            // any dt: element by element (a pair may straddle dt, or sit
+            // at an odd address)
+            if (8 * j + 2 * tq < dt) dst[8 * j] = __float2bfloat16(o0);
+            if (8 * j + 2 * tq + 1 < dt) dst[8 * j + 1] = __float2bfloat16(o1);
+          } else if (8 * j < dt) {               // the true columns only
+            *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(o0, o1);
+          }
+        }
       }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 past D 256 on wgmma: output slices, Q K^T streamed in 64 columns
+// ---------------------------------------------------------------------------
+
+constexpr int kWideSlice = 128;      // output columns of a block
+constexpr int kWidePiece = 64;       // columns of Q and K per product step
+constexpr int kWideUnit = 32768;     // a Q and a K piece, or a V slice
+constexpr int kWideUnits = 4;        // the ring: three units in flight
+constexpr int kWideBytes = 1024 + kWideUnits * kWideUnit;
+
+// O[:, col0 .. col0 + 127] of 128 query rows of one (batch row, q head),
+// col0 = 128 blockIdx.z: for each 128-key tile (the skipped ones skipped),
+// S = Q K^T over the whole D as ceil(D / 64) steps of Q's and K's next 64
+// columns (m64n128k16, A and B K-major), the online softmax on S
+// (softmax_tile, the TMA instances' code: p rounded at each 128-key
+// tile's running max, as the reference rounds it), then O += P V of V's
+// 128 columns (the D 128 instance's P V).  Each warpgroup owns 64 rows.
+// The loads are a sequence of 32 KB units (a Q and a K piece; a V slice)
+// through a ring of kWideUnits, copied by all 256 threads with the narrow
+// copies (cp.async groups, kWideUnits - 1 units ahead) and handed over by
+// one block barrier a unit.  The registers: S 64, O 64 and P 32 a thread,
+// so O takes 128 columns, not 256 (with S and P beside 128 registers of O
+// they would pass the 255 a thread may hold).
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_fwd_wide(__nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
+               int rep, int dt, int causal, int has_window, int window,
+               float scale_log2, const Rows rows) {
+  using L = HopperSmem<128>;          // P V's tiles: 128 keys x 128 columns
+  constexpr int kTK = 128;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int hk = h / rep;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTQ;   // longest rows first
+  const int col0 = blockIdx.z * kWideSlice;
+  int kt_begin, kt_end;
+  kv_tiles<kTK>(q0, kTQ, Sq, Skv, causal, has_window, window, kt_begin,
+                kt_end);
+  const int n_tiles = kt_end - kt_begin;
+  const int pieces = (dt + kWidePiece - 1) / kWidePiece;
+  const int per_tile = pieces + 1;                     // + the V slice
+  const int units = n_tiles * per_tile;
+  const __nv_bfloat16* qh = rows.q + b * rows.st[0] + h * rows.st[2];
+  const __nv_bfloat16* kh = rows.k + b * rows.st[3] + hk * rows.st[5];
+  const __nv_bfloat16* vh = rows.v + b * rows.st[6] + hk * rows.st[8];
+  const auto unit_at = [&](int u) { return base + (u % kWideUnits) * kWideUnit; };
+
+  // unit u into its ring slot (an empty group past the last: every thread
+  // commits one group a unit, so a wait's count is the same everywhere)
+  const auto issue = [&](int u) {
+    if (u < units) {
+      const int j = u / per_tile;
+      const int part = u - j * per_tile;
+      const int k0 = (kt_begin + j) * kTK;
+      const uint32_t dst = unit_at(u);
+      const int tid = threadIdx.x;
+      if (part < pieces) {
+        const int c0 = part * kWidePiece;
+        hopper::copy_tile_w<kTQ, kWidePiece, kWidePiece>(
+            rows.pq, dst, kTQ, dt - c0,
+            [&](int r) {
+              return q0 + r < Sq ? qh + (q0 + r) * rows.st[1] + c0 : nullptr;
+            },
+            tid, kHopperThreads);
+        hopper::copy_tile_w<kTK, kWidePiece, kWidePiece>(
+            rows.pk, dst + kTQ * 128, kTK, dt - c0,
+            [&](int r) {
+              return k0 + r < Skv ? kh + (k0 + r) * rows.st[4] + c0 : nullptr;
+            },
+            tid, kHopperThreads);
+      } else {
+        hopper::copy_tile_w<kTK, kWideSlice, L::kChunk>(
+            rows.pv, dst, kTK, dt - col0,
+            [&](int r) {
+              return k0 + r < Skv ? vh + (k0 + r) * rows.st[7] + col0
+                                  : nullptr;
+            },
+            tid, kHopperThreads);
+      }
+    }
+    hopper::cp_async_commit();
+  };
+
+  const int cw = threadIdx.x / kWgThreads;
+  const int t = threadIdx.x % kWgThreads;
+  const int lane = t & 31;
+  const int tq = lane & 3;
+  const int row0 = cw * 64 + (t >> 5) * 16 + (lane >> 2);
+  const int off = Skv - Sq;
+  const int qpos0 = q0 + row0 + off;
+  const int qlo = q0 + cw * 64 + off;
+  const int qhi = qlo + 63;
+  float o[kWideSlice / 2];
+#pragma unroll
+  for (int i = 0; i < kWideSlice / 2; ++i) o[i] = 0.f;
+  float m_r[2] = {kMasked, kMasked};
+  float l_r[2] = {0.f, 0.f};
+  float sc[kTK / 2];
+  uint32_t pa[kTK / 16][4];
+  float alpha[2];
+
+  for (int u = 0; u < kWideUnits - 1; ++u) issue(u);
+  for (int u = 0; u < units; ++u) {
+    // unit u is in (this thread's copies, then everyone's), and every
+    // warpgroup is done with unit u - 1, whose slot the next issue fills
+    hopper::cp_async_wait<kWideUnits - 2>();
+    hopper::fence_proxy_async();
+    __syncthreads();
+    issue(u + kWideUnits - 1);
+    const int j = u / per_tile;
+    const int part = u - j * per_tile;
+    const uint32_t src = unit_at(u);
+    if (part < pieces) {
+      // S (+)= Q[:, c0 .. c0 + 63] K[:, c0 .. c0 + 63]^T
+      const uint64_t qd =
+          gmma_desc(src + cw * 64 * 128, 16, 1024, 1);
+      const uint64_t kd = gmma_desc(src + kTQ * 128, 16, 1024, 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWidePiece / 16; ++kk)
+        wgmma_ss_n128(sc, qd + 2 * kk, kd + 2 * kk, part > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (part == pieces - 1) {
+        const int k0 = (kt_begin + j) * kTK;
+        const bool edge = k0 + kTK > Skv || (causal && k0 + kTK - 1 > qlo) ||
+                          (has_window && k0 <= qhi - window);
+        softmax_tile<kTK>(sc, m_r, l_r, alpha, edge, scale_log2, qpos0,
+                          k0 + 2 * tq, Skv, causal, has_window, window);
+        rescale_and_pack<kWideSlice, kTK>(o, pa, sc, alpha);
+      }
+    } else {
+      issue_pv<128>(o, pa, src);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+    }
+  }
+  hopper::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = q0 + row0 + 8 * r;
+    if (row < Sq) {
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      __nv_bfloat16* dst = out +
+                           ((static_cast<long long>(b) * Sq + row) * H + h) * dt +
+                           col0 + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < kWideSlice / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (col0 + 8 * j + 2 * tq + e < dt)
+            dst[8 * j + e] = __float2bfloat16(o[4 * j + 2 * r + e] * inv);
     }
   }
 }
@@ -922,8 +1190,22 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 // host side
 // ---------------------------------------------------------------------------
 
+// The tensors' rows as the narrow copies read them.
+inline Rows narrow_rows(const void* q, const void* k, const void* v, int dt,
+                        const long long* st) {
+  Rows r{static_cast<const __nv_bfloat16*>(q),
+         static_cast<const __nv_bfloat16*>(k),
+         static_cast<const __nv_bfloat16*>(v), {}, 0, 0, 0};
+  for (int i = 0; i < 9; ++i) r.st[i] = st[i];
+  r.pq = hopper::piece_elems(q, dt, st, 3);
+  r.pk = hopper::piece_elems(k, dt, st + 3, 3);
+  r.pv = hopper::piece_elems(v, dt, st + 6, 3);
+  return r;
+}
+
 // D: the instance's width; dt: the true head dim, the tensors' columns.
-template <int D>
+// kNarrow: the tiles come by the narrow copies (no tensor maps).
+template <int D, bool kNarrow>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  int B, int Sq, int Skv, int H, int Hkv, int dt,
                  const long long* st, int causal, int has_window, int window,
@@ -941,19 +1223,43 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                               Hx, dt, s3[0], s3[1], s3[2], L::kChunk, box_s,
                               swizzle);
   };
-  CUtensorMap mq, mk, mv;
-  int rc = map(&mq, q, Sq, H, st, kTQ);
-  if (rc == 0) rc = map(&mk, k, Skv, Hkv, st + 3, L::kTK);
-  if (rc == 0) rc = map(&mv, v, Skv, Hkv, st + 6, L::kTK);
-  if (rc) return rc;
+  CUtensorMap mq = {}, mk = {}, mv = {};
+  Rows rows = {};
+  if constexpr (kNarrow) {
+    rows = narrow_rows(q, k, v, dt, st);
+  } else {
+    int rc = map(&mq, q, Sq, H, st, kTQ);
+    if (rc == 0) rc = map(&mk, k, Skv, Hkv, st + 3, L::kTK);
+    if (rc == 0) rc = map(&mv, v, Skv, Hkv, st + 6, L::kTK);
+    if (rc) return rc;
+  }
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_wgmma<D, kNarrow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L::kBytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B * H, (Sq + kTQ - 1) / kTQ);
-  flash_fwd_wgmma<D><<<grid, kHopperThreads, L::kBytes, stream>>>(
+  flash_fwd_wgmma<D, kNarrow><<<grid, kHopperThreads, L::kBytes, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), Sq, Skv, H, H / Hkv, dt,
-      causal, has_window, window, scale * 1.4426950408889634f);
+      causal, has_window, window, scale * 1.4426950408889634f, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 past D 256: flash_fwd_wide, one block per (batch row x q head, 128
+// query rows, 128 output columns).
+int launch_wide(const void* q, const void* k, const void* v, void* out, int B,
+                int Sq, int Skv, int H, int Hkv, int dt, const long long* st,
+                int causal, int has_window, int window, float scale,
+                cudaStream_t stream) {
+  static const cudaError_t ready = cudaFuncSetAttribute(
+      flash_fwd_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWideBytes);
+  if (ready != cudaSuccess) return static_cast<int>(ready);
+  const dim3 grid(B * H, (Sq + kTQ - 1) / kTQ,
+                  (dt + kWideSlice - 1) / kWideSlice);
+  flash_fwd_wide<<<grid, kHopperThreads, kWideBytes, stream>>>(
+      static_cast<__nv_bfloat16*>(out), Sq, Skv, H, H / Hkv, dt, causal,
+      has_window, window, scale * 1.4426950408889634f,
+      narrow_rows(q, k, v, dt, st));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -975,30 +1281,49 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instance of width D: f32 on FMA (TMA loads), bf16 on wgmma with TMA
+// loads or (narrow) the narrow copies.
 template <int D>
-int launch(int dtype, const void* q, const void* k, const void* v, void* out,
-           int B, int Sq, int Skv, int H, int Hkv, int dt,
-           const long long* st, int causal, int has_window, int window,
-           float scale, cudaStream_t stream) {
+int launch(int dtype, bool narrow, const void* q, const void* k,
+           const void* v, void* out, int B, int Sq, int Skv, int H, int Hkv,
+           int dt, const long long* st, int causal, int has_window,
+           int window, float scale, cudaStream_t stream) {
   if (dtype == 0)
     return launch_f32<D>(q, k, v, out, B, Sq, Skv, H, Hkv, dt, st, causal,
                          has_window, window, scale, stream);
-  return launch_wgmma<D>(q, k, v, out, B, Sq, Skv, H, Hkv, dt, st, causal,
-                         has_window, window, scale, stream);
+  if (narrow)
+    return launch_wgmma<D, true>(q, k, v, out, B, Sq, Skv, H, Hkv, dt, st,
+                                 causal, has_window, window, scale, stream);
+  return launch_wgmma<D, false>(q, k, v, out, B, Sq, Skv, H, Hkv, dt, st,
+                                causal, has_window, window, scale, stream);
 }
 
-// Any head dim, any strides: the CUDA-core instance (attention_any.cuh).
-template <typename T>
+// f32 at any other head dim or stride: the CUDA-core instance
+// (attention_any.cuh).
 int launch_any(const void* q, const void* k, const void* v, void* out, int B,
                int Sq, int Skv, int H, int Hkv, int D, const long long* st,
                int causal, int has_window, int window, float scale,
                cudaStream_t stream) {
-  const attn_any::Args<T> a{
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), nullptr, B, Sq, Skv,
-      H, Hkv, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+  const attn_any::Args<float> a{
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), nullptr, B, Sq,
+      Skv, H, Hkv, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], causal, has_window, window, scale};
-  return attn_any::launch<T, false>(a, stream);
+  return attn_any::launch<float, false>(a, stream);
+}
+
+// The instance a call takes (see flash_attention_fwd): 0 the TMA instances,
+// 1 the wgmma kernel with narrow copies, 2 the wide instance, 3 the
+// CUDA-core instance; -1 for arguments the entry point refuses.
+int route_of(int dtype, const void* q, const void* k, const void* v, int D,
+             const long long* strides) {
+  if ((dtype != 0 && dtype != 1) || D < 1) return -1;
+  const void* ptrs[3] = {q, k, v};
+  if (attn_any::aligned_rows(dtype == 0 ? 4 : 2, ptrs, 3, strides, 9) &&
+      hopper::attention_width(D) != 0)
+    return 0;
+  if (dtype == 0) return 3;
+  return D > 256 ? 2 : 1;
 }
 
 }  // namespace
@@ -1007,10 +1332,13 @@ int launch_any(const void* q, const void* k, const void* v, void* out, int B,
 // each with unit stride over D and the (batch, sequence, head) strides in
 // `strides` (q's three, then k's, then v's, in elements); out is a
 // contiguous [B, Sq, H, D].  Any D >= 1; H a multiple of Hkv; `scale` is
-// 1/sqrt(D).  A D that is a multiple of 8 from 8 to 256
-// (hopper::attention_width) with 16-byte aligned pointers and strides runs
-// in the TMA instances (the wgmma pipeline for bf16, FMA for f32); any
-// other shape in the CUDA-core instance of attention_any.cuh.
+// 1/sqrt(D).  bf16: D up to 256 in the wgmma instance of the smallest
+// width that holds D rounded up to 8 (hopper::attention_width), by TMA
+// where D is a multiple of 8 and the pointers and strides 16-byte aligned
+// (every served shape), else by the narrow copies; D past 256 in
+// flash_fwd_wide.  f32: D a multiple of 8 up to 256 with 16-byte aligned
+// rows in the FMA instances (TMA loads), any other shape in the CUDA-core
+// instance of attention_any.cuh.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* out, int B, int Sq,
                                    int Skv, int H, int Hkv, int D,
@@ -1018,24 +1346,22 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    int has_window, int window, float scale,
                                    void* stream) {
   if (Sq <= 0 || Skv <= 0 || B <= 0) return 0;
-  if ((dtype != 0 && dtype != 1) || D < 1 || Hkv < 1 || H % Hkv)
+  const int route = route_of(dtype, q, k, v, D, strides);
+  if (route < 0 || Hkv < 1 || H % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  const void* ptrs[3] = {q, k, v};
-  if (!attn_any::aligned_rows(dtype == 0 ? 4 : 2, ptrs, 3, strides, 9) ||
-      hopper::attention_width(D) == 0)
-    return dtype == 0
-               ? launch_any<float>(q, k, v, out, B, Sq, Skv, H, Hkv, D,
-                                   strides, causal, has_window, window, scale,
-                                   s)
-               : launch_any<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, Hkv,
-                                           D, strides, causal, has_window,
-                                           window, scale, s);
-#define REPRO_FLASH_WIDTH(W)                                               \
-  case W:                                                                  \
-    return launch<W>(dtype, q, k, v, out, B, Sq, Skv, H, Hkv, D, strides, \
-                     causal, has_window, window, scale, s);
-  switch (hopper::attention_width(D)) {
+  if (route == 3)
+    return launch_any(q, k, v, out, B, Sq, Skv, H, Hkv, D, strides, causal,
+                      has_window, window, scale, s);
+  if (route == 2)
+    return launch_wide(q, k, v, out, B, Sq, Skv, H, Hkv, D, strides, causal,
+                       has_window, window, scale, s);
+  const bool tma = route == 0;
+#define REPRO_FLASH_WIDTH(W)                                                \
+  case W:                                                                   \
+    return launch<W>(dtype, !tma, q, k, v, out, B, Sq, Skv, H, Hkv, D,      \
+                     strides, causal, has_window, window, scale, s);
+  switch (hopper::attention_width((D + 7) / 8 * 8)) {
     REPRO_FLASH_WIDTH(16)
     REPRO_FLASH_WIDTH(32)
     REPRO_FLASH_WIDTH(64)
@@ -1049,6 +1375,14 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_FLASH_WIDTH
+}
+
+// Which instance flash_attention_fwd would run for these tensors (the
+// route_of codes); tests hold the wrapper's ``route`` to it.
+extern "C" int flash_attention_route(int dtype, const void* q, const void* k,
+                                     const void* v, int D,
+                                     const long long* strides) {
+  return route_of(dtype, q, k, v, D, strides);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -19,6 +19,7 @@
 #include <mutex>
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace hopper {
@@ -117,12 +118,152 @@ __device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
                    bar)
                : "memory");
 }
+// This thread's cp.async copies so far as one group; wait until at most
+// kPending of its groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
 
 // Shared-memory writes made by the generic proxy (st.shared, cp.async) that
 // this thread has seen, ordered before its later accesses through the async
 // proxy (wgmma, TMA).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Narrow copies: the tiles TMA would write, filled by threads from rows that
+// TMA cannot read (no whole number of 16 bytes, or an unaligned pointer or
+// stride), in pieces of kW bf16 elements (16, 8, 4 or 2 bytes).
+// ---------------------------------------------------------------------------
+
+// `addr` (an offset from a 1024-byte aligned base) under the swizzle that
+// TMA writes and wgmma reads for rows of `span` bytes (128, 64 or 32):
+// address bits 4.. XOR bits 7.. (CUTLASS's Swizzle<log2(span / 16), 4, 3>).
+__device__ __forceinline__ uint32_t swizzled(uint32_t addr, int span) {
+  return addr ^ ((addr >> 3) & ((span / 16 - 1) << 4));
+}
+
+// The widest piece of kW elements (8, 4, 2 or 1) that a row of `cols` bf16
+// elements at `ptr`, with element strides `strides` between rows, can be
+// read in: kW divides cols and every stride, and 2 kW bytes divide the
+// pointer.  A piece then lies wholly inside or wholly past a row.
+inline int piece_elems(const void* ptr, int cols, const long long* strides,
+                       int nstrides) {
+  for (int w = 8; w > 1; w /= 2) {
+    bool ok = cols % w == 0 && reinterpret_cast<uintptr_t>(ptr) % (2 * w) == 0;
+    for (int i = 0; i < nstrides; ++i) ok = ok && strides[i] % w == 0;
+    if (ok) return w;
+  }
+  return 1;
+}
+
+// A valid source for the copies that read nothing (a source size of 0).
+static __device__ __align__(16) unsigned char kZeroPiece[16];
+
+// One piece of kW elements from `src` into shared memory at `dst`, or kW
+// zeros where `src` is null: cp.async of 16 (.cg), 8 or 4 bytes (.ca; the
+// .cg form takes 16 only), with a source size of 0 for zeros; a 2-byte piece
+// is a load and st.shared.
+template <int kW>
+__device__ __forceinline__ void copy_piece(uint32_t dst,
+                                           const __nv_bfloat16* src) {
+  const void* from = src ? static_cast<const void*>(src) : kZeroPiece;
+  if constexpr (kW == 8) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(from), "r"(src ? 16 : 0)
+                 : "memory");
+  } else if constexpr (kW == 4 || kW == 2) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(from), "n"(2 * kW), "r"(src ? 2 * kW : 0)
+                 : "memory");
+  } else {
+    const unsigned short v =
+        src ? __ldg(reinterpret_cast<const unsigned short*>(src)) : 0;
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(v) : "memory");
+  }
+}
+
+// Rows [0, nrows) of a tile of kRows rows x kCols columns in the layout TMA
+// writes with boxes of kBox columns (box b at dst + b kRows kBox 2, each row
+// kBox 2 bytes under that span's swizzle): row r from row(r) (a pointer to
+// its column 0, or null for a row of zeros), columns at or past `cols` (a
+// multiple of kW) zero.  Thread `tid` of `nthreads` copies every nthreads-th
+// piece, neighbouring threads along a row.  Where the threads cover whole
+// rows (every tile of the expert FFN), a thread keeps one column and steps
+// over rows; 8 rows or more at a time, its swizzled address only grows by
+// a multiple of the swizzle's period (tools/moe_ab.py: the copies' own
+// instructions set the narrow route's time at d 4092).
+template <int kW, int kRows, int kCols, int kBox, typename RowFn>
+__device__ __forceinline__ void copy_tile(uint32_t dst, int nrows, int cols,
+                                          RowFn row, int tid, int nthreads) {
+  constexpr int kPer = kCols / kW;                 // pieces a row
+  constexpr int kSpan = kBox * 2;
+  if (nthreads % kPer == 0) {
+    const int c = (tid % kPer) * kW;
+    const int step = nthreads / kPer;
+    const bool in_row = c < cols;
+    const uint32_t a0 = dst + (c / kBox) * (kRows * kSpan) + (c % kBox) * 2;
+    if (step % 8 == 0) {
+      uint32_t a = swizzled(a0 + tid / kPer * kSpan, kSpan);
+#pragma unroll 4
+      for (int r = tid / kPer; r < nrows; r += step, a += step * kSpan) {
+        const __nv_bfloat16* src = row(r);
+        copy_piece<kW>(a, src != nullptr && in_row ? src + c : nullptr);
+      }
+    } else {
+#pragma unroll 4
+      for (int r = tid / kPer; r < nrows; r += step) {
+        const __nv_bfloat16* src = row(r);
+        copy_piece<kW>(swizzled(a0 + r * kSpan, kSpan),
+                       src != nullptr && in_row ? src + c : nullptr);
+      }
+    }
+    return;
+  }
+  for (int i = tid; i < nrows * kPer; i += nthreads) {
+    const int r = i / kPer;
+    const int c = (i - r * kPer) * kW;
+    const __nv_bfloat16* src = row(r);
+    const uint32_t a =
+        dst + (c / kBox) * (kRows * kSpan) + r * kSpan + (c % kBox) * 2;
+    copy_piece<kW>(swizzled(a, kSpan),
+                   src != nullptr && c < cols ? src + c : nullptr);
+  }
+}
+
+// copy_tile with the piece width `w` (8, 4, 2 or 1) chosen at run time.
+template <int kRows, int kCols, int kBox, typename RowFn>
+__device__ __forceinline__ void copy_tile_w(int w, uint32_t dst, int nrows,
+                                            int cols, RowFn row, int tid,
+                                            int nthreads) {
+  switch (w) {
+    case 8:
+      copy_tile<8, kRows, kCols, kBox>(dst, nrows, cols, row, tid, nthreads);
+      break;
+    case 4:
+      copy_tile<4, kRows, kCols, kBox>(dst, nrows, cols, row, tid, nthreads);
+      break;
+    case 2:
+      copy_tile<2, kRows, kCols, kBox>(dst, nrows, cols, row, tid, nthreads);
+      break;
+    default:
+      copy_tile<1, kRows, kCols, kBox>(dst, nrows, cols, row, tid, nthreads);
+  }
+}
+
+// This thread's narrow copies into a stage, announced on the stage's full
+// barrier: two arrivals, one (release) for its st.shared, made visible to
+// the async proxy first, one that the hardware makes once its cp.async
+// copies have landed.
+__device__ __forceinline__ void copies_arrive(uint32_t bar) {
+  fence_proxy_async();
+  mbar_arrive(bar);
+  cp_async_mbar_arrive(bar);
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride

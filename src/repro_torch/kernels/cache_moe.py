@@ -11,11 +11,15 @@ is fixed-shape torch ops on the device (``slot_groups``): no host sync, so
 the fast verify path keeps its ≤2-syncs-per-block contract.  The two GEMM
 stages are the hand-written CUDA kernel ``csrc/cache_moe.cu`` (``gate_up`` or
 ``up_gelu``, then ``down``), which reads the weights straight out of the
-[S, ...] slot pool (bf16 at d and f multiples of 8: a TMA weight ring
-feeding wgmma row products; f32, and bf16 at any other width: FMA, the
-weights loaded in 16-byte pieces where the rows allow it, else element by
-element).  The combine is in f32, in each token's choice order,
-outside the kernel (as the reference keeps it outside Pallas).
+[S, ...] slot pool.  bf16 runs on the tensor cores at every width (a ring
+of weight tiles feeding wgmma row products): the tiles come by TMA and the
+rows in 16-byte copies where every row is a whole number of 16 bytes from a
+16-byte aligned pointer (every served width), else by narrow copies of the
+widest piece each tensor allows (8, 4 or 2 bytes), into the same tiles for
+the same products (``_route``).  f32 runs on FMA, the weights loaded in
+16-byte pieces where the rows allow it, else element by element.  The
+combine is in f32, in each token's choice order, outside the kernel (as the
+reference keeps it outside Pallas).
 
 Each wrapper takes the kernel's plain version (``kernels/ref.py``) only when
 its input lies on the CPU; on a CUDA tensor it launches the kernel or raises.
@@ -39,7 +43,6 @@ from repro_torch.kernels._build import load_library
 from repro_torch.kernels.guard import refuse_autograd
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -56,6 +59,10 @@ def _lib() -> ctypes.CDLL:
         lib.cache_moe_down.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I,
                                        _I, _I, _I, _P]
         lib.cache_moe_down.restype = _I
+        lib.cache_moe_route.argtypes = [_P, _P, _P, _I, _I,
+                                        ctypes.POINTER(_I),
+                                        ctypes.POINTER(_I)]
+        lib.cache_moe_route.restype = _I
         lib.cache_moe_error_string.argtypes = [_I]
         lib.cache_moe_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
@@ -118,8 +125,8 @@ def slot_groups(slot_ids: torch.Tensor, num_slots: int) -> SlotGroups:
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
            aligned: bool):
-    """``aligned``: the route reads ``t`` in 16-byte pieces (its pointer
-    must be 16-byte aligned)."""
+    """``aligned``: the route reads ``t`` in 16-byte pieces from its own
+    pointer on (f32 weights: it must be 16-byte aligned)."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if t.dim() != ndim or not t.is_contiguous():
@@ -129,17 +136,50 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name}: data pointer is not 16-byte aligned")
 
 
-def _routes(dtype: torch.dtype, K: int, N: int):
-    """Which of a stage's tensors its route reads in 16-byte pieces, for a
-    [K] -> [N] stage (the kernel picks the route from the widths alone, so
-    that each sum's order is a function of d and f): bf16 at K and N
-    multiples of 8 takes the tensor-core body (every tensor), f32 at N a
-    multiple of 4 the FMA body's vector weight loads (the weights); any
-    other width loads element by element.  -> (rows, weights)."""
-    if dtype == torch.bfloat16:
-        tc = K % 8 == 0 and N % 8 == 0
-        return tc, tc
-    return False, N % _VEC[dtype] == 0
+def _piece(t: torch.Tensor, width: int) -> int:
+    """The widest piece, in bytes, in which the tensor-core body copies bf16
+    rows of ``width`` elements from ``t``: 16, 8 or 4 where it divides a
+    row's bytes and the pointer, else 2 (``csrc/hopper.cuh::piece_elems``).
+    """
+    for n in (16, 8, 4):
+        if width * 2 % n == 0 and t.data_ptr() % n == 0:
+            return n
+    return 2
+
+
+def _route(x: torch.Tensor, weights, K: int, N: int):
+    """How the kernel runs a [K] -> [N] stage on the rows ``x`` and the
+    slot pools ``weights``: (body, the rows' piece, the weights' piece),
+    pieces in bytes, as ``csrc/cache_moe.cu`` chooses them.  bf16 runs on
+    the tensor cores at every width, "tma" (the weights by TMA, the rows in
+    16-byte copies) where both pieces are 16 bytes, else "narrow" (every
+    tile by the narrow copies); the body is the dtype's alone, so each
+    output's sum is a function of K and N, and the pieces change no bit.
+    f32 runs on "fma": rows element by element, weights in 16-byte loads at
+    N a multiple of 4 (from a 16-byte aligned pointer), else element by
+    element."""
+    if x.dtype == torch.bfloat16:
+        rows = _piece(x, K)
+        wts = min(_piece(w, N) for w in weights)
+        return ("tma" if rows == wts == 16 else "narrow"), rows, wts
+    return "fma", 4, 16 if N % 4 == 0 else 4
+
+
+def kernel_route(x: torch.Tensor, weights, K: int, N: int):
+    """``_route`` as the kernel decides it for bf16 CUDA tensors
+    (``cache_moe_route``, the decision its entry points take)."""
+    rows, wts = _I(), _I()
+    w1, w2 = (*weights, None)[:2]
+    code = _lib().cache_moe_route(x.data_ptr(), w1.data_ptr(),
+                                  None if w2 is None else w2.data_ptr(), K,
+                                  N, ctypes.byref(rows), ctypes.byref(wts))
+    return ("tma", "narrow")[code], rows.value, wts.value
+
+
+def _vector_weights(route) -> bool:
+    """Whether the route reads the weights in 16-byte pieces from their own
+    pointer (f32 at N a multiple of 4: ``_check`` asks alignment)."""
+    return route[0] == "fma" and route[2] == 16
 
 
 def _check_call(x: torch.Tensor, g: SlotGroups, *weights: torch.Tensor):
@@ -176,10 +216,10 @@ def gate_up(x: torch.Tensor, g: SlotGroups, wg: torch.Tensor,
                                   g.grp_start, g.grp_count)
     _check_call(x, g, wg, wu)
     d, f = x.shape[-1], wg.shape[-1]
-    rows_al, w_al = _routes(x.dtype, d, f)
-    _check("x", x, x.dtype, 2, rows_al)
-    _check("wg", wg, x.dtype, 3, w_al)
-    _check("wu", wu, x.dtype, 3, w_al)
+    vec = _vector_weights(_route(x, (wg, wu), d, f))
+    _check("x", x, x.dtype, 2, False)
+    _check("wg", wg, x.dtype, 3, vec)
+    _check("wu", wu, x.dtype, 3, vec)
     if wg.shape[1] != d or wu.shape != wg.shape:
         raise ValueError(f"gate_up shapes: x {tuple(x.shape)}, "
                          f"wg {tuple(wg.shape)}, wu {tuple(wu.shape)}")
@@ -214,9 +254,8 @@ def up_gelu(x: torch.Tensor, g: SlotGroups, wu: torch.Tensor) -> torch.Tensor:
                                   g.grp_count)
     _check_call(x, g, wu)
     d, f = x.shape[-1], wu.shape[-1]
-    rows_al, w_al = _routes(x.dtype, d, f)
-    _check("x", x, x.dtype, 2, rows_al)
-    _check("wu", wu, x.dtype, 3, w_al)
+    _check("x", x, x.dtype, 2, False)
+    _check("wu", wu, x.dtype, 3, _vector_weights(_route(x, (wu,), d, f)))
     if wu.shape[1] != d:
         raise ValueError(f"up_gelu shapes: x {tuple(x.shape)}, "
                          f"wu {tuple(wu.shape)}")
@@ -250,9 +289,8 @@ def down(h: torch.Tensor, g: SlotGroups, wd: torch.Tensor) -> torch.Tensor:
         return R.slot_down_ref(h, wd, g.grp_slot, g.grp_start, g.grp_count)
     _check_call(h, g, wd)
     f, d = h.shape[-1], wd.shape[-1]
-    rows_al, w_al = _routes(h.dtype, f, d)
-    _check("h", h, h.dtype, 2, rows_al)
-    _check("wd", wd, h.dtype, 3, w_al)
+    _check("h", h, h.dtype, 2, False)
+    _check("wd", wd, h.dtype, 3, _vector_weights(_route(h, (wd,), f, d)))
     if wd.shape[1] != f:
         raise ValueError(f"down shapes: h {tuple(h.shape)}, "
                          f"wd {tuple(wd.shape)}")

@@ -7,14 +7,16 @@ and sliding-window masking and GQA, the port of
 ``window``, ``block_q``, ``block_k``) and its precondition: each sequence
 length must be a multiple of its block, capped at the length.  On a CUDA
 tensor it launches the hand-written kernel ``csrc/flash_attention.cu`` at
-any head dim D >= 1 and any number of q heads per kv head: a D that is a
-multiple of 8 from 8 to 256 with 16-byte aligned rows (every served shape)
-in its TMA instances (bf16: 128 x 128 tiles loaded by TMA into a wgmma
-pipeline, 128 x 64 at D > 128; f32: 64 x 64 tiles on FMA; each in the
-smallest of its instance widths that holds D, zero-filled past D inside
-its own loads), any other D or stride in its CUDA-core instance
-(``csrc/attention_any.cuh``: element loads, output columns in slices of
-128); the kernel tiles itself, the blocks only fix the precondition.  On a
+any head dim D >= 1 and any number of q heads per kv head (``route``): a D
+that is a multiple of 8 from 8 to 256 with 16-byte aligned rows (every
+served shape) in its TMA instances (bf16: 128 x 128 tiles loaded by TMA
+into a wgmma pipeline, 128 x 64 at D > 128; f32: 64 x 64 tiles on FMA;
+each in the smallest of its instance widths that holds D, zero-filled past
+D inside its own loads).  In bf16 any other D up to 256 or stride runs in
+the same wgmma kernel with its tiles filled by narrow copies, and D past
+256 in its wide instance (wgmma, 128-column output slices); in f32 they
+run in the CUDA-core instance (``csrc/attention_any.cuh``).  The kernel
+tiles itself, the blocks only fix the precondition.  On a
 CPU tensor it runs the plain version ``ref.flash_attention_ref`` with the
 reference's blocks.  A launch or a tensor-map encode that fails raises.
 ``flash_attention.launches`` counts the launches (not a call inside a CUDA
@@ -47,6 +49,9 @@ def _lib() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_longlong), _I, _I, _I, ctypes.c_float,
             _P]
         lib.flash_attention_fwd.restype = _I
+        lib.flash_attention_route.argtypes = [
+            _I, _P, _P, _P, _I, ctypes.POINTER(ctypes.c_longlong)]
+        lib.flash_attention_route.restype = _I
         lib.flash_attention_error_string.argtypes = [_I]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
@@ -61,11 +66,64 @@ def check_head_dim(D: int):
                          f"head dim from 1")
 
 
+def _aligned(t: torch.Tensor) -> bool:
+    """16-byte pointer and (batch, sequence, head) strides: TMA reads it."""
+    el = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s * el % 16 == 0
+                                          for s in t.stride()[:3])
+
+
+def piece_bytes(t: torch.Tensor) -> int:
+    """The widest piece, in bytes, in which the narrow copies read bf16
+    rows of ``t`` [B, S, H, D]: 16, 8 or 4 where it divides D's bytes, the
+    strides' and the pointer, else 2 (``csrc/hopper.cuh::piece_elems``)."""
+    for n in (16, 8, 4):
+        if t.data_ptr() % n == 0 and all(
+                s * 2 % n == 0 for s in (t.shape[3], *t.stride()[:3])):
+            return n
+    return 2
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which instance of ``csrc/flash_attention.cu`` runs a call, as its
+    entry point chooses: "tma" where D is a multiple of 8 from 8 to 256 and
+    every pointer and stride is 16-byte aligned (bf16: wgmma fed by TMA;
+    f32: FMA); else bf16 "narrow" (D up to 256: the same wgmma kernel, its
+    tiles filled by narrow copies of ``piece_bytes``) or "wide" (D past
+    256), and f32 "any" (the CUDA-core instance)."""
+    D = q.shape[-1]
+    if D % 8 == 0 and D <= 256 and all(_aligned(t) for t in (q, k, v)):
+        return "tma"
+    if q.dtype == torch.bfloat16:
+        return "narrow" if D <= 256 else "wide"
+    return "any"
+
+
+_ROUTES = ("tma", "narrow", "wide", "any")
+
+
+def _strides(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    return (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
+                                   *v.stride()[:3])
+
+
+def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The instance the kernel's entry point picks for these CUDA tensors
+    (``flash_attention_route``, the decision ``flash_attention_fwd``
+    takes), named as ``route`` names it."""
+    code = _lib().flash_attention_route(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        q.shape[-1], _strides(q, k, v))
+    if code < 0:
+        raise ValueError(f"flash_attention takes no {q.dtype} head dim "
+                         f"{q.shape[-1]}")
+    return _ROUTES[code]
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """What the kernel takes: float32 or bfloat16 on one card, the same
     dtype throughout, any D >= 1 (``check_head_dim``), H a multiple of Hkv,
-    unit stride over D (any other strides and pointers: an unaligned one
-    takes the CUDA-core instance)."""
+    unit stride over D (any other strides and pointers: ``route``)."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
                         f"not {q.dtype}")
@@ -112,8 +170,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
-                                      *v.stride()[:3])
+    strides = _strides(q, k, v)
     lib = _lib()
     rc = lib.flash_attention_fwd(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -107,7 +107,7 @@ def test_kernel_matches_plain_and_is_batch_invariant(cuda, dtype, tol):
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
     """float16 and mismatched shapes raise; any width is taken (d 60: bf16
-    rows of 120 bytes run on the element-load FMA body)."""
+    rows of 120 bytes run on the tensor-core body's narrow copies)."""
     g = K.slot_groups(torch.zeros((2, 2), dtype=torch.int32, device=cuda), 4)
     x = torch.zeros((2, 64), dtype=torch.float16, device=cuda)
     w = torch.zeros((4, 64, 64), dtype=torch.float16, device=cuda)
@@ -355,25 +355,133 @@ def test_phi_engine_on_the_card_matches_its_greedy(cuda, slots):
 
 
 def test_ffn_refuses_bf16_rows_it_cannot_copy(cuda):
-    """The tensor-core body (bf16, d and f multiples of 8) copies 16-byte
-    pieces of each row: there a pointer that is not 16-byte aligned raises.
-    Rows of any other width take the element-load body, from any
+    """bf16 rows are taken from any pointer now: an offset input row (2
+    bytes in) or an offset pool at widths the TMA route takes runs the
+    narrow copies and gives the aligned call's bits; rows of 60 / 68
+    elements from an offset pointer too.  What is still refused: an f32
+    pool that the FMA body reads in 16-byte pieces from an unaligned
     pointer."""
-    g = K.slot_groups(torch.zeros((2, 2), dtype=torch.int32, device=cuda), 4)
+    gen = torch.Generator(cuda).manual_seed(3)
+    si = torch.randint(0, 4, (6, 2), generator=gen, device=cuda
+                       ).to(torch.int32)
+    g = K.slot_groups(si, 4)
     bf = torch.bfloat16
-    xa = torch.zeros((2 * 64 + 4,), dtype=bf, device=cuda)[4:].view(2, 64)
-    w = torch.zeros((4, 64, 64), dtype=bf, device=cuda)
-    with pytest.raises(ValueError, match="16-byte"):
-        K.gate_up(xa, g, w, w)
-    ha = torch.zeros((4 * 64 + 4,), dtype=bf, device=cuda)[4:].view(4, 64)
-    with pytest.raises(ValueError, match="16-byte"):
-        K.down(ha, g, w)
+    x = torch.randn((6, 64), generator=gen, device=cuda).to(bf)
+    w = (torch.randn((4, 64, 64), generator=gen, device=cuda) / 8).to(bf)
+    xa = torch.zeros((6 * 64 + 1,), dtype=bf, device=cuda)[1:].view(6, 64)
+    xa.copy_(x)
+    wa = torch.zeros((w.numel() + 1,), dtype=bf, device=cuda)[1:].view(
+        w.shape)
+    wa.copy_(w)
+    assert K._route(xa, (wa,), 64, 64)[0] == "narrow"
+    h = K.gate_up(x, g, w, w)
+    assert torch.equal(K.gate_up(xa, g, wa, wa), h)
+    assert torch.equal(K.down(h, g, wa), K.down(h, g, w))
     xu = torch.zeros((2 * 60 + 2,), dtype=bf, device=cuda)[2:].view(2, 60)
     wu = torch.randn((4, 60, 68), device=cuda).to(bf)
-    h = K.gate_up(xu, g, wu, wu)
-    want = R.slot_gate_up_ref(xu, g.row_tok, wu, wu, g.grp_slot,
-                              g.grp_start, g.grp_count)
+    g2 = K.slot_groups(si[:2], 4)
+    h = K.gate_up(xu, g2, wu, wu)
+    want = R.slot_gate_up_ref(xu, g2.row_tok, wu, wu, g2.grp_slot,
+                              g2.grp_start, g2.grp_count)
     assert torch.equal(h, want)                   # zeros in, zeros out
+    wf = torch.zeros((4 * 64 * 64 + 1,), device=cuda)[1:].view(4, 64, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.down(x.float(), g, wf)
+
+
+def _ffn_inputs(dev, d, f, T, S, seed, dtype=torch.bfloat16):
+    gen = torch.Generator(dev).manual_seed(seed)
+    wg, wu = [(torch.randn((S, d, f), generator=gen, device=dev)
+               * d ** -0.5).to(dtype) for _ in range(2)]
+    wd = (torch.randn((S, f, d), generator=gen, device=dev)
+          * f ** -0.5).to(dtype)
+    x = torch.randn((T, d), generator=gen, device=dev).to(dtype)
+    si = torch.randint(-1, S, (T, 2), generator=gen, device=dev
+                       ).to(torch.int32)
+    w = torch.rand((T, 2), generator=gen, device=dev).to(dtype)
+    return x, si, w, wg, wu, wd
+
+
+@pytest.mark.parametrize("d,f,piece", [(36, 60, 8), (34, 58, 4),
+                                       (37, 61, 2), (100, 204, 8)])
+@pytest.mark.parametrize("T", [5, 512])
+def test_ffn_narrow_copies_at_every_piece_width(cuda, d, f, piece, T):
+    """bf16 widths the TMA ring cannot read, one per piece of the narrow
+    copies (8, 4 and 2 bytes), swiglu and gelu experts at a verify block
+    and a prefill block: the kernel takes the tensor-core body's narrow
+    copies with the pieces ``_route`` names (``kernel_route``;
+    chip_smoke.py names the kernel the profiler saw), and the stages match
+    their plain versions (TOL 2e-2 of the largest |value|)."""
+    x, si, w, wg, wu, wd = _ffn_inputs(cuda, d, f, T, 12, d + f)
+    assert K._route(x, (wg, wu), d, f) == K.kernel_route(x, (wg, wu), d, f) \
+        == ("narrow", piece, piece)
+    g = K.slot_groups(si, 12)
+    for call, want in (
+            (lambda: K.gate_up(x, g, wg, wu),
+             lambda: R.slot_gate_up_ref(x, g.row_tok, wg, wu, g.grp_slot,
+                                        g.grp_start, g.grp_count)),
+            (lambda: K.up_gelu(x, g, wu),
+             lambda: R.slot_up_gelu_ref(x, g.row_tok, wu, g.grp_slot,
+                                        g.grp_start, g.grp_count))):
+        h = call()
+        ref = want().float()
+        assert torch.isfinite(h).all()
+        assert (h.float() - ref).abs().max().item() <= \
+            2e-2 * ref.abs().max().item()
+    assert K.kernel_route(h, (wd,), f, d)[0] == "narrow"
+    y = K.down(h, g, wd)
+    ref = R.slot_down_ref(h, wd, g.grp_slot, g.grp_start, g.grp_count
+                          ).float()
+    assert (y.float() - ref).abs().max().item() <= \
+        2e-2 * ref.abs().max().item()
+
+
+def _offset(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A copy of ``t`` whose data starts ``nbytes`` past a 16-byte
+    boundary (contiguous, the same shape)."""
+    el = t.element_size()
+    buf = torch.empty(t.numel() + 16 // el, dtype=t.dtype, device=t.device)
+    out = buf[nbytes // el:nbytes // el + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == nbytes
+    return out
+
+
+@pytest.mark.parametrize("nbytes,piece", [(8, 8), (2, 2)])
+@pytest.mark.parametrize("T", [5, 512])
+def test_ffn_narrow_route_equals_tma_route_bit_for_bit(cuda, nbytes, piece,
+                                                       T):
+    """At mixtral's widths (d 4096, f 14336) a pool and an input copied to
+    an 8- or a 2-byte offset take the narrow copies of that piece; each
+    stage's output equals the TMA route's on the same values aligned, bit
+    for bit: the two routes share their consumers and their sums."""
+    d, f, S = 4096, 14336, 3
+    x, si, _, wg, wu, wd = _ffn_inputs(cuda, d, f, T, S, 5)
+    g = K.slot_groups(si, S)
+    xo, wgo, wuo, wdo = (_offset(t, nbytes) for t in (x, wg, wu, wd))
+    assert K._route(x, (wg, wu), d, f) == \
+        K.kernel_route(x, (wg, wu), d, f) == ("tma", 16, 16)
+    assert K._route(xo, (wgo, wuo), d, f) == \
+        K.kernel_route(xo, (wgo, wuo), d, f) == ("narrow", piece, piece)
+    h = K.gate_up(x, g, wg, wu)
+    assert torch.equal(K.gate_up(xo, g, wgo, wuo), h)
+    assert torch.equal(K.up_gelu(xo, g, wuo), K.up_gelu(x, g, wu))
+    ho = _offset(h, nbytes)
+    assert K.kernel_route(ho, (wdo,), f, d)[0] == "narrow"
+    assert torch.equal(K.down(ho, g, wdo), K.down(h, g, wd))
+
+
+@pytest.mark.parametrize("d,f", [(100, 204), (4092, 14332)])
+def test_ffn_any_width_is_batch_invariant(cuda, d, f):
+    """At each of chip_smoke.py's FFN_ANY widths (the narrow copies), the
+    first 1, 5 and 64 rows of a 512-token call give that call's rows bit
+    for bit, through both stages and the combine, swiglu and gelu."""
+    x, si, w, wg, wu, wd = _ffn_inputs(cuda, d, f, 512, 8, 6)
+    for gate in (wg, None):
+        full = K.cache_moe(x, si, w, wu, wd, gate)
+        for T in (1, 5, 64):
+            part = K.cache_moe(x[:T], si[:T], w[:T], wu, wd, gate)
+            assert torch.equal(part, full[:T])
 
 
 @pytest.mark.parametrize("d,f", [(100, 204), (36, 60), (4092, 14332)])
@@ -828,8 +936,10 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, D, window,
 def test_flash_kernel_matches_plain_at_any_head_dim(cuda, D, rep, Sq, window,
                                                    dtype, tol):
     """The head dims no TMA instance takes (rows of 8, 40 and 200 bytes,
-    and D past 256: 128-column output slices), which run in the CUDA-core
-    instance, with 1, 4 and 8 q heads per kv head, causal, windowed, and
+    and D past 256: 128-column output slices), which run in the wgmma
+    instances with narrow copies and the wide instance (bf16) or the
+    CUDA-core instance (f32), with 1, 4 and 8 q heads per kv head, causal,
+    windowed, and
     Sq < Skv (256 keys), against the plain version at the reference's
     blocks of 128, where both round p (the served shapes' tolerance)."""
     gen = torch.Generator(cuda).manual_seed(D + rep)
@@ -847,12 +957,60 @@ def test_flash_kernel_matches_plain_at_any_head_dim(cuda, D, rep, Sq, window,
     assert bool((err <= tol * scale).all())
 
 
+@pytest.mark.parametrize("D,piece", [(4, 8), (6, 4), (5, 2), (100, 8),
+                                     (20, 8), (202, 4), (260, 8),
+                                     (263, 2), (320, 16)])
+def test_flash_narrow_copies_at_every_piece_width(cuda, D, piece):
+    """bf16 head dims TMA cannot read, one per piece of the narrow copies
+    (16, 8, 4 and 2 bytes; D up to 256 in the wgmma instance that holds D
+    rounded up to 8, past it the wide instance): the entry point picks the
+    tensor-core instance ``route`` names, never the CUDA-core one
+    (``kernel_route``; chip_smoke.py names the kernel the profiler saw),
+    and the call matches the plain version (FA_TOL 1e-2 of each row's
+    max), causal and windowed, 4 q heads per kv head."""
+    gen = torch.Generator(cuda).manual_seed(D)
+    q = torch.randn((1, 256, 8, D), generator=gen, device=cuda).bfloat16()
+    k, v = [torch.randn((1, 256, 2, D), generator=gen, device=cuda
+                        ).bfloat16() for _ in range(2)]
+    name = FA.route(q, k, v)
+    assert name == FA.kernel_route(q, k, v) == ("narrow" if D <= 256
+                                                else "wide")
+    assert FA.piece_bytes(k) == piece
+    for window in (None, 100):
+        got = FA.flash_attention(q, k, v, causal=True, window=window)
+        want = R.flash_attention_ref(q, k, v, causal=True, window=window)
+        err = (got.float() - want.float()).abs().amax(dim=-1)
+        assert torch.isfinite(got).all()
+        assert bool((err <= 1e-2 * want.float().abs().amax(dim=-1)).all())
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("nbytes", [8, 2])
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_narrow_route_equals_tma_route_bit_for_bit(cuda, D, nbytes,
+                                                        window):
+    """At D 64 and 128 (TMA instances) q, k and v copied to an 8- or a
+    2-byte offset take the narrow copies; the output equals the TMA
+    route's on the same values aligned, bit for bit (the same wgmma,
+    softmax and ping-pong code on the same tiles)."""
+    gen = torch.Generator(cuda).manual_seed(D + nbytes)
+    q = torch.randn((2, 384, 8, D), generator=gen, device=cuda).bfloat16()
+    k, v = [torch.randn((2, 384, 2, D), generator=gen, device=cuda
+                        ).bfloat16() for _ in range(2)]
+    qo, ko, vo = (_offset(t, nbytes) for t in (q, k, v))
+    assert FA.route(q, k, v) == FA.kernel_route(q, k, v) == "tma"
+    assert FA.route(qo, ko, vo) == FA.kernel_route(qo, ko, vo) == "narrow"
+    got = FA.flash_attention(qo, ko, vo, window=window)
+    assert torch.equal(got, FA.flash_attention(q, k, v, window=window))
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
 def test_attention_kernels_take_unaligned_rows(cuda, dtype, tol):
     """k and v as views one element into wider rows (pointers and strides
     off 16 bytes) at D 64, a width of the TMA instances: both kernels take
-    them through the CUDA-core instance and match their plain versions."""
+    them (flash in bf16 through its narrow copies, else through the
+    CUDA-core instance) and match their plain versions."""
     gen = torch.Generator(cuda).manual_seed(11)
     D, H, Hkv, S = 64, 8, 2, 256
     q = torch.randn((1, S, H, D), generator=gen, device=cuda).to(dtype)

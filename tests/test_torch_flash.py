@@ -141,7 +141,7 @@ def test_block_precondition_is_the_references():
 def test_kernel_wrapper_refuses_what_it_does_not_take():
     """The checks run before the library loads (no card needed).  The
     kernel takes every head dim from 1 (D 4, 20, 100, 264, 320 and 512
-    too: the CUDA-core instance), any strides with unit stride over D and
+    too: ``route``), any strides with unit stride over D and
     any number of q heads per kv head; D 0, a wrong dtype, a head count
     that is no multiple of the kv heads and a strided D still raise."""
     q = torch.zeros((1, 8, 4, 16), dtype=torch.float16)
@@ -170,6 +170,67 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
         FA._check(torch.zeros((1, 8, H, D)), k, k)
     k = torch.zeros((1, 8, 2, 20))[:, :, :, 2:18]
     FA._check(torch.zeros((1, 8, 4, 16)), k, k)
+
+
+def _view(shape, dtype, offset_elems=0, pad=0):
+    """A zero [B, S, H, D] tensor; with ``pad`` each row sits in a row of
+    D + pad elements (strides off D), with ``offset_elems`` its data
+    starts that many elements past a 16-byte boundary."""
+    B, S, H, D = shape
+    n = B * S * H * (D + pad)
+    el = torch.empty((), dtype=dtype).element_size()
+    buf = torch.zeros(n + 16 // el + offset_elems, dtype=dtype)
+    skip = -buf.data_ptr() % 16 // el + offset_elems
+    t = buf[skip:skip + n].view(B, S, H, D + pad)[..., :D]
+    assert t.data_ptr() % 16 == offset_elems * el % 16
+    return t
+
+
+FLASH_ROUTES = {
+    # name: (dtype, D, q / k / v offset in elements, row pad, route,
+    #        k's piece in bytes)
+    "bf16-D4": (torch.bfloat16, 4, 0, 0, "narrow", 8),
+    "bf16-D100": (torch.bfloat16, 100, 0, 0, "narrow", 8),
+    "bf16-D6": (torch.bfloat16, 6, 0, 0, "narrow", 4),
+    "bf16-D5": (torch.bfloat16, 5, 0, 0, "narrow", 2),
+    "bf16-D264": (torch.bfloat16, 264, 0, 0, "wide", 16),
+    "bf16-D512": (torch.bfloat16, 512, 0, 0, "wide", 16),
+    "bf16-D263": (torch.bfloat16, 263, 0, 0, "wide", 2),
+    "bf16-D64": (torch.bfloat16, 64, 0, 0, "tma", 16),
+    "bf16-D128": (torch.bfloat16, 128, 0, 0, "tma", 16),
+    "bf16-D64-offset-8-bytes": (torch.bfloat16, 64, 4, 0, "narrow", 8),
+    "bf16-D64-offset-2-bytes": (torch.bfloat16, 64, 1, 0, "narrow", 2),
+    "bf16-D64-rows-of-65": (torch.bfloat16, 64, 0, 1, "narrow", 2),
+    "bf16-D128-rows-of-130": (torch.bfloat16, 128, 0, 2, "narrow", 4),
+    "f32-D4": (torch.float32, 4, 0, 0, "any", None),
+    "f32-D100": (torch.float32, 100, 0, 0, "any", None),
+    "f32-D264": (torch.float32, 264, 0, 0, "any", None),
+    "f32-D512": (torch.float32, 512, 0, 0, "any", None),
+    "f32-D64": (torch.float32, 64, 0, 0, "tma", None),
+    "f32-D64-offset-4-bytes": (torch.float32, 64, 1, 0, "any", None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_ROUTES))
+def test_kernel_route_follows_dtype_head_dim_and_strides(case):
+    """The instance ``csrc/flash_attention.cu`` runs a call in, as
+    ``route`` mirrors its entry point (no card needed): a D that is a
+    multiple of 8 to 256 with 16-byte aligned pointers and strides takes
+    the TMA instances; otherwise bf16 takes the wgmma kernel with narrow
+    copies (D up to 256, pieces of ``piece_bytes``) or the wide instance
+    (past 256), and f32 the CUDA-core instance.  The wrapper's checks take
+    every one of them."""
+    dtype, D, off, pad, want, piece = FLASH_ROUTES[case]
+    q = _view((1, 8, 4, D), dtype, off, pad)
+    k = _view((1, 8, 2, D), dtype, off, pad)
+    FA._check(q, k, k)
+    assert FA.route(q, k, k) == want
+    if piece is not None:
+        assert FA.piece_bytes(k) == piece
+    if want == "tma":                   # one unaligned tensor is enough
+        kv = _view((1, 8, 2, D), dtype, 1)
+        assert FA.route(q, kv, k) == ("narrow" if dtype == torch.bfloat16
+                                      else "any")
 
 
 def _attn_params(d, H, Hkv, hd, seed):

@@ -6,6 +6,8 @@ prep.  The CUDA kernel itself is tested on a card in test_torch_cuda.py.
 Inputs are made from a seed with numpy and fed to both packages; f32
 throughout, tolerance atol 1e-5 (the two sides sum the same products in a
 different order)."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -155,7 +157,7 @@ def test_kernel_rejects_unsupported_dtypes_on_cuda_tensors():
 @pytest.mark.parametrize("gated", [True, False])
 def test_cache_moe_matches_jax_kernel_at_any_width(gated):
     """d 36 and f 60: bf16 rows of 72 and 120 bytes, no whole number of 16
-    (the card's FMA instance with element loads takes them), swiglu and
+    (the card's tensor-core body takes them by narrow copies), swiglu and
     gelu experts, against the JAX Pallas kernel in interpret mode; each
     stage's plain version as the wrappers route it."""
     slot_ids = np.random.default_rng(9).integers(-1, 6, (5, 2))
@@ -196,24 +198,82 @@ def test_moe_gemm_matches_the_reference_at_any_width():
                                rtol=0)
 
 
-def test_wrappers_take_any_width_and_ask_alignment_only_of_their_route():
-    """The checks run before the library loads (no card needed): bf16 at
-    d 36 / f 60 passes from an offset (unaligned) row; at d and f multiples
-    of 8 (the tensor-core body's 16-byte pieces) an unaligned pointer
-    raises."""
-    g = K.slot_groups(torch.zeros((2, 2), dtype=torch.int32), 2)
-    bf = torch.bfloat16
-    x = torch.zeros((3, 36), dtype=bf)[1:]            # 72 bytes in
-    w = torch.zeros((2, 36, 60), dtype=bf)
-    for name, t, ndim, (rows, wts) in (
-            ("x", x, 2, K._routes(bf, 36, 60)),
-            ("wu", w, 3, K._routes(bf, 36, 60))):
-        assert not rows and not wts
-        K._check(name, t, bf, ndim, rows if ndim == 2 else wts)
-    assert K._routes(bf, 32, 64) == (True, True)
-    assert K._routes(torch.float32, 36, 60) == (False, True)
-    assert K._routes(torch.float32, 36, 62) == (False, False)
-    xa = torch.zeros((2 * 32 + 4,), dtype=bf)[4:].view(2, 32)   # 8 bytes in
-    with pytest.raises(ValueError, match="16-byte"):
-        K._check("x", xa, bf, 2, True)
-    K._check("x", xa, bf, 2, False)
+def _offset_view(shape, dtype, nbytes):
+    """A zero tensor of ``shape`` whose data starts ``nbytes`` past a
+    16-byte boundary (contiguous)."""
+    n = math.prod(shape)
+    el = torch.empty((), dtype=dtype).element_size()
+    buf = torch.zeros(n + 16 // el, dtype=dtype)
+    skip = (-buf.data_ptr() % 16 + nbytes) // el
+    t = buf[skip:skip + n].view(shape)
+    assert t.data_ptr() % 16 == nbytes
+    return t
+
+
+ROUTE_CASES = {
+    # name: (dtype, d, f, x offset, pool offset, (body, rows, weights))
+    "bf16-36-60": (torch.bfloat16, 36, 60, 0, 0, ("narrow", 8, 8)),
+    "bf16-34-58": (torch.bfloat16, 34, 58, 0, 0, ("narrow", 4, 4)),
+    "bf16-37-61": (torch.bfloat16, 37, 61, 0, 0, ("narrow", 2, 2)),
+    "bf16-32-64": (torch.bfloat16, 32, 64, 0, 0, ("tma", 16, 16)),
+    "bf16-32-64-x-off-2": (torch.bfloat16, 32, 64, 2, 0, ("narrow", 2, 16)),
+    "bf16-32-64-x-off-8": (torch.bfloat16, 32, 64, 8, 0, ("narrow", 8, 16)),
+    "bf16-32-64-pool-off-4": (torch.bfloat16, 32, 64, 0, 4,
+                              ("narrow", 16, 4)),
+    "bf16-36-60-x-off-4": (torch.bfloat16, 36, 60, 4, 0, ("narrow", 4, 8)),
+    "f32-36-60": (torch.float32, 36, 60, 0, 0, ("fma", 4, 16)),
+    "f32-36-62": (torch.float32, 36, 62, 0, 0, ("fma", 4, 4)),
+    "f32-36-62-pool-off-4": (torch.float32, 36, 62, 0, 4, ("fma", 4, 4)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+def test_wrappers_take_any_width_and_ask_alignment_only_of_their_route(case):
+    """The route and copy widths the kernel takes for a stage (``_route``,
+    as csrc/cache_moe.cu chooses them), and the wrappers' checks, which run
+    before the library loads (no card needed): bf16 runs on the tensor
+    cores at every width, by TMA where the rows and the pool are whole 16
+    bytes from aligned pointers, else by narrow copies of the widest piece
+    each tensor allows, from any pointer; f32 keeps the FMA body, whose
+    16-byte weight loads (N a multiple of 4) alone ask an aligned pool."""
+    dtype, d, f, x_off, w_off, want = ROUTE_CASES[case]
+    x = _offset_view((3, d), dtype, x_off)
+    w = _offset_view((2, d, f), dtype, w_off)
+    route = K._route(x, (w, w), d, f)
+    assert route == want
+    K._check("x", x, dtype, 2, False)
+    if K._vector_weights(route) and w_off:
+        with pytest.raises(ValueError, match="16-byte"):
+            K._check("wu", w, dtype, 3, True)
+    else:
+        K._check("wu", w, dtype, 3, K._vector_weights(route))
+    assert K._vector_weights(route) == (dtype == torch.float32 and f % 4 == 0)
+    # the down stage reads h [P, f] into [d] columns: its own widths
+    h = _offset_view((4, f), dtype, 0)
+    wd = _offset_view((2, f, d), dtype, w_off)
+    body, rows, wts = K._route(h, (wd,), f, d)
+    if dtype == torch.bfloat16:
+        assert rows == K._piece(h, f) and wts == K._piece(wd, d)
+        assert body == ("tma" if rows == wts == 16 else "narrow")
+    else:
+        assert (body, rows, wts) == ("fma", 4, 16 if d % 4 == 0 else 4)
+
+
+@pytest.mark.parametrize("d,f", [(34, 58), (37, 61)])
+def test_cache_moe_matches_jax_kernel_at_every_piece_width(d, f):
+    """The widths of the narrow copies' 4- and 2-byte pieces (bf16 rows of
+    68 / 116 and 74 / 122 bytes on the card), swiglu and gelu experts, the
+    port's CPU route against the JAX Pallas kernel in interpret mode."""
+    slot_ids = np.random.default_rng(d).integers(-1, 6, (5, 2))
+    a = _inputs(5, 2, 6, d, f, d + f, slot_ids)
+    t = _torch(a)
+    for gated in (True, False):
+        wg = a["wg"] if gated else None
+        want = np.asarray(jax_cache_moe(
+            jnp.asarray(a["x"]), jnp.asarray(a["slot_ids"]),
+            jnp.asarray(a["weights"]), jnp.asarray(a["wu"]),
+            jnp.asarray(a["wd"]), None if wg is None else jnp.asarray(wg),
+            interpret=True))
+        got = K.cache_moe(t["x"], t["slot_ids"], t["weights"], t["wu"],
+                          t["wd"], t["wg"] if gated else None)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)

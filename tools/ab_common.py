@@ -43,8 +43,9 @@ def build(sources, out_dir: Path):
 def time_call(call, iters: int = 200, traced: int = 50) -> dict:
     """One call's event time (which the host's issue time can set), its
     device time from ``torch.profiler`` (the sum of its kernels' and
-    copies' durations), its device kernels per call, and each kernel's time
-    per call."""
+    copies' durations), its device kernels per call, each kernel's time
+    per call, and the device activities' full names (template arguments:
+    which instance ran)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -63,13 +64,16 @@ def time_call(call, iters: int = 200, traced: int = 50) -> dict:
             call()
         torch.cuda.synchronize()
     per = defaultdict(float)
+    names = set()
     n = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            kernel = e.name.split("<")[0].split("::")[-1].split("(")[0]
-            kernel = kernel.removeprefix("void ")
+            full = e.name.removeprefix("void ").replace(
+                "(anonymous namespace)::", "").split("(")[0]
+            names.add(full)
+            kernel = full.split("<")[0].split("::")[-1]
             per[kernel] += (e.time_range.end - e.time_range.start) / traced
             n += 1
     return {"event_us": a.elapsed_time(b) / iters * 1e3,
             "device_us": sum(per.values()), "kernels_per_call": n / traced,
-            "kernels_us": dict(per)}
+            "kernels_us": dict(per), "names": sorted(names)}
