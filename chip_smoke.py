@@ -366,10 +366,10 @@ EXTRA_SHAPES = (("phi-2", 32, 32, 80), ("phi-3-mini", 32, 32, 96),
                 ("padded-40", 32, 8, 40))
 FA_EXTRA = tuple(x for x in EXTRA_SHAPES if x[0] != "falcon-7b")
 # head dims no TMA instance takes: rows TMA cannot load (bf16 rows of 8, 40
-# and 200 bytes) and D past 256 (128-column output slices).  bf16 flash
-# runs them on wgmma (the TMA instance's kernel with narrow copies, and the
-# wide instance past 256; the kernels line names the instance that ran),
-# f32 flash and flash-decode in the CUDA-core instance
+# and 200 bytes) and D past 256 (128-column output slices).  bf16 runs them
+# on the tensor cores (the TMA instance's kernel with narrow copies, and
+# the wide instance past 256; flash on wgmma, flash-decode on mma.sync; the
+# kernels line names the instance that ran), f32 in the CUDA-core instance
 # (csrc/attention_any.cuh).
 # Each with ANY_REPS q heads per kv head (8 q heads), causal and with an
 # ANY_WINDOW window (flash at S ANY_S; flash-decode at 543, 1 and 77 of 576
@@ -473,7 +473,7 @@ DECODE_CACHES = ((576, (543, 1, 77), ("llama3.2-3b", "zamba2-7b",
                  (4112, (4096, 1, 512), ("mistral-7b-draft",)),
                  # whisper-medium's served steps: lengths 129..192 of 192
                  (192, (192, 129, 160), ("whisper-medium",)))
-# the CUDA-core instance's widths, in the 576-key cache only: timed at
+# the head dims no TMA instance takes, in the 576-key cache only: timed at
 # ANY_TIMED heads, checked also at each of ANY_REPS
 DECODE_ANY = (*((f"D{D}", *ANY_TIMED, D) for D in ANY_HEAD_DIMS),
               *((f"D{D}-{r}to1", 8, 8 // r, D) for D in ANY_HEAD_DIMS
@@ -1065,8 +1065,8 @@ def flash_phase(dev):
                                          f"device kernels per call, not 1")
                 key = S if (H, D) == (FA_HEADS, FA_DIM) else \
                     f"{S}_{model}" if model else f"{S}_h{H}"
-                # at ANY_HEAD_DIMS the plain version and SDPA take event
-                # times only (the script's time)
+                # at ANY_HEAD_DIMS the plain version takes event times only
+                # (the script's time)
                 served = D not in ANY_HEAD_DIMS
                 timing[key] = {
                     "H": H, "Hkv": Hkv, "D": D,
@@ -1077,7 +1077,7 @@ def flash_phase(dev):
                     "device_ms": dev_ms,
                     "plain_device_ms": traced_ms(plain, iters=2)
                     if served else None,
-                    "library_device_ms": traced_ms(sdpa) if served else None,
+                    "library_device_ms": traced_ms(sdpa),
                     "bound_ms": bound, "bound_by": by, "max_abs_err": err}
             del q, k, v, got, want
     # unaligned views (bf16, 32 / 8 heads, S 512, causal): q, k and v one
@@ -1127,16 +1127,31 @@ def decode_bound(B: int, H: int, Hkv: int, D: int, lengths, el: int):
                                  else "operations"), nbytes
 
 
+def decode_instance(dt_name: str, D: int) -> str:
+    """The instance flash-decode must run a head dim no TMA instance takes
+    in (a pattern for ``require_instance``): bf16 the narrow copies of the
+    tensor-core kernel to D 256, the wide instance past it; f32 the
+    CUDA-core instance."""
+    if dt_name == "float32":
+        return r"^attn_any::attention_any<float, true>$"
+    return r"^decode_mma<\d+, \d+, true>$" if D <= 256 else \
+        r"^decode_wide<\d+>$"
+
+
 def decode_phase(dev):
     """The flash-decode kernel against its plain version at the llama3.2-3b
     and mixtral-draft widths and the head shapes of FA_SHAPES, and in the
-    576-key cache at the CUDA-core instance's widths (``DECODE_ANY``), bf16
-    and f32: one row at each length that fits the cache, and three rows of
-    mixed lengths whose every row must equal its own one-row call bit for
-    bit.  Timed (bf16, one row) at length 543 of 576 (llama3.2-3b,
-    zamba2-7b, the dense targets, ANY_HEAD_DIMS at 32 / 8 heads), 4096 of
-    4112 (mixtral draft) and 192 of 192 (whisper-medium's last served
-    step).  Head dim 0 must raise."""
+    576-key cache at the head dims no TMA instance takes (``DECODE_ANY``),
+    bf16 and f32: one row at each length that fits the cache, and three
+    rows of mixed lengths whose every row must equal its own one-row call
+    bit for bit; at DECODE_ANY each dtype's instance, as the profiler names
+    it (bf16: the narrow copies of ``decode_mma`` to D 256, ``decode_wide``
+    past it; f32: ``attention_any``).  Unaligned views (bf16, k and v one
+    element into wider rows) at D 64 and 128 take the narrow copies and
+    give the aligned call's bits.  Timed (bf16, one row) at length 543 of
+    576 (llama3.2-3b, zamba2-7b, the dense targets, ANY_HEAD_DIMS at 32 / 8
+    heads), 4096 of 4112 (mixtral draft) and 192 of 192 (whisper-medium's
+    last served step).  Head dim 0 must raise."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
@@ -1164,6 +1179,7 @@ def decode_phase(dev):
                                  f"{excess} over atol + rtol |want|")
         return got, lens
 
+    any_models = {w[0] for w in DECODE_ANY}
     for (model, H, Hkv, D), caches in (
             *((w, DECODE_CACHES) for w in DECODE_WIDTHS),
             *((w, DECODE_CACHES[:1]) for w in DECODE_ANY)):
@@ -1192,6 +1208,18 @@ def decode_phase(dev):
                              "kernel": "decode_attention", "model": model,
                              "dtype": dt_name, "S": S, "lengths": list(mixed),
                              "ok": True})
+                instances = None
+                if model in any_models:
+                    instances = kernel_instances(
+                        lambda: DA.decode_attention(q, k, v, lens),
+                        ("decode_", "attention_any"))
+                    require_instance(instances, decode_instance(dt_name, D),
+                                     f"decode_attention {model} {dt_name}")
+                    rows.append({"check": "instance",
+                                 "kernel": "decode_attention",
+                                 "model": model, "dtype": dt_name,
+                                 "route": DA.route(q, k, v),
+                                 "instances": instances, "ok": True})
                 if dt_name == "bfloat16" and model in timed:
                     n = mixed[0]
                     q1, k1, v1, l1 = q[:1], k[:1], v[:1], lens[:1]
@@ -1200,6 +1228,7 @@ def decode_phase(dev):
                     ks, vs = (t[:, :n].transpose(1, 2) for t in (k1, v1))
                     timing[model] = {
                         "S": S, "length": n, "H": H, "Hkv": Hkv, "D": D,
+                        "instances": instances,
                         "ms": cuda_ms(lambda: DA.decode_attention(
                             q1, k1, v1, l1), iters=100),
                         "plain_ms": cuda_ms(lambda: R.decode_attention_ref(
@@ -1225,9 +1254,32 @@ def decode_phase(dev):
                         if served else None,
                         library_device_ms=traced_ms(
                             lambda: F.scaled_dot_product_attention(
-                                qs, ks, vs, enable_gqa=True))
-                        if served else None)
+                                qs, ks, vs, enable_gqa=True)))
                 del q, k, v, got
+    # unaligned views (bf16, llama3.2-3b's 24 / 8 heads, three rows of 543,
+    # 1 and 77 of 576 keys): k and v one element into wider rows (strides
+    # and pointers off 16 bytes) take the narrow copies of the TMA
+    # instance's width at D 64 and 128, and give the aligned call's bits
+    for D in (64, 128):
+        q = torch.randn((3, 24, D), generator=gen, device=dev).bfloat16()
+        k, v = [torch.randn((3, 576, 8, D + 1), generator=gen,
+                            device=dev).bfloat16()[..., 1:] for _ in range(2)]
+        lens = torch.tensor((543, 1, 77), dtype=torch.int32, device=dev)
+        got = DA.decode_attention(q, k, v, lens)
+        same = torch.equal(got, DA.decode_attention(q, k.contiguous(),
+                                                    v.contiguous(), lens))
+        names = kernel_instances(lambda: DA.decode_attention(q, k, v, lens),
+                                 "decode_")
+        require_instance(names, rf"^decode_mma<{D}, \d+, true>$",
+                         f"flash-decode on unaligned views at D {D}")
+        rows.append({"kernel": "decode_attention", "check": "unaligned_views",
+                     "route": DA.route(q, k, v), "instances": names,
+                     "dtype": "bfloat16", "S": 576, "D": D,
+                     "equal_to_aligned": same, "ok": same})
+        if not same:
+            raise AssertionError(f"flash-decode on unaligned views at D {D} "
+                                 f"differs from the aligned call")
+        del q, k, v, got
     lens = torch.ones(1, dtype=torch.int32, device=dev)
     q = torch.zeros((1, 4, 0), dtype=torch.bfloat16, device=dev)
     kv = torch.zeros((1, 64, 2, 0), dtype=torch.bfloat16, device=dev)
@@ -5125,9 +5177,10 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], "device_ms": t["device_ms"],
                 "library_device_ms": t["library_device_ms"]})
-    # attention at ANY_HEAD_DIMS (32 / 8 heads; flash at S 512 on wgmma,
-    # flash-decode at 543 of 576 keys in the CUDA-core instance); launches:
-    # the wrapper's at that head shape over every main path of this run
+    # attention at ANY_HEAD_DIMS (32 / 8 heads, bf16; flash at S 512 on
+    # wgmma, flash-decode at 543 of 576 keys on mma.sync: the narrow copies
+    # or the wide instance); launches: the wrapper's at that head shape over
+    # every main path of this run
     H, Hkv = ANY_TIMED
     for D in ANY_HEAD_DIMS:
         for name, t, source, line in (
@@ -5141,13 +5194,14 @@ def main() -> int:
                 require_instance(
                     t["instances"], r"^flash_fwd_wgmma<\d+, true>$"
                     if D <= 256 else r"^flash_fwd_wide$", f"flash at D {D}")
-                instance = t["instances"]
             else:
-                instance = "src/repro_torch/csrc/attention_any.cuh"
+                require_instance(t["instances"],
+                                 decode_instance("bfloat16", D),
+                                 f"flash-decode at D {D}")
             kernels.append({
                 "name": f"{name}_D{D}", "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
-                "instance": instance,
+                "instance": t["instances"],
                 "replaces": f"src/repro/kernels/{line}",
                 "launches": SHAPE_LAUNCHES[f"{name} {H}/{Hkv}/{D}"],
                 "launches_note": "the wrapper's launches at this head "

@@ -1,15 +1,16 @@
 // Attention at any head dim, on the CUDA cores: the instance of the two
-// attention kernels for the shapes their TMA / tensor-core instances do not
-// take.  It now serves f32 flash (flash_attention.cu) and flash-decode in
-// both dtypes (decode_attention.cu) at those shapes; bf16 flash runs them
-// on wgmma (flash_attention.cu's narrow copies and flash_fwd_wide).
+// attention kernels for the f32 shapes their TMA instances do not take.  It
+// serves f32 flash (flash_attention.cu) and f32 flash-decode
+// (decode_attention.cu) at those shapes and nothing else: the tensor cores
+// have no f32 product without TF32 rounding.  bf16 runs every shape on the
+// tensor cores (flash on wgmma, flash_fwd_wide; flash-decode on mma.sync,
+// decode_mma's narrow copies and decode_wide).
 //
-// Those instances load rows by TMA (f32 flash, both flash-decode paths),
-// which needs 16-byte global strides and pointers, and hold O in
-// registers up to D 256.  So a head dim that leaves a row unaligned (bf16 D
-// not a multiple of 8, f32 D not a multiple of 4: D 4, 20, 100), any D past
-// 256 (264, 320, 512), and tensors whose strides or pointers are not
-// 16-byte aligned run here:
+// The f32 TMA instances load rows by TMA, which needs 16-byte global
+// strides and pointers, and hold O in registers up to D 256; their widths
+// are multiples of 8.  So an f32 head dim that is no multiple of 8 (D 4,
+// 20, 100) or past 256 (264, 320, 512), and tensors whose strides or
+// pointers are not 16-byte aligned, run here:
 //   - loads: element by element (no alignment asked), converted to f32 into
 //     zero-padded shared tiles of 128 keys; the scores stream Q and K
 //     through shared memory in pieces of kPiece = 32 columns of D, so no
@@ -20,11 +21,10 @@
 //     kRows x 128 f32 whatever D is;
 //   - the softmax and its rounding are the reference's: f32 scores times
 //     1/sqrt(D) of the true D (the caller's scale), the online softmax per
-//     128-key tile (the reference's block_k, so p is rounded to bf16 at the
-//     running max the TPU kernel rounds it at), l summed from f32 p, p
-//     rounded to v's dtype for P V with f32 sums, out = acc / max(l,
-//     1e-30) rounded once; masked scores are -1e30 and keys past the
-//     sequence (or the row's length) -inf, as in the reference.
+//     128-key tile (the reference's block_k), l summed from f32 p, P V
+//     with f32 sums, out = acc / max(l, 1e-30); masked scores are -1e30
+//     and keys past the sequence (or the row's length) -inf, as in the
+//     reference.
 // Flash: a block owns 64 query rows of one (batch row, q head), eight per
 // warp; tiles that the mask skips wholly are not visited (the rule of
 // flash_attention.cu, "Skipped tiles").  Flash-decode: a block owns up to
@@ -44,7 +44,6 @@
 #include <cmath>
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace attn_any {
@@ -59,18 +58,9 @@ constexpr int kCols = kSlice / 32;
 constexpr float kMasked = -1e30f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-// p as P V takes it: rounded to v's dtype
+// p as P V takes it: rounded to v's dtype (f32: as it is)
 __device__ __forceinline__ float as_v(float p, const float*) { return p; }
-__device__ __forceinline__ float as_v(float p, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(p));
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll

@@ -71,21 +71,44 @@
 // Head dims.  Every D >= 1 runs.  A D that is a multiple of 8 from 8 to 256
 // with k and v 16-byte aligned (pointers and strides; every served shape) runs
 // in the smallest instance width W in {16, 32, 64, 80, 96, 112, 128, 192, 256}
-// that holds it; any other D (a row TMA cannot load, or O past the registers at
-// D > 256) and any unaligned cache run in the CUDA-core instance of
-// attention_any.cuh (one block per batch row, kv head and group of 8 q heads
-// walks the row's live keys, a grid axis over 128-column slices of O: no
-// cluster, no split, so a row's bits still depend on its own inputs alone).  In
-// the TMA instances the tensor maps have the true D columns and the boxes reach
-// W, so TMA writes zeros past D (they add nothing to q k^T; their output
-// columns are not stored; no byte past D is read from device memory), and the q
-// rows are zero past D in shared memory.  W = 112 (zamba2-7b) is carried as 128
-// columns: 112 = 7 x 16 would fit the products, but its rows fill no swizzle
-// span.  The tensor-core path reads boxes of 64 columns, or of 32 (W 96) or 16
-// (W 80, whose last 16 columns are one k16 product); W = 192 and 256
-// (nemotron-4-340b, gemma-7b) hold O in 96 / 128 registers a thread: one block
-// per SM.  The FMA path gives a lane ceil(W / 32) output columns (those past W
-// own nothing).  The softmax scale is the caller's, 1/sqrt(D) of the true D.
+// that holds it.  In the TMA instances the tensor maps have the true D
+// columns and the boxes reach W, so TMA writes zeros past D (they add nothing
+// to q k^T; their output columns are not stored; no byte past D is read from
+// device memory), and the q rows are zero past D in shared memory.  W = 112
+// (zamba2-7b) is carried as 128 columns: 112 = 7 x 16 would fit the
+// products, but its rows fill no swizzle span.  The tensor-core path reads
+// boxes of 64 columns, or of 32 (W 96) or 16 (W 80, whose last 16 columns
+// are one k16 product); W = 192 and 256 (nemotron-4-340b, gemma-7b) hold O
+// in 96 / 128 registers a thread: one block per SM.  The FMA path gives a
+// lane ceil(W / 32) output columns (those past W own nothing).  In bf16
+// every other shape runs on the tensor cores too (route_of):
+//   - D up to 256 with a row TMA cannot load (D 4, 20, 100: no whole number
+//     of 16 bytes) or an unaligned cache: decode_mma<W, kRows, true> at the
+//     W that holds D rounded up to 8, its tiles filled by narrow copies
+//     (hopper::copy_tile: cp.async of the widest piece the rows, strides
+//     and pointer allow, 16, 8 or 4 bytes, or 2-byte loads and st.shared)
+//     into the very layout and swizzle TMA writes, zeros past D and past
+//     the length; the products, softmax and merge are the TMA instance's,
+//     so where both run they give the same bits (tests/test_torch_cuda.py).
+//     A warp reads only its own 8 rows of each tile, so it copies those
+//     rows itself, for tile t + kStages once it is done with tile t, and
+//     waits for its own cp.async groups: no producer warp (the registers,
+//     as above) and no barrier between warps, two blocks a SM to D 128.
+//   - D past 256, any D: decode_wide (below), 128-column output slices on
+//     a grid axis, S rebuilt from 128-column pieces of Q and K in each
+//     slice, both streamed through each warp's ring.
+// f32 at those shapes runs in the CUDA-core instance of attention_any.cuh
+// (one block per batch row, kv head and group of 8 q heads walks the row's
+// live keys: no split).  The softmax scale is
+// the caller's, 1/sqrt(D) of the true D.  What the A/B runs showed
+// (tools/decode_ab.py against the CUDA-core instance bf16 took there before;
+// one row, 543 of 576 keys, 32 / 8 heads, device us, NVIDIA H100 80GB HBM3
+// at 700 W): D 4 / 20 / 100 at 5.8 / 6.4 / 8.8 (was 47 / 47 / 83; SDPA
+// 17.5 / 18.5 / 20.5 in chip_smoke.py), D 264 / 320 / 512 at 25.0 / 24.5 /
+// 28.8 (was 140 / 155 / 227; SDPA 93 / 104 / 149); the TMA instances' bits
+// and times unchanged.  decode_wide's time steps with its clusters of big
+// blocks, not with D (decode_ab.py --heads: 11.8 us at 54 blocks, 25.2 at
+// 216, D 264): PERF.md.
 //
 // Layout.  K and V are read in place through their strides in the cache's
 // [B, S, Hkv, D] layout: no transpose copy (the reference builds [B*Hkv, S,
@@ -103,7 +126,7 @@
 // 5.0 us.  A short prefix is bound by latency: one launch, one round trip to
 // memory per stage, two cluster barriers.  What the design does about it:
 // one launch; up to 16 splits spread a long prefix over 104-128 SMs (8 kv
-// heads) with the ring in flight in each; the copies cost the warps no
+// heads) with the ring in flight in each; the TMA copies cost the warps no
 // instructions; the products run on the tensor cores; every intermediate
 // stays on chip.  A block reads at most one partial tile past the live
 // length.
@@ -175,6 +198,12 @@ struct Strides {
   long long qb, qh, kb, ks, kh, vb, vs, vh;
 };
 
+// The piece widths of the narrow copies of q, k and v, in elements
+// (hopper::piece_elems).
+struct Pieces {
+  int q, k, v;
+};
+
 // Keys per split (a multiple of kSpanUnit) for a cache of S keys, and the
 // number of splits: at least kSpanUnit keys each, at most kMaxSplits.
 __host__ __device__ __forceinline__ int split_keys(int S) {
@@ -217,10 +246,9 @@ struct Layout {
                                                       : kStages * kTileBytes);
 };
 
-// What both kernels share: the block's start (barriers, the first tiles'
-// loads, q into shared memory) and its end (the warps' partials merged in
-// warp order, then rank 0's merge of the cluster's live splits in rank
-// order).
+// What the kernels share: the block's start (its place, the barriers, the
+// first tiles' loads) and its end (the warps' partials merged in warp
+// order, then rank 0's merge of the cluster's live splits in rank order).
 struct Block {
   uint32_t base;            // shared memory, aligned
   unsigned char* smem;
@@ -235,11 +263,13 @@ struct Block {
   }
 };
 
-template <typename T, int D>
+// Dp: the columns of the partials; out: row r, column c at out[r * dt + c],
+// for the columns c < ncols.
+template <typename T, int Dp>
 __device__ __forceinline__ void merge_and_store(cg::cluster_group& cluster,
                                                 const Block& blk, float* ring,
-                                                float* pm, T* out) {
-  constexpr int Dp = padded_dim(D);
+                                                float* pm, T* out,
+                                                int ncols) {
   const int rep = blk.rep;
   float* pl = pm + rep;
   float* pacc = pl + rep;
@@ -308,7 +338,7 @@ __device__ __forceinline__ void merge_and_store(cg::cluster_group& cluster,
     for (int i = threadIdx.x; i < rep * Dp; i += kThreads) {
       const int r = i / Dp;
       const int c = i - r * Dp;
-      if (c >= blk.dt) continue;                 // a padding column
+      if (c >= ncols) continue;                  // a padding column
       float os[kMaxSplits];
 #pragma unroll
       for (int s = 0; s < kMaxSplits; ++s)
@@ -342,16 +372,15 @@ __device__ __forceinline__ void release(const Block& blk, int t,
   __syncwarp();
 }
 
-// The block's place in the cluster and the cache, its barriers, and the
-// first kStages tiles' loads (thread 0); q rows into shared memory.
-template <typename T, int D, int kQRows, int kAlign, typename Load>
-__device__ __forceinline__ Block start_block(const T* q, const int* lengths,
-                                             int S, int Hkv, int rep,
-                                             int groups, int dt,
-                                             long long q_sb, long long q_sh,
-                                             int kStages,
+// The block's place in the cluster and the cache, its kStages ring
+// barriers (thread 0), then first(blk) in every thread: the first tiles'
+// loads.
+template <int kAlign, typename First>
+__device__ __forceinline__ Block start_block(const int* lengths, int S,
+                                             int Hkv, int rep, int groups,
+                                             int dt, int kStages,
                                              unsigned char* smem_raw,
-                                             const Load& load, int tile) {
+                                             const First& first, int tile) {
   Block blk;
   cg::cluster_group cluster = cg::this_cluster();
   const uint32_t raw = smem_addr(smem_raw);
@@ -380,20 +409,34 @@ __device__ __forceinline__ Block start_block(const T* q, const int* lengths,
       released[s] = 0;
     }
     hopper::mbar_init_fence();
-    for (int t = 0; t < min(blk.ntiles, kStages); ++t) load(blk, t);
   }
-  // q rows [kQRows, Dp] in f32, zero past the group's rows and past dt
-  constexpr int Dp = padded_dim(D);
-  float* qs = reinterpret_cast<float*>(blk.smem + 16 * kStages);
+  first(blk);
+  return blk;
+}
+
+// The TMA loads of the first kStages tiles, by thread 0 (after its own
+// initialisation of the barriers).
+template <typename Load>
+__device__ __forceinline__ auto tma_first(const Load& load) {
+  return [&load](const Block& blk) {
+    if (threadIdx.x == 0)
+      for (int t = 0; t < min(blk.ntiles, blk.kStages); ++t) load(blk, t);
+  };
+}
+
+// The group's q rows into shared memory at qs as [kQRows, Dp] f32, zero
+// past the group's rows and past dt.
+template <typename T, int Dp, int kQRows>
+__device__ __forceinline__ void q_rows_f32(const Block& blk, const T* q,
+                                           long long q_sb, long long q_sh,
+                                           float* qs) {
   for (int i = threadIdx.x; i < kQRows * Dp; i += kThreads) {
     const int r = i / Dp;
     const int c = i - r * Dp;
-    qs[i] = r < blk.rep && c < dt
+    qs[i] = r < blk.rep && c < blk.dt
                 ? to_f(q[blk.b * q_sb + (blk.row0 + r) * q_sh + c])
                 : 0.f;
   }
-  __syncthreads();                               // barriers and q ready
-  return blk;
 }
 
 // ---------------------------------------------------------------------------
@@ -459,11 +502,13 @@ decode_fma(const __grid_constant__ CUtensorMap tm_k,
     hopper::prefetch_tensor_map(&tm_k);
     hopper::prefetch_tensor_map(&tm_v);
   }
-  const Block blk = start_block<T, D, kRep, 128>(
-      q, lengths, S, Hkv, rep, groups, dt, q_sb, q_sh, L::kStages, smem_raw,
-      load, kTile);
+  const Block blk = start_block<128>(lengths, S, Hkv, rep, groups, dt,
+                                     L::kStages, smem_raw, tma_first(load),
+                                     kTile);
+  float* qs = reinterpret_cast<float*>(blk.smem + L::kQ);
+  q_rows_f32<T, Dp, kRep>(blk, q, q_sb, q_sh, qs);
+  __syncthreads();                               // barriers and q ready
   const int rows = blk.rep;
-  const float* qs = reinterpret_cast<const float*>(blk.smem + L::kQ);
   unsigned char* ring = blk.smem + L::kRing;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -586,10 +631,10 @@ decode_fma(const __grid_constant__ CUtensorMap tm_k,
     }
   }
   cg::cluster_group cluster = cg::this_cluster();
-  merge_and_store<T, D>(cluster, blk, wacc,
-                        reinterpret_cast<float*>(blk.smem + L::kPart),
-                        out + (static_cast<size_t>(blk.b) * Hkv * rep +
-                               blk.row0) * dt);
+  merge_and_store<T, Dp>(cluster, blk, wacc,
+                         reinterpret_cast<float*>(blk.smem + L::kPart),
+                         out + (static_cast<size_t>(blk.b) * Hkv * rep +
+                                blk.row0) * dt, dt);
 }
 
 // ---------------------------------------------------------------------------
@@ -678,24 +723,119 @@ __device__ __forceinline__ void mma_k8(float (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(b0));
 }
 
+// The online softmax of one tile on a warp's scores, S [16 x 8] in the
+// m16n8 accumulator sc (rows g and g + 8, the warp's keys first + 2 tq and
+// + 1): keys at or past `end` masked, m and l updated, O's kN blocks of 8
+// columns rescaled, and p, rounded to bf16, packed into P V's A fragments
+// (pa[0] rows g, pa[1] rows g + 8; zero for rows not carried).
+template <int kHalves, int kN>
+__device__ __forceinline__ void softmax_tile(const float (&sc)[4], int first,
+                                             int end, int tq, float scale,
+                                             float (&m_r)[2], float (&l_r)[2],
+                                             float (&o)[kN][4],
+                                             uint32_t (&pa)[2]) {
+  pa[0] = pa[1] = 0u;
+#pragma unroll
+  for (int r = 0; r < kHalves; ++r) {
+    float x0 = first + 2 * tq < end ? sc[2 * r] * scale : -INFINITY;
+    float x1 = first + 2 * tq + 1 < end ? sc[2 * r + 1] * scale : -INFINITY;
+    float mt = fmaxf(x0, x1);
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(m_r[r], mt);       // finite: a key is valid
+    x0 = expf(x0 - m_new);
+    x1 = expf(x1 - m_new);
+    const float alpha = expf(m_r[r] - m_new);
+    l_r[r] = l_r[r] * alpha + (x0 + x1);
+    m_r[r] = m_new;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      o[n][2 * r] *= alpha;
+      o[n][2 * r + 1] *= alpha;
+    }
+    pa[r] = pack_bf16(x0, x1);                   // p rounded to bf16
+  }
+}
+
+// A warp's (m, l, O) of the group's rows into [kWarps][rows][kCols] at
+// wacc, then m and l [kWarps][rows] after it, for merge_and_store.
+template <int kHalves, int kN>
+__device__ __forceinline__ void store_partials(float* wacc, int rows,
+                                               const float (&o)[kN][4],
+                                               const float (&m_r)[2],
+                                               const float (&l_r)[2]) {
+  constexpr int kCols = 8 * kN;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int tq = threadIdx.x & 3;
+  float* wm = wacc + kWarps * rows * kCols;
+  float* wl = wm + kWarps * rows;
+#pragma unroll
+  for (int r = 0; r < kHalves; ++r) {
+    const int row = g + 8 * r;
+    float l = l_r[r];                            // the quad's parts of l
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (row < rows) {
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        wacc[(warp * rows + row) * kCols + 8 * n + 2 * tq] = o[n][2 * r];
+        wacc[(warp * rows + row) * kCols + 8 * n + 2 * tq + 1] =
+            o[n][2 * r + 1];
+      }
+      if (tq == 0) {
+        wm[warp * rows + row] = m_r[r];
+        wl[warp * rows + row] = l;
+      }
+    }
+  }
+}
+
+// Narrow copies: rows [first, first + kMmaKeys) of one head of k or v
+// (`head`, row stride ss) into a tile of kBoxRows-row boxes of kBox columns
+// at dst, as TMA writes it (hopper::copy_tile, by the 32 lanes of the
+// calling warp): columns [c0, c0 + kCols) of each row, zero at or past dt,
+// and rows at or past `end` zero (p = 0 must meet no NaN in P V).
+template <int kBoxRows, int kCols, int kBox>
+__device__ __forceinline__ void copy_keys(uint32_t dst,
+                                          const __nv_bfloat16* head,
+                                          long long ss, int first, int end,
+                                          int c0, int dt, int piece) {
+  hopper::copy_tile_w<kBoxRows, kCols, kBox>(
+      piece, dst, kMmaKeys, dt - c0,
+      [&](int r) {
+        return first + r < end ? head + (first + r) * ss + c0 : nullptr;
+      },
+      threadIdx.x & 31, 32);
+}
+
 // kRows: the q rows the products carry, 8 or 16 (a group's rows <= kRows);
 // with 8, the m16 tile's rows 8..15 are zeros, and their softmax is not run.
 // D = 192 holds O in 96 registers a thread and a 48 KB K/V tile: one block
-// per SM.
-template <int D, int kRows>
+// per SM.  kNarrow: the tiles come by the narrow copies from k and v (the
+// tensor maps are then unused): each warp copies the 8 rows of K and of V
+// that it alone reads into its rows of the stage, for tile t + kStages as
+// soon as it is done with tile t, and waits for its own copies (cp.async
+// groups, then __syncwarp): no barrier between warps.
+template <int D, int kRows, bool kNarrow>
 __global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
 decode_mma(const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v,
            const __nv_bfloat16* __restrict__ q,
+           const __nv_bfloat16* __restrict__ k,
+           const __nv_bfloat16* __restrict__ v,
            const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
-           int S, int Hkv, int rep, int groups, int dt, long long q_sb,
-           long long q_sh, float scale) {
+           int S, int Hkv, int rep, int groups, int dt, const Strides st,
+           float scale, const Pieces pw) {
   constexpr int Dp = padded_dim(D);
   constexpr int kFull = Dp / 32;                 // 32-column steps, then
   constexpr bool kTail = Dp % 32 != 0;           // one of 16 (W 16, 80)
   using L = MmaLayout<D, kRows>;
   using Tl = MmaTile<Dp>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int key0 = warp * kMmaKeys;              // the warp's keys in a tile
   // K's boxes, then V's: kChunks column boxes of 64 rows each
   const auto load = [&](const Block& blk, int t) {
     const int s = t % L::kStages;
@@ -710,20 +850,46 @@ decode_mma(const __grid_constant__ CUtensorMap tm_k,
                   c * Tl::kChunk, blk.kvh, k0, blk.b);
     }
   };
-  if (threadIdx.x == 0) {                        // ahead of the first loads
+  // narrow: this warp's 8 rows of tile t's K and V, one cp.async group
+  // (empty past the last tile, or where the warp's keys are all past the
+  // length: it reads nothing there)
+  const auto copy_own = [&](const Block& blk, int t) {
+    const int first = blk.begin + t * kMmaTile + key0;
+    if (t < blk.ntiles && first < blk.end) {
+      const uint32_t dst = blk.base + L::kRing + (t % L::kStages) * Tl::kBytes +
+                           key0 * Tl::kRowBytes;
+      copy_keys<kMmaTile, Dp, Tl::kChunk>(
+          dst, k + blk.b * st.kb + blk.kvh * st.kh, st.ks, first, blk.end, 0,
+          dt, pw.k);
+      copy_keys<kMmaTile, Dp, Tl::kChunk>(
+          dst + Tl::kChunks * Tl::kBoxBytes,
+          v + blk.b * st.vb + blk.kvh * st.vh, st.vs, first, blk.end, 0, dt,
+          pw.v);
+    }
+    hopper::cp_async_commit();
+  };
+  if (!kNarrow && threadIdx.x == 0) {            // ahead of the first loads
     hopper::prefetch_tensor_map(&tm_k);
     hopper::prefetch_tensor_map(&tm_v);
   }
-  const Block blk = start_block<__nv_bfloat16, D, kRows, 1024>(
-      q, lengths, S, Hkv, rep, groups, dt, q_sb, q_sh, L::kStages, smem_raw,
-      load, kMmaTile);
+  const auto first_tiles = [&](const Block& blk) {
+    if constexpr (kNarrow) {
+      for (int t = 0; t < L::kStages; ++t) copy_own(blk, t);
+    } else {
+      tma_first(load)(blk);
+    }
+  };
+  // the narrow copies wait on no barrier: no ring barriers for them
+  const Block blk =
+      start_block<1024>(lengths, S, Hkv, rep, groups, dt,
+                        kNarrow ? 0 : L::kStages, smem_raw, first_tiles,
+                        kMmaTile);
+  float* qs = reinterpret_cast<float*>(blk.smem + L::kQ);
+  q_rows_f32<__nv_bfloat16, Dp, kRows>(blk, q, st.qb, st.qh, qs);
+  __syncthreads();                               // barriers and q ready
   const int rows = blk.rep;
-  const float* qs = reinterpret_cast<const float*>(blk.smem + L::kQ);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const int g = lane >> 2;                       // rows g and g + 8
   const int tq = lane & 3;                       // keys / columns 2 tq, + 1
-  const int key0 = warp * kMmaKeys;              // the warp's keys in a tile
 
   // Q's A fragments (rows past rep are zero), for the whole loop; rows
   // g + 8 only when kRows is 16
@@ -747,15 +913,20 @@ decode_mma(const __grid_constant__ CUtensorMap tm_k,
 
   for (int t = 0; t < blk.ntiles; ++t) {
     const int s = t % L::kStages;
-    mbar_wait(blk.full(s), (t / L::kStages) & 1);
+    if constexpr (kNarrow) {
+      hopper::cp_async_wait<L::kStages - 1>();   // this lane's copies of t
+      __syncwarp();                              // and the warp's
+    } else {
+      mbar_wait(blk.full(s), (t / L::kStages) & 1);
+    }
     const uint32_t kst = blk.base + L::kRing + s * Tl::kBytes;
     const uint32_t vst = kst + Tl::kChunks * Tl::kBoxBytes;
     const int first = blk.begin + t * kMmaTile + key0;   // the warp's key 0
     const int nvalid = min(kMmaKeys, blk.end - first);
     if (nvalid > 0) {                            // uniform across the warp
-      if (nvalid < kMmaKeys) {
+      if (!kNarrow && nvalid < kMmaKeys) {
         // rows past the length may hold anything (NaN): p = 0 must meet
-        // zeros in P V
+        // zeros in P V (the narrow copies wrote zeros there)
         for (int i = lane; i < (kMmaKeys - nvalid) * (Dp / 8); i += 32) {
           const int r = key0 + nvalid + i / (Dp / 8);
           const uint32_t a = vst + Tl::at(r, i % (Dp / 8));
@@ -780,29 +951,8 @@ decode_mma(const __grid_constant__ CUtensorMap tm_k,
         ldsm_x2(kb, kst + Tl::at(lr, 4 * kFull + ((lane >> 3) & 1)));
         mma_k16(sc, qa[2 * kFull], kb[0], kb[1]);
       }
-      // the online softmax, rows g (r = 0) and g + 8 (r = 1)
-      uint32_t pa[2] = {0u, 0u};
-#pragma unroll
-      for (int r = 0; r < kHalves; ++r) {
-        float x0 = first + 2 * tq < blk.end ? sc[2 * r] * scale : -INFINITY;
-        float x1 = first + 2 * tq + 1 < blk.end ? sc[2 * r + 1] * scale
-                                                 : -INFINITY;
-        float mt = fmaxf(x0, x1);
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-        const float m_new = fmaxf(m_r[r], mt);   // finite: a key is valid
-        x0 = expf(x0 - m_new);
-        x1 = expf(x1 - m_new);
-        const float alpha = expf(m_r[r] - m_new);
-        l_r[r] = l_r[r] * alpha + (x0 + x1);
-        m_r[r] = m_new;
-#pragma unroll
-        for (int n = 0; n < Dp / 8; ++n) {
-          o[n][2 * r] *= alpha;
-          o[n][2 * r + 1] *= alpha;
-        }
-        pa[r] = pack_bf16(x0, x1);               // p rounded to bf16
-      }
+      uint32_t pa[2];
+      softmax_tile<kHalves>(sc, first, blk.end, tq, scale, m_r, l_r, o, pa);
       // O += P V, 8 columns of D per product
 #pragma unroll
       for (int p = 0; p < kFull; ++p) {
@@ -817,51 +967,226 @@ decode_mma(const __grid_constant__ CUtensorMap tm_k,
         mma_k8(o[4 * kFull], pa[0], pa[1], vb[0]);
         mma_k8(o[4 * kFull + 1], pa[0], pa[1], vb[1]);
       }
-      if (nvalid < kMmaKeys)                     // the zeros, before TMA
+      if (!kNarrow && nvalid < kMmaKeys)         // the zeros, before TMA
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     }
-    release(blk, t, load);
+    if constexpr (kNarrow) {
+      __syncwarp();                              // the warp read stage s
+      copy_own(blk, t + L::kStages);
+    } else {
+      release(blk, t, load);
+    }
   }
+  if constexpr (kNarrow) hopper::cp_async_wait<0>();
   __syncthreads();                               // the ring is free
 
   // this warp's (m, l, acc) of the group's rows into the ring
   float* wacc = reinterpret_cast<float*>(blk.smem + L::kRing);
-  float* wm = wacc + kWarps * rows * Dp;
-  float* wl = wm + kWarps * rows;
-#pragma unroll
-  for (int r = 0; r < kHalves; ++r) {
-    const int row = g + 8 * r;
-    float l = l_r[r];                            // the quad's parts of l
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    if (row < rows) {
-#pragma unroll
-      for (int n = 0; n < Dp / 8; ++n) {
-        wacc[(warp * rows + row) * Dp + 8 * n + 2 * tq] = o[n][2 * r];
-        wacc[(warp * rows + row) * Dp + 8 * n + 2 * tq + 1] = o[n][2 * r + 1];
-      }
-      if (tq == 0) {
-        wm[warp * rows + row] = m_r[r];
-        wl[warp * rows + row] = l;
-      }
-    }
-  }
+  store_partials<kHalves>(wacc, rows, o, m_r, l_r);
   cg::cluster_group cluster = cg::this_cluster();
-  merge_and_store<__nv_bfloat16, D>(
+  merge_and_store<__nv_bfloat16, Dp>(
       cluster, blk, wacc, reinterpret_cast<float*>(blk.smem + L::kPart),
-      out + (static_cast<size_t>(blk.b) * Hkv * rep + blk.row0) * dt);
+      out + (static_cast<size_t>(blk.b) * Hkv * rep + blk.row0) * dt, dt);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 past D 256: output slices, Q K^T in 128-column pieces
+// ---------------------------------------------------------------------------
+//
+// O of 16 rows past 256 columns does not fit the registers beside Q's A
+// fragments, so a block owns kSlice = 128 output columns: the grid's z axis
+// runs over the slices, and each slice is a cluster of the cache's splits,
+// as at D <= 256.  Per 64-key tile, warp w still takes keys 8 w .. 8 w + 7:
+// S = Q K^T over the whole D as ceil(D / 128) pieces of 128 columns
+// (mma.sync m16n8k16; Q's A fragments and K's B fragments by ldmatrix), the
+// softmax of the D <= 256 kernels (softmax_tile), then O += P V over V's 8
+// rows of the slice.  Each block recomputes S for its slice (at D 512 four
+// times): K is read from L2 again, and the bits of S, m and l are the same
+// in every slice.  The loads come in units of 8 rows x 128 columns (2 KB):
+// per tile and piece, the group's q rows of the piece (one unit for 8 rows,
+// two for 16) and the warp's own 8 K rows of it, then its 8 V rows of the
+// slice.  A warp copies them by the narrow copies into its own ring of
+// kWideUnits units, as far ahead as the units it still reads allow
+// (cp.async groups, no barrier between warps).  Q goes through the ring
+// beside K, so nothing of a block grows with D: every D runs, in 102-106
+// KB of shared memory, two blocks a SM.  A copy of all of Q in shared
+// memory, made once a block, saved the Q units' copies but capped D at
+// what a block holds, and was no faster (tools/decode_ab.py, 32 / 8 heads
+// at 543 of 576 keys: D 264 / 320 / 512 at 25.6 / 25.4 / 30.0 us against
+// 25.0 / 24.5 / 28.8 streamed).
+
+constexpr int kSlice = 128;                    // output columns of a block
+constexpr int kUnitBytes = kMmaKeys * kSlice * 2;   // a unit: 2 KB
+constexpr int kWideUnits = 6;                  // a warp's ring
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Bytes from the block's 1024-aligned start: the merged partials (m, l,
+// acc [kRows, kSlice]), then the warps' rings (after the loop the warps'
+// partials).  kAhead: the units a warp keeps in flight, so that a K unit's
+// slot and those of the kHalves Q units before it are not refilled while
+// it is read.
+template <int kRows>
+struct WideLayout {
+  static constexpr int kHalves = kRows / 8;     // q units a piece
+  static constexpr int kAhead = kWideUnits - 1 - kHalves;
+  static constexpr int kPart = 0;
+  static constexpr int kRing = round_up(kRows * (kSlice + 2) * 4, 1024);
+  static constexpr int kRingBytes = kWarps * kWideUnits * kUnitBytes;
+  static constexpr int kBytes = 1024 + kRing + kRingBytes;
+  static_assert(kWarps * kRows * (kSlice + 3) * 4 <= kRingBytes,
+                "the warps' partials fit the ring");
+};
+
+// Byte offset of row r, 16-byte chunk c (of 128 columns) in a unit.
+__device__ __forceinline__ uint32_t unit_at(int r, int c) {
+  return hopper::swizzled((c / 8) * 1024 + r * 128 + (c % 8) * 16, 128);
+}
+
+template <int kRows>
+__global__ void __launch_bounds__(kThreads, 2)
+decode_wide(const __nv_bfloat16* __restrict__ q,
+            const __nv_bfloat16* __restrict__ k,
+            const __nv_bfloat16* __restrict__ v,
+            const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
+            int S, int Hkv, int rep, int groups, int dt, const Strides st,
+            float scale, const Pieces pw) {
+  using L = WideLayout<kRows>;
+  constexpr int kHalves = L::kHalves;
+  constexpr int kPer = kHalves + 1;             // units a piece: Q, then K
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int key0 = warp * kMmaKeys;
+  const int col0 = blockIdx.z * kSlice;
+  const int pieces = (dt + kSlice - 1) / kSlice;
+  const int per_tile = pieces * kPer + 1;        // + V's slice
+  const auto slot = [&](const Block& blk, int u) {
+    return blk.base + L::kRing +
+           (warp * kWideUnits + u % kWideUnits) * kUnitBytes;
+  };
+  // unit u of this warp into its ring slot, one cp.async group (empty past
+  // the last unit, or where the warp's keys are all past the length): of
+  // tile u / per_tile, piece p's Q halves and K rows, then V's slice
+  const auto issue = [&](const Block& blk, int u) {
+    const int j = u / per_tile;
+    const int part = u - j * per_tile;
+    const int first = blk.begin + j * kMmaTile + key0;
+    if (j < blk.ntiles && first < blk.end) {
+      const uint32_t dst = slot(blk, u);
+      const int p = part / kPer;
+      const int h = part - p * kPer;
+      if (part == per_tile - 1)
+        copy_keys<kMmaKeys, kSlice, 64>(
+            dst, v + blk.b * st.vb + blk.kvh * st.vh, st.vs, first, blk.end,
+            col0, dt, pw.v);
+      else if (h < kHalves)                      // q rows 8 h .. 8 h + 7
+        copy_keys<kMmaKeys, kSlice, 64>(
+            dst, q + blk.b * st.qb + blk.row0 * st.qh, st.qh, 8 * h, blk.rep,
+            p * kSlice, dt, pw.q);
+      else
+        copy_keys<kMmaKeys, kSlice, 64>(
+            dst, k + blk.b * st.kb + blk.kvh * st.kh, st.ks, first, blk.end,
+            p * kSlice, dt, pw.k);
+    }
+    hopper::cp_async_commit();
+  };
+  const Block blk = start_block<1024>(
+      lengths, S, Hkv, rep, groups, dt, 0, smem_raw,
+      [&](const Block& b) {
+        for (int u = 0; u < L::kAhead; ++u) issue(b, u);
+      },
+      kMmaTile);
+  const int tq = lane & 3;
+  const int lr = lane & 7;                       // ldmatrix row of this lane
+
+  float o[kSlice / 8][4];
+#pragma unroll
+  for (int n = 0; n < kSlice / 8; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY};
+  float l_r[2] = {0.f, 0.f};
+  float sc[4] = {0.f, 0.f, 0.f, 0.f};
+  uint32_t pa[2] = {0u, 0u};
+  const int units = blk.ntiles * per_tile;
+  for (int u = 0; u < units; ++u) {
+    hopper::cp_async_wait<L::kAhead - 1>();      // this lane's copies of u
+    __syncwarp();                                // and the warp's; u - 1 read
+    // into the slot of unit u - kHalves - 1, read last at u - 1
+    issue(blk, u + L::kAhead);
+    const int j = u / per_tile;
+    const int part = u - j * per_tile;
+    const int first = blk.begin + j * kMmaTile + key0;
+    if (first >= blk.end) continue;              // uniform across the warp
+    const uint32_t src = slot(blk, u);
+    if (part == per_tile - 1) {
+      // O += P V over the slice, 8 columns per product
+#pragma unroll
+      for (int p = 0; p < kSlice / 32; ++p) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, src + unit_at(lr, 4 * p + (lane >> 3)));
+#pragma unroll
+        for (int m = 0; m < 4; ++m) mma_k8(o[4 * p + m], pa[0], pa[1], vb[m]);
+      }
+    } else if (part % kPer == kHalves) {
+      // S (+)= Q[:, c0 .. c0 + 127] K[keys, c0 .. c0 + 127]^T, 32 columns a
+      // step, the steps past dt skipped (zeros on both sides); Q's rows are
+      // the kHalves units before this one (ldmatrix x4: lane l gives row
+      // l & 7 of half l >> 3 & 1, columns + 8 (l >> 4); with one half, x2:
+      // rows 8..15 are zero)
+      const int piece = part / kPer;
+      if (piece == 0) sc[0] = sc[1] = sc[2] = sc[3] = 0.f;
+      const int c0 = piece * kSlice;
+      const uint32_t qsrc =
+          slot(blk, u - kHalves + (kHalves == 2 ? (lane >> 3) & 1 : 0));
+#pragma unroll
+      for (int p = 0; p < kSlice / 32; ++p) {
+        if (c0 + 32 * p >= dt) break;
+        uint32_t qa0[4], qa1[4], kb[4];
+        if constexpr (kHalves == 2) {
+          ldsm_x4(qa0, qsrc + unit_at(lr, 4 * p + (lane >> 4)));
+          ldsm_x4(qa1, qsrc + unit_at(lr, 4 * p + 2 + (lane >> 4)));
+        } else {
+          uint32_t a[2];
+          ldsm_x2(a, qsrc + unit_at(lr, 4 * p + ((lane >> 3) & 1)));
+          qa0[0] = a[0], qa0[1] = 0u, qa0[2] = a[1], qa0[3] = 0u;
+          ldsm_x2(a, qsrc + unit_at(lr, 4 * p + 2 + ((lane >> 3) & 1)));
+          qa1[0] = a[0], qa1[1] = 0u, qa1[2] = a[1], qa1[3] = 0u;
+        }
+        ldsm_x4(kb, src + unit_at(lr, 4 * p + (lane >> 3)));
+        mma_k16(sc, qa0, kb[0], kb[1]);
+        mma_k16(sc, qa1, kb[2], kb[3]);
+      }
+      if (piece == pieces - 1)
+        softmax_tile<kHalves>(sc, first, blk.end, tq, scale, m_r, l_r, o, pa);
+    }
+    // a Q unit is read with the K unit after it
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();                               // the rings are free
+
+  float* wacc = reinterpret_cast<float*>(blk.smem + L::kRing);
+  store_partials<kHalves>(wacc, blk.rep, o, m_r, l_r);
+  cg::cluster_group cluster = cg::this_cluster();
+  merge_and_store<__nv_bfloat16, kSlice>(
+      cluster, blk, wacc, reinterpret_cast<float*>(blk.smem + L::kPart),
+      out + (static_cast<size_t>(blk.b) * Hkv * rep + blk.row0) * dt + col0,
+      min(kSlice, dt - col0));
 }
 
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
-// Launches `fn` on a (clusters, splits) grid in clusters of (1, splits),
-// after setting, once per kernel and before any capture, its shared memory
-// and clusters of more than 8 blocks.
+// Launches `fn` on a (clusters, splits, slices) grid in clusters of (1,
+// splits, 1) with `smem` bytes of shared memory, after setting, once per
+// kernel and before any capture, that size and clusters of more than 8
+// blocks.
 template <auto fn, typename... Args>
-int launch_cluster(int smem, int clusters, int S, cudaStream_t stream,
-                   Args... args) {
+int launch_cluster(int smem, int clusters, int slices, int S,
+                   cudaStream_t stream, Args... args) {
   static const cudaError_t ready = [smem] {
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -873,7 +1198,7 @@ int launch_cluster(int smem, int clusters, int S, cudaStream_t stream,
   if (ready != cudaSuccess) return static_cast<int>(ready);
   const int nsplit = num_splits(S);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters, nsplit, 1);
+  cfg.gridDim = dim3(clusters, nsplit, slices);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -887,14 +1212,26 @@ int launch_cluster(int smem, int clusters, int S, cudaStream_t stream,
   return static_cast<int>(cudaLaunchKernelEx(&cfg, fn, args...));
 }
 
+// The narrow copies' piece widths for q, k and v (bf16) of dt columns.
+Pieces pieces_of(const void* q, const void* k, const void* v, int dt,
+                 const Strides& st) {
+  const long long qs[2] = {st.qb, st.qh};
+  const long long ks[3] = {st.kb, st.ks, st.kh};
+  const long long vs[3] = {st.vb, st.vs, st.vh};
+  return {hopper::piece_elems(q, dt, qs, 2), hopper::piece_elems(k, dt, ks, 3),
+          hopper::piece_elems(v, dt, vs, 3)};
+}
+
 // One cluster per (batch row, kv head, group of at most kGroupRows q heads):
-// bf16 on the tensor cores (8 or 16 rows a product), f32 on FMA (4 or 16
-// rows in registers).  D: the instance's width; dt: the true head dim.
-template <typename T, int D>
+// bf16 on the tensor cores (8 or 16 rows a product; kNarrow: the tiles by
+// the narrow copies), f32 on FMA (4 or 16 rows in registers).  D: the
+// instance's width; dt: the true head dim.
+template <typename T, int D, bool kNarrow>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, int B, int S, int Hkv, int rep, int dt,
            const Strides& st, float scale, cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
+  static_assert(kBf16 || !kNarrow, "f32 has no narrow copies");
   constexpr int Dp = padded_dim(D);
   const CUtensorMapDataType dtype = kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
@@ -912,45 +1249,59 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
                     : (MmaTile<Dp>::kRowBytes == 64
                            ? CU_TENSOR_MAP_SWIZZLE_64B
                            : CU_TENSOR_MAP_SWIZZLE_32B));
-  CUtensorMap mk, mv;
-  int rc = hopper::tensor_map(&mk, dtype, sizeof(T), k, B, S, Hkv, dt, st.kb,
-                              st.ks, st.kh, box_d, box_s, swizzle);
-  if (rc == 0)
-    rc = hopper::tensor_map(&mv, dtype, sizeof(T), v, B, S, Hkv, dt, st.vb,
-                            st.vs, st.vh, box_d, box_s, swizzle);
-  if (rc) return rc;
+  CUtensorMap mk = {}, mv = {};
+  Pieces pw = {};
+  if constexpr (kNarrow) {
+    pw = pieces_of(q, k, v, dt, st);
+  } else {
+    int rc = hopper::tensor_map(&mk, dtype, sizeof(T), k, B, S, Hkv, dt,
+                                st.kb, st.ks, st.kh, box_d, box_s, swizzle);
+    if (rc == 0)
+      rc = hopper::tensor_map(&mv, dtype, sizeof(T), v, B, S, Hkv, dt, st.vb,
+                              st.vs, st.vh, box_d, box_s, swizzle);
+    if (rc) return rc;
+  }
   const auto* qp = static_cast<const T*>(q);
   const auto* lp = static_cast<const int*>(lengths);
   auto* op = static_cast<T*>(out);
   const int clusters = B * Hkv * groups;
   if constexpr (kBf16) {
-    if (rows <= 8)
-      return launch_cluster<decode_mma<D, 8>>(
-          MmaLayout<D, 8>::kBytes, clusters, S, stream, mk, mv, qp, lp, op, S,
-          Hkv, rep, groups, dt, st.qb, st.qh, scale);
-    return launch_cluster<decode_mma<D, 16>>(
-        MmaLayout<D, 16>::kBytes, clusters, S, stream, mk, mv, qp, lp, op, S,
-        Hkv, rep, groups, dt, st.qb, st.qh, scale);
+    const auto* kp = static_cast<const T*>(k);
+    const auto* vp = static_cast<const T*>(v);
+    if (rows <= 8) {
+      constexpr int kBytes = MmaLayout<D, 8>::kBytes;
+      return launch_cluster<decode_mma<D, 8, kNarrow>>(
+          kBytes, clusters, 1, S, stream, mk, mv, qp, kp, vp, lp, op,
+          S, Hkv, rep, groups, dt, st, scale, pw);
+    }
+    constexpr int kBytes = MmaLayout<D, 16>::kBytes;
+    return launch_cluster<decode_mma<D, 16, kNarrow>>(
+        kBytes, clusters, 1, S, stream, mk, mv, qp, kp, vp, lp, op, S,
+        Hkv, rep, groups, dt, st, scale, pw);
   } else {
-    if (rows <= 4)
+    if (rows <= 4) {
+      constexpr int kBytes = FmaLayout<D, 4>::kBytes;
       return launch_cluster<decode_fma<D, 4>>(
-          FmaLayout<D, 4>::kBytes, clusters, S, stream, mk, mv, qp, lp, op, S,
-          Hkv, rep, groups, dt, st.qb, st.qh, scale);
+          kBytes, clusters, 1, S, stream, mk, mv, qp, lp, op, S, Hkv,
+          rep, groups, dt, st.qb, st.qh, scale);
+    }
+    constexpr int kBytes = FmaLayout<D, kGroupRows>::kBytes;
     return launch_cluster<decode_fma<D, kGroupRows>>(
-        FmaLayout<D, kGroupRows>::kBytes, clusters, S, stream, mk, mv, qp, lp,
-        op, S, Hkv, rep, groups, dt, st.qb, st.qh, scale);
+        kBytes, clusters, 1, S, stream, mk, mv, qp, lp, op, S, Hkv,
+        rep, groups, dt, st.qb, st.qh, scale);
   }
 }
 
-template <typename T>
+// The instance of the width that holds D rounded up to 8.
+template <typename T, bool kNarrow>
 int dispatch(int D, const void* q, const void* k, const void* v,
              const void* lengths, void* out, int B, int S, int Hkv, int rep,
              const Strides& st, float scale, cudaStream_t stream) {
 #define REPRO_DECODE_WIDTH(W)                                              \
   case W:                                                                  \
-    return launch<T, W>(q, k, v, lengths, out, B, S, Hkv, rep, D, st,      \
-                        scale, stream);
-  switch (hopper::attention_width(D)) {
+    return launch<T, W, kNarrow>(q, k, v, lengths, out, B, S, Hkv, rep, D, \
+                                 st, scale, stream);
+  switch (hopper::attention_width(round_up(D, 8))) {
     REPRO_DECODE_WIDTH(16)
     REPRO_DECODE_WIDTH(32)
     REPRO_DECODE_WIDTH(64)
@@ -966,23 +1317,65 @@ int dispatch(int D, const void* q, const void* k, const void* v,
 #undef REPRO_DECODE_WIDTH
 }
 
-// Any head dim, any strides: the CUDA-core instance (attention_any.cuh).
-template <typename T>
+// bf16 past D 256: decode_wide, one cluster per (batch row, kv head, group
+// of at most kGroupRows q heads, 128 output columns).
+int launch_wide(const void* q, const void* k, const void* v,
+                const void* lengths, void* out, int B, int S, int Hkv,
+                int rep, int dt, const Strides& st, float scale,
+                cudaStream_t stream) {
+  const int groups = (rep + kGroupRows - 1) / kGroupRows;
+  const int rows = rep < kGroupRows ? rep : kGroupRows;
+  const int clusters = B * Hkv * groups;
+  const int slices = (dt + kSlice - 1) / kSlice;
+  const Pieces pw = pieces_of(q, k, v, dt, st);
+  using T = __nv_bfloat16;
+  const auto* qp = static_cast<const T*>(q);
+  const auto* kp = static_cast<const T*>(k);
+  const auto* vp = static_cast<const T*>(v);
+  const auto* lp = static_cast<const int*>(lengths);
+  auto* op = static_cast<T*>(out);
+  if (rows <= 8)
+    return launch_cluster<decode_wide<8>>(
+        WideLayout<8>::kBytes, clusters, slices, S, stream, qp, kp, vp, lp,
+        op, S, Hkv, rep, groups, dt, st, scale, pw);
+  return launch_cluster<decode_wide<16>>(
+      WideLayout<16>::kBytes, clusters, slices, S, stream, qp, kp, vp, lp,
+      op, S, Hkv, rep, groups, dt, st, scale, pw);
+}
+
+// f32 at any other head dim or stride: the CUDA-core instance
+// (attention_any.cuh).
 int launch_any(const void* q, const void* k, const void* v,
                const void* lengths, void* out, int B, int S, int H, int Hkv,
                int D, const Strides& st, float scale, cudaStream_t stream) {
-  const attn_any::Args<T> a{
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
+  const attn_any::Args<float> a{
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<const int*>(lengths), B, 1, S, H, Hkv, D, st.qb, 0, st.qh,
       st.kb, st.ks, st.kh, st.vb, st.vs, st.vh, 0, 0, 0, scale};
-  return attn_any::launch<T, true>(a, stream);
+  return attn_any::launch<float, true>(a, stream);
+}
+
+// The instance a call takes (see "Head dims"): 0 the TMA instances, 1
+// decode_mma with narrow copies, 2 decode_wide, 3 the CUDA-core instance
+// (f32 only);
+// -1 for arguments the entry point refuses.  strides: as
+// decode_attention_fwd's (q's two, then k's three, then v's).
+int route_of(int dtype, const void* k, const void* v, int D,
+             const long long* strides) {
+  if ((dtype != 0 && dtype != 1) || D < 1) return -1;
+  const void* kv[2] = {k, v};
+  if (attn_any::aligned_rows(dtype == 0 ? 4 : 2, kv, 2, strides + 2, 6) &&
+      hopper::attention_width(D) != 0)
+    return 0;
+  if (dtype == 0) return 3;
+  return D > 256 ? 2 : 1;
 }
 
 }  // namespace
 
-// Splits (blocks per cluster) for a cache of S keys (of the TMA instances;
-// the CUDA-core instance takes one block per row and head group).
+// Splits (blocks per cluster) for a cache of S keys (of every instance but
+// the CUDA-core one, which takes one block per row and head group).
 extern "C" int decode_attention_splits(int S) {
   return S > 0 ? num_splits(S) : 0;
 }
@@ -997,23 +1390,37 @@ extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k,
                                     int D, const long long* strides,
                                     float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (Hkv <= 0 || H % Hkv || D < 1 || (dtype != 0 && dtype != 1))
+  const int route = route_of(dtype, k, v, D, strides);
+  if (route < 0 || Hkv <= 0 || H % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{strides[0], strides[1], strides[2], strides[3],
                    strides[4], strides[5], strides[6], strides[7]};
   const auto s = static_cast<cudaStream_t>(stream);
-  const void* kv[2] = {k, v};
-  if (!attn_any::aligned_rows(dtype == 0 ? 4 : 2, kv, 2, strides + 2, 6) ||
-      hopper::attention_width(D) == 0)
-    return dtype == 0 ? launch_any<float>(q, k, v, lengths, out, B, S, H,
-                                          Hkv, D, st, scale, s)
-                      : launch_any<__nv_bfloat16>(q, k, v, lengths, out, B,
-                                                  S, H, Hkv, D, st, scale, s);
-  if (dtype == 0)
-    return dispatch<float>(D, q, k, v, lengths, out, B, S, Hkv, H / Hkv, st,
-                           scale, s);
-  return dispatch<__nv_bfloat16>(D, q, k, v, lengths, out, B, S, Hkv,
-                                 H / Hkv, st, scale, s);
+  const int rep = H / Hkv;
+  switch (route) {
+    case 0:
+      return dtype == 0
+                 ? dispatch<float, false>(D, q, k, v, lengths, out, B, S, Hkv,
+                                          rep, st, scale, s)
+                 : dispatch<__nv_bfloat16, false>(D, q, k, v, lengths, out,
+                                                  B, S, Hkv, rep, st, scale,
+                                                  s);
+    case 1:
+      return dispatch<__nv_bfloat16, true>(D, q, k, v, lengths, out, B, S,
+                                           Hkv, rep, st, scale, s);
+    case 2:
+      return launch_wide(q, k, v, lengths, out, B, S, Hkv, rep, D, st, scale,
+                         s);
+    default:
+      return launch_any(q, k, v, lengths, out, B, S, H, Hkv, D, st, scale, s);
+  }
+}
+
+// Which instance decode_attention_fwd would run for these tensors (the
+// route_of codes); tests hold the wrapper's ``route`` to it.
+extern "C" int decode_attention_route(int dtype, const void* k, const void* v,
+                                      int D, const long long* strides) {
+  return route_of(dtype, k, v, D, strides);
 }
 
 extern "C" const char* decode_attention_error_string(int code) {

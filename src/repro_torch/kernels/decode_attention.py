@@ -16,14 +16,19 @@ and ``decode_attention.shapes`` the same calls by head shape (H, Hkv, D).
 
 What the kernel takes: float32 or bfloat16, any head dim D >= 1
 (``flash_attention.check_head_dim``), H any multiple of Hkv, unit stride
-over D, any S.  A D that is a multiple of 8 from 8 to 256 with k and v
-16-byte aligned (pointers and their other strides; every served shape) runs
-in the TMA instances above, in the smallest of their widths that holds D
-(zero-filled past D inside their own loads; more than 16 q heads per kv
-head run as clusters of 16 rows each: granite-20b's 48 : 1 three,
-falcon-7b's 71 : 1 five); any other D or stride in the CUDA-core instance
+over D, any S; ``route`` names the instance a call runs in.  A D that is a
+multiple of 8 from 8 to 256 with k and v 16-byte aligned (pointers and
+their other strides; every served shape) runs in the TMA instances above
+("tma"), in the smallest of their widths that holds D (zero-filled past D
+inside their own loads; more than 16 q heads per kv head run as clusters of
+16 rows each: granite-20b's 48 : 1 three, falcon-7b's 71 : 1 five).  In
+bf16 any other D up to 256 or stride runs in the same tensor-core kernel
+with its K and V tiles filled by narrow copies of
+``flash_attention.piece_bytes`` ("narrow"), any D past 256 in its wide
+instance (128-column output slices, Q K^T in 128-column pieces; "wide"),
+and f32 at any other D or stride in the CUDA-core instance
 (``csrc/attention_any.cuh``: one block per row, kv head and group of 8 q
-heads walks the live keys, output columns in slices of 128).  The
+heads walks the live keys, output columns in slices of 128; "any").  The
 lengths stay on the device (nothing here reads them back) and must lie in
 [1, S]; the kernel reads only keys [0, min(length, S)).  The reference's
 ``S % block_k == 0`` assert is a TPU tiling rule and is not carried over.
@@ -38,7 +43,7 @@ import torch
 
 from repro_torch.kernels import ref as R
 from repro_torch.kernels._build import load_library
-from repro_torch.kernels.flash_attention import check_head_dim
+from repro_torch.kernels.flash_attention import _aligned, check_head_dim
 from repro_torch.kernels.guard import refuse_autograd
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -53,12 +58,53 @@ def _lib() -> ctypes.CDLL:
             _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _P]
         lib.decode_attention_fwd.restype = _I
+        lib.decode_attention_route.argtypes = [
+            _I, _P, _P, _I, ctypes.POINTER(ctypes.c_longlong)]
+        lib.decode_attention_route.restype = _I
         lib.decode_attention_splits.argtypes = [_I]
         lib.decode_attention_splits.restype = _I
         lib.decode_attention_error_string.argtypes = [_I]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
     return lib
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which instance of ``csrc/decode_attention.cu`` runs a call, as its
+    entry point chooses: "tma" where D is a multiple of 8 from 8 to 256 and
+    k's and v's pointers and strides are 16-byte aligned (bf16: mma.sync
+    fed by TMA; f32: FMA); else bf16 "narrow" (D up to 256: the same
+    mma.sync kernel, its tiles filled by narrow copies of
+    ``flash_attention.piece_bytes``) or "wide" (any D past 256), and f32
+    "any" (the CUDA-core instance).  No instance reads q by TMA: its
+    strides choose nothing."""
+    D = q.shape[-1]
+    if D % 8 == 0 and D <= 256 and _aligned(k) and _aligned(v):
+        return "tma"
+    if q.dtype == torch.bfloat16:
+        return "narrow" if D <= 256 else "wide"
+    return "any"
+
+
+_ROUTES = ("tma", "narrow", "wide", "any")
+
+
+def _strides(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    return (ctypes.c_longlong * 8)(*q.stride()[:2], *k.stride()[:3],
+                                   *v.stride()[:3])
+
+
+def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The instance the kernel's entry point picks for these CUDA tensors
+    (``decode_attention_route``, the decision ``decode_attention_fwd``
+    takes), named as ``route`` names it."""
+    code = _lib().decode_attention_route(
+        _DTYPE_CODE[q.dtype], k.data_ptr(), v.data_ptr(), q.shape[-1],
+        _strides(q, k, v))
+    if code < 0:
+        raise ValueError(f"decode_attention takes no {q.dtype} head dim "
+                         f"{q.shape[-1]}")
+    return _ROUTES[code]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,8 +158,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S, Hkv = k.shape[1], k.shape[2]
     lib = _lib()
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 8)(*q.stride()[:2], *k.stride()[:3],
-                                      *v.stride()[:3])
+    strides = _strides(q, k, v)
     rc = lib.decode_attention_fwd(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), B, S, H, Hkv, D, strides,

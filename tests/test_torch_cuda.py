@@ -346,7 +346,7 @@ def test_phi_engine_on_the_card_matches_its_greedy(cuda, slots):
                 target, draft) as eng:
         res, gate_ups = _traced(
             lambda: eng.submit(Request(prompt=prompt, max_new_tokens=16)),
-            r"\bslot_ffn(<[^,<>]+, 1>|_tc<1,)")
+            r"\bslot_ffn(<[^,<>]+, 1, (true|false)>|_tc<1,)")
         assert eng.runtime.cache.check_invariants()
     assert res.tokens == ref
     assert res.metrics.drafted > 0
@@ -548,14 +548,19 @@ def test_ffn_kernel_matches_plain_at_any_width(cuda, d, f, T, dtype, tol):
     (8, 4, 72, 100, (100, 3, 64), 2),          # D 72: runs in 80
     (4, 4, 200, 100, (100, 3, 64), 2),         # D 200: runs in 256
     (4, 4, 8, 40, (40, 1, 17), 1),             # D 8: runs in 16
-    # the CUDA-core instance (one block per row and head group walks the
-    # live keys; its launch shape follows S too)
+    # bf16: the narrow copies of the mma.sync instance (D 4 / 20 / 100) or
+    # the wide instance (D 264 / 320 / 512); f32: the CUDA-core instance
+    # (one block per row and head group walks the live keys)
     (4, 4, 4, 100, (100, 3, 64), 2),           # D 4
     (8, 2, 20, 576, (543, 1, 77), 9),          # D 20, 4 : 1
     (8, 1, 100, 300, (300, 1, 129), 5),        # D 100, 8 : 1
     (8, 8, 264, 200, (200, 1, 129), 4),        # D 264: three slices
     (8, 2, 320, 576, (543, 1, 77), 9),         # D 320
     (8, 1, 512, 200, (200, 1, 129), 4),        # D 512, 8 : 1
+    (16, 1, 100, 300, (300, 1, 129), 5),       # D 100, 16 rows a product
+    (32, 2, 320, 4096, (4096, 1, 4095), 16),   # D 320, 16 rows, 16 splits
+    (8, 2, 4096, 1024, (1024, 1, 577), 16),    # D 4096: 32 slices
+    (4, 2, 4104, 200, (200, 1, 129), 4),       # D 4104: a last slice of 8
 ])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
@@ -608,6 +613,89 @@ def test_decode_kernel_replays_in_a_cuda_graph(cuda, dtype, H, Hkv, D):
                         ).to(dtype) for _ in range(2)]
     lens = torch.tensor([100, 7], dtype=torch.int32, device=cuda)
     DA.decode_attention(q, k, v, lens)          # build, encode, set up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = DA.decode_attention(q, k, v, lens)
+    for new in ((1, 576), (543, 64), (576, 1), (65, 300)):
+        lens.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = DA.decode_attention(q, k, v, lens.clone())
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("D,piece", [(4, 8), (6, 4), (5, 2), (100, 8),
+                                     (20, 8), (202, 4), (260, 8),
+                                     (263, 2), (264, 16), (320, 16),
+                                     (4099, 2)])
+def test_decode_narrow_copies_at_every_piece_width(cuda, D, piece):
+    """bf16 head dims TMA cannot read, one per piece of the narrow copies
+    (16, 8, 4 and 2 bytes; D up to 256 in the mma.sync instance that holds
+    D rounded up to 8, past it the wide instance): the entry point picks
+    the tensor-core instance ``route`` names, never the CUDA-core one
+    (``kernel_route``), and the call matches the plain version (the
+    reference's bf16 tolerance), 4 q heads per kv head; each row of a 3-row
+    call equals the same row alone, bit for bit, and what lies past the
+    lengths does not matter."""
+    gen = torch.Generator(cuda).manual_seed(D)
+    q = torch.randn((3, 8, D), generator=gen, device=cuda).bfloat16()
+    k, v = [torch.randn((3, 300, 2, D), generator=gen, device=cuda
+                        ).bfloat16() for _ in range(2)]
+    lengths = (300, 1, 129)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    assert DA.route(q, k, v) == DA.kernel_route(q, k, v) == \
+        ("narrow" if D <= 256 else "wide")
+    assert FA.piece_bytes(k) == FA.piece_bytes(v) == piece
+    got = DA.decode_attention(q, k, v, lens)
+    want = R.decode_attention_ref(q, k, v, lens)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=1e-2)
+    for b in range(3):
+        one = DA.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                  lens[b:b + 1])
+        assert torch.equal(one, got[b:b + 1])
+    k2, v2 = k.clone(), v.clone()
+    for b, n in enumerate(lengths):
+        k2[b, n:] = float("nan")
+        v2[b, n:] = float("nan")
+    assert torch.equal(DA.decode_attention(q, k2, v2, lens), got)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("nbytes", [8, 2])
+def test_decode_narrow_route_equals_tma_route_bit_for_bit(cuda, D, nbytes):
+    """At D 64 and 128 (TMA instances) k and v copied to an 8- or a 2-byte
+    offset take the narrow copies (q at the same offset, which no route
+    reads by TMA); the output equals the TMA route's on the same values
+    aligned, bit for bit (the same mma.sync and softmax code on the same
+    tiles), at llama3.2-3b's 24 / 8 heads in a 576-key cache."""
+    gen = torch.Generator(cuda).manual_seed(D + nbytes)
+    q = torch.randn((3, 24, D), generator=gen, device=cuda).bfloat16()
+    k, v = [torch.randn((3, 576, 8, D), generator=gen, device=cuda
+                        ).bfloat16() for _ in range(2)]
+    lens = torch.tensor((543, 1, 77), dtype=torch.int32, device=cuda)
+    qo, ko, vo = (_offset(t, nbytes) for t in (q, k, v))
+    assert DA.route(q, k, v) == DA.kernel_route(q, k, v) == "tma"
+    assert DA.route(qo, ko, vo) == DA.kernel_route(qo, ko, vo) == "narrow"
+    got = DA.decode_attention(qo, ko, vo, lens)
+    assert torch.equal(got, DA.decode_attention(q, k, v, lens))
+
+
+@pytest.mark.parametrize("H,Hkv", [(8, 2), (32, 2)])
+def test_decode_wide_instance_replays_in_a_cuda_graph(cuda, H, Hkv):
+    """The wide instance (bf16 D 320: three 128-column slices, each a
+    cluster of the cache's splits; 8 and 16 rows a product) captured in a
+    CUDA graph: a replay after ``lengths`` changed in place equals the
+    eager call at the new lengths, bit for bit."""
+    gen = torch.Generator(cuda).manual_seed(H)
+    q = torch.randn((2, H, 320), generator=gen, device=cuda).bfloat16()
+    k, v = [torch.randn((2, 576, Hkv, 320), generator=gen, device=cuda
+                        ).bfloat16() for _ in range(2)]
+    lens = torch.tensor([100, 7], dtype=torch.int32, device=cuda)
+    assert DA.kernel_route(q, k, v) == "wide"
+    DA.decode_attention(q, k, v, lens)          # build, set up
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):

@@ -36,11 +36,14 @@ from repro_torch.core.engine import (Engine, EngineConfig, Request,
                                      derive_draft_config)
 from repro_torch.core.sd import greedy_generate
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
 from repro_torch.models import layers as L
 from repro_torch.models.convert import load_jax_params
 from repro_torch.models.registry import build_model
+
+from test_torch_flash import _view
 
 torch.set_num_threads(1)  # pytest -n: several processes share the cores
 
@@ -278,3 +281,57 @@ def test_dense_engine_matches_jax_engine(decode, monkeypatch):
                                          16, 64).tolist()
     layers = (draft if decode == "sd" else target).cfg.num_layers
     assert spy.lengths and len(spy.lengths) % layers == 0
+
+
+DECODE_ROUTES = {
+    # name: (dtype, D, k / v offset in elements, row pad, route, k's piece
+    #        in bytes)
+    "bf16-D4": (torch.bfloat16, 4, 0, 0, "narrow", 8),
+    "bf16-D20": (torch.bfloat16, 20, 0, 0, "narrow", 8),
+    "bf16-D100": (torch.bfloat16, 100, 0, 0, "narrow", 8),
+    "bf16-D200": (torch.bfloat16, 200, 0, 0, "tma", 16),
+    "bf16-D202": (torch.bfloat16, 202, 0, 0, "narrow", 4),
+    "bf16-D5": (torch.bfloat16, 5, 0, 0, "narrow", 2),
+    "bf16-D264": (torch.bfloat16, 264, 0, 0, "wide", 16),
+    "bf16-D320": (torch.bfloat16, 320, 0, 0, "wide", 16),
+    "bf16-D512": (torch.bfloat16, 512, 0, 0, "wide", 16),
+    "bf16-D4096": (torch.bfloat16, 4096, 0, 0, "wide", 16),
+    "bf16-D4104": (torch.bfloat16, 4104, 0, 0, "wide", 16),
+    "bf16-D8195": (torch.bfloat16, 8195, 0, 0, "wide", 2),
+    "bf16-D64": (torch.bfloat16, 64, 0, 0, "tma", 16),
+    "bf16-D128": (torch.bfloat16, 128, 0, 0, "tma", 16),
+    "bf16-D64-offset-8-bytes": (torch.bfloat16, 64, 4, 0, "narrow", 8),
+    "bf16-D64-offset-2-bytes": (torch.bfloat16, 64, 1, 0, "narrow", 2),
+    "bf16-D64-rows-of-65": (torch.bfloat16, 64, 0, 1, "narrow", 2),
+    "bf16-D128-rows-of-130": (torch.bfloat16, 128, 0, 2, "narrow", 4),
+    "f32-D20": (torch.float32, 20, 0, 0, "any", None),
+    "f32-D264": (torch.float32, 264, 0, 0, "any", None),
+    "f32-D64": (torch.float32, 64, 0, 0, "tma", None),
+    "f32-D128": (torch.float32, 128, 0, 0, "tma", None),
+    "f32-D64-offset-4-bytes": (torch.float32, 64, 1, 0, "any", None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_ROUTES))
+def test_decode_route_follows_dtype_head_dim_and_strides(case):
+    """The instance ``csrc/decode_attention.cu`` runs a call in, as
+    ``route`` mirrors its entry point (no card needed): a D that is a
+    multiple of 8 to 256 with k and v 16-byte aligned takes the TMA
+    instances; otherwise bf16 takes the mma.sync kernel with narrow copies
+    (D up to 256, pieces of ``piece_bytes``) or the wide instance (any D
+    past 256), and f32 the CUDA-core instance.  q's strides choose nothing (no instance reads it by TMA).
+    The wrapper's checks take every one of them."""
+    dtype, D, off, pad, want, piece = DECODE_ROUTES[case]
+    q = torch.zeros((1, 4, D), dtype=dtype)
+    k = _view((1, 8, 2, D), dtype, off, pad)
+    lens = torch.ones(1, dtype=torch.int32)
+    DA._check(q, k, k, lens)
+    assert DA.route(q, k, k) == want
+    if piece is not None:
+        assert FA.piece_bytes(k) == piece
+    if want == "tma":                   # one unaligned tensor is enough
+        kv = _view((1, 8, 2, D), dtype, 1)
+        assert DA.route(q, kv, k) == DA.route(q, k, kv) == (
+            "narrow" if dtype == torch.bfloat16 else "any")
+        qo = _view((1, 1, 4, D + 1), dtype, 1)[0, :, :, :D]
+        assert DA.route(qo, k, k) == "tma"
